@@ -1,0 +1,72 @@
+"""Quaternion <-> rotation matrix in float64 numpy, for pose extraction.
+
+The port's copy of the numpy branch of mapfree_tpu/geom/quaternion.py
+(``quat2mat``, ``mat2quat``). Convention: (w, x, y, z), scalar first, as in
+the MapFree pose-file format.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def quat2mat(q):
+    """Unit-normalised quaternion(s) ``[..., 4]`` -> rotation matrix ``[..., 3, 3]``."""
+    q = np.asarray(q)
+    q = q / np.linalg.norm(q, axis=-1, keepdims=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    row0 = np.stack(
+        [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)], axis=-1
+    )
+    row1 = np.stack(
+        [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)], axis=-1
+    )
+    row2 = np.stack(
+        [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)], axis=-1
+    )
+    return np.stack([row0, row1, row2], axis=-2)
+
+
+def mat2quat(R):
+    """Rotation matrix ``[..., 3, 3]`` -> quaternion ``[..., 4]`` with w >= 0.
+
+    Computes all four Shepperd candidates and picks the largest pivot.
+    """
+    R = np.asarray(R)
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+
+    tr = m00 + m11 + m22
+    qw2 = 1.0 + tr
+    qx2 = 1.0 + m00 - m11 - m22
+    qy2 = 1.0 - m00 + m11 - m22
+    qz2 = 1.0 - m00 - m11 + m22
+
+    def _safe_sqrt(v):
+        return np.sqrt(np.maximum(v, 1e-24))
+
+    sw = _safe_sqrt(qw2) * 2.0
+    cand_w = np.stack(
+        [0.25 * sw, (m21 - m12) / sw, (m02 - m20) / sw, (m10 - m01) / sw], axis=-1
+    )
+    sx = _safe_sqrt(qx2) * 2.0
+    cand_x = np.stack(
+        [(m21 - m12) / sx, 0.25 * sx, (m01 + m10) / sx, (m02 + m20) / sx], axis=-1
+    )
+    sy = _safe_sqrt(qy2) * 2.0
+    cand_y = np.stack(
+        [(m02 - m20) / sy, (m01 + m10) / sy, 0.25 * sy, (m12 + m21) / sy], axis=-1
+    )
+    sz = _safe_sqrt(qz2) * 2.0
+    cand_z = np.stack(
+        [(m10 - m01) / sz, (m02 + m20) / sz, (m12 + m21) / sz, 0.25 * sz], axis=-1
+    )
+
+    pivots = np.stack([qw2, qx2, qy2, qz2], axis=-1)
+    choice = np.argmax(pivots, axis=-1)
+    cands = np.stack([cand_w, cand_x, cand_y, cand_z], axis=-2)
+    q = np.take_along_axis(cands, choice[..., None, None], axis=-2)[..., 0, :]
+    sign = np.where(q[..., :1] < 0, -1.0, 1.0)  # canonical hemisphere: w >= 0
+    q = q * sign
+    return q / np.linalg.norm(q, axis=-1, keepdims=True)

@@ -1,0 +1,130 @@
+"""Shared conv building blocks (port of mapfree_tpu/models/blocks.py).
+
+NCHW tensors inside; attribute names follow the reference's torch modules
+(reference lib/models/regression/encoder/preact.py:13-64, resunet.py:15-38)
+so one state_dict layout loads both a reference checkpoint and weights
+carried over from the JAX package. BatchNorm: eps 1e-5, torch momentum 0.1
+(flax's 0.9). Convs carry no bias except in :class:`ConvBnElu`, as in the
+JAX modules.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def _bn(channels: int) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+
+
+class PreActBlock(nn.Module):
+    """Pre-activation residual basic block: BN-ReLU-Conv3x3(stride)-BN-ReLU-
+    Conv3x3, with a 1x1 conv shortcut on the pre-activated input when the
+    stride or channel count changes (reference preact.py:13-36)."""
+
+    expansion = 1
+
+    def __init__(self, in_planes: int, planes: int, stride: int = 1, bn: bool = True):
+        super().__init__()
+        self.use_bn = bn
+        if bn:
+            self.bn1 = _bn(in_planes)
+            self.bn2 = _bn(planes)
+        self.conv1 = nn.Conv2d(in_planes, planes, 3, stride, 1, bias=False)
+        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        if stride != 1 or in_planes != self.expansion * planes:
+            self.shortcut = nn.Sequential(
+                nn.Conv2d(in_planes, self.expansion * planes, 1, stride, bias=False))
+        else:
+            self.shortcut = None
+
+    def forward(self, x):
+        out = F.relu(self.bn1(x) if self.use_bn else x)
+        shortcut = self.shortcut(out) if self.shortcut is not None else x
+        out = self.conv1(out)
+        out = F.relu(self.bn2(out) if self.use_bn else out)
+        out = self.conv2(out)
+        return out + shortcut
+
+
+class PreActBottleneck(nn.Module):
+    """Pre-activation bottleneck block, expansion 4 (reference preact.py:39-64)."""
+
+    expansion = 4
+
+    def __init__(self, in_planes: int, planes: int, stride: int = 1):
+        super().__init__()
+        self.bn1 = _bn(in_planes)
+        self.conv1 = nn.Conv2d(in_planes, planes, 1, bias=False)
+        self.bn2 = _bn(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+        self.bn3 = _bn(planes)
+        self.conv3 = nn.Conv2d(planes, self.expansion * planes, 1, bias=False)
+        if stride != 1 or in_planes != self.expansion * planes:
+            self.shortcut = nn.Sequential(
+                nn.Conv2d(in_planes, self.expansion * planes, 1, stride, bias=False))
+        else:
+            self.shortcut = None
+
+    def forward(self, x):
+        out = F.relu(self.bn1(x))
+        shortcut = self.shortcut(out) if self.shortcut is not None else x
+        out = self.conv1(out)
+        out = self.conv2(F.relu(self.bn2(out)))
+        out = self.conv3(F.relu(self.bn3(out)))
+        return out + shortcut
+
+
+class ConvBnElu(nn.Module):
+    """Conv (with bias) + BatchNorm + ELU (reference resunet.py:15-26)."""
+
+    def __init__(self, in_planes: int, features: int, kernel_size: int, stride: int = 1):
+        super().__init__()
+        self.conv = nn.Conv2d(in_planes, features, kernel_size, stride,
+                              (kernel_size - 1) // 2)
+        self.normalize = _bn(features)
+
+    def forward(self, x):
+        return F.elu(self.normalize(self.conv(x)))
+
+
+class UpConv(nn.Module):
+    """Bilinear 2x upsample (align_corners=True) + ConvBnElu
+    (reference resunet.py:29-38)."""
+
+    def __init__(self, in_planes: int, features: int, kernel_size: int = 3,
+                 scale: int = 2):
+        super().__init__()
+        self.scale = scale
+        self.conv1 = ConvBnElu(in_planes, features, kernel_size, 1)
+
+    def forward(self, x):
+        H, W = x.shape[-2:]
+        x = F.interpolate(x, size=(H * self.scale, W * self.scale),
+                          mode="bilinear", align_corners=True)
+        return self.conv1(x)
+
+
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """Re-initialise every layer from ``generator``: convs He-normal (fan-in,
+    ReLU gain) with zero bias, linear layers with PyTorch's default
+    (kaiming-uniform weights, fan-in uniform biases), BatchNorm to identity
+    statistics. The same seed gives the same weights on every device. He
+    init keeps the activations' scale through the residual stages, so an
+    untrained net's poses still depend on its input (with PyTorch's default
+    conv init they vary by ~1e-6 across inputs at 96x72)."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.Conv2d):
+                nn.init.kaiming_normal_(m.weight, nonlinearity="relu",
+                                        generator=generator)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.Linear):
+                nn.init.kaiming_uniform_(m.weight, a=5 ** 0.5, generator=generator)
+                bound = 1.0 / m.weight.shape[1] ** 0.5
+                nn.init.uniform_(m.bias, -bound, bound, generator=generator)
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()

@@ -1,0 +1,128 @@
+"""Weights into the port's modules: from the JAX package's variables, or from
+a reference PyTorch(-Lightning) checkpoint.
+
+The port's attributes are named as the reference's torch modules are
+(reference lib/models/regression/model.py:22-51), so one state_dict layout
+serves both sources. :func:`flax_path_to_torch_key` is the port's own copy
+of the name mapping in mapfree_tpu/tools/convert_weights.py, and
+:func:`load_jax_variables` applies its layout transforms in reverse:
+
+- ``block{i}`` -> ``i``; ``trunk`` dropped; ``bn`` -> ``normalize``;
+  ``shortcut`` -> ``shortcut.0``; ``fc1/2/3`` -> ``0/2/4``;
+- conv kernels HWIO -> OIHW, dense kernels [in, out] -> [out, in];
+- BatchNorm ``scale``/``mean``/``var`` -> ``weight``/``running_mean``/
+  ``running_var``.
+
+Any leaf without a destination, any destination without a leaf and any
+shape mismatch raises: silent random weights are worse than failing.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+_LEAF_MAP = {
+    "kernel": "weight",
+    "scale": "weight",
+    "bias": "bias",
+    "mean": "running_mean",
+    "var": "running_var",
+}
+
+
+def flax_path_to_torch_key(path) -> str:
+    """Translate a flax variable path (tuple of names) to the torch
+    state_dict key of the same tensor."""
+    parts = list(path)
+    out = []
+    for p in parts[:-1]:
+        if p == "trunk":
+            continue  # head trunks are attributes of the head module itself
+        if p.startswith("block") and p[5:].isdigit():
+            out.append(p[5:])  # stage blocks are Sequential indices
+        elif p == "bn":
+            out.append("normalize")  # ConvBnElu's BatchNorm
+        elif p == "cv_block":
+            out.append("CV_block")
+        elif p in ("fc1", "fc2", "fc3"):
+            out.append({"fc1": "0", "fc2": "2", "fc3": "4"}[p])
+        elif p == "shortcut":
+            out.append("shortcut.0")  # reference wraps it in nn.Sequential
+        else:
+            out.append(p)
+    leaf = _LEAF_MAP.get(parts[-1], parts[-1])
+    return ".".join(out + [leaf])
+
+
+def _leaves(tree, prefix=()):
+    for name, value in tree.items():
+        if hasattr(value, "items"):
+            yield from _leaves(value, prefix + (name,))
+        else:
+            yield prefix + (name,), value
+
+
+def _to_torch_layout(value: np.ndarray, path) -> np.ndarray:
+    if path[-1] == "kernel":
+        if value.ndim == 4:  # conv HWIO -> OIHW
+            return value.transpose(3, 2, 0, 1)
+        if value.ndim == 2:  # dense [in, out] -> [out, in]
+            return value.transpose(1, 0)
+    return value
+
+
+def _is_bn_counter(key: str) -> bool:
+    return key.endswith("num_batches_tracked")
+
+
+def load_jax_variables(net: nn.Module, variables) -> None:
+    """Fill ``net`` from the JAX package's ``{"params": ..., "batch_stats":
+    ...}`` tree (nested dicts of numpy arrays)."""
+    state = net.state_dict()
+    filled = set()
+    with torch.no_grad():
+        for collection, tree in variables.items():
+            for path, leaf in _leaves(tree):
+                key = flax_path_to_torch_key(path)
+                where = f"{collection}/{'/'.join(path)} -> {key}"
+                if key not in state:
+                    raise KeyError(f"no tensor in the port's module for {where}")
+                value = _to_torch_layout(np.asarray(leaf, np.float32), path)
+                if tuple(value.shape) != tuple(state[key].shape):
+                    raise ValueError(f"shape mismatch at {where}: JAX "
+                                     f"{tuple(value.shape)} vs port "
+                                     f"{tuple(state[key].shape)}")
+                state[key].copy_(torch.tensor(value))
+                filled.add(key)
+    missing = [k for k in state if k not in filled and not _is_bn_counter(k)]
+    if missing:
+        raise KeyError(f"JAX variables miss {len(missing)} tensors: {missing}")
+
+
+def load_state_dict(net: nn.Module, state_dict: dict) -> None:
+    """Load a reference torch state_dict, with or without the Lightning
+    ``model.`` prefix. Missing tensors (other than BatchNorm's batch
+    counters) and shape mismatches raise; extra keys are ignored."""
+    own = net.state_dict()
+    src = {}
+    for key, value in state_dict.items():
+        name = key[len("model."):] if key.startswith("model.") else key
+        if name in own:
+            src[name] = torch.as_tensor(value)
+    missing = [k for k in own if k not in src and not _is_bn_counter(k)]
+    if missing:
+        raise KeyError(f"checkpoint misses {len(missing)} tensors: {missing}")
+    for key, value in src.items():
+        if tuple(value.shape) != tuple(own[key].shape):
+            raise ValueError(f"shape mismatch at {key}: checkpoint "
+                             f"{tuple(value.shape)} vs port {tuple(own[key].shape)}")
+    net.load_state_dict(src, strict=False)
+
+
+def load_checkpoint(net: nn.Module, path) -> None:
+    """Load a ``torch.save`` file (a Lightning checkpoint's ``state_dict``,
+    or a bare state_dict) into ``net``."""
+    ckpt = torch.load(path, map_location="cpu")
+    load_state_dict(net, ckpt.get("state_dict", ckpt))

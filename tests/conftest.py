@@ -22,3 +22,9 @@ jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_compilation_cache_dir",
                   os.path.join(os.path.dirname(__file__), "..", ".jax_cache_cpu"))
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the PyTorch port's kernels); "
+        "skipped without one")

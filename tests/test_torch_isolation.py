@@ -1,0 +1,75 @@
+"""The PyTorch port stands alone: neither mapfree_tpu_torch nor chip_smoke.py
+imports JAX, flax, orbax or anything of the JAX package (the machine with
+the card has none of them), and chip_smoke.py refuses to run without a CUDA
+device or outside a checkout."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "mapfree_tpu")
+
+
+def _port_sources():
+    return sorted((REPO / "mapfree_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_port_sources_import_no_jax_or_jax_package():
+    sources = _port_sources()
+    assert len(sources) > 15
+    bad = [(str(p.relative_to(REPO)), root) for p in sources
+           for root in _imported_roots(p) if root in FORBIDDEN]
+    assert bad == []
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    return env
+
+
+def test_port_entry_points_load_no_jax_modules():
+    code = (
+        "import sys\n"
+        "import mapfree_tpu_torch.models.builder, mapfree_tpu_torch.utils.submission\n"
+        "import mapfree_tpu_torch.tools.convert_weights, mapfree_tpu_torch.config\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("where", ["checkout", "alone"])
+def test_chip_smoke_fails_without_cuda_or_checkout(where, tmp_path):
+    """Here there is no card: the script must exit nonzero and print no
+    result line, in the checkout and alone in an empty directory."""
+    import torch
+
+    if where == "checkout" and torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: in the checkout the smoke would run")
+    if where == "alone":
+        shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+        cwd, env = tmp_path, {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    else:
+        cwd, env = REPO, _env()
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

@@ -1,0 +1,204 @@
+"""PyTorch port, op level: the correlation warp (K1), YUV420 unpacking,
+the 3x3 SVD and Kabsch solve, quaternions and packing, each held against
+the JAX package on the same numpy inputs.
+
+K1's JAX side runs as tests/test_correlation.py runs it on the CPU: the
+Pallas kernel under the interpreter. The port's CPU route is the kernel's
+plain version; the CUDA kernel itself is held against it on the card
+(``cuda`` marker; skipped without a card).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from mapfree_tpu.geom import quaternion as jax_quat
+from mapfree_tpu.geom.procrustes import procrustes as jax_procrustes
+from mapfree_tpu.geom.smallblas import det3 as jax_det3, svd3 as jax_svd3
+from mapfree_tpu.models.aggregators import _uv_grid as jax_uv_grid
+from mapfree_tpu.ops import image as jax_image
+from mapfree_tpu.ops.correlation import fused_correlation_warp as jax_fcw
+
+from mapfree_tpu_torch.geom import quaternion as pt_quat
+from mapfree_tpu_torch.geom.procrustes import procrustes as pt_procrustes
+from mapfree_tpu_torch.geom.smallblas import det3 as pt_det3, svd3 as pt_svd3
+from mapfree_tpu_torch.models.aggregators import _uv_grid as pt_uv_grid
+from mapfree_tpu_torch.ops import correlation as pt_corr
+from mapfree_tpu_torch.ops import image as pt_image
+from mapfree_tpu_torch.utils.packing import pack_arrays, spec_of, unpack
+
+
+@pytest.fixture
+def cuda_device():
+    """The first CUDA device; skips where there is none (decided at run
+    time, never at import, so every test process collects the same tests)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _qkv(B=2, H=10, W=13, C=32, seed=0):
+    rng = np.random.default_rng(seed)
+    HW = H * W
+    q, k, v = (rng.normal(size=(B, HW, C)).astype(np.float32) for _ in range(3))
+    return q, k, v, np.array(jax_uv_grid(H, W, jnp.float32))
+
+
+# (name, q channels, dtype, atol): the forward cases of tests/test_correlation.py.
+# f32: both sides are f32 softmax-weighted sums, 1e-5 covers summation order.
+# bf16: both sides take bf16-rounded inputs, the grid in bf16 and f32
+# accumulation; 0.05 is the JAX test's bound for the bf16 interpreter path.
+K1_CASES = [
+    ("f32_hw130", 32, "float32", 1e-5),
+    ("half_channel_q16_v32", 16, "float32", 1e-5),
+    ("bf16_inputs", 32, "bfloat16", 0.05),
+]
+
+
+@pytest.mark.parametrize("name,cq,dtype,atol", K1_CASES, ids=[c[0] for c in K1_CASES])
+def test_k1_plain_matches_jax_interpret(name, cq, dtype, atol):
+    q, k, v, grid = _qkv()  # HW = 130: not a multiple of any row block
+    q, k = q[..., :cq], k[..., :cq]
+    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    td = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    ref = jax_fcw(jnp.asarray(q, jd), jnp.asarray(k, jd), jnp.asarray(v, jd),
+                  jnp.asarray(grid), interpret=True)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(td) for a in (q, k, v)]
+    out = pt_corr.fused_correlation_warp(*args, torch.from_numpy(grid))
+    for o, r in zip(out, ref):
+        assert o.dtype == torch.float32
+        assert o.shape == tuple(r.shape)
+        np.testing.assert_allclose(o.numpy(), np.asarray(r, np.float32), atol=atol)
+    # softmax rows sum to 1, so the max score lies in (0, 1]
+    ms = out[2].numpy()
+    assert ms.min() > 0.0 and ms.max() <= 1.0 + 1e-6
+
+
+def test_k1_cpu_route_is_the_plain_version_and_counts_nothing():
+    q, k, v, grid = map(torch.from_numpy, _qkv(B=1, H=5, W=7, C=8, seed=1))
+    before = pt_corr.launches
+    fused = pt_corr.fused_correlation_warp(q, k, v, grid)
+    plain = pt_corr.fused_correlation_warp_plain(q, k, v, grid)
+    for a, b in zip(fused, plain):
+        assert torch.equal(a, b)
+    assert pt_corr.launches == before
+
+
+def test_k1_rejects_bad_shapes():
+    q, k, v, grid = map(torch.from_numpy, _qkv(B=1, H=5, W=7, C=8, seed=1))
+    with pytest.raises(ValueError):
+        pt_corr.fused_correlation_warp(q, k[:, :-1], v, grid)
+    with pytest.raises(ValueError):
+        pt_corr.fused_correlation_warp(q, k, v, grid[:-1])
+    with pytest.raises(TypeError):
+        pt_corr.fused_correlation_warp(q, k.double(), v, grid)
+
+
+@pytest.mark.cuda
+def test_k1_cuda_kernel_matches_plain(cuda_device):
+    """The CUDA kernel against its plain version on the card: f32 with a
+    ragged HW, Cq != Cv, bf16 inputs. f32 tolerance 5e-5 (exp2 of scaled
+    scores, another summation order); bf16 1e-3 (same bf16 inputs, f32
+    arithmetic on both sides)."""
+    for cq, td, atol in ((32, torch.float32, 5e-5), (16, torch.float32, 5e-5),
+                         (32, torch.bfloat16, 1e-3)):
+        q, k, v, grid = _qkv()
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device, td)
+                for a in (q[..., :cq], k[..., :cq], v)]
+        g = torch.from_numpy(grid).to(cuda_device)
+        before = pt_corr.launches
+        out = pt_corr.fused_correlation_warp(*args, g)
+        torch.cuda.synchronize()
+        assert pt_corr.launches == before + 1
+        ref = pt_corr.fused_correlation_warp_plain(*args, g)
+        for o, r in zip(out, ref):
+            torch.testing.assert_close(o, r, atol=atol, rtol=0)
+
+
+def test_uv_grid_matches_jax():
+    # torch.linspace and jnp.linspace round some points differently: 1 ulp
+    for H, W in ((10, 13), (92, 68)):
+        np.testing.assert_allclose(pt_uv_grid(H, W).numpy(),
+                                   np.asarray(jax_uv_grid(H, W, jnp.float32)),
+                                   atol=2.5e-7, rtol=0)
+
+
+@pytest.mark.parametrize("lead", [(2,), (2, 3)])
+def test_yuv420_to_rgb_matches_jax(lead):
+    rng = np.random.default_rng(3)
+    rgb = rng.random(lead + (48, 64, 3)).astype(np.float32)
+    packed = jax_image.yuv420_pack_host(rgb.reshape((-1, 48, 64, 3)))
+    np.testing.assert_array_equal(pt_image.yuv420_pack_host(
+        rgb.reshape((-1, 48, 64, 3))), packed)
+    packed = packed.reshape(lead + packed.shape[1:])
+    ref = np.asarray(jax_image.yuv420_to_rgb(jnp.asarray(packed)))
+    out = pt_image.yuv420_to_rgb(torch.from_numpy(packed)).numpy()
+    assert out.shape == ref.shape == lead + (48, 64, 3)
+    np.testing.assert_allclose(out, ref, atol=1e-6)
+
+
+def _svd_inputs():
+    rng = np.random.default_rng(4)
+    degenerate = np.stack([
+        np.zeros((3, 3)), np.eye(3), np.diag([1.0, 1.0, 0.0]),
+        np.diag([5.0, 5.0, 5.0]), np.outer([1.0, 2.0, 3.0], [4.0, 5.0, 6.0]),
+    ])
+    return np.concatenate([rng.normal(size=(64, 3, 3)), degenerate]).astype(np.float32)
+
+
+def test_svd3_and_det3_match_jax():
+    A = _svd_inputs()
+    U, S, Vt = (np.asarray(x) for x in jax_svd3(jnp.asarray(A)))
+    u, s, vt = (x.numpy() for x in pt_svd3(torch.from_numpy(A)))
+    np.testing.assert_allclose(s, S, atol=1e-5)
+    np.testing.assert_allclose(u, U, atol=1e-5)
+    np.testing.assert_allclose(vt, Vt, atol=1e-5)
+    np.testing.assert_allclose(pt_det3(torch.from_numpy(A)).numpy(),
+                               np.asarray(jax_det3(jnp.asarray(A))), atol=1e-5)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_procrustes_matches_jax(weighted):
+    rng = np.random.default_rng(5)
+    A = rng.normal(size=(16, 6, 3)).astype(np.float32)
+    B = (A @ np.linalg.qr(rng.normal(size=(3, 3)))[0].T
+         + rng.normal(size=(16, 6, 3)) * 0.05).astype(np.float32)
+    w = rng.uniform(0.0, 1.0, size=(16, 6)).astype(np.float32) if weighted else None
+    R, t = jax_procrustes(
+        jnp.asarray(A), jnp.asarray(B), None if w is None else jnp.asarray(w))
+    r, tt = pt_procrustes(torch.from_numpy(A), torch.from_numpy(B),
+                          None if w is None else torch.from_numpy(w))
+    assert r.shape == (16, 3, 3) and tt.shape == (16, 1, 3)
+    np.testing.assert_allclose(r.numpy(), np.asarray(R), atol=1e-5)
+    np.testing.assert_allclose(tt.numpy(), np.asarray(t), atol=1e-5)
+    np.testing.assert_allclose(np.linalg.det(r.numpy()), 1.0, atol=1e-5)
+
+
+def test_quaternions_match_jax():
+    rng = np.random.default_rng(6)
+    q = rng.normal(size=(32, 4))
+    R = jax_quat.quat2mat(q)
+    np.testing.assert_allclose(pt_quat.quat2mat(q), R, atol=1e-12)
+    np.testing.assert_allclose(pt_quat.mat2quat(R), jax_quat.mat2quat(R), atol=1e-12)
+    # identity and half-turns exercise every Shepperd pivot
+    special = np.stack([np.eye(3), np.diag([1.0, -1, -1]), np.diag([-1.0, 1, -1]),
+                        np.diag([-1.0, -1, 1])])
+    np.testing.assert_allclose(pt_quat.mat2quat(special), jax_quat.mat2quat(special),
+                               atol=1e-12)
+
+
+def test_pack_unpack_roundtrip_including_misaligned_fields():
+    rng = np.random.default_rng(7)
+    named = [("ref_idx", np.array([0, 1, 1], np.int32)),
+             ("image0u", rng.integers(0, 255, (2, 9, 4), dtype=np.uint8)),
+             ("odd", rng.integers(0, 255, (3,), dtype=np.uint8)),
+             ("f", rng.normal(size=(2, 3)).astype(np.float32))]  # offset 87
+    buf = torch.from_numpy(pack_arrays([a for _, a in named]))
+    parts = unpack(buf, spec_of(named))
+    for name, a in named:
+        assert parts[name].dtype == getattr(torch, str(a.dtype))
+        np.testing.assert_array_equal(parts[name].numpy(), a)
+    with pytest.raises(ValueError):
+        unpack(buf[:-1], spec_of(named))
