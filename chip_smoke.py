@@ -6,31 +6,50 @@
 Phases, in order; any failure raises and the script exits nonzero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the CUDA kernels, compiled from this checkout's sources with nvcc;
-3. kernel: K1 (the fused correlation softmax-warp) against its plain PyTorch
-   version on the card (ragged HW, Cq != Cv, bf16, the 3d3d shape), then
-   timed at the 3d3d main-path shape (B=64, HW=6,256, C=32, bf16) beside
-   the plain version, one PyTorch library call (scaled_dot_product_attention,
-   timed here only) and the kernel's bound;
-4. main path: the 3d3d model (configs/regression/mapfree/3d3d.yaml over
+2. build: the CUDA kernels (correlation_fwd: K1; correlation_bwd: K2, K3),
+   compiled at once from this checkout's sources with nvcc, with ptxas's
+   registers and spills per kernel;
+3. kernel: K1 (the fused correlation softmax-warp), K2 and K3 (its backward
+   row and column passes) against their plain PyTorch versions on the card
+   (ragged HW, Cq != Cv, bf16, the mid-window HW=576, the 3d3d shape, the
+   max-score cotangent alone, two runs of K3 for equal bits), then timed
+   beside the plain versions, one PyTorch library call each
+   (scaled_dot_product_attention and its backward, timed here only) and
+   their bounds: K1 at the inference shape (B=64, HW=6,256, C=32, bf16) and
+   K1, K2, K3 at the training shape (B=10);
+4. inference path: the 3d3d model (configs/regression/mapfree/3d3d.yaml over
    configs/mapfree.yaml: ResUNet 3-3-3 bottleneck, 360x270, bf16, batch 64,
    unique refs, planar YUV420 input) with random weights from a seed, driven
    through build_model -> predict -> save_submission on synthetic pairs;
    every pose must be finite with det(R) = 1 and K1 must have launched once
    per batch; then a torch.profiler window over three forwards prints the
    device time by kernel and the device's busy share;
-5. device parity: a small float32 model on the GPU and the CPU with the
+5. training path: the same model at its training batch of 10 (rot_angle_loss
+   + trans_l1_loss, Adam 1e-4), on uint8 RGB noise with random poses: timed
+   steps through init_state -> make_train_step (ms per step, samples/s, peak
+   memory, the loss at each step, a profiler window over three steps), then
+   the fit loop with validation passes and checkpoints in a temporary
+   directory. Every loss must be finite, K1, K2 and K3 must each have
+   launched once per train step and K1 once per validation batch, the
+   parameters and BatchNorm statistics must have changed, and the restored
+   ``last`` checkpoint must reproduce the validation loss;
+6. device parity: a small float32 model on the GPU and the CPU with the
    same weights and batch, the process's TF32 settings on (the float32
-   forward turns TF32 off for itself).
+   forward and train step turn TF32 off for themselves): the poses, then the
+   loss and every gradient of one train step; and 8 steps on one batch at
+   LR 1e-3 lower the loss on the card.
 
 The last line of standard output is {"ok": true, "device": {...}}; a
 "kernels" JSON line and the card's name and power limit precede it. With no
 CUDA device, or outside a checkout of the repository, it exits nonzero and
-prints no result.
+prints no result. ``--kernels-only`` stops after phase 3 and prints no
+result line (a quick check while working on a kernel).
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -55,9 +74,31 @@ PEAK_EXP_PER_S = 132 * 16 * 1.98e9
 # scores and summation order; bf16 cases feed both sides the same bf16 inputs
 # and both accumulate in f32
 ATOL = {"float32": 5e-5, "bfloat16": 1e-3}
+# K2 and K3 against the plain backward, as a share of each gradient's largest
+# magnitude (or of 1 where that is smaller): both sides take the same inputs
+# and sum in f32; the kernels take exp2 of log2e-scaled scores, get the row
+# constant c from the forward's output instead of summing dP.P, and sum over
+# up to 6,256 terms in another order
+BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-4}
 # device parity of the float32 model: cuDNN and CPU convolutions sum in
 # different orders; the Kabsch solve passes that on to R and t
 PARITY_ATOL = 2e-4
+# one float32 train step on the card with the kernels against the same step
+# on the card with the plain versions in their place: everything else is the
+# same cuDNN arithmetic, so every gradient agrees to float32 summation order,
+# as a share of its tensor's largest entry (with a floor for tensors whose true
+# gradient is zero: conv biases before a BatchNorm)
+STEP_GRAD_TOL = 2e-4
+STEP_GRAD_FLOOR = 1e-6
+# the same step on the CPU: cuDNN and the CPU sum convolutions in other orders,
+# so a few of the millions of ReLU and max-pool inputs that lie within round-off
+# of zero (or of a tie) take the other branch, which changes the gradient at
+# that position by a finite amount: several per cent of an early layer's
+# largest entry. So the CPU comparison is of the loss, of the whole gradient
+# in the L2 norm, and of the median tensor; the worst tensor is only printed
+STEP_LOSS_RTOL = 1e-4
+STEP_CPU_L2_TOL = 2e-2
+STEP_CPU_MEDIAN_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -104,21 +145,42 @@ def phase_device() -> str:
 # -- phase 2 -----------------------------------------------------------------
 
 def phase_build() -> None:
+    """Every CUDA source at once, one nvcc process each."""
     from mapfree_tpu_torch.ops import _build
     from mapfree_tpu_torch.ops import correlation as corr
 
     t0 = time.perf_counter()
-    _build.load_library(corr.KERNEL)
-    log(f"[build] {corr.KERNEL}: {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {_build.build_seconds[corr.KERNEL]:.2f} s)")
-    for line in _build.build_logs.get(corr.KERNEL, "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   {line.strip()}")
+    _build.load_libraries(corr.LIBRARIES)
+    log(f"[build] {len(corr.LIBRARIES)} libraries in {time.perf_counter() - t0:.2f} s")
+    for name in corr.LIBRARIES:
+        log(f"[build] {name}: nvcc {_build.build_seconds[name]:.2f} s")
+        for kernel, regs, spill in ptxas_report(_build.build_logs.get(name, "")):
+            log(f"[build]   {kernel}: {regs} registers, {spill} bytes spilled")
+
+
+def ptxas_report(build_log: str) -> list:
+    """(kernel<type, columns per lane>, registers, spilled bytes) per entry
+    function, from ``nvcc -Xptxas -v``'s output."""
+    import re
+
+    out, kernel, spill = [], "?", 0
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"\d+(correlation_\w+?_kernel)I(f|13__nv_bfloat16)Li(\d+)E", line)
+            kernel = (f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}, {m.group(3)}>"
+                      if m else line.split("'")[1][:70])
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.append((kernel, int(m.group(1)), spill))
+    return out
 
 
 # -- phase 3 -----------------------------------------------------------------
 
-def _k1_inputs(B, H, W, cq, cv, dtype, seed):
+def _kernel_inputs(B, H, W, cq, cv, dtype, seed):
     import torch
 
     from mapfree_tpu_torch.models.aggregators import _uv_grid
@@ -130,67 +192,166 @@ def _k1_inputs(B, H, W, cq, cv, dtype, seed):
     q, k = (torch.from_numpy(rng.standard_normal((B, HW, cq), np.float32)).to(dev, td)
             for _ in range(2))
     v = torch.from_numpy(rng.standard_normal((B, HW, cv), np.float32)).to(dev, td)
-    return q, k, v, _uv_grid(H, W, device=dev)
+    return q, k, v, _uv_grid(H, W, device=dev).to(td)
+
+
+def _cotangent(B, HW, cv, seed, ms_only=False):
+    """Random float32 cotangent of the forward's [B, HW, Cv + 3] buffer: all
+    three outputs, or the max score alone."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    dout = rng.standard_normal((B, HW, cv + 3), np.float32)
+    if ms_only:
+        dout[..., :cv + 2] = 0.0
+    return torch.from_numpy(dout).to("cuda:0")
 
 
 def _max_err(out, ref) -> float:
     return max(float((o - r).abs().max()) for o, r in zip(out, ref))
 
 
-def phase_kernel_cases() -> list:
+def _scaled_err(out, ref) -> float:
+    """max |out - ref| over the tensors, each relative to max(1, max |ref|)."""
+    return max(float((o - r).abs().max()) / max(1.0, float(r.abs().max()))
+               for o, r in zip(out, ref))
+
+
+def backward_case(q, k, v, grid, dout) -> dict:
+    """K2 and K3 against their plain versions on the same inputs. Where the
+    kernel's first argmax differs from the plain version's, the two scores
+    must be equal within float32 summation noise (the two sum q.k in other
+    orders); the plain version then routes the max-score cotangent as the
+    kernel did, so that the comparison is of the same function."""
     import torch
 
     from mapfree_tpu_torch.ops import correlation as corr
 
-    cases = []
-    for name, (B, H, W, cq, cv, dtype) in {
+    out = torch.cat(corr.fused_correlation_warp(q, k, v, grid), dim=-1)
+    dq, stats, amax = corr.correlation_bwd_rows(q, k, v, grid, out, dout)
+    dk, dv = corr.correlation_bwd_cols(q, k, v, grid, dout, stats, amax)
+    torch.cuda.synchronize()
+    amax = amax.long()
+    if int(amax.min()) < 0 or int(amax.max()) >= q.shape[1]:
+        raise AssertionError("K2 wrote an argmax outside [0, HW)")
+    s = torch.bmm(q.float(), k.float().transpose(1, 2))
+    top = s.amax(dim=-1)
+    gap = (top - s.gather(2, amax[..., None])[..., 0]).abs()
+    moved = int((s.argmax(dim=-1) != amax).sum())
+    tie_tol = 4e-6 * float(s.abs().max())
+    if float(gap.max()) > tie_tol:
+        raise AssertionError(f"K2's argmax is not a maximum: score gap {float(gap.max()):.3g}")
+    del s, top, gap
+    dq_p, dk_p, dv_p, _ = corr.fused_correlation_warp_bwd_plain(q, k, v, grid, dout, amax)
+    torch.cuda.synchronize()
+    return {"k2_err": _scaled_err([dq], [dq_p]), "k3_err": _scaled_err([dk, dv], [dk_p, dv_p]),
+            "argmax_near_ties": moved, "dk": dk, "dv": dv, "stats": stats, "amax": amax}
+
+
+def phase_kernel_cases() -> dict:
+    """K1, K2 and K3 against their plain versions, per case. Returns the
+    cases per kernel."""
+    import torch
+
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    cases = {corr.KERNEL: [], corr.KERNEL_BWD_ROWS: [], corr.KERNEL_BWD_COLS: []}
+
+    def record(kernel, name, err, atol):
+        cases[kernel].append({"case": name, "max_abs_err": err, "atol": atol,
+                              "ok": err <= atol})
+        if not err <= atol:
+            raise AssertionError(f"{kernel} disagrees with its plain version in case "
+                                 f"{name}: {err:.3g} > {atol:g}")
+
+    for i, (name, (B, H, W, cq, cv, dtype)) in enumerate({
+        "f32_hw48_c16": (2, 6, 8, 16, 16, "float32"),
         "f32_hw130": (2, 10, 13, 32, 32, "float32"),
         "f32_q16_v32": (2, 10, 13, 16, 32, "float32"),
         "bf16_hw130": (2, 10, 13, 32, 32, "bfloat16"),
+        "f32_hw576_b1_c8": (1, 24, 24, 8, 8, "float32"),
         "f32_hw6256_b2": (2, 92, 68, 32, 32, "float32"),
         "bf16_hw6256_b2": (2, 92, 68, 32, 32, "bfloat16"),
-    }.items():
-        q, k, v, grid = _k1_inputs(B, H, W, cq, cv, dtype, seed=len(cases))
+    }.items()):
+        q, k, v, grid = _kernel_inputs(B, H, W, cq, cv, dtype, seed=i)
         out = corr.fused_correlation_warp(q, k, v, grid)
         torch.cuda.synchronize()
         ref = corr.fused_correlation_warp_plain(q, k, v, grid)
         torch.cuda.synchronize()
-        err = _max_err(out, ref)
-        ok = err <= ATOL[dtype]
-        cases.append({"case": name, "max_abs_err": err, "atol": ATOL[dtype], "ok": ok})
-        log(f"[kernel] {name}: max |kernel - plain| = {err:.3g} (atol {ATOL[dtype]:g})")
-        if not ok:
-            raise AssertionError(f"K1 disagrees with its plain version in case {name}")
+        k1_err = _max_err(out, ref)
+        del out, ref
+        res = backward_case(q, k, v, grid, _cotangent(B, H * W, cv, seed=50 + i))
+        log(f"[kernel] {name}: K1 max |kernel - plain| = {k1_err:.3g} (atol "
+            f"{ATOL[dtype]:g}); K2 {res['k2_err']:.3g}, K3 {res['k3_err']:.3g} of the "
+            f"largest gradient (tol {BWD_TOL[dtype]:g}); argmax near-ties "
+            f"{res['argmax_near_ties']}")
+        record(corr.KERNEL, name, k1_err, ATOL[dtype])
+        record(corr.KERNEL_BWD_ROWS, name, res["k2_err"], BWD_TOL[dtype])
+        record(corr.KERNEL_BWD_COLS, name, res["k3_err"], BWD_TOL[dtype])
+        if name == "f32_hw130":
+            # the argmax route alone: only the max score has a cotangent
+            only = backward_case(q, k, v, grid, _cotangent(B, H * W, cv, 70, ms_only=True))
+            log(f"[kernel] {name}, max-score cotangent only: K2 {only['k2_err']:.3g}, "
+                f"K3 {only['k3_err']:.3g}")
+            record(corr.KERNEL_BWD_ROWS, name + "_ms_only", only["k2_err"], BWD_TOL[dtype])
+            record(corr.KERNEL_BWD_COLS, name + "_ms_only", only["k3_err"], BWD_TOL[dtype])
+        if name == "bf16_hw6256_b2":
+            # K3 sums in a fixed order: a second run gives the same bits
+            dout = _cotangent(B, H * W, cv, seed=50 + i)
+            dk2, dv2 = corr.correlation_bwd_cols(q, k, v, grid, dout, res["stats"],
+                                                 res["amax"].int())
+            torch.cuda.synchronize()
+            same = torch.equal(dk2, res["dk"]) and torch.equal(dv2, res["dv"])
+            log(f"[kernel] {name}: two runs of K3 give equal bits: {same}")
+            if not same:
+                raise AssertionError("two runs of K3 differ")
+        del res
     return cases
 
 
-def k1_bound(B, HW, cq, cv, dtype, nbytes) -> tuple:
-    """Least time for K1's work: bytes at the memory rate, and the products
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def op_bound(flops, n_exp, nbytes, dtype) -> tuple:
+    """Least time for the work: bytes at the memory rate, and the products
     and exponentials at their peak rates. Returns (ms, "bytes"|"operations")."""
-    flops = 2.0 * B * HW * HW * (cq + cv + 2)
-    t_ops = max(flops / PEAK_FLOPS[dtype], B * HW * HW / PEAK_EXP_PER_S)
+    t_ops = max(flops / PEAK_FLOPS[dtype], n_exp / PEAK_EXP_PER_S)
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("bytes" if t_bytes > t_ops else "operations")
 
 
-def phase_kernel_timing() -> dict:
+def k1_bound(B, HW, cq, cv, dtype, nbytes) -> tuple:
+    return op_bound(2.0 * B * HW * HW * (cq + cv + 2), B * HW * HW, nbytes, dtype)
+
+
+def k2_bound(B, HW, cq, cv, dtype, nbytes) -> tuple:
+    """Three products: q k^T, dmain [v|grid]^T, dS k."""
+    return op_bound(2.0 * B * HW * HW * (2 * cq + cv + 2), B * HW * HW, nbytes, dtype)
+
+
+def k3_bound(B, HW, cq, cv, dtype, nbytes) -> tuple:
+    """Four products: k q^T, [v|grid] dmain^T, dS^T q, P^T dmain[:Cv]."""
+    return op_bound(2.0 * B * HW * HW * (2 * cq + 2 * cv + 2), B * HW * HW, nbytes, dtype)
+
+
+def time_k1(B, H, W, C, dtype, seed) -> dict:
+    """K1 at one shape: agreement, then its time beside the plain version's,
+    one library call's and its bound."""
     import torch
     import torch.nn.functional as F
 
     from mapfree_tpu_torch.ops import correlation as corr
 
-    B, H, W, C, dtype = 64, 92, 68, 32, "bfloat16"
     HW = H * W
-    q, k, v, grid = _k1_inputs(B, H, W, C, C, dtype, seed=100)
+    q, k, v, grid = _kernel_inputs(B, H, W, C, C, dtype, seed=seed)
     out = corr.fused_correlation_warp(q, k, v, grid)
     torch.cuda.synchronize()
     ref = corr.fused_correlation_warp_plain(q, k, v, grid)
     torch.cuda.synchronize()
     err = _max_err(out, ref)
-    log(f"[kernel] main shape B={B} HW={HW} C={C} {dtype}: max |kernel - plain| = "
-        f"{err:.3g} (atol {ATOL[dtype]:g})")
     if err > ATOL[dtype]:
-        raise AssertionError("K1 disagrees with its plain version at the main-path shape")
+        raise AssertionError(f"K1 disagrees with its plain version at B={B} HW={HW}")
     del out, ref
 
     ms = cuda_time_ms(lambda: corr.fused_correlation_warp(q, k, v, grid), iters=10)
@@ -199,20 +360,87 @@ def phase_kernel_timing() -> dict:
     torch.cuda.empty_cache()
     # one library call computing P [v | grid] (padded to 40 columns for the
     # fused attention backends); timed here only, the port never calls it
-    vg = torch.cat([v, grid.to(v.dtype).expand(B, HW, 2),
-                    v.new_zeros(B, HW, 6)], dim=-1)[:, None]
+    vg = torch.cat([v, grid.expand(B, HW, 2), v.new_zeros(B, HW, 6)], dim=-1)[:, None]
     qh, kh = q[:, None], k[:, None]
     library_ms = cuda_time_ms(
         lambda: F.scaled_dot_product_attention(qh, kh, vg, scale=1.0), iters=10)
 
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v)) \
-        + HW * 2 * v.element_size() + B * HW * (C + 3) * 4
+    nbytes = _nbytes(q, k, v, grid) + B * HW * (C + 3) * 4
     bound_ms, bound_by = k1_bound(B, HW, C, C, dtype, nbytes)
-    log(f"[kernel] kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms={library_ms:.3f} "
-        f"bound_ms={bound_ms:.3f} ({bound_by}); kernel at "
-        f"{100 * bound_ms / ms:.1f}% of its bound")
+    log(f"[kernel] K1 B={B} HW={HW} C={C} {dtype}: max |kernel - plain| = {err:.3g}; "
+        f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms={library_ms:.3f} "
+        f"bound_ms={bound_ms:.4f} ({bound_by}); kernel at {100 * bound_ms / ms:.1f}% "
+        f"of its bound")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+            "shape": f"B={B} HW={HW} C={C} {dtype}"}
+
+
+def time_backward(B, H, W, C, dtype, seed) -> tuple:
+    """K2 and K3 at one shape, each beside its plain version and its bound;
+    the library call (the backward of scaled_dot_product_attention over
+    [v | grid], without the max-score route) stands for the pair."""
+    import torch
+    import torch.nn.functional as F
+
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    HW = H * W
+    q, k, v, grid = _kernel_inputs(B, H, W, C, C, dtype, seed=seed)
+    dout = _cotangent(B, HW, C, seed=seed + 1)
+    res = backward_case(q, k, v, grid, dout)
+    for kernel, err in (("K2", res["k2_err"]), ("K3", res["k3_err"])):
+        if err > BWD_TOL[dtype]:
+            raise AssertionError(f"{kernel} disagrees with its plain version at B={B} HW={HW}")
+    stats, amax = res["stats"], res["amax"].int()
+    k2_err, k3_err = res["k2_err"], res["k3_err"]
+    del res
+    out = torch.cat(corr.fused_correlation_warp(q, k, v, grid), dim=-1)
+
+    k2_ms = cuda_time_ms(lambda: corr.correlation_bwd_rows(q, k, v, grid, out, dout), iters=10)
+    k3_ms = cuda_time_ms(
+        lambda: corr.correlation_bwd_cols(q, k, v, grid, dout, stats, amax), iters=10)
+    k2_plain = cuda_time_ms(lambda: corr.correlation_bwd_rows_plain(q, k, v, grid, dout), iters=3)
+    k3_plain = cuda_time_ms(lambda: corr.correlation_bwd_cols_plain(q, k, v, grid, dout), iters=3)
+    torch.cuda.empty_cache()
+
+    vg = torch.cat([v, grid.expand(B, HW, 2), v.new_zeros(B, HW, 6)], dim=-1)[:, None]
+    qh, kh, vh = (t.detach().requires_grad_(True) for t in (q[:, None], k[:, None], vg))
+    o = F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
+    do = torch.cat([dout[..., :C + 2], dout.new_zeros(B, HW, 6)], dim=-1)[:, None].to(o.dtype)
+    library_ms = cuda_time_ms(
+        lambda: torch.autograd.grad(o, (qh, kh, vh), do, retain_graph=True), iters=10)
+
+    common = _nbytes(q, k, v, grid, dout, stats, amax)
+    k2_bound_ms, k2_by = k2_bound(B, HW, C, C, dtype, common + _nbytes(out) + B * HW * C * 4)
+    k3_bound_ms, k3_by = k3_bound(B, HW, C, C, dtype, common + 2 * B * HW * C * 4)
+    shape = f"B={B} HW={HW} C={C} {dtype}"
+    log(f"[kernel] K2 {shape}: err {k2_err:.3g}; kernel_ms={k2_ms:.3f} "
+        f"plain_ms={k2_plain:.3f} bound_ms={k2_bound_ms:.4f} ({k2_by}), "
+        f"{100 * k2_bound_ms / k2_ms:.1f}% of its bound")
+    log(f"[kernel] K3 {shape}: err {k3_err:.3g}; kernel_ms={k3_ms:.3f} "
+        f"plain_ms={k3_plain:.3f} bound_ms={k3_bound_ms:.4f} ({k3_by}), "
+        f"{100 * k3_bound_ms / k3_ms:.1f}% of its bound")
+    log(f"[kernel] K2+K3 {k2_ms + k3_ms:.3f} ms; library (attention backward) "
+        f"{library_ms:.3f} ms")
+    k2 = {"ms": k2_ms, "plain_ms": k2_plain, "library_ms": library_ms,
+          "library_covers": "K2+K3", "bound_ms": k2_bound_ms, "bound_by": k2_by,
+          "max_abs_err": k2_err, "shape": shape}
+    k3 = {"ms": k3_ms, "plain_ms": k3_plain, "library_ms": library_ms,
+          "library_covers": "K2+K3", "bound_ms": k3_bound_ms, "bound_by": k3_by,
+          "max_abs_err": k3_err, "shape": shape}
+    return k2, k3
+
+
+def phase_kernel_timing() -> dict:
+    """K1 at the inference shape (batch 64) and K1, K2, K3 at the training
+    shape of 3d3d.yaml (batch 10)."""
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    k1 = time_k1(64, 92, 68, 32, "bfloat16", seed=100)
+    k1["train_shape"] = time_k1(10, 92, 68, 32, "bfloat16", seed=101)
+    k2, k3 = time_backward(10, 92, 68, 32, "bfloat16", seed=102)
+    return {corr.KERNEL: k1, corr.KERNEL_BWD_ROWS: k2, corr.KERNEL_BWD_COLS: k3}
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -256,7 +484,7 @@ def synthetic_batches(n_pairs: int, batch: int, H: int, W: int, seed: int) -> li
 
 
 def phase_main_path() -> int:
-    """Returns K1's launches in the measured sweep."""
+    """The inference sweep. Returns K1's launches in the measured sweep."""
     import torch
 
     from mapfree_tpu_torch.models.builder import build_model
@@ -283,12 +511,14 @@ def phase_main_path() -> int:
     torch.cuda.synchronize()
 
     times = StageTimes()
-    corr.launches = 0
+    corr.reset_launches()
     t0 = time.perf_counter()
     results = predict(batches, model, times)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = corr.launches
+    launches = corr.launches[corr.KERNEL]
+    if corr.launches[corr.KERNEL_BWD_ROWS] or corr.launches[corr.KERNEL_BWD_COLS]:
+        raise AssertionError("the inference sweep launched a backward kernel")
     log(f"[main] {n_pairs} pairs in {len(batches)} batches: {elapsed:.3f} s, "
         f"{n_pairs / elapsed:.1f} pairs/s, {1e3 * elapsed / len(batches):.1f} ms/batch; "
         f"K1 launches {launches}; stages {times.summary()}")
@@ -322,23 +552,24 @@ def phase_main_path() -> int:
         f"({1e3 * bs / model_ms:.1f} pairs/s model-only); {n_params / 1e6:.2f} M "
         f"parameters; submission.zip {len(lines)} lines; max |det(R) - 1| = "
         f"{np.abs(det - 1.0).max():.2e}")
-    profile_forward(model, transferred)
+    profile_window(lambda: model.dispatch_device(transferred)(), "forward")
     return launches
 
 
-def profile_forward(model, transferred, n: int = 3) -> None:
-    """Device time by kernel over ``n`` forwards of a batch already on the
-    device, and the share of the window the device was busy."""
+def profile_window(fn, what: str, n: int = 3) -> None:
+    """Device time by kernel over ``n`` calls of ``fn`` (a forward or a train
+    step on a batch already on the device), and the share of the window the
+    device was busy."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    model.dispatch_device(transferred)()
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            model.dispatch_device(transferred)()
+            fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     totals: dict = {}
@@ -349,14 +580,167 @@ def profile_forward(model, transferred, n: int = 3) -> None:
     rows = [(us, count, name) for name, (us, count) in totals.items()]
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"[profile] {n} forwards: wall {wall_us / 1e3:.2f} ms, device busy "
-        f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%)")
+    log(f"[profile] {n} {what}s: wall {wall_us / 1e3:.2f} ms, device busy "
+        f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), {len(rows)} kinds of "
+        f"kernel, {sum(r[1] for r in rows) // n} launches per {what}")
     for us, count, key in rows[:15]:
-        log(f"[profile] {us / 1e3 / n:9.3f} ms/forward {100 * us / busy:5.1f}%  "
+        log(f"[profile] {us / 1e3 / n:9.3f} ms/{what} {100 * us / busy:5.1f}%  "
             f"x{count // n:<4d} {key[:90]}")
 
 
 # -- phase 5 -----------------------------------------------------------------
+
+def train_batches(n: int, batch: int, H: int, W: int, seed: int, last: int = 0) -> list:
+    """Collated training batches: uint8 RGB noise pairs with random
+    unit-quaternion poses (``image0``, ``image1`` [B, H, W, 3], ``T_0to1``
+    [B, 4, 4] float64 as the dataset yields it). ``last`` > 0 makes the final
+    batch ragged."""
+    from mapfree_tpu_torch.geom.quaternion import quat2mat
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        B = last if last and i == n - 1 else batch
+        q = rng.normal(size=(B, 4))
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        T = np.tile(np.eye(4), (B, 1, 1))
+        T[:, :3, :3] = quat2mat(q)
+        T[:, :3, 3] = rng.normal(size=(B, 3)) * 0.1
+        out.append({"image0": rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8),
+                    "image1": rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8),
+                    "T_0to1": T})
+    return out
+
+
+def _expect_launches(corr, expected: dict, what: str) -> None:
+    got = dict(corr.launches)
+    if got != expected:
+        raise AssertionError(f"{what}: kernel launches {got}, expected {expected}")
+
+
+def phase_train_path() -> dict:
+    """The training path at full width. Returns each kernel's launches in the
+    fit loop's run."""
+    import torch
+
+    from mapfree_tpu_torch.models.regression import build_regression_net
+    from mapfree_tpu_torch.ops import correlation as corr
+    from mapfree_tpu_torch.train import (CheckpointManager, init_state, make_train_step,
+                                         make_val_step, run_validation)
+    from mapfree_tpu_torch.train.fit import _device_batch, fit_loaders
+
+    # the model and optimizer settings are 3d3d.yaml's; only the run's length
+    # is set here: one epoch of 8 batches, validation twice over 2 batches
+    cfg = load_cfg({"TPU.SEED": SEED, "TRAINING.EPOCHS": 1, "TRAINING.VAL_INTERVAL": 0.5,
+                    "TRAINING.VAL_BATCHES": 2, "TRAINING.LOG_INTERVAL": 1})
+    H, W, bs = cfg.DATASET.HEIGHT, cfg.DATASET.WIDTH, int(cfg.TRAINING.BATCH_SIZE)
+    log(f"[train] 3d3d: batch {bs}, {H}x{W}, {cfg.TPU.COMPUTE_DTYPE}, "
+        f"{cfg.TRAINING.ROT_LOSS} + {cfg.TRAINING.LAMBDA} * {cfg.TRAINING.TRANS_LOSS}, "
+        f"Adam LR {cfg.TRAINING.LR}, clip {cfg.TRAINING.GRAD_CLIP}")
+    dev = torch.device("cuda", 0)
+
+    # (a) steps through init_state -> make_train_step on batches already on
+    # the device: time, memory, losses
+    net = build_regression_net(cfg)
+    state = init_state(net, cfg, torch.Generator().manual_seed(SEED), device=dev)
+    before = {k: v.clone() for k, v in net.state_dict().items()}
+    train_step = make_train_step(net, cfg)
+    n_warm, n_steps = 3, 10
+    dbatches = [_device_batch(b, dev, bs)
+                for b in train_batches(n_warm + n_steps, bs, H, W, seed=SEED + 10)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for b in dbatches[:n_warm]:
+        state, _ = train_step(state, b)
+    torch.cuda.synchronize()
+    corr.reset_launches()
+    logs = []
+    t0 = time.perf_counter()
+    for b in dbatches[n_warm:]:
+        state, step_logs = train_step(state, b)
+        logs.append(step_logs)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / n_steps
+    _expect_launches(corr, {corr.KERNEL: n_steps, corr.KERNEL_BWD_ROWS: n_steps,
+                            corr.KERNEL_BWD_COLS: n_steps}, f"{n_steps} train steps")
+    losses = [float(lg["train/loss"]) for lg in logs]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[train] {n_steps} steps after {n_warm} warm-up: {step_ms:.2f} ms/step, "
+        f"{1e3 * bs / step_ms:.1f} samples/s; peak memory {peak_gb:.2f} GB; K1, K2, K3 "
+        f"each launched {n_steps} times")
+    log("[train] loss per step: " + " ".join(f"{x:.4f}" for x in losses)
+        + "; R_loss " + " ".join(f"{float(lg['train/R_loss']):.3f}" for lg in logs)
+        + "; t_loss " + " ".join(f"{float(lg['train/t_loss']):.3f}" for lg in logs))
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    after = net.state_dict()
+    for key in ("encoder.firstconv.weight", "head.mlp.4.weight", "encoder.firstbn.running_mean",
+                "encoder.firstbn.running_var", "head.resblock4.bn2.running_var"):
+        if torch.equal(after[key], before[key]):
+            raise AssertionError(f"{key} did not change in {n_warm + n_steps} train steps")
+    del before
+    batch = dbatches[-1]
+    del dbatches
+
+    def one_step():
+        train_step(state, batch)
+
+    profile_window(one_step, "train step")
+    del state, net, train_step
+    torch.cuda.empty_cache()
+
+    # (b) the fit loop: loaders of numpy batches, validation, checkpoints
+    train_loader = train_batches(8, bs, H, W, seed=SEED + 11, last=7)
+    val_loader = train_batches(3, bs, H, W, seed=SEED + 12)
+    with tempfile.TemporaryDirectory() as tmp:
+        corr.reset_launches()
+        captured = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(captured):
+            state = fit_loaders(cfg, train_loader, val_loader, experiment="smoke",
+                                weights_dir=tmp, device=dev)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = dict(corr.launches)
+        for line in captured.getvalue().splitlines():
+            log(f"[fit]   {line}")
+        # 8 train steps; validation at steps 4 and 8 over 2 of the 3 batches
+        _expect_launches(corr, {corr.KERNEL: 8 + 2 * 2, corr.KERNEL_BWD_ROWS: 8,
+                                corr.KERNEL_BWD_COLS: 8}, "the fit loop")
+        records = [json.loads(ln) for ln in
+                   (Path(tmp) / "smoke" / "scalars.jsonl").read_text().splitlines()]
+        train_losses = [r["train/loss"] for r in records if "train/loss" in r]
+        val_losses = [r["val_loss/loss"] for r in records if "val_loss/loss" in r]
+        if len(train_losses) != 8 or len(val_losses) != 2 or state.step != 8:
+            raise AssertionError("the fit loop did not take 8 steps with 2 validations")
+        if not (np.all(np.isfinite(train_losses)) and np.all(np.isfinite(val_losses))):
+            raise AssertionError("non-finite loss in the fit loop")
+        ckpts = CheckpointManager(Path(tmp) / "smoke")
+        files = sorted(p.name for p in (Path(tmp) / "smoke").glob("*.pt"))
+        if files != ["last.pt", "step_4.pt", "step_8.pt"]:
+            raise AssertionError(f"checkpoints written: {files}")
+
+        # the restored 'last' checkpoint reproduces the validation loss
+        val_step = make_val_step(state.net, cfg)
+        vbatches = [_device_batch(b, dev, bs) for b in val_loader[:2]]
+        ref = run_validation(val_step, state, vbatches)["val_loss/loss"]
+        other = build_regression_net(cfg)
+        restored = init_state(other, cfg, torch.Generator().manual_seed(SEED + 99), device=dev)
+        untrained = run_validation(make_val_step(other, cfg), restored, vbatches)["val_loss/loss"]
+        restored = ckpts.restore(restored, tag="last")
+        got = run_validation(make_val_step(other, cfg), restored, vbatches)["val_loss/loss"]
+    log(f"[fit] 8 steps, 2 validations, 3 checkpoints in {elapsed:.2f} s; launches {launches}; "
+        f"validation loss {ref:.6f} (logged at step 8: {val_losses[-1]:.6f}), from the "
+        f"restored 'last' checkpoint {got:.6f}, from another seed's weights {untrained:.6f}")
+    if restored.step != 8 or abs(got - ref) > 1e-6 * abs(ref) \
+            or abs(val_losses[-1] - ref) > 1e-6 * abs(ref):
+        raise AssertionError("the restored checkpoint does not reproduce the validation loss")
+    if abs(untrained - ref) < 1e-3 * abs(ref):
+        raise AssertionError("the validation loss does not depend on the weights")
+    return launches
+
+
+# -- phase 6 -----------------------------------------------------------------
 
 def phase_device_parity() -> None:
     import torch
@@ -386,6 +770,114 @@ def phase_device_parity() -> None:
         raise AssertionError("the GPU and CPU forwards disagree")
 
 
+@contextlib.contextmanager
+def plain_versions_on_the_card():
+    """Inside the block the correlation Function computes the plain versions
+    on CUDA tensors too (and counts no launch): the yardstick for a whole
+    train step. Used here only; the port has no such switch."""
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    saved = corr._forward_cuda, corr.correlation_bwd_rows, corr.correlation_bwd_cols
+    corr._forward_cuda = corr._plain_buffer
+    corr.correlation_bwd_rows = lambda q, k, v, grid, out, dout: (
+        corr.correlation_bwd_rows_plain(q, k, v, grid, dout)[0], None, None)
+    corr.correlation_bwd_cols = lambda q, k, v, grid, dout, stats, amax: (
+        corr.correlation_bwd_cols_plain(q, k, v, grid, dout))
+    try:
+        yield
+    finally:
+        corr._forward_cuda, corr.correlation_bwd_rows, corr.correlation_bwd_cols = saved
+
+
+def _grad_errors(got: dict, ref: dict) -> tuple:
+    """(per-tensor max error as a share of the tensor's largest entry, sorted
+    descending with names; relative L2 error of the whole gradient)."""
+    import torch
+
+    per = []
+    for key, g in ref.items():
+        scale = max(float(g.abs().max()), STEP_GRAD_FLOOR / STEP_GRAD_TOL)
+        per.append((float((got[key] - g).abs().max()) / scale, key))
+    per.sort(reverse=True)
+    diff = torch.sqrt(sum(((got[k] - g).double() ** 2).sum() for k, g in ref.items()))
+    norm = torch.sqrt(sum((g.double() ** 2).sum() for g in ref.values()))
+    return per, float(diff / norm)
+
+
+def phase_train_parity() -> None:
+    """One float32 train step (clip 1.0, as the JAX package's tiny test
+    config) on the card with K1, K2, K3, against the same step with the plain
+    versions on the card and on the CPU, same weights and batch; then 8 steps
+    on one batch at LR 1e-3 must lower the loss on the card."""
+    import torch
+
+    from mapfree_tpu_torch.models.regression import build_regression_net
+    from mapfree_tpu_torch.ops import correlation as corr
+    from mapfree_tpu_torch.train import init_state, make_train_step
+    from mapfree_tpu_torch.train.fit import _device_batch
+
+    cfg = load_cfg({"ENCODER.NUM_BLOCKS": "1-1-1", "DATASET.HEIGHT": 96,
+                    "DATASET.WIDTH": 72, "TRAINING.BATCH_SIZE": 4, "TRAINING.LR": 1e-3,
+                    "TRAINING.GRAD_CLIP": 1.0, "TPU.COMPUTE_DTYPE": "float32",
+                    "TPU.SEED": SEED})
+    batch = train_batches(1, 4, 96, 72, seed=SEED + 20)[0]
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    loss, grads, states = {}, {}, {}
+
+    def one_step(name, dev):
+        net = build_regression_net(cfg)
+        states[name] = init_state(net, cfg, torch.Generator().manual_seed(SEED), device=dev)
+        step = make_train_step(net, cfg)
+        states[name], logs = step(states[name], _device_batch(batch, torch.device(dev), 4))
+        loss[name] = float(logs["train/loss"])
+        grads[name] = {k: p.grad.detach().cpu() for k, p in net.named_parameters()}
+
+    corr.reset_launches()
+    one_step("kernels", "cuda")
+    _expect_launches(corr, {corr.KERNEL: 1, corr.KERNEL_BWD_ROWS: 1, corr.KERNEL_BWD_COLS: 1},
+                     "one train step on the card")
+    with plain_versions_on_the_card():
+        one_step("plain", "cuda")
+    one_step("cpu", "cpu")
+    _expect_launches(corr, {corr.KERNEL: 1, corr.KERNEL_BWD_ROWS: 1, corr.KERNEL_BWD_COLS: 1},
+                     "the plain steps")
+    if not (torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32):
+        raise AssertionError("the float32 train step changed the process's TF32 settings")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+    per, l2 = _grad_errors(grads["kernels"], grads["plain"])
+    rel = abs(loss["kernels"] - loss["plain"]) / abs(loss["plain"])
+    log(f"[parity] float32 train step, kernels vs plain versions on the card: loss "
+        f"{loss['kernels']:.6f} vs {loss['plain']:.6f} (rel {rel:.2e}, tol {STEP_LOSS_RTOL:g}); "
+        f"worst gradient {per[0][0]:.2e} of its tensor's largest entry at {per[0][1]} "
+        f"(tol {STEP_GRAD_TOL:g}); whole gradient {l2:.2e} in L2; {len(per)} tensors")
+    if rel > STEP_LOSS_RTOL or per[0][0] > STEP_GRAD_TOL:
+        raise AssertionError("the train step with the kernels disagrees with the plain versions")
+
+    per, l2 = _grad_errors(grads["kernels"], grads["cpu"])
+    rel = abs(loss["kernels"] - loss["cpu"]) / abs(loss["cpu"])
+    median = per[len(per) // 2][0]
+    log(f"[parity] float32 train step, GPU vs CPU: loss {loss['kernels']:.6f} vs "
+        f"{loss['cpu']:.6f} (rel {rel:.2e}, tol {STEP_LOSS_RTOL:g}); whole gradient {l2:.2e} "
+        f"in L2 (tol {STEP_CPU_L2_TOL:g}); median tensor {median:.2e} of its largest entry "
+        f"(tol {STEP_CPU_MEDIAN_TOL:g}); worst tensor {per[0][0]:.2e} at {per[0][1]} "
+        f"(branch flips at ReLU and max-pool inputs within round-off of zero)")
+    if rel > STEP_LOSS_RTOL or l2 > STEP_CPU_L2_TOL or median > STEP_CPU_MEDIAN_TOL:
+        raise AssertionError("the GPU and CPU train steps disagree")
+
+    state = states["kernels"]
+    step = make_train_step(state.net, cfg)
+    dbatch = _device_batch(batch, torch.device("cuda"), 4)
+    losses = []
+    for _ in range(8):
+        state, logs = step(state, dbatch)
+        losses.append(float(logs["train/loss"]))
+    log("[parity] 8 steps on one batch at LR 1e-3: loss " + " ".join(f"{x:.4f}" for x in losses))
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError("8 steps on one batch did not lower the loss")
+
+
 def main() -> None:
     try:
         import torch
@@ -404,26 +896,37 @@ def main() -> None:
     smi = phase_device()
     phase_build()
     cases = phase_kernel_cases()
+    if "--kernels-only" in sys.argv[1:]:
+        # a quick check while working on a kernel; prints no result line
+        phase_kernel_timing()
+        log(f"[done] kernels only, {time.perf_counter() - t_start:.1f} s")
+        return
     timing = phase_kernel_timing()
-    launches = phase_main_path()
+    sweep_launches = phase_main_path()
+    train_launches = phase_train_path()
     phase_device_parity()
+    phase_train_parity()
 
     from mapfree_tpu_torch.ops import correlation as corr
 
-    kernels = [{
-        "name": corr.KERNEL,
-        "route": "cuda",
-        "source": "mapfree_tpu_torch/ops/csrc/correlation_fwd.cu",
-        "replaces": "mapfree_tpu/ops/correlation.py:60",
-        "launches": launches,
-        "max_abs_err": timing["max_abs_err"],
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"],
-        "cases": cases,
-    }]
+    by_path = {name: {"train_loop": n} for name, n in train_launches.items()}
+    by_path[corr.KERNEL]["inference_sweep"] = sweep_launches
+    kernels = []
+    for name, source, replaces in (
+            (corr.KERNEL, "correlation_fwd.cu", 60),
+            (corr.KERNEL_BWD_ROWS, "correlation_bwd.cu", 109),
+            (corr.KERNEL_BWD_COLS, "correlation_bwd.cu", 148)):
+        t = timing[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"mapfree_tpu_torch/ops/csrc/{source}",
+            "replaces": f"mapfree_tpu/ops/correlation.py:{replaces}",
+            "launches": sum(by_path[name].values()),
+            "launches_by_path": by_path[name],
+            **t,
+            "cases": cases[name],
+        })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

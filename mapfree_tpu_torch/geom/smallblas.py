@@ -23,10 +23,16 @@ def det3(A):
 
 
 def _jacobi_rotation(a_pp, a_qq, a_pq):
-    """Branch-free Givens (c, s) zeroing the (p, q) off-diagonal entry."""
+    """Branch-free Givens (c, s) zeroing the (p, q) off-diagonal entry.
+
+    Where the entry is already (near) zero the rotation is the identity. In
+    that branch the numerator is zeroed too, which leaves the value as it was
+    (t = 0 either way) and keeps zeta finite: otherwise zeta ~ 1e30 overflows
+    in zeta * zeta and autograd multiplies the branch's zero cotangent by an
+    infinite derivative, which is NaN."""
     tiny = torch.abs(a_pq) < 1e-30
     gamma_safe = torch.where(tiny, torch.full_like(a_pq, 1e-30), a_pq)
-    zeta = (a_qq - a_pp) / (2.0 * gamma_safe)
+    zeta = torch.where(tiny, torch.zeros_like(a_pq), a_qq - a_pp) / (2.0 * gamma_safe)
     t = torch.sign(zeta) / (torch.abs(zeta) + torch.sqrt(1.0 + zeta * zeta))
     t = torch.where(tiny, torch.zeros_like(t), t)
     c = 1.0 / torch.sqrt(1.0 + t * t)

@@ -4,8 +4,9 @@ NCHW tensors inside; attribute names follow the reference's torch modules
 (reference lib/models/regression/encoder/preact.py:13-64, resunet.py:15-38)
 so one state_dict layout loads both a reference checkpoint and weights
 carried over from the JAX package. BatchNorm: eps 1e-5, torch momentum 0.1
-(flax's 0.9). Convs carry no bias except in :class:`ConvBnElu`, as in the
-JAX modules.
+(flax's 0.9), running variance updated as flax updates it
+(:class:`BatchNorm2d`). Convs carry no bias except in :class:`ConvBnElu`, as
+in the JAX modules.
 """
 
 from __future__ import annotations
@@ -15,8 +16,32 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def _bn(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose running variance takes in the BIASED batch
+    variance, as flax's BatchNorm does (torch folds in the unbiased one, so
+    after a train step the two frameworks' statistics would differ by
+    n / (n - 1)). The normalisation itself and the state_dict keys are
+    torch's. In training the op writes momentum * unbiased variance into a
+    scratch tensor (the one autograd keeps), and the running variance is
+    updated from it: three small kernels per layer."""
+
+    def forward(self, x):
+        if not (self.training and self.track_running_stats) or self.momentum is None:
+            return super().forward(x)
+        self._check_input_dim(x)
+        n = x.numel() // x.shape[1]
+        scratch = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x, self.running_mean, scratch, self.weight, self.bias,
+                         True, self.momentum, self.eps)
+        with torch.no_grad():
+            # scratch = momentum * var * n / (n - 1): take the factor back out
+            self.running_var.mul_(1.0 - self.momentum).add_(scratch, alpha=(n - 1) / n)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+def _bn(channels: int) -> BatchNorm2d:
+    return BatchNorm2d(channels, eps=1e-5, momentum=0.1)
 
 
 class PreActBlock(nn.Module):

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mapfree_tpu_torch.models.blocks import (
+    BatchNorm2d,
     ConvBnElu,
     PreActBlock,
     PreActBottleneck,
@@ -98,7 +99,7 @@ class ResUNet(nn.Module):
         e = block.expansion
         self.not_concat = not_concat
         self.firstconv = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
-        self.firstbn = nn.BatchNorm2d(64, eps=1e-5, momentum=0.1)
+        self.firstbn = BatchNorm2d(64, eps=1e-5, momentum=0.1)
         self.encoder1 = _Stage(block, 64, 64, num_blocks[0], 1)
         self.encoder2 = _Stage(block, 64 * e, 128, num_blocks[1], 2)
         self.encoder3 = _Stage(block, 128 * e, 256, num_blocks[2], 2)

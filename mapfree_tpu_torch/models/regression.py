@@ -66,6 +66,8 @@ class RegressionNet(nn.Module):
                 vol0 = vol0[ref_idx.long()]
             global_volume = self.aggregator(vol0, vol1)
             R, t, aux = self.head(global_volume)
+        if hasattr(self, "s_r"):
+            aux = dict(aux, s_r=self.s_r, s_t=self.s_t)
         return R.float(), t.float(), aux
 
 

@@ -26,6 +26,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+_name_locks: dict = {}
 _libs: dict = {}
 # per library: seconds spent in nvcc (0.0 when an earlier build was reused)
 # and the compiler's report (ptxas registers, shared memory, spills)
@@ -52,8 +53,11 @@ def find_nvcc() -> str:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if needed and return the loaded library."""
+    """Build ``csrc/<name>.cu`` if needed and return the loaded library.
+    Each library has a lock of its own, so different sources build at once."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
@@ -79,3 +83,14 @@ def load_library(name: str) -> ctypes.CDLL:
             os.replace(tmp, so)
         lib = _libs[name] = ctypes.CDLL(str(so))
         return lib
+
+
+def load_libraries(names) -> None:
+    """Build and load several sources at once, one nvcc process each."""
+    threads = [threading.Thread(target=load_library, args=(n,)) for n in names]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for n in names:
+        load_library(n)  # raises here if that source failed to build

@@ -15,6 +15,11 @@ of the name mapping in mapfree_tpu/tools/convert_weights.py, and
 
 Any leaf without a destination, any destination without a leaf and any
 shape mismatch raises: silent random weights are worse than failing.
+
+:func:`to_jax_variables` goes the other way: the port's module as the JAX
+package's ``{"params", "batch_stats"}`` tree of numpy arrays in flax layout,
+so that gradients, updated parameters and running statistics can be compared
+tensor by tensor, and a port checkpoint can be read by the JAX package.
 """
 
 from __future__ import annotations
@@ -99,6 +104,69 @@ def load_jax_variables(net: nn.Module, variables) -> None:
     missing = [k for k in state if k not in filled and not _is_bn_counter(k)]
     if missing:
         raise KeyError(f"JAX variables miss {len(missing)} tensors: {missing}")
+
+
+def _flax_module_path(net: nn.Module, module_key: str) -> tuple:
+    """The flax path of the submodule at ``module_key`` (dotted torch path):
+    the inverse of :func:`flax_path_to_torch_key`'s module part, decided by
+    what each parent module is."""
+    path = []
+    parent = net
+    names = module_key.split(".") if module_key else []
+    for i, name in enumerate(names):
+        child = getattr(parent, name) if not name.isdigit() else parent[int(name)]
+        if name.isdigit():
+            if i > 0 and names[i - 1] == "shortcut":
+                pass  # the reference wraps the shortcut conv in nn.Sequential
+            elif i > 0 and names[i - 1] == "mlp":
+                path.append({"0": "fc1", "2": "fc2", "4": "fc3"}.get(name, name))
+            else:
+                path.append(f"block{name}")  # stage blocks are Sequential indices
+        elif name == "normalize":
+            path.append("bn")
+        elif name == "CV_block":
+            path.append("cv_block")
+        elif name.startswith("resblock") and i > 0 and names[i - 1] == "head":
+            path += ["trunk", name]  # head trunks are modules of their own in flax
+        else:
+            path.append(name)
+        parent = child
+    return tuple(path)
+
+
+def to_jax_variables(net: nn.Module, grads: bool = False) -> dict:
+    """``net`` as the JAX package's ``{"params": ..., "batch_stats": ...}``
+    tree (nested dicts of float32 numpy arrays, flax names and layouts).
+    With ``grads`` the params tree holds each parameter's ``.grad`` instead
+    of its value (and batch_stats is left out)."""
+    out = {"params": {}} if grads else {"params": {}, "batch_stats": {}}
+
+    def put(collection, path, value):
+        node = out[collection]
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = value
+
+    for module_key, module in net.named_modules():
+        base = _flax_module_path(net, module_key)
+        is_bn = isinstance(module, nn.modules.batchnorm._BatchNorm)
+        for name, p in module.named_parameters(recurse=False):
+            t = p.grad if grads else p
+            if t is None:
+                raise ValueError(f"{module_key}.{name} has no gradient")
+            value = t.detach().cpu().float().numpy()
+            leaf = name
+            if name == "weight":
+                leaf = "scale" if is_bn else "kernel"
+                if value.ndim == 4:  # conv OIHW -> HWIO
+                    value = value.transpose(2, 3, 1, 0)
+                elif value.ndim == 2:  # dense [out, in] -> [in, out]
+                    value = value.transpose(1, 0)
+            put("params", base + (leaf,), np.ascontiguousarray(value))
+        if is_bn and not grads:
+            put("batch_stats", base + ("mean",), module.running_mean.cpu().numpy().copy())
+            put("batch_stats", base + ("var",), module.running_var.cpu().numpy().copy())
+    return out
 
 
 def load_state_dict(net: nn.Module, state_dict: dict) -> None:

@@ -1,0 +1,173 @@
+"""End-to-end training loop (port of mapfree_tpu/train/fit.py; reference
+train.py:20-64).
+
+Epoch structure, val interval, checkpointing and logging mirror the
+reference's Lightning setup:
+- val every TRAINING.VAL_INTERVAL fraction of an epoch, limited to
+  TRAINING.VAL_BATCHES batches,
+- top-5-by-val-loss + 'last' checkpoints,
+- scalar channels identical to the reference's TensorBoard names.
+
+:func:`fit_loaders` is the loop itself and takes its loaders as arguments:
+any re-iterable (with ``len``) of collated numpy batches holding ``image0``,
+``image1`` and ``T_0to1``. :func:`fit` keeps the JAX package's signature and
+is the one place that would build a ``DataModule``; the data layer is not
+ported yet, so it raises.
+"""
+
+from __future__ import annotations
+
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from mapfree_tpu_torch.models.builder import resolve_device
+from mapfree_tpu_torch.models.regression import build_regression_net
+from mapfree_tpu_torch.train.loop import (
+    CheckpointManager,
+    ScalarLogger,
+    check_finite_or_die,
+    run_validation,
+)
+from mapfree_tpu_torch.train.state import init_state, make_train_step, make_val_step
+from mapfree_tpu_torch.utils.data import (
+    data_to_device,
+    prefetch_to_device,
+    record_on_current_stream,
+)
+
+_TRAIN_KEYS = ("image0", "image1", "T_0to1")
+PROFILE_STEPS = 20
+
+
+def _device_batch(batch, device, pad_to: int, keys=_TRAIN_KEYS, stream=None):
+    """Keep the numeric training keys, pad the leading axis to the fixed
+    batch size, and move them to the device."""
+    out = {}
+    for k in keys:
+        x = np.asarray(batch[k])
+        if x.dtype == np.float64:  # pose metadata loads f64; train in f32
+            x = x.astype(np.float32)
+        if x.shape[0] < pad_to:
+            x = np.concatenate([x, np.zeros((pad_to - x.shape[0],) + x.shape[1:], x.dtype)])
+        out[k] = x
+    return data_to_device(out, device, stream=stream)
+
+
+def _start_profiler():
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def fit_loaders(cfg, train_loader, val_loader, experiment: str = "default",
+                resume: str | None = None, weights_dir: str = "weights",
+                max_steps: int | None = None, device="cuda"):
+    """Train ``cfg``'s model on ``train_loader``, validating on
+    ``val_loader``; returns the final train state."""
+    device = resolve_device(device)
+    batch_size = int(cfg.TRAINING.BATCH_SIZE)
+
+    net = build_regression_net(cfg)
+    generator = torch.Generator().manual_seed(int(cfg.TPU.SEED))
+    state = init_state(net, cfg, generator, device=device)
+
+    ckpts = CheckpointManager(Path(weights_dir) / experiment, top_k=5)
+    logger = ScalarLogger(weights_dir, experiment)
+    if resume:
+        state = ckpts.restore(state, tag=resume)
+        print(f"[fit] resumed from {resume} at step {int(state.step)}")
+
+    train_step = make_train_step(net, cfg)
+    val_step = make_val_step(net, cfg)
+
+    steps_per_epoch = len(train_loader)
+    val_every = max(1, int(steps_per_epoch * float(cfg.TRAINING.VAL_INTERVAL or 1.0)))
+    val_batches = int(cfg.TRAINING.VAL_BATCHES or 0) or None
+    log_every = int(cfg.TRAINING.LOG_INTERVAL or 50)
+
+    def validate():
+        def batches():
+            for i, vb in enumerate(val_loader):
+                if val_batches is not None and i >= val_batches:
+                    break
+                yield _device_batch(vb, device, batch_size)
+        return run_validation(val_step, state, batches())
+
+    # optional torch.profiler trace of the first few steps
+    profile_dir = cfg.TPU.PROFILE_DIR
+    profiler, profile_until = None, None
+    if profile_dir:
+        profiler = _start_profiler()
+        profile_until = int(state.step) + PROFILE_STEPS
+
+    def stop_profiler():
+        nonlocal profiler
+        if profiler is not None:
+            profiler.stop()
+            Path(profile_dir).mkdir(parents=True, exist_ok=True)
+            profiler.export_chrome_trace(str(Path(profile_dir) / "trace.json"))
+            profiler = None
+            print(f"[fit] profiler trace written to {profile_dir}")
+
+    copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def _transfer(batch):
+        return _device_batch(batch, device, batch_size, stream=copy_stream)
+
+    step = int(state.step)
+    first_step = step
+    t_start = time.time()
+    try:
+        for epoch in range(int(cfg.TRAINING.EPOCHS)):
+            # batch k+1's host-to-device copy overlaps batch k's step
+            for dbatch in prefetch_to_device(train_loader, _transfer):
+                state, logs = train_step(state, record_on_current_stream(dbatch))
+                step += 1
+
+                if profile_until is not None and step >= profile_until:
+                    stop_profiler()
+                    profile_until = None
+
+                if step % log_every == 0:
+                    host_logs = {k: float(v) for k, v in logs.items()}
+                    check_finite_or_die(host_logs["train/loss"], step)
+                    rate = (step - first_step) * batch_size / (time.time() - t_start)
+                    host_logs["train/samples_per_sec"] = rate
+                    logger.log(step, host_logs)
+                    print(f"[e{epoch} s{step}] loss={host_logs['train/loss']:.4f} "
+                          f"({rate:.1f} samples/s)")
+
+                if step % val_every == 0:
+                    vlogs = validate()
+                    if vlogs:
+                        logger.log(step, vlogs)
+                        ckpts.save(state, step, val_loss=vlogs["val_loss/loss"])
+                        print(f"[e{epoch} s{step}] val_loss={vlogs['val_loss/loss']:.4f}")
+
+                if max_steps is not None and step >= max_steps:
+                    ckpts.save(state, step)
+                    return state
+
+            ckpts.save(state, step)  # epoch-end 'last'
+    finally:
+        stop_profiler()
+    return state
+
+
+def fit(cfg, experiment: str = "default", resume: str | None = None,
+        weights_dir: str = "weights", max_steps: int | None = None):
+    """The JAX package's entry point: build the ``DataModule`` from ``cfg``
+    and train. The data layer is not ported yet."""
+    raise NotImplementedError(
+        "fit(cfg) needs the data layer (DataModule, MapFreeDataset, the loaders), "
+        "which is not ported yet: it comes with the slice that ports the data layer "
+        "and the train and submission CLIs. Until then call fit_loaders(cfg, "
+        "train_loader, val_loader, ...) with loaders of collated numpy batches.")

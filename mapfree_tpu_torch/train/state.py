@@ -1,0 +1,195 @@
+"""Train state, optimizer, and the train / validation / predict steps (port
+of mapfree_tpu/train/state.py).
+
+The JAX package holds a functional ``TrainState`` pytree and jit-compiled
+steps; here the state holds the ``nn.Module``, its optimizer and scheduler,
+and the steps update it in place and return it, with the JAX package's
+argument order (``step(state, batch)``) and log keys.
+
+- optimizer: Adam(eps=1e-6) + StepLR staircase decay stepped once per
+  optimizer step + optional global-norm clipping written to agree with
+  ``optax.clip_by_global_norm`` (reference model.py:180-187, train.py:61);
+- bfloat16 mode: parameters stay float32 and the forward runs under
+  autocast (inside the net); float32 mode runs with TF32 off on the card;
+- logs stay tensors on the device: nothing in a step waits for the device.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+from torch import nn
+
+from mapfree_tpu_torch.data.augment import augment_generator, make_device_augment
+from mapfree_tpu_torch.losses import combined_loss
+from mapfree_tpu_torch.metrics import pose_error
+from mapfree_tpu_torch.models.blocks import init_weights
+from mapfree_tpu_torch.models.builder import resolve_device, tf32_off
+
+
+@dataclass
+class TrainState:
+    """The net with its optimizer, scheduler and the number of steps taken."""
+
+    net: nn.Module
+    optimizer: torch.optim.Optimizer
+    scheduler: Optional[torch.optim.lr_scheduler.LRScheduler]
+    step: int = 0
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.net.parameters()).device
+
+    def state_dict(self) -> dict:
+        return {
+            "state_dict": self.net.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "scheduler": self.scheduler.state_dict() if self.scheduler else None,
+            "step": int(self.step),
+        }
+
+    def load_state_dict(self, ckpt: dict) -> None:
+        self.net.load_state_dict(ckpt["state_dict"])
+        self.optimizer.load_state_dict(ckpt["optimizer"])
+        if self.scheduler is not None and ckpt.get("scheduler") is not None:
+            self.scheduler.load_state_dict(ckpt["scheduler"])
+        self.step = int(ckpt["step"])
+
+
+def make_lr_schedule(tcfg) -> Callable:
+    """``schedule(step) -> learning rate`` of the optimizer step with that
+    0-based index: the staircase decay the StepLR scheduler applies."""
+    lr = float(tcfg.LR)
+    if tcfg.LR_STEP_INTERVAL:
+        interval, gamma = int(tcfg.LR_STEP_INTERVAL), float(tcfg.LR_STEP_GAMMA)
+        return lambda step: lr * gamma ** (int(step) // interval)
+    return lambda step: lr
+
+
+def make_optimizer(tcfg, params):
+    """(Adam(eps=1e-6), StepLR or None) over ``params``. Both frameworks add
+    eps outside the square root and correct both moments for bias."""
+    optimizer = torch.optim.Adam(list(params), lr=float(tcfg.LR), eps=1e-6)
+    scheduler = None
+    if tcfg.LR_STEP_INTERVAL:
+        scheduler = torch.optim.lr_scheduler.StepLR(
+            optimizer, step_size=int(tcfg.LR_STEP_INTERVAL),
+            gamma=float(tcfg.LR_STEP_GAMMA))
+    return optimizer, scheduler
+
+
+def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
+    """Scale the gradients in place to a global norm of at most ``max_norm``
+    and return the norm before clipping. As optax does: untouched while
+    norm < max_norm, else (g / norm) * max_norm. (``clip_grad_norm_`` divides
+    by norm + 1e-6 instead.) Nothing here waits for the device."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    keep = norm < max_norm
+    one = torch.ones_like(norm)
+    torch._foreach_div_(grads, torch.where(keep, one, norm))
+    torch._foreach_mul_(grads, torch.where(keep, one, one * max_norm))
+    return norm
+
+
+def init_state(net, cfg, generator=None, sample_batch=None, device="cuda") -> TrainState:
+    """Move ``net`` to ``device`` and give it an optimizer. With a
+    ``generator`` the weights are re-initialised from it first.
+    ``sample_batch`` keeps the JAX package's argument order; torch modules
+    need no shape inference, so it is not read."""
+    del sample_batch
+    if generator is not None:
+        init_weights(net, generator)
+    net = net.to(resolve_device(device))
+    optimizer, scheduler = make_optimizer(cfg.TRAINING, net.parameters())
+    return TrainState(net=net, optimizer=optimizer, scheduler=scheduler, step=0)
+
+
+def _precision_context(net, cfg):
+    """TF32 off around a float32 step on the card, so float32 stays float32
+    (cuDNN's default is TF32 on). bfloat16 mode needs no setting: its
+    convolutions run in bf16 under autocast, and its float32 MLP and Kabsch
+    matmuls keep PyTorch's default of matmul TF32 off."""
+    device = next(net.parameters()).device
+    if device.type == "cuda" and cfg.TPU.COMPUTE_DTYPE == "float32":
+        return tf32_off()
+    return contextlib.nullcontext()
+
+
+def _forward_loss(net, cfg, batch):
+    R, t, aux = net(batch["image0"], batch["image1"])
+    preds = dict(aux)
+    preds["R"] = R
+    preds["t"] = t
+    R_loss, t_loss, loss = combined_loss(
+        preds, batch, cfg.TRAINING.ROT_LOSS, cfg.TRAINING.TRANS_LOSS,
+        float(cfg.TRAINING.LAMBDA), s_r=aux.get("s_r"), s_t=aux.get("s_t"))
+    return loss, (R_loss, t_loss, R, t, preds)
+
+
+def make_train_step(net, cfg):
+    """``train_step(state, batch) -> (state, logs)``: one optimizer step on a
+    batch of tensors on the net's device (``image0``, ``image1``, ``T_0to1``).
+    ``logs`` are 0-d tensors on the device."""
+    augment = make_device_augment(cfg)
+    aug_seed = int(cfg.TPU.SEED)
+    max_norm = float(cfg.TRAINING.GRAD_CLIP or 0.0)
+    kendall = float(cfg.TRAINING.LAMBDA) == 0.0
+
+    def train_step(state: TrainState, batch):
+        net = state.net
+        net.train()
+        if augment is not None:
+            device = batch["image0"].device
+            batch = augment(augment_generator(aug_seed, state.step, device), batch)
+        logs = {}
+        if kendall:  # the weights the step was taken with, as the JAX step logs
+            logs["train/s_R"] = net.s_r.detach()[0].clone()
+            logs["train/s_t"] = net.s_t.detach()[0].clone()
+        with _precision_context(net, cfg):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss, (R_loss, t_loss, _, _, _) = _forward_loss(net, cfg, batch)
+            loss.backward()
+            if max_norm > 0:
+                clip_by_global_norm_(list(net.parameters()), max_norm)
+            state.optimizer.step()
+            if state.scheduler is not None:
+                state.scheduler.step()
+        state.step += 1
+        logs = {"train/R_loss": R_loss.detach(), "train/t_loss": t_loss.detach(),
+                "train/loss": loss.detach(), **logs}
+        return state, logs
+
+    return train_step
+
+
+def make_val_step(net, cfg):
+    """Per-batch validation: losses + per-sample pose errors, as tensors on
+    the device (reference model.py:99-112)."""
+
+    def val_step(state: TrainState, batch):
+        state.net.eval()
+        with torch.no_grad(), _precision_context(state.net, cfg):
+            loss, (R_loss, t_loss, R, t, _) = _forward_loss(state.net, cfg, batch)
+            outputs = pose_error(R, t, batch["T_0to1"])
+        outputs["R_loss"] = R_loss
+        outputs["t_loss"] = t_loss
+        outputs["loss"] = loss
+        return outputs
+
+    return val_step
+
+
+def make_predict_step(net, cfg):
+    """Batched inference returning (R, t)."""
+
+    def predict(state: TrainState, batch):
+        state.net.eval()
+        with torch.no_grad(), _precision_context(state.net, cfg):
+            R, t, _ = state.net(batch["image0"], batch["image1"])
+        return R, t
+
+    return predict

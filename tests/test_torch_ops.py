@@ -78,7 +78,7 @@ def test_k1_plain_matches_jax_interpret(name, cq, dtype, atol):
 
 def test_k1_cpu_route_is_the_plain_version_and_counts_nothing():
     q, k, v, grid = map(torch.from_numpy, _qkv(B=1, H=5, W=7, C=8, seed=1))
-    before = pt_corr.launches
+    before = dict(pt_corr.launches)
     fused = pt_corr.fused_correlation_warp(q, k, v, grid)
     plain = pt_corr.fused_correlation_warp_plain(q, k, v, grid)
     for a, b in zip(fused, plain):
@@ -108,10 +108,10 @@ def test_k1_cuda_kernel_matches_plain(cuda_device):
         args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device, td)
                 for a in (q[..., :cq], k[..., :cq], v)]
         g = torch.from_numpy(grid).to(cuda_device)
-        before = pt_corr.launches
+        before = pt_corr.launches[pt_corr.KERNEL]
         out = pt_corr.fused_correlation_warp(*args, g)
         torch.cuda.synchronize()
-        assert pt_corr.launches == before + 1
+        assert pt_corr.launches[pt_corr.KERNEL] == before + 1
         ref = pt_corr.fused_correlation_warp_plain(*args, g)
         for o, r in zip(out, ref):
             torch.testing.assert_close(o, r, atol=atol, rtol=0)
