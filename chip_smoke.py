@@ -6,17 +6,23 @@
 Phases, in order; any failure raises and the script exits nonzero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the CUDA kernels (correlation_fwd: K1; correlation_bwd: K2, K3),
-   compiled at once from this checkout's sources with nvcc, with ptxas's
-   registers and spills per kernel;
+2. build: the CUDA kernels (correlation_fwd: K1; correlation_bwd: K2, K3 in
+   their two designs, tensor cores for bf16 and float32 FMA, and K2's
+   prologue), compiled at once from this checkout's sources with nvcc, with
+   ptxas's registers and spills per kernel;
 3. kernel: K1 (the fused correlation softmax-warp), K2 and K3 (its backward
    row and column passes) against their plain PyTorch versions on the card
-   (ragged HW, Cq != Cv, bf16, the mid-window HW=576, the 3d3d shape, the
-   max-score cotangent alone, two runs of K3 for equal bits), then timed
-   beside the plain versions, one PyTorch library call each
-   (scaled_dot_product_attention and its backward, timed here only) and
-   their bounds: K1 at the inference shape (B=64, HW=6,256, C=32, bf16) and
-   K1, K2, K3 at the training shape (B=10);
+   (ragged HW, HW < 64, Cq != Cv, 8 to 64 channels, bf16 and float32, a bf16
+   shape only the FMA design takes, the mid-window HW=576, the 3d3d shape,
+   the max-score cotangent alone, two runs of K3 for equal bits), each case
+   with the design that served it; the tensor-core design is held to the
+   plain backward with the same bf16 roundings (tight, relative L2) and to
+   the exact one (the tolerance the CPU tests derive), and its prologue's
+   outputs to the plain prologue. Then each is timed beside the plain
+   version, one PyTorch library call (scaled_dot_product_attention and its
+   backward, timed here only) and its bound: K1 at the inference shape
+   (B=64, HW=6,256, C=32, bf16) and K1, K2, K3 at the training shape (B=10),
+   which the tensor-core design must serve;
 4. inference path: the 3d3d model (configs/regression/mapfree/3d3d.yaml over
    configs/mapfree.yaml: ResUNet 3-3-3 bottleneck, 360x270, bf16, batch 64,
    unique refs, planar YUV420 input) with random weights from a seed, driven
@@ -36,8 +42,10 @@ Phases, in order; any failure raises and the script exits nonzero:
 6. device parity: a small float32 model on the GPU and the CPU with the
    same weights and batch, the process's TF32 settings on (the float32
    forward and train step turn TF32 off for themselves): the poses, then the
-   loss and every gradient of one train step; and 8 steps on one batch at
-   LR 1e-3 lower the loss on the card.
+   loss and every gradient of one train step; 8 steps on one batch at
+   LR 1e-3 lower the loss on the card; and one bf16 train step of the same
+   small model with the kernels (the tensor-core backward) against the same
+   step with the plain versions on the card.
 
 The last line of standard output is {"ok": true, "device": {...}}; a
 "kernels" JSON line and the card's name and power limit precede it. With no
@@ -74,12 +82,18 @@ PEAK_EXP_PER_S = 132 * 16 * 1.98e9
 # scores and summation order; bf16 cases feed both sides the same bf16 inputs
 # and both accumulate in f32
 ATOL = {"float32": 5e-5, "bfloat16": 1e-3}
-# K2 and K3 against the plain backward, as a share of each gradient's largest
-# magnitude (or of 1 where that is smaller): both sides take the same inputs
-# and sum in f32; the kernels take exp2 of log2e-scaled scores, get the row
-# constant c from the forward's output instead of summing dP.P, and sum over
-# up to 6,256 terms in another order
-BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-4}
+# K2 and K3 in the FMA design (float32 inputs, and bf16 shapes the
+# tensor-core design does not take) against the plain backward, as a share of
+# each gradient's largest magnitude (or of 1 where that is smaller): both
+# sides take the same inputs and sum in f32; the kernels take exp2 of
+# log2e-scaled scores, get the row constant c from the forward's output
+# instead of summing dP.P, and sum over up to 6,256 terms in another order.
+# The tensor-core design's two tolerances are the package's
+# (ops/correlation.py: MMA_VS_EXACT_TOL, MMA_VS_MATCHED_L2_TOL).
+BWD_TOL = 1e-4
+# the prologue's row constant c = dout . out against the plain prologue's, as
+# a share of the largest |c| (or of 1): 35 float32 terms in another order
+PROLOGUE_TOL = 1e-5
 # device parity of the float32 model: cuDNN and CPU convolutions sum in
 # different orders; the Kabsch solve passes that on to R and t
 PARITY_ATOL = 2e-4
@@ -99,6 +113,23 @@ STEP_GRAD_FLOOR = 1e-6
 STEP_LOSS_RTOL = 1e-4
 STEP_CPU_L2_TOL = 2e-2
 STEP_CPU_MEDIAN_TOL = 1e-3
+# one bf16 train step with K1 and the tensor-core K2 and K3 against the same
+# step with the plain backward after the same K1 forward: the two share their
+# forward to the bit, so the loss is equal and the gradients differ by what
+# K2 and K3 differ. Those round dmain, P and dS to bf16 (at most
+# MMA_VS_EXACT_TOL of a gradient's largest entry, about half a per cent in
+# L2), the layers below are linear in them, and two runs of one step already
+# differ by some 3e-3 in L2 (cuDNN's bf16 weight gradients use atomics): the
+# whole gradient is held to MMA_VS_EXACT_TOL in the L2 norm
+STEP_BF16_BWD_L2_TOL = 2e-2
+# the same step with the plain forward too. K1 and the plain forward agree to
+# 1e-5, but every bf16 layer after them rounds such a difference up to whole
+# bf16 steps (2^-8), so the loss agrees only to a few of those and the
+# gradient, through a loss whose rotation term is an arccos, to several per
+# cent (7.75e-2 in L2 on an H100, the same in each run). This comparison is of
+# K1, not of the backward: it is held loosely, against gross faults only
+STEP_BF16_LOSS_RTOL = 1e-2
+STEP_BF16_L2_TOL = 0.15
 
 
 def log(msg: str) -> None:
@@ -159,16 +190,23 @@ def phase_build() -> None:
 
 
 def ptxas_report(build_log: str) -> list:
-    """(kernel<type, columns per lane>, registers, spilled bytes) per entry
+    """(kernel<template arguments>, registers, spilled bytes) per entry
     function, from ``nvcc -Xptxas -v``'s output."""
     import re
 
     out, kernel, spill = [], "?", 0
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"\d+(correlation_\w+?_kernel)I(f|13__nv_bfloat16)Li(\d+)E", line)
-            kernel = (f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}, {m.group(3)}>"
-                      if m else line.split("'")[1][:70])
+            # the mangled name: <length><name>[I<template arguments>E]
+            m = re.search(
+                r"\d+(correlation_\w+?_kernel)(?:I((?:f|13__nv_bfloat16|Li\d+E)+)E)?", line)
+            if m:
+                tokens = re.findall(r"f|13__nv_bfloat16|Li\d+E", m.group(2) or "")
+                names = [{"f": "f32", "13__nv_bfloat16": "bf16"}.get(tok, tok[2:-1])
+                         for tok in tokens]
+                kernel = m.group(1) + (f"<{', '.join(names)}>" if names else "")
+            else:
+                kernel = line.split("'")[1][:70]
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             spill = int(m.group(1)) + int(m.group(2))
@@ -217,21 +255,30 @@ def _scaled_err(out, ref) -> float:
                for o, r in zip(out, ref))
 
 
+def _rel_l2(out, ref) -> float:
+    """The largest relative L2 error ||out - ref|| / ||ref|| over the tensors."""
+    return max(float((o - r).norm() / r.norm().clamp_min(1e-30)) for o, r in zip(out, ref))
+
+
 def backward_case(q, k, v, grid, dout) -> dict:
-    """K2 and K3 against their plain versions on the same inputs. Where the
-    kernel's first argmax differs from the plain version's, the two scores
-    must be equal within float32 summation noise (the two sum q.k in other
-    orders); the plain version then routes the max-score cotangent as the
-    kernel did, so that the comparison is of the same function."""
+    """K2 and K3 against their plain versions on the same inputs, by the
+    design that serves them. Where the kernel's first argmax differs from the
+    plain version's, the two scores must be equal within float32 summation
+    noise (the two sum q.k in other orders); the plain version then routes
+    the max-score cotangent as the kernel did, so that the comparison is of
+    the same function. The tensor-core design is compared twice: with the
+    plain backward that rounds dmain, P and dS to bf16 as it does (relative
+    L2), and with the exact one; its prologue's outputs are compared too."""
     import torch
 
     from mapfree_tpu_torch.ops import correlation as corr
 
+    design = corr.backward_design(q.dtype, q.shape[-1], v.shape[-1])
     out = torch.cat(corr.fused_correlation_warp(q, k, v, grid), dim=-1)
-    dq, stats, amax = corr.correlation_bwd_rows(q, k, v, grid, out, dout)
-    dk, dv = corr.correlation_bwd_cols(q, k, v, grid, dout, stats, amax)
+    dq, rows = corr.correlation_bwd_rows(q, k, v, grid, out, dout)
+    dk, dv = corr.correlation_bwd_cols(q, k, v, grid, dout, rows)
     torch.cuda.synchronize()
-    amax = amax.long()
+    amax = rows.amax.long()
     if int(amax.min()) < 0 or int(amax.max()) >= q.shape[1]:
         raise AssertionError("K2 wrote an argmax outside [0, HW)")
     s = torch.bmm(q.float(), k.float().transpose(1, 2))
@@ -244,8 +291,56 @@ def backward_case(q, k, v, grid, dout) -> dict:
     del s, top, gap
     dq_p, dk_p, dv_p, _ = corr.fused_correlation_warp_bwd_plain(q, k, v, grid, dout, amax)
     torch.cuda.synchronize()
-    return {"k2_err": _scaled_err([dq], [dq_p]), "k3_err": _scaled_err([dk, dv], [dk_p, dv_p]),
-            "argmax_near_ties": moved, "dk": dk, "dv": dv, "stats": stats, "amax": amax}
+    res = {"design": design, "k2_err": _scaled_err([dq], [dq_p]),
+           "k3_err": _scaled_err([dk, dv], [dk_p, dv_p]), "argmax_near_ties": moved,
+           "dk": dk, "dv": dv, "rows": rows, "tol": BWD_TOL}
+    if design == corr.DESIGN_MMA:
+        del dq_p, dk_p, dv_p
+        dq_m, dk_m, dv_m, _ = corr.fused_correlation_warp_bwd_plain(
+            q, k, v, grid, dout, amax, bf16_roundings=True)
+        torch.cuda.synchronize()
+        res.update(tol=corr.MMA_VS_EXACT_TOL, l2_tol=corr.MMA_VS_MATCHED_L2_TOL,
+                   k2_l2=_rel_l2([dq], [dq_m]), k3_l2=_rel_l2([dk, dv], [dk_m, dv_m]),
+                   k2_matched=_scaled_err([dq], [dq_m]),
+                   k3_matched=_scaled_err([dk, dv], [dk_m, dv_m]))
+        # the prologue: dmain, 1/d and d_ms to the bit, c to summation order
+        # (K2 has filled the statistics' first column since)
+        dmain_p, stats_p = corr.correlation_bwd_prologue_plain(out, dout)
+        if not torch.equal(rows.dmain, dmain_p):
+            raise AssertionError("the prologue's bf16 dmain differs from the plain prologue's")
+        if not torch.equal(rows.stats[..., [1, 3]], stats_p[..., [1, 3]]):
+            raise AssertionError("the prologue's 1/d or d_ms differs from the plain prologue's")
+        res["prologue_c_err"] = _scaled_err([rows.stats[..., 2]], [stats_p[..., 2]])
+        if res["prologue_c_err"] > PROLOGUE_TOL:
+            raise AssertionError(f"the prologue's c is off by {res['prologue_c_err']:.3g}")
+    return res
+
+
+def check_backward(res: dict, what: str) -> None:
+    """Raise if K2 or K3 of a :func:`backward_case` is out of tolerance."""
+    for kernel in ("k2", "k3"):
+        if not res[kernel + "_err"] <= res["tol"]:
+            raise AssertionError(
+                f"{kernel.upper()} disagrees with its plain version in {what}: "
+                f"{res[kernel + '_err']:.3g} > {res['tol']:g} of the largest gradient")
+        if "l2_tol" in res and not res[kernel + "_l2"] <= res["l2_tol"]:
+            raise AssertionError(
+                f"{kernel.upper()} disagrees with the plain backward of the same roundings "
+                f"in {what}: relative L2 {res[kernel + '_l2']:.3g} > {res['l2_tol']:g}")
+
+
+def _case_line(res: dict) -> str:
+    """One case's backward errors, with the design that served it."""
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    line = (f"design {res['design']}; K2 {res['k2_err']:.3g}, K3 {res['k3_err']:.3g} of the "
+            f"largest gradient vs the exact plain backward (tol {res['tol']:g})")
+    if res["design"] == corr.DESIGN_MMA:
+        line += (f"; vs the plain backward with the kernels' bf16 roundings: relative L2 K2 "
+                 f"{res['k2_l2']:.3g}, K3 {res['k3_l2']:.3g} (tol {res['l2_tol']:g}), largest "
+                 f"entry K2 {res['k2_matched']:.3g}, K3 {res['k3_matched']:.3g}; prologue c "
+                 f"{res['prologue_c_err']:.3g} (tol {PROLOGUE_TOL:g})")
+    return line + f"; argmax near-ties {res['argmax_near_ties']}"
 
 
 def phase_kernel_cases() -> dict:
@@ -257,12 +352,20 @@ def phase_kernel_cases() -> dict:
 
     cases = {corr.KERNEL: [], corr.KERNEL_BWD_ROWS: [], corr.KERNEL_BWD_COLS: []}
 
-    def record(kernel, name, err, atol):
+    def record(kernel, name, err, atol, **more):
         cases[kernel].append({"case": name, "max_abs_err": err, "atol": atol,
-                              "ok": err <= atol})
+                              "ok": err <= atol, **more})
         if not err <= atol:
             raise AssertionError(f"{kernel} disagrees with its plain version in case "
                                  f"{name}: {err:.3g} > {atol:g}")
+
+    def record_backward(name, res):
+        for kernel, key in ((corr.KERNEL_BWD_ROWS, "k2"), (corr.KERNEL_BWD_COLS, "k3")):
+            more = {"design": res["design"]}
+            if res["design"] == corr.DESIGN_MMA:
+                more.update(matched_rel_l2=res[key + "_l2"], matched_rel_l2_tol=res["l2_tol"])
+            record(kernel, name, res[key + "_err"], res["tol"], **more)
+        check_backward(res, f"case {name}")
 
     for i, (name, (B, H, W, cq, cv, dtype)) in enumerate({
         "f32_hw48_c16": (2, 6, 8, 16, 16, "float32"),
@@ -272,6 +375,13 @@ def phase_kernel_cases() -> dict:
         "f32_hw576_b1_c8": (1, 24, 24, 8, 8, "float32"),
         "f32_hw6256_b2": (2, 92, 68, 32, 32, "float32"),
         "bf16_hw6256_b2": (2, 92, 68, 32, 32, "bfloat16"),
+        "bf16_hw48_c16": (2, 6, 8, 16, 16, "bfloat16"),
+        "bf16_q16_v32": (2, 10, 13, 16, 32, "bfloat16"),
+        "bf16_hw576_b1_c8": (1, 24, 24, 8, 8, "bfloat16"),
+        "bf16_hw130_c64": (2, 10, 13, 64, 64, "bfloat16"),
+        # K1 takes Cv + 2 <= 128, so 120 is the widest v the backward is given
+        "bf16_hw130_q128_v120": (1, 10, 13, 128, 120, "bfloat16"),
+        "bf16_hw130_c12_fma": (2, 10, 13, 12, 12, "bfloat16"),
     }.items()):
         q, k, v, grid = _kernel_inputs(B, H, W, cq, cv, dtype, seed=i)
         out = corr.fused_correlation_warp(q, k, v, grid)
@@ -281,25 +391,23 @@ def phase_kernel_cases() -> dict:
         k1_err = _max_err(out, ref)
         del out, ref
         res = backward_case(q, k, v, grid, _cotangent(B, H * W, cv, seed=50 + i))
+        expected = corr.DESIGN_FMA if dtype == "float32" or name.endswith("_fma") \
+            else corr.DESIGN_MMA
+        if res["design"] != expected:
+            raise AssertionError(f"case {name} was served by the {res['design']} design")
         log(f"[kernel] {name}: K1 max |kernel - plain| = {k1_err:.3g} (atol "
-            f"{ATOL[dtype]:g}); K2 {res['k2_err']:.3g}, K3 {res['k3_err']:.3g} of the "
-            f"largest gradient (tol {BWD_TOL[dtype]:g}); argmax near-ties "
-            f"{res['argmax_near_ties']}")
+            f"{ATOL[dtype]:g}); {_case_line(res)}")
         record(corr.KERNEL, name, k1_err, ATOL[dtype])
-        record(corr.KERNEL_BWD_ROWS, name, res["k2_err"], BWD_TOL[dtype])
-        record(corr.KERNEL_BWD_COLS, name, res["k3_err"], BWD_TOL[dtype])
-        if name == "f32_hw130":
+        record_backward(name, res)
+        if name in ("f32_hw130", "bf16_hw130"):
             # the argmax route alone: only the max score has a cotangent
             only = backward_case(q, k, v, grid, _cotangent(B, H * W, cv, 70, ms_only=True))
-            log(f"[kernel] {name}, max-score cotangent only: K2 {only['k2_err']:.3g}, "
-                f"K3 {only['k3_err']:.3g}")
-            record(corr.KERNEL_BWD_ROWS, name + "_ms_only", only["k2_err"], BWD_TOL[dtype])
-            record(corr.KERNEL_BWD_COLS, name + "_ms_only", only["k3_err"], BWD_TOL[dtype])
+            log(f"[kernel] {name}, max-score cotangent only: {_case_line(only)}")
+            record_backward(name + "_ms_only", only)
         if name == "bf16_hw6256_b2":
             # K3 sums in a fixed order: a second run gives the same bits
             dout = _cotangent(B, H * W, cv, seed=50 + i)
-            dk2, dv2 = corr.correlation_bwd_cols(q, k, v, grid, dout, res["stats"],
-                                                 res["amax"].int())
+            dk2, dv2 = corr.correlation_bwd_cols(q, k, v, grid, dout, res["rows"])
             torch.cuda.synchronize()
             same = torch.equal(dk2, res["dk"]) and torch.equal(dv2, res["dv"])
             log(f"[kernel] {name}: two runs of K3 give equal bits: {same}")
@@ -389,17 +497,18 @@ def time_backward(B, H, W, C, dtype, seed) -> tuple:
     q, k, v, grid = _kernel_inputs(B, H, W, C, C, dtype, seed=seed)
     dout = _cotangent(B, HW, C, seed=seed + 1)
     res = backward_case(q, k, v, grid, dout)
-    for kernel, err in (("K2", res["k2_err"]), ("K3", res["k3_err"])):
-        if err > BWD_TOL[dtype]:
-            raise AssertionError(f"{kernel} disagrees with its plain version at B={B} HW={HW}")
-    stats, amax = res["stats"], res["amax"].int()
+    log(f"[kernel] K2, K3 B={B} HW={HW} C={C} {dtype}: {_case_line(res)}")
+    if dtype == "bfloat16" and res["design"] != corr.DESIGN_MMA:
+        raise AssertionError(f"B={B} HW={HW} C={C} {dtype} is not served by the tensor-core "
+                             f"design but by {res['design']}")
+    check_backward(res, f"B={B} HW={HW}")
+    rows, design = res["rows"], res["design"]
     k2_err, k3_err = res["k2_err"], res["k3_err"]
     del res
     out = torch.cat(corr.fused_correlation_warp(q, k, v, grid), dim=-1)
 
     k2_ms = cuda_time_ms(lambda: corr.correlation_bwd_rows(q, k, v, grid, out, dout), iters=10)
-    k3_ms = cuda_time_ms(
-        lambda: corr.correlation_bwd_cols(q, k, v, grid, dout, stats, amax), iters=10)
+    k3_ms = cuda_time_ms(lambda: corr.correlation_bwd_cols(q, k, v, grid, dout, rows), iters=10)
     k2_plain = cuda_time_ms(lambda: corr.correlation_bwd_rows_plain(q, k, v, grid, dout), iters=3)
     k3_plain = cuda_time_ms(lambda: corr.correlation_bwd_cols_plain(q, k, v, grid, dout), iters=3)
     torch.cuda.empty_cache()
@@ -411,10 +520,10 @@ def time_backward(B, H, W, C, dtype, seed) -> tuple:
     library_ms = cuda_time_ms(
         lambda: torch.autograd.grad(o, (qh, kh, vh), do, retain_graph=True), iters=10)
 
-    common = _nbytes(q, k, v, grid, dout, stats, amax)
+    common = _nbytes(q, k, v, grid, dout, rows.stats, rows.amax)
     k2_bound_ms, k2_by = k2_bound(B, HW, C, C, dtype, common + _nbytes(out) + B * HW * C * 4)
     k3_bound_ms, k3_by = k3_bound(B, HW, C, C, dtype, common + 2 * B * HW * C * 4)
-    shape = f"B={B} HW={HW} C={C} {dtype}"
+    shape = f"B={B} HW={HW} C={C} {dtype}, design {design}"
     log(f"[kernel] K2 {shape}: err {k2_err:.3g}; kernel_ms={k2_ms:.3f} "
         f"plain_ms={k2_plain:.3f} bound_ms={k2_bound_ms:.4f} ({k2_by}), "
         f"{100 * k2_bound_ms / k2_ms:.1f}% of its bound")
@@ -425,10 +534,10 @@ def time_backward(B, H, W, C, dtype, seed) -> tuple:
         f"{library_ms:.3f} ms")
     k2 = {"ms": k2_ms, "plain_ms": k2_plain, "library_ms": library_ms,
           "library_covers": "K2+K3", "bound_ms": k2_bound_ms, "bound_by": k2_by,
-          "max_abs_err": k2_err, "shape": shape}
+          "max_abs_err": k2_err, "shape": shape, "design": design}
     k3 = {"ms": k3_ms, "plain_ms": k3_plain, "library_ms": library_ms,
           "library_covers": "K2+K3", "bound_ms": k3_bound_ms, "bound_by": k3_by,
-          "max_abs_err": k3_err, "shape": shape}
+          "max_abs_err": k3_err, "shape": shape, "design": design}
     return k2, k3
 
 
@@ -573,8 +682,16 @@ def profile_window(fn, what: str, n: int = 3) -> None:
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     totals: dict = {}
-    for evt in prof.events():  # device-side events only: the kernels and copies
+    events = list(prof.events())
+    host_names = {evt.name for evt in events if evt.device_type != DeviceType.CUDA}
+    ranges_us = 0.0
+    for evt in events:  # device-side events only: the kernels and copies
         if evt.device_type == DeviceType.CUDA:
+            if evt.name in host_names:
+                # a host annotation mirrored on the device's timeline (the
+                # optimizer's step): a range over kernels counted below
+                ranges_us += evt.time_range.elapsed_us()
+                continue
             us, count = totals.get(evt.name, (0.0, 0))
             totals[evt.name] = (us + evt.time_range.elapsed_us(), count + 1)
     rows = [(us, count, name) for name, (us, count) in totals.items()]
@@ -582,10 +699,12 @@ def profile_window(fn, what: str, n: int = 3) -> None:
     busy = sum(r[0] for r in rows)
     log(f"[profile] {n} {what}s: wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), {len(rows)} kinds of "
-        f"kernel, {sum(r[1] for r in rows) // n} launches per {what}")
-    for us, count, key in rows[:15]:
-        log(f"[profile] {us / 1e3 / n:9.3f} ms/{what} {100 * us / busy:5.1f}%  "
-            f"x{count // n:<4d} {key[:90]}")
+        f"kernel, {sum(r[1] for r in rows) // n} launches per {what}; annotation ranges "
+        f"left out: {ranges_us / 1e3:.2f} ms")
+    for rank, (us, count, key) in enumerate(rows):
+        if rank < 15 or "correlation_" in key:  # this package's kernels wherever they rank
+            log(f"[profile] {us / 1e3 / n:9.3f} ms/{what} {100 * us / busy:5.1f}%  "
+                f"x{count // n:<4d} {key[:90]}")
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -771,17 +890,20 @@ def phase_device_parity() -> None:
 
 
 @contextlib.contextmanager
-def plain_versions_on_the_card():
+def plain_versions_on_the_card(forward: bool = True):
     """Inside the block the correlation Function computes the plain versions
-    on CUDA tensors too (and counts no launch): the yardstick for a whole
-    train step. Used here only; the port has no such switch."""
+    on CUDA tensors too (and counts no launch for them): the yardstick for a
+    whole train step. With ``forward=False`` K1 still runs and only the
+    backward is the plain one, so that the two steps share their forward to
+    the bit. Used here only; the port has no such switch."""
     from mapfree_tpu_torch.ops import correlation as corr
 
     saved = corr._forward_cuda, corr.correlation_bwd_rows, corr.correlation_bwd_cols
-    corr._forward_cuda = corr._plain_buffer
+    if forward:
+        corr._forward_cuda = corr._plain_buffer
     corr.correlation_bwd_rows = lambda q, k, v, grid, out, dout: (
-        corr.correlation_bwd_rows_plain(q, k, v, grid, dout)[0], None, None)
-    corr.correlation_bwd_cols = lambda q, k, v, grid, dout, stats, amax: (
+        corr.correlation_bwd_rows_plain(q, k, v, grid, dout)[0], None)
+    corr.correlation_bwd_cols = lambda q, k, v, grid, dout, rows: (
         corr.correlation_bwd_cols_plain(q, k, v, grid, dout))
     try:
         yield
@@ -878,6 +1000,78 @@ def phase_train_parity() -> None:
         raise AssertionError("8 steps on one batch did not lower the loss")
 
 
+def phase_train_parity_bf16() -> None:
+    """One bf16 train step of the small model on the card with K1 and the
+    tensor-core K2 and K3, against the same step with the plain versions on
+    the card: the loss and the whole gradient in the L2 norm. A second run of
+    the kernels' step gives the floor."""
+    import torch
+
+    from mapfree_tpu_torch.models.regression import build_regression_net
+    from mapfree_tpu_torch.ops import correlation as corr
+    from mapfree_tpu_torch.train import init_state, make_train_step
+    from mapfree_tpu_torch.train.fit import _device_batch
+
+    cfg = load_cfg({"ENCODER.NUM_BLOCKS": "1-1-1", "DATASET.HEIGHT": 96,
+                    "DATASET.WIDTH": 72, "TRAINING.BATCH_SIZE": 4, "TRAINING.LR": 1e-3,
+                    "TRAINING.GRAD_CLIP": 1.0, "TPU.COMPUTE_DTYPE": "bfloat16",
+                    "TPU.SEED": SEED})
+    batch = train_batches(1, 4, 96, 72, seed=SEED + 21)[0]
+    loss, grads = {}, {}
+
+    def one_step(name):
+        net = build_regression_net(cfg)
+        state = init_state(net, cfg, torch.Generator().manual_seed(SEED), device="cuda")
+        _, logs = make_train_step(net, cfg)(state, _device_batch(batch, torch.device("cuda"), 4))
+        loss[name] = float(logs["train/loss"])
+        grads[name] = {k: p.grad.detach().float().cpu() for k, p in net.named_parameters()}
+
+    designs = []
+    rows_kernel = corr.correlation_bwd_rows
+
+    def rows_noting_the_design(q, k, v, grid, out, dout):
+        designs.append(corr.backward_design(q.dtype, q.shape[-1], v.shape[-1]))
+        return rows_kernel(q, k, v, grid, out, dout)
+
+    corr.reset_launches()
+    corr.correlation_bwd_rows = rows_noting_the_design
+    try:
+        one_step("kernels")
+    finally:
+        corr.correlation_bwd_rows = rows_kernel
+    one_step("again")
+    _expect_launches(corr, {corr.KERNEL: 2, corr.KERNEL_BWD_ROWS: 2, corr.KERNEL_BWD_COLS: 2},
+                     "two bf16 train steps on the card")
+    if designs != [corr.DESIGN_MMA]:
+        raise AssertionError(f"the bf16 train step's backward ran the designs {designs}")
+    with plain_versions_on_the_card(forward=False):
+        one_step("plain_backward")
+    with plain_versions_on_the_card():
+        one_step("plain")
+
+    _, floor = _grad_errors(grads["again"], grads["kernels"])
+    per_b, l2_b = _grad_errors(grads["kernels"], grads["plain_backward"])
+    per, l2 = _grad_errors(grads["kernels"], grads["plain"])
+    rel = abs(loss["kernels"] - loss["plain"]) / abs(loss["plain"])
+    log(f"[parity] bf16 train step, tensor-core K2 and K3 vs the plain backward after the same "
+        f"K1 forward: loss {loss['kernels']:.6f} vs {loss['plain_backward']:.6f}; whole "
+        f"gradient {l2_b:.2e} in L2 (tol {STEP_BF16_BWD_L2_TOL:g}); worst tensor "
+        f"{per_b[0][0]:.2e} of its largest entry at {per_b[0][1]}, median tensor "
+        f"{per_b[len(per_b) // 2][0]:.2e}; a second run of the kernels' step differs by "
+        f"{floor:.2e} in L2")
+    log(f"[parity] bf16 train step, kernels vs plain versions on the card, forward too: loss "
+        f"{loss['kernels']:.6f} vs {loss['plain']:.6f} (rel {rel:.2e}, tol "
+        f"{STEP_BF16_LOSS_RTOL:g}); whole gradient {l2:.2e} in L2 (tol {STEP_BF16_L2_TOL:g}); "
+        f"worst tensor {per[0][0]:.2e} at {per[0][1]}, median tensor "
+        f"{per[len(per) // 2][0]:.2e}")
+    if loss["kernels"] != loss["plain_backward"]:
+        raise AssertionError("two bf16 steps with the same K1 forward differ in the loss")
+    if not (np.isfinite(loss["kernels"]) and rel <= STEP_BF16_LOSS_RTOL
+            and l2_b <= STEP_BF16_BWD_L2_TOL and l2 <= STEP_BF16_L2_TOL):
+        raise AssertionError("the bf16 train step with the kernels disagrees with the plain "
+                             "versions")
+
+
 def main() -> None:
     try:
         import torch
@@ -906,6 +1100,7 @@ def main() -> None:
     train_launches = phase_train_path()
     phase_device_parity()
     phase_train_parity()
+    phase_train_parity_bf16()
 
     from mapfree_tpu_torch.ops import correlation as corr
 

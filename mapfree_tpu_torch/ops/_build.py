@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exports plain C functions and is compiled on its
 own by ``nvcc`` for sm_90a into a shared library under ``ops/_build/``
-(a directory git ignores), named by a hash of the source and the flags, so
-an edited source rebuilds and an unchanged one loads the existing library.
+(a directory git ignores), named by a hash of the source, the headers it
+includes from ``csrc/`` and the flags, so an edited source or header rebuilds
+and an unchanged one loads the existing library.
 No PyTorch headers are included: a build takes seconds, not minutes.
 """
 
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -52,6 +54,33 @@ def find_nvcc() -> str:
         "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def source_files(src: Path) -> list:
+    """``src`` and every file it includes with quotes, directly or through
+    another such file, resolved beside the including file."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_text()):
+            if (path.parent / inc).is_file():
+                todo.append(path.parent / inc)
+    return seen
+
+
+def source_digest(src: Path) -> str:
+    """Names a build: changes when ``src``, a header it includes or a
+    compiler flag changes."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(source_files(src)):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed and return the loaded library.
     Each library has a lock of its own, so different sources build at once."""
@@ -62,9 +91,7 @@ def load_library(name: str) -> ctypes.CDLL:
         if lib is not None:
             return lib
         src = CSRC_DIR / f"{name}.cu"
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so = BUILD_DIR / f"lib{name}-{digest}.so"
+        so = BUILD_DIR / f"lib{name}-{source_digest(src)}.so"
         if so.is_file():
             build_seconds[name] = 0.0
         else:

@@ -190,9 +190,16 @@ def test_row_and_column_plain_versions_are_the_parts_of_the_whole():
 @pytest.mark.cuda
 def test_cuda_backward_kernels_match_plain(cuda_device):
     """K2 and K3 on the card against the plain backward, through the
-    Function: 1e-4 of each gradient's largest magnitude (same inputs, f32
-    sums in another order, exp2 of log2e-scaled scores)."""
-    for cq, td in ((32, torch.float32), (16, torch.float32), (32, torch.bfloat16)):
+    Function, by the design that serves the inputs. The FMA design (float32):
+    1e-4 of each gradient's largest magnitude (same inputs, f32 sums in
+    another order, exp2 of log2e-scaled scores). The tensor-core design
+    (bf16) takes the card check's two tolerances: the relative L2
+    ``MMA_VS_MATCHED_L2_TOL`` against the plain backward with the same bf16
+    roundings and ``MMA_VS_EXACT_TOL`` of the largest magnitude against the
+    exact one, each widened by the Function's rounding of its gradients to
+    bf16 (2^-8 of an entry)."""
+    for cq, td in ((32, torch.float32), (16, torch.float32), (32, torch.bfloat16),
+                   (16, torch.bfloat16)):
         q, k, v, grid, w = _inputs(2, 10, 13, 32, seed=9)
         q, k = q[..., :cq], k[..., :cq]
         before = dict(pt_corr.launches)
@@ -205,10 +212,19 @@ def test_cuda_backward_kernels_match_plain(cuda_device):
         args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device, td)
                 for a in (q, k, v)]
         dout = torch.cat([torch.from_numpy(x) for x in w], dim=-1).to(cuda_device)
-        ref = pt_corr.fused_correlation_warp_bwd_plain(
-            *args, torch.from_numpy(grid).to(cuda_device), dout)[:3]
-        for g, r in zip(grads, ref):
-            tol = 1e-4 * max(1.0, float(r.abs().max()))
-            if td == torch.bfloat16:  # the Function rounds its gradients to bf16
-                tol = 2 ** -8 * max(1.0, float(r.abs().max()))
+        grid_t = torch.from_numpy(grid).to(cuda_device)
+        ref = pt_corr.fused_correlation_warp_bwd_plain(*args, grid_t, dout)[:3]
+        if td == torch.float32:
+            assert pt_corr.backward_design(td, cq, 32) == pt_corr.DESIGN_FMA
+            for g, r in zip(grads, ref):
+                torch.testing.assert_close(
+                    g, r, atol=1e-4 * max(1.0, float(r.abs().max())), rtol=0)
+            continue
+        assert pt_corr.backward_design(td, cq, 32) == pt_corr.DESIGN_MMA
+        matched = pt_corr.fused_correlation_warp_bwd_plain(
+            *args, grid_t, dout, bf16_roundings=True)[:3]
+        for g, r, m in zip(grads, ref, matched):
+            tol = (pt_corr.MMA_VS_EXACT_TOL + 2 ** -8) * max(1.0, float(r.abs().max()))
             torch.testing.assert_close(g.float(), r, atol=tol, rtol=0)
+            rel_l2 = float((g.float() - m).norm() / m.norm())
+            assert rel_l2 <= pt_corr.MMA_VS_MATCHED_L2_TOL + 2 ** -8, rel_l2
