@@ -6,29 +6,30 @@
 Phases, in order; any failure raises and the script exits nonzero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the CUDA kernels (correlation_fwd: K1; correlation_bwd: K2, K3 in
-   their two designs, tensor cores for bf16 and float32 FMA, and K2's
+2. build: the CUDA kernels (correlation_fwd: K1; correlation_bwd: K2, K3;
+   each in two designs, tensor cores for bf16 and float32 FMA, and K2's
    prologue), compiled at once from this checkout's sources with nvcc, with
-   ptxas's registers and spills per kernel;
+   ptxas's registers and spills per kernel instantiation;
 3. kernel: K1 (the fused correlation softmax-warp), K2 and K3 (its backward
    row and column passes) against their plain PyTorch versions on the card
-   (ragged HW, HW < 64, Cq != Cv, 8 to 64 channels, bf16 and float32, a bf16
-   shape only the FMA design takes, the mid-window HW=576, the 3d3d shape,
+   (ragged HW, HW < 64, Cq != Cv, 8 to 128 channels, bf16 and float32, a bf16
+   shape only the FMA designs take, the mid-window HW=576, the 3d3d shape,
    the max-score cotangent alone, two runs of K3 for equal bits), each case
-   with the design that served it; the tensor-core design is held to the
-   plain backward with the same bf16 roundings (tight, relative L2) and to
-   the exact one (the tolerance the CPU tests derive), and its prologue's
-   outputs to the plain prologue. Then each is timed beside the plain
-   version, one PyTorch library call (scaled_dot_product_attention and its
-   backward, timed here only) and its bound: K1 at the inference shape
-   (B=64, HW=6,256, C=32, bf16) and K1, K2, K3 at the training shape (B=10),
-   which the tensor-core design must serve;
+   with the design that served it; a tensor-core design is held to the
+   plain version with the same bf16 roundings (tight, relative L2) and to
+   the exact one (the tolerances the CPU tests derive), K1's max score to the
+   exact one at float32 tightness, and K2's prologue's outputs to the plain
+   prologue. Then each is timed beside the plain version, one PyTorch
+   library call (scaled_dot_product_attention and its backward, timed here
+   only) and its bound: K1 at the inference shape (B=64, HW=6,256, C=32,
+   bf16) in both designs, and K1, K2, K3 at the training shape (B=10), which
+   the tensor-core designs must serve;
 4. inference path: the 3d3d model (configs/regression/mapfree/3d3d.yaml over
    configs/mapfree.yaml: ResUNet 3-3-3 bottleneck, 360x270, bf16, batch 64,
    unique refs, planar YUV420 input) with random weights from a seed, driven
    through build_model -> predict -> save_submission on synthetic pairs;
    every pose must be finite with det(R) = 1 and K1 must have launched once
-   per batch; then a torch.profiler window over three forwards prints the
+   per batch, in its tensor-core design; then a torch.profiler window over three forwards prints the
    device time by kernel and the device's busy share;
 5. training path: the same model at its training batch of 10 (rot_angle_loss
    + trans_l1_loss, Adam 1e-4), on uint8 RGB noise with random poses: timed
@@ -36,7 +37,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    memory, the loss at each step, a profiler window over three steps), then
    the fit loop with validation passes and checkpoints in a temporary
    directory. Every loss must be finite, K1, K2 and K3 must each have
-   launched once per train step and K1 once per validation batch, the
+   launched once per train step (all three in their tensor-core designs) and
+   K1 once per validation batch, the
    parameters and BatchNorm statistics must have changed, and the restored
    ``last`` checkpoint must reproduce the validation loss;
 6. device parity: a small float32 model on the GPU and the CPU with the
@@ -44,8 +46,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    forward and train step turn TF32 off for themselves): the poses, then the
    loss and every gradient of one train step; 8 steps on one batch at
    LR 1e-3 lower the loss on the card; and one bf16 train step of the same
-   small model with the kernels (the tensor-core backward) against the same
-   step with the plain versions on the card.
+   small model with the kernels (the tensor-core designs) against the same
+   step with the plain versions on the card (the forward with K1's bf16
+   rounding of P).
 
 The last line of standard output is {"ok": true, "device": {...}}; a
 "kernels" JSON line and the card's name and power limit precede it. With no
@@ -78,9 +81,12 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_EXP_PER_S = 132 * 16 * 1.98e9
 
-# K1 against its plain version: f32 outputs differ by exp2 of log2e-scaled
-# scores and summation order; bf16 cases feed both sides the same bf16 inputs
-# and both accumulate in f32
+# K1's FMA design against its plain version: f32 outputs differ by exp2 of
+# log2e-scaled scores and summation order; bf16 cases feed both sides the same
+# bf16 inputs and both accumulate in f32. The tensor-core design's two
+# tolerances are the package's (ops/correlation.py: MMA_FWD_VS_EXACT_TOL,
+# MMA_FWD_VS_MATCHED_L2_TOL); its max score, summed from float32 P, is held
+# to the exact plain forward at ATOL["float32"]
 ATOL = {"float32": 5e-5, "bfloat16": 1e-3}
 # K2 and K3 in the FMA design (float32 inputs, and bf16 shapes the
 # tensor-core design does not take) against the plain backward, as a share of
@@ -122,12 +128,15 @@ STEP_CPU_MEDIAN_TOL = 1e-3
 # differ by some 3e-3 in L2 (cuDNN's bf16 weight gradients use atomics): the
 # whole gradient is held to MMA_VS_EXACT_TOL in the L2 norm
 STEP_BF16_BWD_L2_TOL = 2e-2
-# the same step with the plain forward too. K1 and the plain forward agree to
-# 1e-5, but every bf16 layer after them rounds such a difference up to whole
-# bf16 steps (2^-8), so the loss agrees only to a few of those and the
-# gradient, through a loss whose rotation term is an arccos, to several per
-# cent (7.75e-2 in L2 on an H100, the same in each run). This comparison is of
-# K1, not of the backward: it is held loosely, against gross faults only
+# the same step with the plain forward too, which rounds P to bf16 as K1's
+# tensor-core design does (fused_correlation_warp_plain(bf16_roundings=True)).
+# K1 and that forward agree to some 1e-5 in L2, but every bf16 layer after
+# them rounds such a difference up to whole bf16 steps (2^-8), so the loss
+# agrees only to a few of those and the gradient, through a loss whose
+# rotation term is an arccos, to several per cent (7.75e-2 in L2 on an H100
+# with the FMA K1 against the exact plain forward, the same in each run).
+# This comparison is of K1, not of the backward: it is held loosely, against
+# gross faults only
 STEP_BF16_LOSS_RTOL = 1e-2
 STEP_BF16_L2_TOL = 0.15
 
@@ -260,21 +269,78 @@ def _rel_l2(out, ref) -> float:
     return max(float((o - r).norm() / r.norm().clamp_min(1e-30)) for o, r in zip(out, ref))
 
 
+def forward_case(q, k, v, grid) -> dict:
+    """K1 against its plain version on the same inputs, by the design that
+    serves them. The FMA design is held to the exact plain forward at ATOL;
+    the tensor-core design to the plain forward with its bf16 rounding of P
+    (relative L2 of warped and pos), to the exact one (a share of each
+    output's largest entry) and, in its max score, to the exact one at
+    float32 tightness."""
+    import torch
+
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    design = corr.forward_design(q.dtype, q.shape[-1], v.shape[-1])
+    out = corr.fused_correlation_warp(q, k, v, grid)
+    torch.cuda.synchronize()
+    ref = corr.fused_correlation_warp_plain(q, k, v, grid)
+    torch.cuda.synchronize()
+    res = {"design": design, "max_abs_err": _max_err(out, ref)}
+    if design == corr.DESIGN_MMA:
+        matched = corr.fused_correlation_warp_plain(q, k, v, grid, bf16_roundings=True)
+        torch.cuda.synchronize()
+        res.update(err=_scaled_err(out[:2], ref[:2]), tol=corr.MMA_FWD_VS_EXACT_TOL,
+                   l2=_rel_l2(out[:2], matched[:2]), l2_tol=corr.MMA_FWD_VS_MATCHED_L2_TOL,
+                   ms_err=_max_err(out[2:], ref[2:]), ms_tol=ATOL["float32"])
+    else:
+        res.update(err=res["max_abs_err"], tol=ATOL[str(q.dtype).split(".")[-1]])
+    return res
+
+
+def check_forward(res: dict, what: str) -> None:
+    """Raise if K1 in a :func:`forward_case` is out of tolerance."""
+    if not res["err"] <= res["tol"]:
+        raise AssertionError(f"K1 ({res['design']}) disagrees with the exact plain forward in "
+                             f"{what}: {res['err']:.3g} > {res['tol']:g}")
+    if "l2_tol" in res and not res["l2"] <= res["l2_tol"]:
+        raise AssertionError(f"K1 disagrees with the plain forward of the same rounding in "
+                             f"{what}: relative L2 {res['l2']:.3g} > {res['l2_tol']:g}")
+    if "ms_tol" in res and not res["ms_err"] <= res["ms_tol"]:
+        raise AssertionError(f"K1's max score disagrees with the exact plain forward in {what}: "
+                             f"{res['ms_err']:.3g} > {res['ms_tol']:g}")
+
+
+def _forward_line(res: dict) -> str:
+    """One case's forward errors, with the design that served it."""
+    line = f"K1 design {res['design']}: "
+    if "l2_tol" in res:
+        return line + (f"{res['err']:.3g} of the largest entry vs the exact plain forward "
+                       f"(tol {res['tol']:g}); relative L2 {res['l2']:.3g} vs the plain forward "
+                       f"with the kernel's bf16 rounding (tol {res['l2_tol']:g}); max score "
+                       f"{res['ms_err']:.3g} (tol {res['ms_tol']:g})")
+    return line + f"max |kernel - plain| = {res['err']:.3g} (atol {res['tol']:g})"
+
+
 def backward_case(q, k, v, grid, dout) -> dict:
     """K2 and K3 against their plain versions on the same inputs, by the
-    design that serves them. Where the kernel's first argmax differs from the
-    plain version's, the two scores must be equal within float32 summation
-    noise (the two sum q.k in other orders); the plain version then routes
-    the max-score cotangent as the kernel did, so that the comparison is of
-    the same function. The tensor-core design is compared twice: with the
-    plain backward that rounds dmain, P and dS to bf16 as it does (relative
-    L2), and with the exact one; its prologue's outputs are compared too."""
+    design that serves them, given the exact forward's buffer. Where the
+    kernel's first argmax differs from the plain version's, the two scores
+    must be equal within float32 summation noise (the two sum q.k in other
+    orders); the plain version then routes the max-score cotangent as the
+    kernel did, so that the comparison is of the same function. The
+    tensor-core design is compared twice: with the plain backward that rounds
+    dmain, P and dS to bf16 as it does (relative L2), and with the exact one;
+    its prologue's outputs are compared too."""
     import torch
 
     from mapfree_tpu_torch.ops import correlation as corr
 
     design = corr.backward_design(q.dtype, q.shape[-1], v.shape[-1])
-    out = torch.cat(corr.fused_correlation_warp(q, k, v, grid), dim=-1)
+    # K2 and K3 take the forward's buffer (1/d and c = dout . out); they get
+    # the exact plain forward's, because the plain backward forms c from its
+    # own float32 P: K1's tensor-core design rounds P to bf16, which moves c
+    # by some 1e-3 relative and would stand between the two backwards
+    out = corr._plain_buffer(q, k, v, grid)
     dq, rows = corr.correlation_bwd_rows(q, k, v, grid, out, dout)
     dk, dv = corr.correlation_bwd_cols(q, k, v, grid, dout, rows)
     torch.cuda.synchronize()
@@ -313,6 +379,37 @@ def backward_case(q, k, v, grid, dout) -> dict:
         res["prologue_c_err"] = _scaled_err([rows.stats[..., 2]], [stats_p[..., 2]])
         if res["prologue_c_err"] > PROLOGUE_TOL:
             raise AssertionError(f"the prologue's c is off by {res['prologue_c_err']:.3g}")
+    return res
+
+
+def handoff_case(q, k, v, grid, dout) -> dict:
+    """K2 and K3 given the buffer that K1's tensor-core design writes, as on
+    the train path, against the exact plain backward: the K1 -> K2 hand-off.
+    K2's row constant c = dout . out then comes from warped with P rounded to
+    bf16; the same kernels given the exact buffer show what that adds. Held to
+    MMA_VS_EXACT_TOL of each gradient's largest entry; the relative L2 errors
+    are reported."""
+    import torch
+
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    grads, amax = {}, None
+    for source, out in (("k1", corr._forward_cuda(q, k, v, grid)),
+                        ("exact", corr._plain_buffer(q, k, v, grid))):
+        dq, rows = corr.correlation_bwd_rows(q, k, v, grid, out, dout)
+        dk, dv = corr.correlation_bwd_cols(q, k, v, grid, dout, rows)
+        grads[source] = (dq, dk, dv)
+        amax = rows.amax.long() if amax is None else amax  # K2's, as in backward_case
+        del out, rows
+    torch.cuda.synchronize()
+    ref = corr.fused_correlation_warp_bwd_plain(q, k, v, grid, dout, amax)[:3]
+    torch.cuda.synchronize()
+    res = {"design": corr.backward_design(q.dtype, q.shape[-1], v.shape[-1]),
+           "tol": corr.MMA_VS_EXACT_TOL}
+    for key, sl in (("k2", slice(0, 1)), ("k3", slice(1, 3))):
+        res[key + "_err"] = _scaled_err(grads["k1"][sl], ref[sl])
+        res[key + "_exact_l2"] = _rel_l2(grads["k1"][sl], ref[sl])
+        res[key + "_exact_l2_given_exact_buffer"] = _rel_l2(grads["exact"][sl], ref[sl])
     return res
 
 
@@ -359,6 +456,14 @@ def phase_kernel_cases() -> dict:
             raise AssertionError(f"{kernel} disagrees with its plain version in case "
                                  f"{name}: {err:.3g} > {atol:g}")
 
+    def record_forward(name, res):
+        more = {"design": res["design"]}
+        if res["design"] == corr.DESIGN_MMA:
+            more.update(matched_rel_l2=res["l2"], matched_rel_l2_tol=res["l2_tol"],
+                        max_score_err=res["ms_err"], max_score_atol=res["ms_tol"])
+        check_forward(res, f"case {name}")
+        record(corr.KERNEL, name, res["err"], res["tol"], **more)
+
     def record_backward(name, res):
         for kernel, key in ((corr.KERNEL_BWD_ROWS, "k2"), (corr.KERNEL_BWD_COLS, "k3")):
             more = {"design": res["design"]}
@@ -382,22 +487,21 @@ def phase_kernel_cases() -> dict:
         # K1 takes Cv + 2 <= 128, so 120 is the widest v the backward is given
         "bf16_hw130_q128_v120": (1, 10, 13, 128, 120, "bfloat16"),
         "bf16_hw130_c12_fma": (2, 10, 13, 12, 12, "bfloat16"),
+        # HW below one row of 8: the key and the row tile both ragged
+        "bf16_hw15": (1, 3, 5, 32, 32, "bfloat16"),
+        # Cq and Cv not multiples of 16: zero-padded tensor-core tiles
+        "bf16_q24_v40": (2, 10, 13, 24, 40, "bfloat16"),
     }.items()):
         q, k, v, grid = _kernel_inputs(B, H, W, cq, cv, dtype, seed=i)
-        out = corr.fused_correlation_warp(q, k, v, grid)
-        torch.cuda.synchronize()
-        ref = corr.fused_correlation_warp_plain(q, k, v, grid)
-        torch.cuda.synchronize()
-        k1_err = _max_err(out, ref)
-        del out, ref
+        fwd = forward_case(q, k, v, grid)
         res = backward_case(q, k, v, grid, _cotangent(B, H * W, cv, seed=50 + i))
         expected = corr.DESIGN_FMA if dtype == "float32" or name.endswith("_fma") \
             else corr.DESIGN_MMA
-        if res["design"] != expected:
-            raise AssertionError(f"case {name} was served by the {res['design']} design")
-        log(f"[kernel] {name}: K1 max |kernel - plain| = {k1_err:.3g} (atol "
-            f"{ATOL[dtype]:g}); {_case_line(res)}")
-        record(corr.KERNEL, name, k1_err, ATOL[dtype])
+        if fwd["design"] != expected or res["design"] != expected:
+            raise AssertionError(f"case {name} was served by the {fwd['design']} (K1) and "
+                                 f"{res['design']} (K2, K3) designs, not {expected}")
+        log(f"[kernel] {name}: {_forward_line(fwd)}; {_case_line(res)}")
+        record_forward(name, fwd)
         record_backward(name, res)
         if name in ("f32_hw130", "bf16_hw130"):
             # the argmax route alone: only the max score has a cotangent
@@ -413,6 +517,19 @@ def phase_kernel_cases() -> dict:
             log(f"[kernel] {name}: two runs of K3 give equal bits: {same}")
             if not same:
                 raise AssertionError("two runs of K3 differ")
+            # the hand-off on the train path: K2 and K3 given K1's own buffer
+            hand = handoff_case(q, k, v, grid, dout)
+            log(f"[kernel] {name}, given the tensor-core K1's buffer: K2 {hand['k2_err']:.3g}, "
+                f"K3 {hand['k3_err']:.3g} of the largest gradient vs the exact plain backward "
+                f"(tol {hand['tol']:g}); relative L2 K2 {hand['k2_exact_l2']:.3g}, K3 "
+                f"{hand['k3_exact_l2']:.3g} (given the exact buffer: K2 "
+                f"{hand['k2_exact_l2_given_exact_buffer']:.3g}, K3 "
+                f"{hand['k3_exact_l2_given_exact_buffer']:.3g})")
+            for kernel, key in ((corr.KERNEL_BWD_ROWS, "k2"), (corr.KERNEL_BWD_COLS, "k3")):
+                record(kernel, name + "_k1_buffer", hand[key + "_err"], hand["tol"],
+                       design=hand["design"], exact_rel_l2=hand[key + "_exact_l2"],
+                       exact_rel_l2_given_exact_buffer=hand[
+                           key + "_exact_l2_given_exact_buffer"])
         del res
     return cases
 
@@ -443,9 +560,11 @@ def k3_bound(B, HW, cq, cv, dtype, nbytes) -> tuple:
     return op_bound(2.0 * B * HW * HW * (2 * cq + 2 * cv + 2), B * HW * HW, nbytes, dtype)
 
 
-def time_k1(B, H, W, C, dtype, seed) -> dict:
+def time_k1(B, H, W, C, dtype, seed, fma_too=False) -> dict:
     """K1 at one shape: agreement, then its time beside the plain version's,
-    one library call's and its bound."""
+    one library call's and its bound. With ``fma_too`` the FMA design is
+    checked and timed on the same inputs as well, beside the design that
+    serves them."""
     import torch
     import torch.nn.functional as F
 
@@ -453,19 +572,33 @@ def time_k1(B, H, W, C, dtype, seed) -> dict:
 
     HW = H * W
     q, k, v, grid = _kernel_inputs(B, H, W, C, C, dtype, seed=seed)
-    out = corr.fused_correlation_warp(q, k, v, grid)
-    torch.cuda.synchronize()
-    ref = corr.fused_correlation_warp_plain(q, k, v, grid)
-    torch.cuda.synchronize()
-    err = _max_err(out, ref)
-    if err > ATOL[dtype]:
-        raise AssertionError(f"K1 disagrees with its plain version at B={B} HW={HW}")
-    del out, ref
+    res = forward_case(q, k, v, grid)
+    check_forward(res, f"B={B} HW={HW}")
+    log(f"[kernel] K1 B={B} HW={HW} C={C} {dtype}: {_forward_line(res)}")
+    torch.cuda.empty_cache()
 
-    ms = cuda_time_ms(lambda: corr.fused_correlation_warp(q, k, v, grid), iters=10)
+    ms = cuda_time_ms(lambda: corr.fused_correlation_warp(q, k, v, grid), iters=20, warmup=2)
     plain_ms = cuda_time_ms(lambda: corr.fused_correlation_warp_plain(q, k, v, grid),
                             iters=3)
     torch.cuda.empty_cache()
+    fma = {}
+    if fma_too and res["design"] != corr.DESIGN_FMA:
+        # the FMA design's C function on the same inputs, as _forward_cuda
+        # would launch it for a shape the tensor-core design does not take
+        out = torch.empty((B, HW, C + 3), dtype=torch.float32, device=q.device)
+
+        def fma_launch():
+            corr._launch(corr.KERNEL, corr.KERNEL, (q, k, v, grid, out), q, v)
+
+        fma_launch()
+        ref = corr.fused_correlation_warp_plain(q, k, v, grid)
+        fma["fma_max_abs_err"] = _max_err(corr._split(out, C), ref)
+        del ref
+        if fma["fma_max_abs_err"] > ATOL[dtype]:
+            raise AssertionError(f"K1's FMA design disagrees with the plain forward at B={B}")
+        fma["fma_ms"] = cuda_time_ms(fma_launch, iters=3)
+        del out
+        torch.cuda.empty_cache()
     # one library call computing P [v | grid] (padded to 40 columns for the
     # fused attention backends); timed here only, the port never calls it
     vg = torch.cat([v, grid.expand(B, HW, 2), v.new_zeros(B, HW, 6)], dim=-1)[:, None]
@@ -475,13 +608,16 @@ def time_k1(B, H, W, C, dtype, seed) -> dict:
 
     nbytes = _nbytes(q, k, v, grid) + B * HW * (C + 3) * 4
     bound_ms, bound_by = k1_bound(B, HW, C, C, dtype, nbytes)
-    log(f"[kernel] K1 B={B} HW={HW} C={C} {dtype}: max |kernel - plain| = {err:.3g}; "
+    fma_line = (f"; the FMA design {fma['fma_ms']:.3f} ms ({fma['fma_ms'] / ms:.1f}x, max "
+                f"|kernel - plain| = {fma['fma_max_abs_err']:.3g})" if fma else "")
+    log(f"[kernel] K1 B={B} HW={HW} C={C} {dtype}, design {res['design']}: "
         f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms={library_ms:.3f} "
         f"bound_ms={bound_ms:.4f} ({bound_by}); kernel at {100 * bound_ms / ms:.1f}% "
-        f"of its bound")
+        f"of its bound{fma_line}")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
-            "shape": f"B={B} HW={HW} C={C} {dtype}"}
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": res["max_abs_err"],
+            "shape": f"B={B} HW={HW} C={C} {dtype}", "design": res["design"],
+            **({"matched_rel_l2": res["l2"]} if "l2" in res else {}), **fma}
 
 
 def time_backward(B, H, W, C, dtype, seed) -> tuple:
@@ -546,8 +682,11 @@ def phase_kernel_timing() -> dict:
     shape of 3d3d.yaml (batch 10)."""
     from mapfree_tpu_torch.ops import correlation as corr
 
-    k1 = time_k1(64, 92, 68, 32, "bfloat16", seed=100)
+    k1 = time_k1(64, 92, 68, 32, "bfloat16", seed=100, fma_too=True)
     k1["train_shape"] = time_k1(10, 92, 68, 32, "bfloat16", seed=101)
+    for t in (k1, k1["train_shape"]):
+        if t["design"] != corr.DESIGN_MMA:
+            raise AssertionError(f"K1 at {t['shape']} is served by the {t['design']} design")
     k2, k3 = time_backward(10, 92, 68, 32, "bfloat16", seed=102)
     return {corr.KERNEL: k1, corr.KERNEL_BWD_ROWS: k2, corr.KERNEL_BWD_COLS: k3}
 
@@ -621,16 +760,18 @@ def phase_main_path() -> int:
 
     times = StageTimes()
     corr.reset_launches()
-    t0 = time.perf_counter()
-    results = predict(batches, model, times)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
+    with designs_served() as seen:
+        t0 = time.perf_counter()
+        results = predict(batches, model, times)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
     launches = corr.launches[corr.KERNEL]
+    _expect_designs(seen, {"forward": [corr.DESIGN_MMA]}, "the inference sweep")
     if corr.launches[corr.KERNEL_BWD_ROWS] or corr.launches[corr.KERNEL_BWD_COLS]:
         raise AssertionError("the inference sweep launched a backward kernel")
     log(f"[main] {n_pairs} pairs in {len(batches)} batches: {elapsed:.3f} s, "
         f"{n_pairs / elapsed:.1f} pairs/s, {1e3 * elapsed / len(batches):.1f} ms/batch; "
-        f"K1 launches {launches}; stages {times.summary()}")
+        f"K1 launches {launches}, {corr.DESIGN_MMA} design; stages {times.summary()}")
     if launches != len(batches):
         raise AssertionError(f"K1 launched {launches} times for {len(batches)} batches")
 
@@ -663,6 +804,37 @@ def phase_main_path() -> int:
         f"{np.abs(det - 1.0).max():.2e}")
     profile_window(lambda: model.dispatch_device(transferred)(), "forward")
     return launches
+
+
+@contextlib.contextmanager
+def designs_served():
+    """Inside the block, notes the design the package picks for each launch
+    of K1 (``forward_design``) and of K2 and K3 (``backward_design``):
+    yields {"forward": set of designs, "backward": set of designs}."""
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    seen = {"forward": set(), "backward": set()}
+    saved = corr.forward_design, corr.backward_design
+
+    def noting(kind, choose):
+        def design(dtype, Cq, Cv):
+            chosen = choose(dtype, Cq, Cv)
+            seen[kind].add(chosen)
+            return chosen
+        return design
+
+    corr.forward_design = noting("forward", saved[0])
+    corr.backward_design = noting("backward", saved[1])
+    try:
+        yield seen
+    finally:
+        corr.forward_design, corr.backward_design = saved
+
+
+def _expect_designs(seen: dict, expected: dict, what: str) -> None:
+    got = {kind: sorted(designs) for kind, designs in seen.items() if designs}
+    if got != expected:
+        raise AssertionError(f"{what} ran the designs {got}, expected {expected}")
 
 
 def profile_window(fn, what: str, n: int = 3) -> None:
@@ -774,19 +946,22 @@ def phase_train_path() -> dict:
     torch.cuda.synchronize()
     corr.reset_launches()
     logs = []
-    t0 = time.perf_counter()
-    for b in dbatches[n_warm:]:
-        state, step_logs = train_step(state, b)
-        logs.append(step_logs)
-    torch.cuda.synchronize()
-    step_ms = 1e3 * (time.perf_counter() - t0) / n_steps
+    with designs_served() as seen:
+        t0 = time.perf_counter()
+        for b in dbatches[n_warm:]:
+            state, step_logs = train_step(state, b)
+            logs.append(step_logs)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / n_steps
     _expect_launches(corr, {corr.KERNEL: n_steps, corr.KERNEL_BWD_ROWS: n_steps,
                             corr.KERNEL_BWD_COLS: n_steps}, f"{n_steps} train steps")
+    all_mma = {"forward": [corr.DESIGN_MMA], "backward": [corr.DESIGN_MMA]}
+    _expect_designs(seen, all_mma, f"{n_steps} train steps")
     losses = [float(lg["train/loss"]) for lg in logs]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"[train] {n_steps} steps after {n_warm} warm-up: {step_ms:.2f} ms/step, "
         f"{1e3 * bs / step_ms:.1f} samples/s; peak memory {peak_gb:.2f} GB; K1, K2, K3 "
-        f"each launched {n_steps} times")
+        f"each launched {n_steps} times, all in the {corr.DESIGN_MMA} design")
     log("[train] loss per step: " + " ".join(f"{x:.4f}" for x in losses)
         + "; R_loss " + " ".join(f"{float(lg['train/R_loss']):.3f}" for lg in logs)
         + "; t_loss " + " ".join(f"{float(lg['train/t_loss']):.3f}" for lg in logs))
@@ -815,12 +990,13 @@ def phase_train_path() -> dict:
         corr.reset_launches()
         captured = io.StringIO()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(captured):
+        with contextlib.redirect_stdout(captured), designs_served() as seen:
             state = fit_loaders(cfg, train_loader, val_loader, experiment="smoke",
                                 weights_dir=tmp, device=dev)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         launches = dict(corr.launches)
+        _expect_designs(seen, all_mma, "the fit loop")
         for line in captured.getvalue().splitlines():
             log(f"[fit]   {line}")
         # 8 train steps; validation at steps 4 and 8 over 2 of the 3 batches
@@ -893,14 +1069,21 @@ def phase_device_parity() -> None:
 def plain_versions_on_the_card(forward: bool = True):
     """Inside the block the correlation Function computes the plain versions
     on CUDA tensors too (and counts no launch for them): the yardstick for a
-    whole train step. With ``forward=False`` K1 still runs and only the
-    backward is the plain one, so that the two steps share their forward to
-    the bit. Used here only; the port has no such switch."""
+    whole train step. The plain forward rounds P to bf16 where K1's
+    tensor-core design would serve the inputs. With ``forward=False`` K1
+    still runs and only the backward is the plain one, so that the two steps
+    share their forward to the bit. Used here only; the port has no such
+    switch."""
+    import torch
+
     from mapfree_tpu_torch.ops import correlation as corr
 
     saved = corr._forward_cuda, corr.correlation_bwd_rows, corr.correlation_bwd_cols
     if forward:
-        corr._forward_cuda = corr._plain_buffer
+        # the plain forward with the rounding of the design the kernel would take
+        corr._forward_cuda = lambda q, k, v, grid: torch.cat(corr.fused_correlation_warp_plain(
+            q, k, v, grid, bf16_roundings=corr.forward_design(
+                q.dtype, q.shape[-1], v.shape[-1]) == corr.DESIGN_MMA), dim=-1)
     corr.correlation_bwd_rows = lambda q, k, v, grid, out, dout: (
         corr.correlation_bwd_rows_plain(q, k, v, grid, dout)[0], None)
     corr.correlation_bwd_cols = lambda q, k, v, grid, dout, rows: (
@@ -1001,10 +1184,10 @@ def phase_train_parity() -> None:
 
 
 def phase_train_parity_bf16() -> None:
-    """One bf16 train step of the small model on the card with K1 and the
-    tensor-core K2 and K3, against the same step with the plain versions on
-    the card: the loss and the whole gradient in the L2 norm. A second run of
-    the kernels' step gives the floor."""
+    """One bf16 train step of the small model on the card with K1, K2 and K3
+    in their tensor-core designs, against the same step with the plain
+    versions on the card: the loss and the whole gradient in the L2 norm. A
+    second run of the kernels' step gives the floor."""
     import torch
 
     from mapfree_tpu_torch.models.regression import build_regression_net
@@ -1026,24 +1209,14 @@ def phase_train_parity_bf16() -> None:
         loss[name] = float(logs["train/loss"])
         grads[name] = {k: p.grad.detach().float().cpu() for k, p in net.named_parameters()}
 
-    designs = []
-    rows_kernel = corr.correlation_bwd_rows
-
-    def rows_noting_the_design(q, k, v, grid, out, dout):
-        designs.append(corr.backward_design(q.dtype, q.shape[-1], v.shape[-1]))
-        return rows_kernel(q, k, v, grid, out, dout)
-
     corr.reset_launches()
-    corr.correlation_bwd_rows = rows_noting_the_design
-    try:
+    with designs_served() as seen:
         one_step("kernels")
-    finally:
-        corr.correlation_bwd_rows = rows_kernel
     one_step("again")
     _expect_launches(corr, {corr.KERNEL: 2, corr.KERNEL_BWD_ROWS: 2, corr.KERNEL_BWD_COLS: 2},
                      "two bf16 train steps on the card")
-    if designs != [corr.DESIGN_MMA]:
-        raise AssertionError(f"the bf16 train step's backward ran the designs {designs}")
+    _expect_designs(seen, {"forward": [corr.DESIGN_MMA], "backward": [corr.DESIGN_MMA]},
+                    "the bf16 train step")
     with plain_versions_on_the_card(forward=False):
         one_step("plain_backward")
     with plain_versions_on_the_card():
@@ -1059,7 +1232,8 @@ def phase_train_parity_bf16() -> None:
         f"{per_b[0][0]:.2e} of its largest entry at {per_b[0][1]}, median tensor "
         f"{per_b[len(per_b) // 2][0]:.2e}; a second run of the kernels' step differs by "
         f"{floor:.2e} in L2")
-    log(f"[parity] bf16 train step, kernels vs plain versions on the card, forward too: loss "
+    log(f"[parity] bf16 train step, kernels vs plain versions on the card, forward too (with "
+        f"K1's bf16 rounding of P): loss "
         f"{loss['kernels']:.6f} vs {loss['plain']:.6f} (rel {rel:.2e}, tol "
         f"{STEP_BF16_LOSS_RTOL:g}); whole gradient {l2:.2e} in L2 (tol {STEP_BF16_L2_TOL:g}); "
         f"worst tensor {per[0][0]:.2e} at {per[0][1]}, median tensor "
@@ -1115,6 +1289,7 @@ def main() -> None:
         kernels.append({
             "name": name,
             "route": "cuda",
+            "designs": [corr.DESIGN_MMA, corr.DESIGN_FMA],
             "source": f"mapfree_tpu_torch/ops/csrc/{source}",
             "replaces": f"mapfree_tpu/ops/correlation.py:{replaces}",
             "launches": sum(by_path[name].values()),

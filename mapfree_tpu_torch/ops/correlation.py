@@ -23,8 +23,24 @@ same way, near 0.1 ms each. The kernels keep every score on chip. The CUDA
 sources ``csrc/correlation_fwd.cu`` and ``csrc/correlation_bwd.cu`` state the
 arithmetic and the design.
 
-K2 and K3 exist in two hand-written designs, and :func:`backward_design` says
-which one serves a (dtype, Cq, Cv):
+K1 exists in two hand-written designs, and :func:`forward_design` says which
+one serves a (dtype, Cq, Cv):
+
+- ``"mma"``: bf16 inputs with Cq and Cv multiples of 8, Cq <= 128 and
+  Cv + 2 <= 128 (every config under ``configs/regression/``). Both products
+  run on the tensor cores from bf16 tiles that a ring of asynchronous copies
+  brings into shared memory; the online softmax works on the score
+  accumulators, and P goes from them to the second product's operand in
+  registers, rounded to bf16 relative to the row's running max after each
+  tile of ``FWD_KEY_TILE`` keys. The denominator is summed from the float32
+  P, so the max score (1 / denominator) is not rounded.
+  ``fused_correlation_warp_plain(..., bf16_roundings=True)`` rounds at the
+  same place.
+- ``"fma"``: float32 inputs (exact float32 arithmetic, no TF32) and any other
+  bf16 shape: scalar fused multiply-adds on float32 tiles in shared memory.
+
+K2 and K3 exist in two hand-written designs too, and :func:`backward_design`
+says which one serves a (dtype, Cq, Cv):
 
 - ``"mma"``: bf16 inputs with Cq and Cv multiples of 8 up to 128 (every
   config under ``configs/regression/``; the forward takes Cv up to 126).
@@ -39,7 +55,8 @@ which one serves a (dtype, Cq, Cv):
 - ``"fma"``: float32 inputs (exact float32 arithmetic, no TF32) and any other
   bf16 shape: scalar fused multiply-adds on float32 tiles in shared memory.
 
-Both are kernels of this package; neither gives way to the plain version.
+Every design is a kernel of this package; none gives way to another or to
+the plain version.
 
 The Function saves q, k, v, the grid and the forward's output buffer (8.8 MB
 at the training shape): with it the softmax VJP's row constant is
@@ -81,6 +98,23 @@ MMA_VS_EXACT_TOL = 2e-2
 # float32 values straddle a bf16 rounding boundary (one bf16 step, 2^-8 of
 # that entry; the same test derives how often and how much)
 MMA_VS_MATCHED_L2_TOL = 1.5e-3
+# keys per tile of K1's online softmax: the kernel's TK (a test reads it from
+# the .cu), and the tile of the plain forward with the kernel's roundings
+FWD_KEY_TILE = 64
+# K1's "mma" design against the exact plain forward, as a share of each
+# output's largest magnitude (or of 1 where that is smaller): what rounding P
+# to bf16 costs (2^-9 of each weight, up to about 2^-9 max |v| in a peaked
+# row). tests/test_torch_correlation_fwd_mma.py derives it on the CPU (HW=130
+# and HW=1,020, C=32) and pins it; chip_smoke.py holds the kernel to it.
+MMA_FWD_VS_EXACT_TOL = 1e-2
+# K1's "mma" design against the plain forward with the same rounding, as the
+# relative L2 error of warped and of pos: float32 scores summed in another
+# order, exp2 of log2e-scaled scores, and the rare weight whose two float32
+# values straddle a bf16 rounding boundary (2^-8 of that weight; over a few
+# hundred rows one such flip in a peaked row is 1e-4 in L2, the same test
+# derives it). The max score comes from float32 sums alone and is held to the
+# exact plain forward at the float32 kernel's tolerance
+MMA_FWD_VS_MATCHED_L2_TOL = 5e-4
 # kernel launches since the last reset_launches(), per kernel
 launches = {KERNEL: 0, KERNEL_BWD_ROWS: 0, KERNEL_BWD_COLS: 0}
 
@@ -91,6 +125,16 @@ _fns: dict = {}
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def forward_design(dtype, Cq: int, Cv: int) -> str:
+    """Which hand-written design of K1 serves these inputs on the card:
+    ``DESIGN_MMA`` for bf16 with Cq and Cv multiples of 8, Cq <= 128 and
+    Cv + 2 <= 128, ``DESIGN_FMA`` for float32 and every other bf16 shape."""
+    if dtype == torch.bfloat16 and Cq % 8 == 0 and Cv % 8 == 0 and 8 <= Cq <= 128 \
+            and 8 <= Cv and Cv + 2 <= 128:
+        return DESIGN_MMA
+    return DESIGN_FMA
 
 
 def backward_design(dtype, Cq: int, Cv: int) -> str:
@@ -192,16 +236,55 @@ def _plain_buffer(q, k, v, grid):
         return torch.cat([torch.bmm(p, vg), p.amax(dim=-1, keepdim=True)], dim=-1)
 
 
+def _tiled_buffer(q, k, v, grid, bf16_roundings, key_tile):
+    """The forward's [B, HW, Cv + 3] float32 buffer by K1's online softmax:
+    key tiles of ``key_tile`` in order, a running row max m, P = exp(s - m)
+    in float32, the denominator and the accumulator rescaled by
+    exp(m_old - m_new) in float32. With ``bf16_roundings`` P is rounded to
+    bf16 before its product with [v | grid], as the "mma" design rounds it;
+    the denominator is summed from the unrounded P either way."""
+    B, HW, _ = q.shape
+    with torch.autocast(q.device.type, enabled=False):
+        vg = torch.cat([v, grid.to(v.dtype).expand(B, HW, 2)], dim=-1).float()
+        qf, kf = q.float(), k.float()
+        m = qf.new_full((B, HW, 1), float("-inf"))
+        d = qf.new_zeros((B, HW, 1))
+        acc = qf.new_zeros((B, HW, vg.shape[-1]))
+        for j0 in range(0, HW, key_tile):
+            s = torch.bmm(qf, kf[:, j0:j0 + key_tile].transpose(1, 2))
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            alpha = torch.exp(m - m_new)  # 0 on the first tile
+            p = torch.exp(s - m_new)
+            d = d * alpha + p.sum(dim=-1, keepdim=True)
+            if bf16_roundings:
+                p = _round_bf16(p)
+            acc = acc * alpha + torch.bmm(p, vg[:, j0:j0 + key_tile])
+            m = m_new
+        inv = 1.0 / d
+        return torch.cat([acc * inv, inv], dim=-1)
+
+
 def _split(out, Cv):
     return out[..., :Cv], out[..., Cv:Cv + 2], out[..., Cv + 2:]
 
 
-def fused_correlation_warp_plain(q, k, v, grid):
-    """Plain forward: (warped, pos, max_score), float32. Its autograd
-    gradient splits a tie's max-score cotangent evenly; the kernels' and
+def fused_correlation_warp_plain(q, k, v, grid, bf16_roundings=False, key_tile=None):
+    """Plain forward: (warped, pos, max_score), float32.
+
+    By default the exact dense softmax (the CPU route and the parity tests).
+    With ``bf16_roundings`` it is K1's "mma" arithmetic: the online softmax
+    over key tiles of ``key_tile`` (default ``FWD_KEY_TILE``) with P rounded
+    to bf16 relative to each row's running max, the kernel's yardstick on
+    the card. ``key_tile`` alone gives the same tiled arithmetic without the
+    rounding. The exact version's autograd gradient splits a tie's max-score
+    cotangent evenly; the kernels' and
     :func:`fused_correlation_warp_bwd_plain`'s goes to the first maximum."""
     _check_inputs(q, k, v, grid)
-    return _split(_plain_buffer(q, k, v, grid), v.shape[-1])
+    if bf16_roundings or key_tile is not None:
+        buf = _tiled_buffer(q, k, v, grid, bf16_roundings, key_tile or FWD_KEY_TILE)
+    else:
+        buf = _plain_buffer(q, k, v, grid)
+    return _split(buf, v.shape[-1])
 
 
 def _round_bf16(x):
@@ -296,9 +379,19 @@ def fused_correlation_warp_bwd_plain(q, k, v, grid, dout, argmax=None, bf16_roun
 # -- kernels ---------------------------------------------------------------------
 
 def _forward_cuda(q, k, v, grid):
-    B, HW, _ = q.shape
-    out = torch.empty((B, HW, v.shape[-1] + 3), dtype=torch.float32, device=q.device)
-    _launch(KERNEL, KERNEL, (q, k, v, grid, out), q, v)
+    """K1 on CUDA tensors by the design :func:`forward_design` names; either
+    counts as one launch of K1."""
+    B, HW, Cq = q.shape
+    Cv = v.shape[-1]
+    out = torch.empty((B, HW, Cv + 3), dtype=torch.float32, device=q.device)
+    if forward_design(q.dtype, Cq, Cv) == DESIGN_MMA:
+        _check_aligned(q=q, k=k, v=v)
+        if grid.data_ptr() % 4:  # the grid goes in 4 bytes (one key) at a time
+            raise ValueError(f"grid must be aligned to 4 bytes for the tensor-core "
+                             f"kernel (data_ptr() % 4 = {grid.data_ptr() % 4})")
+        _launch(KERNEL, KERNEL + "_mma", (q, k, v, grid, out), q, v, counted=KERNEL)
+    else:
+        _launch(KERNEL, KERNEL, (q, k, v, grid, out), q, v)
     return out
 
 

@@ -22,11 +22,46 @@
 // At 989 TFLOP/s (bf16 tensor cores) the products take 0.33 ms; at 16
 // exponentials per SM per clock (132 SMs, 1.98 GHz) the exponentials take
 // 0.60 ms; the bytes take 0.04 ms at 3.35 TB/s. The work is bound by
-// operations, not memory: the design keeps the [HW, HW] scores on chip
-// (registers and shared memory) and reads each key/value tile once per
-// 64-row query tile.
+// operations, not memory: both designs keep the [HW, HW] scores on chip
+// (registers) and read each key/value tile once per block of query rows.
 //
-// Design (a first, simple version): one block of 256 threads per (batch,
+// Two designs live here, chosen by the caller (ops/correlation.py::
+// forward_design), each complete for its inputs. Both walk the keys in tiles
+// of TK = 64 (ops/correlation.py::FWD_KEY_TILE, which the plain version with
+// the kernel's roundings takes as its tile) and keep the running max, the
+// denominator and the accumulator in float32.
+//
+// "mma" (second half of this file): bf16 inputs, Cq and Cv multiples of 8,
+// Cq <= 128, Cv + 2 <= 128. What it does about the bound:
+// - Both products run on the tensor cores: mma.sync m16n8k16, bf16 operands,
+//   float32 accumulators. A warp owns MT m-tiles of 16 query rows, which share
+//   every B fragment they multiply with, and holds its Q fragments in
+//   registers for the whole key loop.
+// - The 64-key tiles of k and of [v | grid | zeros] arrive bf16 in padded
+//   shared-memory tiles (mma_tile.cuh) through a ring of three cp.async
+//   stages: one __syncthreads per tile, the next tiles in flight while this
+//   one is multiplied, each thread's share of a copy fixed at compile time.
+//   The grid's two values per key come by a 4-byte copy into columns Cv and
+//   Cv + 1 of the [v | grid] tile; the columns up to Cv + 8 are zero.
+// - Online softmax on the accumulator fragments: the row max over the 4 lanes
+//   that share a row (two shfl_xor), P = ex2(s log2e - m) with the scale
+//   folded into one FMA, the accumulator rescaled by ex2(m_old - m_new) only
+//   in a warp where some row's max moved. The denominator is summed from the
+//   float32 P, so 1/d stays a true softmax normaliser (K2 and K3 read it back
+//   as the max score).
+// - P never touches shared memory: two neighbouring S accumulator fragments
+//   pack into one bf16 A fragment of P.[v | grid], whose B fragments come by
+//   ldmatrix.trans. P is rounded to bf16 there (2^-9 relative), relative to the
+//   row's running max after this tile; that is the design's one rounding.
+// - Ragged edges: copies zero-fill rows and keys past HW; only the last key
+//   tile masks scores to -inf; rows past HW are computed on zeros and not
+//   stored.
+// - Epilogue: the block's rows go through shared memory as the [rows, Cv + 3]
+//   float32 output layout and leave in one contiguous, coalesced stream.
+//
+// "fma" (first half): float32 inputs, where exact float32 arithmetic is the
+// point (no TF32), and the bf16 shapes the other design does not take. One
+// block of 256 threads per (batch,
 // 64-row query tile). The block loops over all key tiles of 64 keys itself
 // (the TPU's sequential key-chunk grid axis only existed to fit VMEM). Each
 // tile of k (transposed) and [v | grid] is staged in shared memory as
@@ -35,20 +70,21 @@
 // half-warp with shuffles; the running max, the denominator (per-lane
 // partial sums, reduced once at the end) and the [rows, Cv+2] accumulator
 // stay in float32 registers. The exponentials are exp2 of log2(e)-scaled
-// scores. Arithmetic is scalar FMA: the tensor-core (wgmma) and TMA
-// pipeline that would approach the bound is later work.
-// Masking: keys past HW score -1e30 (the ragged last key tile); rows past
+// scores. Arithmetic is scalar FMA on float32 tiles. Masking: keys past HW score -1e30 (the ragged last key tile); rows past
 // HW are computed on zero queries and not stored (the ragged row tile).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <cstddef>
+
+#include "mma_tile.cuh"
 
 namespace {
 
 constexpr int TM = 64;        // query rows per block
-constexpr int TK = 64;        // keys per tile
+constexpr int TK = 64;        // keys per tile: ops/correlation.py::FWD_KEY_TILE
 constexpr int NT = 256;       // threads: 16 row groups x 16 column lanes
 constexpr int LD = TM + 4;    // padded row stride (floats) of qT, kT and P
 constexpr int MAX_CPT = 8;    // accumulator columns per lane: Cv + 2 <= 128
@@ -236,9 +272,304 @@ cudaError_t dispatch(int cpt, const void* q, const void* k, const void* v,
   }
 }
 
+// ============================================================ "mma" design ==
+
+namespace mt = mma_tile;
+using bf16 = __nv_bfloat16;
+
+constexpr int STAGES = 3;  // ring of 64-key tiles in flight
+
+// Sizes for q channels padded to CQ (a multiple of 16) and v channels padded
+// to CV (a multiple of 8). Tiles are bf16, row-major, with a pitch of an odd
+// number of 16-byte slots, so that ldmatrix reads them without bank conflicts.
+template <int CQ, int CV>
+struct FwdGeo {
+  static constexpr int VG = CV + 8;          // [v | grid | zeros]: whole 8-column n-tiles
+  static constexpr int PQ = CQ + mt::PAD;    // pitch of the q and k tiles
+  static constexpr int PV = (VG / 8) % 2 ? VG : VG + mt::PAD;  // pitch of the [v | grid] tile
+  static constexpr int KQ = CQ / 16;         // depth-16 steps of the score product
+  static constexpr int NV = VG / 8;          // n-tiles of P . [v | grid]
+  static constexpr int STAGE = TK * (PQ + PV);  // bf16 elements of one ring stage
+};
+
+// One block per (batch, BR query rows); warp w owns rows WR w .. WR w + WR - 1
+// as MT m-tiles of 16, and within a fragment a thread owns rows g and g + 8
+// (g = lane / 4) and, per 8-column n-tile, columns 2t and 2t + 1 (t = lane % 4).
+template <int CQ, int CV, int MT, int NW, int MINB>
+__global__ void __launch_bounds__(32 * NW, MINB)
+correlation_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, const bf16* __restrict__ grid,
+                           float* __restrict__ out, int HW, int Cq, int Cv) {
+  using G = FwdGeo<CQ, CV>;
+  constexpr int NTM = 32 * NW, WR = 16 * MT, BR = WR * NW;
+  static_assert(NTM >= TK, "one thread per key copies the grid");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [BR][PQ]  query tile (resident)
+  bf16* ring = qs + BR * G::PQ;                  // STAGES x ([TK][PQ] keys, [TK][PV] v|grid)
+
+  const int b = blockIdx.y;
+  const int row0 = blockIdx.x * BR;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const mt::LaneOffsets lo(lane);
+
+  const size_t boff = static_cast<size_t>(b) * HW;
+  const bf16* qb = q + boff * Cq;
+  const bf16* kb = k + boff * Cq;
+  const bf16* vb = v + boff * Cv;
+
+  // the padding columns are written once: no copy ever touches them
+  mt::tile_zero_cols<BR, NTM>(qs, G::PQ, Cq, CQ, tid);
+  for (int st = 0; st < STAGES; ++st) {
+    bf16* kt = ring + st * G::STAGE;
+    mt::tile_zero_cols<TK, NTM>(kt, G::PQ, Cq, CQ, tid);
+    mt::tile_zero_cols<TK, NTM>(kt + TK * G::PQ, G::PV, Cv + 2, G::VG, tid);
+  }
+
+  const int nT = (HW + TK - 1) / TK;
+  auto load_tile = [&](int u) {
+    if (u < nT) {
+      bf16* kt = ring + (u % STAGES) * G::STAGE;
+      bf16* vt = kt + TK * G::PQ;
+      const int key0 = u * TK;
+      mt::tile_copy_async<TK, NTM, CQ / 8>(kt, G::PQ * 2, kb, Cq * 2, key0, HW, tid);
+      mt::tile_copy_async<TK, NTM, CV / 8>(vt, G::PV * 2, vb, Cv * 2, key0, HW, tid);
+      if (tid < TK) {  // the grid's two values per key: columns Cv and Cv + 1
+        const int key = key0 + tid;
+        const bool ok = key < HW;
+        mt::cp_async_4(vt + tid * G::PV + Cv, grid + 2 * (ok ? key : 0), ok);
+      }
+    }
+    mt::cp_async_commit();  // always: the wait below counts groups
+  };
+
+  // the query tile travels in the first group, with key tile 0
+  mt::tile_copy_async<BR, NTM, CQ / 8>(qs, G::PQ * 2, qb, Cq * 2, row0, HW, tid);
+  for (int u = 0; u < STAGES - 1; ++u) load_tile(u);
+
+  // this thread's rows: m-tile m, half h -> row warp * WR + 16 m + 8 h + g
+  uint32_t qa[MT][G::KQ][4];
+  float acc[MT][G::NV][4] = {};
+  float m_run[MT][2], l_run[MT][2];  // running max of s log2e; this lane's share of d
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_run[m][h] = -INFINITY;
+      l_run[m][h] = 0.f;
+    }
+
+  for (int u = 0; u < nT; ++u) {
+    mt::cp_async_wait<STAGES - 2>();
+    __syncthreads();  // tile u has landed for everyone; tile u - 1's stage is free
+    load_tile(u + STAGES - 1);
+    if (u == 0) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int ks = 0; ks < G::KQ; ++ks)
+          mt::load_a(qa[m][ks], qs, G::PQ, warp * WR + 16 * m, ks * 16, lo);
+    }
+    const bf16* kt = ring + (u % STAGES) * G::STAGE;
+    const bf16* vt = kt + TK * G::PQ;
+    const int key0 = u * TK;
+
+    // S = Q K^T over the tile's 64 keys; each B fragment serves every m-tile
+    float s[MT][TK / 8][4] = {};
+#pragma unroll
+    for (int kg = 0; kg < TK / 16; ++kg)
+#pragma unroll
+      for (int ks = 0; ks < G::KQ; ++ks) {
+        uint32_t bk[4];
+        mt::load_b(bk, kt, G::PQ, kg * 16, ks * 16, lo);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          mt::mma_bf16(s[m][2 * kg], qa[m][ks], bk[0], bk[1]);
+          mt::mma_bf16(s[m][2 * kg + 1], qa[m][ks], bk[2], bk[3]);
+        }
+      }
+    // only the last tile has keys past HW (zero rows, whose score 0 must not count)
+    if (key0 + TK > HW) {
+      const int n_keys = HW - key0;
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int nt = 0; nt < TK / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (nt * 8 + 2 * t + (e & 1) >= n_keys) s[m][nt][e] = -INFINITY;
+    }
+
+    // online softmax in the log2 domain: the row max over the 4 lanes of a row
+    float alpha[MT][2];
+    bool moved = false;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < TK / 8; ++nt)
+          mx = fmaxf(mx, fmaxf(s[m][nt][2 * h], s[m][nt][2 * h + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_run[m][h], mx * LOG2E);
+        moved |= m_new != m_run[m][h];
+        alpha[m][h] = mt::ex2(m_run[m][h] - m_new);  // 0 on the first tile
+        m_run[m][h] = m_new;
+      }
+
+    // P in float32 for the denominator, packed to bf16 A fragments of P . [v | grid]:
+    // n-tiles 2 kg and 2 kg + 1 of S are the A fragment of keys 16 kg .. +16
+    uint32_t pa[MT][TK / 16][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < TK / 8; ++nt) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[e] = mt::ex2(fmaf(s[m][nt][e], LOG2E, -m_run[m][e >> 1]));
+        sum0 += p[0] + p[1];
+        sum1 += p[2] + p[3];
+        pa[m][nt >> 1][(nt & 1) * 2] = mt::pack_bf16(p[0], p[1]);
+        pa[m][nt >> 1][(nt & 1) * 2 + 1] = mt::pack_bf16(p[2], p[3]);
+      }
+      l_run[m][0] = fmaf(l_run[m][0], alpha[m][0], sum0);
+      l_run[m][1] = fmaf(l_run[m][1], alpha[m][1], sum1);
+    }
+    if (__any_sync(0xffffffffu, moved)) {  // after the first tiles, rarely
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < G::NV; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[m][n][e] *= alpha[m][e >> 1];
+    }
+
+    // acc += P . [v | grid]; each B fragment serves every m-tile
+#pragma unroll
+    for (int kg = 0; kg < TK / 16; ++kg) {
+#pragma unroll
+      for (int np = 0; np < G::NV / 2; ++np) {
+        uint32_t bv[4];
+        mt::load_b_trans(bv, vt, G::PV, kg * 16, np * 16, lo);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          mt::mma_bf16(acc[m][2 * np], pa[m][kg], bv[0], bv[1]);
+          mt::mma_bf16(acc[m][2 * np + 1], pa[m][kg], bv[2], bv[3]);
+        }
+      }
+      if constexpr (G::NV % 2 == 1) {
+        uint32_t bv[2];
+        mt::load_b_trans_x2(bv, vt, G::PV, kg * 16, (G::NV - 1) * 8, lo);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) mt::mma_bf16(acc[m][G::NV - 1], pa[m][kg], bv[0], bv[1]);
+      }
+    }
+  }
+
+  // epilogue: the ring becomes the block's [BR, Cv + 3] float32 output tile,
+  // which leaves in one contiguous stream
+  mt::cp_async_wait<0>();
+  __syncthreads();
+  float* ot = reinterpret_cast<float*>(ring);
+  const int CO = Cv + 3;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float d = l_run[m][h];
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      d += __shfl_xor_sync(0xffffffffu, d, 2);
+      const float inv = 1.f / d;
+      float* o = ot + (warp * WR + 16 * m + 8 * h + g) * CO;
+#pragma unroll
+      for (int n = 0; n < G::NV; ++n) {
+        const int col = n * 8 + 2 * t;
+        if (col < Cv + 2) {  // Cv is even: both columns or neither
+          o[col] = acc[m][n][2 * h] * inv;
+          o[col + 1] = acc[m][n][2 * h + 1] * inv;
+        }
+      }
+      if (t == 0) o[Cv + 2] = inv;  // the max score: max_j P_ij = 1 / d
+    }
+  __syncthreads();
+  const int n_out = (HW - row0 < BR ? HW - row0 : BR) * CO;
+  float* dst = out + (boff + row0) * CO;
+  for (int i = tid; i < n_out; i += NTM) dst[i] = ot[i];
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+struct MmaArgs {
+  const bf16 *q, *k, *v, *grid;
+  float* out;
+  int B, HW, Cq, Cv;
+  cudaStream_t stream;
+};
+
+template <int CQ, int CV, int MT, int NW, int MINB>
+cudaError_t launch_mma(const MmaArgs& a) {
+  using G = FwdGeo<CQ, CV>;
+  constexpr int BR = 16 * MT * NW;
+  auto kernel = correlation_fwd_mma_kernel<CQ, CV, MT, NW, MINB>;
+  const size_t ring = sizeof(bf16) * STAGES * G::STAGE;
+  const size_t tile = sizeof(float) * BR * (CV + 3);  // the epilogue's, in the ring's place
+  const size_t smem = sizeof(bf16) * BR * G::PQ + (ring > tile ? ring : tile);
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 blocks((a.HW + BR - 1) / BR, a.B);
+  kernel<<<blocks, 32 * NW, smem, a.stream>>>(a.q, a.k, a.v, a.grid, a.out, a.HW, a.Cq, a.Cv);
+  return cudaGetLastError();
+}
+
+// The instantiations: channels padded up to (CQ, CV); then m-tiles a warp,
+// warps a block, and the least blocks a SM should hold (which caps the
+// registers a thread may take). Up to 32 channels a block owns 128 rows as 4
+// warps of two m-tiles that share every B fragment, with registers for 3
+// blocks a SM: at B=10, HW=6,256 that is 490 blocks on 396 slots, at B=64
+// 3,136 blocks. Timed on an H100 against this choice, a cap for 4 blocks a
+// SM (128 registers, spilling), 2 blocks, one m-tile a warp with 4 or 8
+// warps, two m-tiles with 8 warps, and a ring of two stages were all slower.
+cudaError_t dispatch_mma(const MmaArgs& a) {
+  if (a.Cq <= 16 && a.Cv <= 16) return launch_mma<16, 16, 2, 4, 3>(a);
+  if (a.Cq <= 16 && a.Cv <= 32) return launch_mma<16, 32, 2, 4, 3>(a);
+  if (a.Cq <= 32 && a.Cv <= 32) return launch_mma<32, 32, 2, 4, 3>(a);
+  if (a.Cq <= 64 && a.Cv <= 64) return launch_mma<64, 64, 1, 8, 2>(a);
+  return launch_mma<128, 120, 1, 8, 1>(a);
+}
+
+bool mma_takes(int B, int HW, int Cq, int Cv, int dtype) {
+  return B >= 0 && HW >= 0 && dtype == 1 && Cq % 8 == 0 && Cv % 8 == 0 && Cq >= 8 &&
+         Cq <= 128 && Cv >= 8 && Cv + 2 <= 128;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success).
+// The "mma" design: bf16 (dtype 1), Cq and Cv multiples of 8, Cq <= 128,
+// Cv + 2 <= 128; q, k, v aligned to 16 bytes. Same arguments and output as
+// correlation_fwd. Returns a cudaError_t (0 on success), cudaErrorInvalidValue
+// for inputs the design does not take.
+extern "C" int correlation_fwd_mma(const void* q, const void* k, const void* v,
+                                   const void* grid, void* out, int B, int HW, int Cq,
+                                   int Cv, int dtype, void* stream) {
+  if (!mma_takes(B, HW, Cq, Cv, dtype)) return cudaErrorInvalidValue;
+  if (B == 0 || HW == 0) return cudaSuccess;
+  const MmaArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<const bf16*>(grid),
+                  static_cast<float*>(out), B, HW, Cq, Cv, static_cast<cudaStream_t>(stream)};
+  return dispatch_mma(a);
+}
+
+// The "fma" design. dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t
+// (0 on success).
 extern "C" int correlation_fwd(const void* q, const void* k, const void* v,
                                const void* grid, void* out, int B, int HW, int Cq,
                                int Cv, int dtype, void* stream) {

@@ -151,6 +151,17 @@ __device__ __forceinline__ void load_b_trans(uint32_t (&b)[4], const __nv_bfloat
   ldmatrix_x4_trans(b, tile + (k0 + lo.a_row) * pitch + n0 + lo.a_col);
 }
 
+// The x2 form of load_b_trans: the one n-tile n0 .. +8 (b[0], b[1]) at
+// depth k0 .. +16.
+__device__ __forceinline__ void load_b_trans_x2(uint32_t (&b)[2], const __nv_bfloat16* tile,
+                                                int pitch, int k0, int n0,
+                                                const LaneOffsets& lo) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(b[0]), "=r"(b[1])
+               : "r"(smem_u32(tile + (k0 + lo.a_row) * pitch + n0))
+               : "memory");
+}
+
 // c += a . b on the tensor cores: m16n8k16, bf16 operands, float32 sums.
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {

@@ -16,6 +16,8 @@ from mapfree_tpu.ops.image import yuv420_pack_host
 from mapfree_tpu_torch.config import cfg as pt_default_cfg
 from mapfree_tpu_torch.data import augment as pt_aug
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 
 def _jax_factors(key, lead, strengths=(0.4, 0.4, 0.4)):
     """The factors device_color_jitter draws from ``key``."""

@@ -20,6 +20,8 @@ from mapfree_tpu.ops.correlation import fused_correlation_warp as jax_fcw
 
 from mapfree_tpu_torch.ops import correlation as pt_corr
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 
 @pytest.fixture
 def cuda_device():

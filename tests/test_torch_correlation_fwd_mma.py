@@ -1,0 +1,207 @@
+"""PyTorch port: what surrounds the tensor-core design of the forward
+correlation kernel K1 and can be checked without a card.
+
+The kernel rounds P to bf16 before its product with [v | grid], relative to
+each row's running max after each key tile; ``bf16_roundings=True`` makes the
+plain forward do the same. Here that version is held against the exact plain
+forward (which ``tests/test_torch_ops.py`` holds against the JAX package),
+which derives the tolerances the card check (``chip_smoke.py``) uses; the
+design dispatch, the key tile and the build digest are tested beside it. The
+kernel itself runs on the card only. No JAX here.
+"""
+
+import re
+import shutil
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from mapfree_tpu_torch.config import cfg as default_cfg
+from mapfree_tpu_torch.models.aggregators import _uv_grid
+from mapfree_tpu_torch.ops import _build
+from mapfree_tpu_torch.ops import correlation as corr
+
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
+REPO = Path(__file__).resolve().parent.parent
+FWD_SOURCE = _build.CSRC_DIR / "correlation_fwd.cu"
+
+
+def _inputs(B, H, W, cq, cv, seed):
+    """bf16 q, k, v and the bf16 uv grid."""
+    rng = np.random.default_rng(seed)
+    HW = H * W
+    q, k = (torch.from_numpy(rng.standard_normal((B, HW, cq), np.float32)).bfloat16()
+            for _ in range(2))
+    v = torch.from_numpy(rng.standard_normal((B, HW, cv), np.float32)).bfloat16()
+    return q, k, v, _uv_grid(H, W).bfloat16()
+
+
+def _scaled_err(out, ref):
+    """max |out - ref| relative to max(1, max |ref|), the card check's measure."""
+    return float((out - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+
+
+def _rel_l2(out, ref):
+    return float((out - ref).norm() / ref.norm())
+
+
+# (name, B, H, W): C = 32, a ragged HW = 130 and HW = 1,020
+ROUNDING_CASES = [("hw130", 2, 10, 13), ("hw1020", 1, 34, 30)]
+CASE_IDS = [c[0] for c in ROUNDING_CASES]
+
+
+@pytest.mark.parametrize("name,B,H,W", ROUNDING_CASES, ids=CASE_IDS)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_rounding_costs_what_the_exact_tolerance_allows(name, B, H, W, seed):
+    """The plain forward with the kernel's rounding against the exact one:
+    each weight of P carries up to 2^-9 relative, so warped and pos move by
+    about 1e-3 of their largest entry. MMA_FWD_VS_EXACT_TOL is pinned between
+    2x and 20x of what is seen. The max score comes from the float32 P alone
+    and moves by float32 round-off only."""
+    q, k, v, grid = _inputs(B, H, W, 32, 32, seed)
+    exact = corr.fused_correlation_warp_plain(q, k, v, grid)
+    rounded = corr.fused_correlation_warp_plain(q, k, v, grid, bf16_roundings=True)
+    for got, ref in zip(rounded[:2], exact[:2]):
+        err = _scaled_err(got, ref)
+        assert corr.MMA_FWD_VS_EXACT_TOL / 20 <= err <= corr.MMA_FWD_VS_EXACT_TOL / 2, err
+    assert _scaled_err(rounded[2], exact[2]) < 2e-6
+
+
+@pytest.mark.parametrize("name,B,H,W", ROUNDING_CASES, ids=CASE_IDS)
+@pytest.mark.parametrize("key_tile", [16, corr.FWD_KEY_TILE, 4096])
+def test_tiled_arithmetic_without_rounding_is_the_exact_softmax(name, B, H, W, key_tile):
+    """The running max, the float32 rescale and the denominator summed over
+    tiles give the exact softmax to float32 round-off, whatever the tile: so
+    what the tolerances measure is the bf16 rounding alone."""
+    q, k, v, grid = _inputs(B, H, W, 32, 32, seed=2)
+    exact = corr.fused_correlation_warp_plain(q, k, v, grid)
+    tiled = corr.fused_correlation_warp_plain(q, k, v, grid, key_tile=key_tile)
+    for got, ref in zip(tiled, exact):
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        assert _scaled_err(got, ref) < 2e-6
+
+
+def _rounded_forward_with_score_noise(q, k, v, grid, noise, gen):
+    """The arithmetic of ``bf16_roundings=True`` written out, with the float32
+    scores disturbed by ``noise`` x max |s|: what another summation order and
+    another exponential do to them."""
+    B, HW, _ = q.shape
+    vg = torch.cat([v, grid.expand(B, HW, 2)], dim=-1).float()
+    s_all = torch.bmm(q.float(), k.float().transpose(1, 2))
+    if noise:
+        s_all = s_all + noise * float(s_all.abs().max()) * torch.randn(s_all.shape, generator=gen)
+    m = torch.full((B, HW, 1), float("-inf"))
+    d = torch.zeros((B, HW, 1))
+    acc = torch.zeros((B, HW, vg.shape[-1]))
+    for j0 in range(0, HW, corr.FWD_KEY_TILE):
+        s = s_all[..., j0:j0 + corr.FWD_KEY_TILE]
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha, p = torch.exp(m - m_new), torch.exp(s - m_new)
+        d = d * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.bmm(p.bfloat16().float(), vg[:, j0:j0 + corr.FWD_KEY_TILE])
+        m = m_new
+    return acc[..., :-2] / d, acc[..., -2:] / d, 1.0 / d
+
+
+@pytest.mark.parametrize("name,B,H,W", ROUNDING_CASES, ids=CASE_IDS)
+def test_score_noise_flips_few_bf16_roundings(name, B, H, W):
+    """Two float32 evaluations of P that differ by summation order (1e-6 of
+    the largest score, several ulp) round to different bf16 values at a few
+    weights, each by 2^-8 of the weight; over a few hundred rows one such
+    flip at a peaked row moves warped by 1e-4 in L2. That is what the kernel
+    is allowed against the plain forward with the same rounding:
+    MMA_FWD_VS_MATCHED_L2_TOL is pinned between 2x and 20x of it. The max
+    score moves by float32 noise alone, within the float32 kernel's 5e-5."""
+    q, k, v, grid = _inputs(B, H, W, 32, 32, seed=2)
+    gen = torch.Generator().manual_seed(0)
+    ref = corr.fused_correlation_warp_plain(q, k, v, grid, bf16_roundings=True)
+    same = _rounded_forward_with_score_noise(q, k, v, grid, 0.0, gen)
+    noisy = _rounded_forward_with_score_noise(q, k, v, grid, 1e-6, gen)
+    for a, b, r in zip(same[:2], noisy[:2], ref[:2]):
+        assert _rel_l2(a, r) < 1e-6  # the written-out arithmetic is the package's
+        err = _rel_l2(b, r)
+        assert corr.MMA_FWD_VS_MATCHED_L2_TOL / 20 <= err <= corr.MMA_FWD_VS_MATCHED_L2_TOL / 2, err
+    assert float((noisy[2] - ref[2]).abs().max()) < 5e-5
+
+
+def test_rounded_version_defaults_and_the_cpu_route():
+    """bf16_roundings takes FWD_KEY_TILE unless told otherwise; the default
+    is the exact dense softmax, which is also what the Function computes on
+    CPU tensors whatever design the card would take."""
+    q, k, v, grid = _inputs(2, 5, 7, 16, 8, seed=3)
+    rounded = corr.fused_correlation_warp_plain(q, k, v, grid, bf16_roundings=True)
+    tiled = corr.fused_correlation_warp_plain(q, k, v, grid, bf16_roundings=True,
+                                              key_tile=corr.FWD_KEY_TILE)
+    assert all(torch.equal(a, b) for a, b in zip(rounded, tiled))
+    exact = corr.fused_correlation_warp_plain(q, k, v, grid)
+    assert not torch.equal(rounded[0], exact[0])
+    assert corr.forward_design(q.dtype, 16, 8) == corr.DESIGN_MMA
+    fused = corr.fused_correlation_warp(q, k, v, grid)
+    assert all(torch.equal(a, b) for a, b in zip(fused, exact))
+
+
+def _regression_widths():
+    """(config, dtype, Cq, Cv) of K1 for every config under configs/regression/."""
+    out = []
+    for path in sorted((REPO / "configs" / "regression").rglob("*.yaml")):
+        cfg = default_cfg.clone()
+        cfg.merge_from_file(str(path))
+        C = int(cfg.ENCODER.NUM_OUT_LAYERS)
+        cq = C // 2 if cfg.AGGREGATOR.CV_HALF_CHANNELS else C
+        out.append((str(path.relative_to(REPO / "configs" / "regression")),
+                    getattr(torch, cfg.TPU.COMPUTE_DTYPE), cq, C))
+    return out
+
+
+def test_every_regression_config_takes_the_tensor_core_forward():
+    widths = _regression_widths()
+    assert len(widths) == 23
+    assert {(cq, cv) for _, _, cq, cv in widths} == {(32, 32), (16, 32)}
+    for name, dtype, cq, cv in widths:
+        assert dtype == torch.bfloat16, name
+        assert corr.forward_design(dtype, cq, cv) == corr.DESIGN_MMA, name
+        # in float32 the same widths keep the exact FMA kernel
+        assert corr.forward_design(torch.float32, cq, cv) == corr.DESIGN_FMA, name
+
+
+DESIGN_CASES = [
+    (torch.bfloat16, 32, 32, corr.DESIGN_MMA),   # the 3d3d main path
+    (torch.bfloat16, 16, 32, corr.DESIGN_MMA),   # CV_HALF_CHANNELS
+    (torch.bfloat16, 8, 8, corr.DESIGN_MMA),
+    (torch.bfloat16, 128, 120, corr.DESIGN_MMA),  # the widest: Cv + 2 <= 128
+    (torch.bfloat16, 64, 24, corr.DESIGN_MMA),
+    (torch.bfloat16, 128, 128, corr.DESIGN_FMA),  # Cv + 2 > 128
+    (torch.bfloat16, 136, 32, corr.DESIGN_FMA),  # wider than the tensor-core tiles
+    (torch.bfloat16, 12, 12, corr.DESIGN_FMA),   # not a multiple of 8
+    (torch.bfloat16, 32, 4, corr.DESIGN_FMA),
+    (torch.float32, 32, 32, corr.DESIGN_FMA),    # float32 stays exact: no TF32
+]
+
+
+@pytest.mark.parametrize("dtype,cq,cv,design", DESIGN_CASES,
+                         ids=[f"{str(d).split('.')[-1]}_q{a}_v{b}" for d, a, b, _ in DESIGN_CASES])
+def test_forward_design_dispatch(dtype, cq, cv, design):
+    assert corr.forward_design(dtype, cq, cv) == design
+
+
+def test_kernel_key_tile_is_the_plain_versions_tile():
+    """The .cu's TK is the tile of the plain version's roundings."""
+    tiles = re.findall(r"constexpr int TK = (\d+);", FWD_SOURCE.read_text())
+    assert tiles == [str(corr.FWD_KEY_TILE)]
+
+
+def test_forward_build_follows_the_shared_tile_header(tmp_path):
+    """K1's source includes mma_tile.cuh, so editing the header rebuilds K1
+    as it rebuilds K2 and K3."""
+    files = {p.name for p in _build.source_files(FWD_SOURCE)}
+    assert files == {"correlation_fwd.cu", "mma_tile.cuh"}
+    for name in files:
+        shutil.copy(_build.CSRC_DIR / name, tmp_path / name)
+    src = tmp_path / "correlation_fwd.cu"
+    assert _build.source_digest(src) == _build.source_digest(FWD_SOURCE)
+    header = tmp_path / "mma_tile.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build.source_digest(src) != _build.source_digest(FWD_SOURCE)

@@ -18,6 +18,8 @@ from mapfree_tpu_torch.models.aggregators import _uv_grid
 from mapfree_tpu_torch.ops import _build
 from mapfree_tpu_torch.ops import correlation as corr
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 
 def _inputs(B, H, W, cq, cv, seed):
     """bf16 q, k, v and grid, a float32 cotangent of the [B, HW, Cv + 3] buffer."""

@@ -18,6 +18,8 @@ from mapfree_tpu_torch import losses as pt_losses
 from mapfree_tpu_torch import metrics as pt_metrics
 from mapfree_tpu_torch.geom.procrustes import procrustes as pt_procrustes
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 PORTED = ["rot_frobenius_loss", "rot_l1_loss", "rot_angle_loss", "trans_l2_loss",
           "trans_l1_loss", "trans_ang_loss", "empty_loss"]
 LATER = ["rot_bin_loss", "quat_l1_loss", "robust_quat_l1_loss",

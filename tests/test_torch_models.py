@@ -34,6 +34,8 @@ from mapfree_tpu_torch.models import heads as pt_heads
 from mapfree_tpu_torch.models.regression import build_regression_net as pt_build_net
 from mapfree_tpu_torch.tools.convert_weights import load_jax_variables
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 ATOL = 1e-4
 
 

@@ -32,6 +32,8 @@ from mapfree_tpu_torch.tools.convert_weights import load_jax_variables
 from mapfree_tpu_torch.utils.submission import predict as pt_predict
 from mapfree_tpu_torch.utils.submission import save_submission as pt_save
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 H, W = 64, 48
 
 # tests/test_integration.py's _TINY_RPR with the flagship's bottleneck block
