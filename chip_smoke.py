@@ -48,7 +48,23 @@ Phases, in order; any failure raises and the script exits nonzero:
    LR 1e-3 lower the loss on the card; and one bf16 train step of the same
    small model with the kernels (the tensor-core designs) against the same
    step with the plain versions on the card (the forward with K1's bf16
-   rounding of P).
+   rounding of P);
+7. decode: nvJPEG (data/jpeg.py, data/csrc/jpeg_decode.cu) on the committed
+   540x720 fixtures (tests/data/torch_port/) against the JAX package's
+   decode of them at 270x360, as planar YUV420 and as uint8 (mean |diff| at
+   most 1 level, the largest no larger than the JAX package's own two
+   decode paths differ on those files), the zero-fill of a missing file and
+   of four that nvJPEG reports as bad input (empty, no JPEG, cut off,
+   garbage scan), and the wall time of a 64-frame batch;
+8. the user's CLIs from JPEG files: a MapFree tree of fixture copies in a
+   temporary directory (DATA_ROOT set by a YAML there), the submission CLI
+   (python -m mapfree_tpu_torch.submission's main) at 3d3d.yaml's width,
+   bf16, INFER_BATCH 64 over 320 test pairs with random weights, then the
+   train CLI (python -m mapfree_tpu_torch.train's main) for one epoch of 8
+   steps at batch 10 with one validation and its checkpoints, then the
+   submission CLI on that run's last.pt: one line per query frame, finite
+   poses, unit quaternions, K1 (tensor cores) once per sweep batch, K1-K3
+   in the train CLI, and poses that the checkpoint moved.
 
 The last line of standard output is {"ok": true, "device": {...}}; a
 "kernels" JSON line and the card's name and power limit precede it. With no
@@ -66,6 +82,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 from zipfile import ZipFile
 
@@ -133,12 +150,21 @@ STEP_BF16_BWD_L2_TOL = 2e-2
 # K1 and that forward agree to some 1e-5 in L2, but every bf16 layer after
 # them rounds such a difference up to whole bf16 steps (2^-8), so the loss
 # agrees only to a few of those and the gradient, through a loss whose
-# rotation term is an arccos, to several per cent (7.75e-2 in L2 on an H100
-# with the FMA K1 against the exact plain forward, the same in each run).
-# This comparison is of K1, not of the backward: it is held loosely, against
-# gross faults only
+# rotation term is an arccos, to 10-20 per cent in L2. That share depends on
+# the seeds and on the run: on an H100 over six (batch, weight) seeds it was
+# 0.083-0.191 with the ResUNet's upsample in float32 and 0.105-0.184 with it
+# in bf16 as the JAX package computes it (tools/torch_chip_studies.py
+# bf16-seeds), and 0.149 and 0.168 in two runs of this script's seeds
+# (PERF.md). Faults planted in K1 (tools/torch_chip_studies.py bf16-faults,
+# same seeds) read 1.24-1.29 (accumulator not rescaled), 0.78-1.04 (last key
+# tile skipped) and 0.34-0.66 (grid read one key off); the limit lies between
+# those and the sound readings. Subtler faults (P left unrounded, the
+# denominator summed from the rounded P, a normaliser 1% off) read 0.12-0.26,
+# inside the sound spread: this step cannot tell them apart, and phase 3's
+# tight check of K1 alone is what holds them. No planted fault moved the loss
+# by 1%: its limit only catches a step that is off altogether
 STEP_BF16_LOSS_RTOL = 1e-2
-STEP_BF16_L2_TOL = 0.15
+STEP_BF16_L2_TOL = 0.25
 
 
 def log(msg: str) -> None:
@@ -185,14 +211,18 @@ def phase_device() -> str:
 # -- phase 2 -----------------------------------------------------------------
 
 def phase_build() -> None:
-    """Every CUDA source at once, one nvcc process each."""
+    """Every CUDA source at once, one nvcc process each: the kernels' and the
+    nvJPEG decoder's (which needs nvjpeg.h and libnvjpeg.so beside the
+    toolkit)."""
+    from mapfree_tpu_torch.data import jpeg
     from mapfree_tpu_torch.ops import _build
     from mapfree_tpu_torch.ops import correlation as corr
 
     t0 = time.perf_counter()
-    _build.load_libraries(corr.LIBRARIES)
-    log(f"[build] {len(corr.LIBRARIES)} libraries in {time.perf_counter() - t0:.2f} s")
-    for name in corr.LIBRARIES:
+    names = list(corr.LIBRARIES) + [jpeg.LIBRARY]
+    _build.load_libraries(list(corr.LIBRARIES) + [jpeg.library_spec()])
+    log(f"[build] {len(names)} libraries in {time.perf_counter() - t0:.2f} s")
+    for name in names:
         log(f"[build] {name}: nvcc {_build.build_seconds[name]:.2f} s")
         for kernel, regs, spill in ptxas_report(_build.build_logs.get(name, "")):
             log(f"[build]   {kernel}: {regs} registers, {spill} bytes spilled")
@@ -803,7 +833,62 @@ def phase_main_path() -> int:
         f"parameters; submission.zip {len(lines)} lines; max |det(R) - 1| = "
         f"{np.abs(det - 1.0).max():.2e}")
     profile_window(lambda: model.dispatch_device(transferred)(), "forward")
+    time_upsample(model, transferred)
     return launches
+
+
+def time_upsample(model, transferred) -> None:
+    """The ResUNet's two bilinear upsamples at the forward's shapes: the
+    port's two interpolation matmuls in the compute dtype
+    (models/blocks.py::resize_bilinear_align_corners) beside F.interpolate in
+    float32, which autocast ran before."""
+    import torch
+    import torch.nn.functional as F
+
+    from mapfree_tpu_torch.models.blocks import resize_bilinear_align_corners
+
+    enc = model.net.encoder
+    seen = []
+    hooks = [m.register_forward_pre_hook(lambda _m, args: seen.append(
+        (tuple(args[0].shape), args[0].dtype,
+         torch.channels_last if args[0].is_contiguous(memory_format=torch.channels_last)
+         else torch.contiguous_format)))
+        for m in (enc.upconv4, enc.upconv3)]
+    try:
+        model.dispatch_device(transferred)()
+    finally:
+        for h in hooks:
+            h.remove()
+    def issue_us(fn, n=20):
+        """Host time to issue one call (the device is left to catch up)."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us = 1e6 * (time.perf_counter() - t0) / n
+        torch.cuda.synchronize()
+        return us
+
+    total_new = total_old = 0.0
+    for shape, dtype, layout in seen:
+        x = torch.randn(shape, device="cuda").to(dtype).contiguous(memory_format=layout)
+        out = (shape[2] * 2, shape[3] * 2)
+
+        def new_fn():
+            return resize_bilinear_align_corners(x, out)
+
+        def old_fn():
+            return F.interpolate(x.float(), size=out, mode="bilinear", align_corners=True)
+
+        new, old = cuda_time_ms(new_fn, iters=20), cuda_time_ms(old_fn, iters=20)
+        total_new, total_old = total_new + new, total_old + old
+        log(f"[main] upsample {list(shape)} {dtype} {str(layout).split('.')[-1]} -> {out}: "
+            f"{new:.3f} ms (two matmuls in {dtype}), F.interpolate in float32 {old:.3f} ms; "
+            f"host time to issue one call {issue_us(new_fn):.1f} us and "
+            f"{issue_us(old_fn):.1f} us")
+    log(f"[main] upsamples per forward: {total_new:.3f} ms (F.interpolate in float32 "
+        f"{total_old:.3f} ms)")
 
 
 @contextlib.contextmanager
@@ -1246,6 +1331,265 @@ def phase_train_parity_bf16() -> None:
                              "versions")
 
 
+# -- phase 7 -----------------------------------------------------------------
+
+FIXTURES = REPO / "tests" / "data" / "torch_port"
+# the card's decode against the JAX package's outputs on the fixtures: mean
+# absolute difference in levels; the largest difference is held to the gap
+# between the JAX package's own two decode paths on the same files
+# (tests/data/torch_port/decode_gap.json, measured where both run)
+DECODE_MEAN_TOL = 1.0
+
+
+def phase_decode() -> dict:
+    """nvJPEG on the fixtures against the JAX package's decode of them, the
+    zero-fill of files it cannot decode, and the time of a 64-frame batch."""
+    import torch
+
+    from mapfree_tpu_torch.data import jpeg
+
+    dec = jpeg.decoder()
+    header, _ = jpeg.nvjpeg_files()
+    log(f"[decode] nvJPEG {dec.version}: {dec.library_path} (header {header})")
+    paths = [str(p) for p in sorted(FIXTURES.glob("frame_*.jpg"))]
+    ref = np.load(FIXTURES / "jax_decode_270x360.npz")
+    gap = json.loads((FIXTURES / "decode_gap.json").read_text())
+    out = {"library": dec.library_path, "version": dec.version}
+    for key in ("yuv420", "uint8"):
+        got = jpeg.decode_resize_batch(paths, 270, 360, device="cuda", **{key: True})
+        if got.shape != ref[key].shape or got.dtype != ref[key].dtype:
+            raise AssertionError(f"decode {key}: {got.dtype}{got.shape}, expected "
+                                 f"{ref[key].dtype}{ref[key].shape}")
+        diff = np.abs(got.astype(np.int32) - ref[key].astype(np.int32))
+        out[key] = {"max_abs": int(diff.max()), "mean_abs": float(diff.mean())}
+        log(f"[decode] {len(paths)} fixtures to 270x360 {key} against the JAX package: "
+            f"mean |diff| {diff.mean():.4f} (limit {DECODE_MEAN_TOL}), max {diff.max()} "
+            f"(limit {gap[key]['max_abs']}, the JAX package's native vs cv2 gap)")
+        if diff.mean() > DECODE_MEAN_TOL or diff.max() > gap[key]["max_abs"]:
+            raise AssertionError(f"the card's {key} decode disagrees with the JAX package's")
+    floats = jpeg.decode_resize_batch(paths, 270, 360, device="cuda")
+    u8 = jpeg.decode_resize_batch(paths, 270, 360, device="cuda", uint8=True)
+    if floats.dtype != np.float32 or np.abs(floats * 255.0 - u8).max() > 0.5 + 1e-3:
+        raise AssertionError("the float output is not the uint8 output before rounding")
+
+    # files nvJPEG cannot decode are zero-filled and counted: a missing and
+    # an empty file, one that is no JPEG, one cut off inside its headers and
+    # one whose scan is garbage (nvJPEG's statuses 3, 10 and 4)
+    good = Path(paths[0]).read_bytes()
+    bad = {"empty": b"", "not_jpeg": b"not a JPEG", "cut": good[:200],
+           "garbage": good[:1000] + bytes((b * 7 + 13) % 256 for b in good[1000:])}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, data in bad.items():
+            (Path(tmp) / f"{name}.jpg").write_bytes(data)
+        batch = [paths[0], str(Path(tmp) / "missing.jpg")] + [
+            str(Path(tmp) / f"{name}.jpg") for name in bad]
+        jpeg.reset_stats()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            got = jpeg.decode_resize_batch(batch, 270, 360, device="cuda", yuv420=True)
+    if (jpeg.stats["failures"] != len(batch) - 1 or not got[0].any() or got[1:, :360].any()
+            or (got[1:, 360:] != 128).any() or not caught):
+        raise AssertionError(f"undecodable files: stats {jpeg.stats}, warnings {len(caught)}")
+    log(f"[decode] {len(batch) - 1} undecodable files (missing, {', '.join(bad)}) "
+        f"zero-filled and counted")
+
+    batch = [paths[i % len(paths)] for i in range(64)]
+    for key in ("yuv420", "uint8"):
+        jpeg.decode_resize_batch(batch, 270, 360, device="cuda", **{key: True})
+        torch.cuda.synchronize()
+        n = 5
+        t0 = time.perf_counter()
+        for _ in range(n):
+            jpeg.decode_resize_batch(batch, 270, 360, device="cuda", **{key: True})
+        ms = 1e3 * (time.perf_counter() - t0) / n
+        out[key].update(ms_per_batch=ms, frames_per_s=64e3 / ms)
+        log(f"[decode] 64 frames of 540x720 to 270x360 {key}: {ms:.2f} ms per batch, "
+            f"{64e3 / ms:.1f} frames/s (wall, {jpeg.DECODE_THREADS} host threads)")
+    return out
+
+
+# -- phase 8 -----------------------------------------------------------------
+
+def write_mapfree_tree(root: Path, seed: int) -> dict:
+    """A MapFree scene tree of copies of the fixtures, with random poses:
+    ``test`` 4 scenes of seq0/frame_00000 + seq1/frame_00000..00399 (80
+    pairs each at the sample factor of 5), ``train`` 2 scenes of 40 pairs
+    with overlaps.npz (all inside 3d3d.yaml's 0.4-0.8), ``val`` 1 scene of
+    20 pairs. Returns {split: {scene: [query frames in submission order]}}."""
+    import shutil
+
+    rng = np.random.default_rng(seed)
+    frames = sorted(FIXTURES.glob("frame_*.jpg"))
+    layout = {"test": (4, 400, False), "train": (2, 40, True), "val": (1, 100, False)}
+    queries = {}
+    for split, (n_scenes, n_queries, train) in layout.items():
+        queries[split] = {}
+        for s in range(n_scenes):
+            scene = root / split / f"s{s:05d}"
+            names = ["seq0/frame_00000.jpg"] + [f"seq1/frame_{i:05d}.jpg"
+                                                for i in range(n_queries)]
+            intr, poses = [], []
+            for j, name in enumerate(names):
+                (scene / name).parent.mkdir(parents=True, exist_ok=True)
+                shutil.copyfile(frames[(j + s) % len(frames)], scene / name)
+                q = rng.normal(size=4)
+                q /= np.linalg.norm(q)
+                t = rng.normal(size=3)
+                intr.append(f"{name} 590.0 590.0 270.0 360.0 540 720")
+                poses.append(f"{name} " + " ".join(f"{v:.9f}" for v in np.concatenate([q, t])))
+            (scene / "intrinsics.txt").write_text("\n".join(intr) + "\n")
+            (scene / "poses.txt").write_text("\n".join(poses) + "\n")
+            if train:
+                idxs = np.array([(0, 0, 1, i) for i in range(n_queries)], dtype=np.int64)
+                np.savez(scene / "overlaps.npz", idxs=idxs,
+                         overlaps=rng.uniform(0.45, 0.75, size=n_queries))
+            queries[split][scene.name] = names[1::5]
+    return queries
+
+
+def write_configs(root: Path) -> tuple:
+    """The dataset config with DATA_ROOT set to ``root`` and the run-length
+    config of the train CLI, both YAML files in ``root``."""
+    text = (REPO / "configs/mapfree.yaml").read_text()
+    if "DATA_ROOT: 'data/mapfree/'" not in text:
+        raise AssertionError("configs/mapfree.yaml has no DATA_ROOT line to set")
+    dataset = root / "mapfree.yaml"
+    dataset.write_text(text.replace("DATA_ROOT: 'data/mapfree/'", f"DATA_ROOT: '{root}'"))
+    # one epoch of 2 scenes x 40 samples = 8 steps at batch 10, one validation
+    # of 2 batches at its end; the model and optimizer are 3d3d.yaml's
+    run = root / "run.yaml"
+    run.write_text("TRAINING:\n  EPOCHS: 1\n  N_SAMPLES_SCENE: 40\n  VAL_INTERVAL: 1.0\n"
+                   "  VAL_BATCHES: 2\n  LOG_INTERVAL: 1\n")
+    return dataset, run
+
+
+def read_submission(path: Path) -> dict:
+    """{scene: {frame: (q, t)}} from a submission zip; every line must hold
+    9 fields, finite numbers and a unit quaternion."""
+    out = {}
+    with ZipFile(path) as z:
+        for name in z.namelist():
+            scene = name[len("pose_"):-len(".txt")]
+            out[scene] = {}
+            for line in z.read(name).decode().splitlines():
+                fields = line.split(" ")
+                if len(fields) != 9:
+                    raise AssertionError(f"{name}: line of {len(fields)} fields: {line}")
+                q, t = np.array(fields[1:5], float), np.array(fields[5:8], float)
+                if not (np.all(np.isfinite(q)) and np.all(np.isfinite(t))):
+                    raise AssertionError(f"{name}: non-finite pose: {line}")
+                if abs(np.linalg.norm(q) - 1.0) > 1e-5:
+                    raise AssertionError(f"{name}: quaternion of norm {np.linalg.norm(q)}")
+                out[scene][fields[0]] = (q, t)
+    return out
+
+
+def run_submission_cli(argv: list, expected: dict, what: str) -> dict:
+    """``mapfree_tpu_torch.submission.main(argv)`` with the counts reset
+    before it: one line per query frame, K1's tensor-core design once per
+    batch. Returns the poses, the launches and the stage times."""
+    from mapfree_tpu_torch import submission
+    from mapfree_tpu_torch.data import jpeg
+    from mapfree_tpu_torch.ops import correlation as corr
+    from mapfree_tpu_torch.utils.timing import StageTimes
+
+    times = StageTimes()
+    corr.reset_launches()
+    jpeg.reset_stats()
+    with designs_served() as seen:
+        t0 = time.perf_counter()
+        path = submission.main(argv, times=times)
+        elapsed = time.perf_counter() - t0
+    launches = dict(corr.launches)
+    _expect_designs(seen, {"forward": [corr.DESIGN_MMA]}, what)
+    poses = read_submission(path)
+    n_pairs = sum(len(v) for v in expected.values())
+    if {s: sorted(p) for s, p in poses.items()} != {s: sorted(q) for s, q in expected.items()}:
+        raise AssertionError(f"{what}: submission.zip does not hold one line per query frame")
+    n_batches = -(-n_pairs // 64)
+    if launches != {corr.KERNEL: n_batches, corr.KERNEL_BWD_ROWS: 0, corr.KERNEL_BWD_COLS: 0}:
+        raise AssertionError(f"{what}: launches {launches} for {n_batches} batches")
+    sweep = times.seconds["sweep"]
+    log(f"[cli] {what}: {n_pairs} pairs from JPEG files in {n_batches} batches: CLI "
+        f"{elapsed:.3f} s, sweep {sweep:.3f} s, {n_pairs / sweep:.1f} pairs/s end to end "
+        f"from files; {jpeg.stats['images']} frames decoded on the card, "
+        f"{jpeg.stats['failures']} failed; K1 launches {launches[corr.KERNEL]}, "
+        f"{corr.DESIGN_MMA} design; stages {times.summary()}")
+    return {"poses": poses, "launches": launches, "pairs_per_s": n_pairs / sweep,
+            "stages": times.summary()}
+
+
+def phase_clis() -> dict:
+    """The sweep through the submission CLI from JPEG files, the train CLI
+    for one short epoch, and the submission CLI on that run's checkpoint.
+    Returns each kernel's launches per CLI run."""
+    from mapfree_tpu_torch.ops import correlation as corr
+    from mapfree_tpu_torch.train.__main__ import main as train_main
+
+    model_cfg = str(REPO / "configs/regression/mapfree/3d3d.yaml")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        queries = write_mapfree_tree(root, seed=SEED + 20)
+        dataset_cfg, run_cfg = write_configs(root)
+        log(f"[cli] MapFree tree of fixture copies in {time.perf_counter() - t0:.2f} s: "
+            + ", ".join(f"{split} {len(q)} scenes, {sum(len(v) for v in q.values())} pairs"
+                        for split, q in queries.items()))
+
+        # (b) the sweep, random weights from the config's seed
+        common = ["--dataset_config", str(dataset_cfg), "--device", "cuda"]
+        random_run = run_submission_cli(
+            [model_cfg, *common, "-o", str(root / "random")], queries["test"],
+            "submission CLI, random weights")
+
+        # (c) the train CLI: one epoch of 8 steps, one validation, checkpoints
+        corr.reset_launches()
+        captured = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.chdir(root), contextlib.redirect_stdout(captured), \
+                designs_served() as seen:
+            state = train_main([model_cfg, str(dataset_cfg), "--config", str(run_cfg),
+                                "--experiment", "smoke", "--device", "cuda"])
+        elapsed = time.perf_counter() - t0
+        train_launches = dict(corr.launches)
+        for line in captured.getvalue().splitlines():
+            log(f"[cli]   {line}")
+        _expect_designs(seen, {"forward": [corr.DESIGN_MMA], "backward": [corr.DESIGN_MMA]},
+                        "the train CLI")
+        _expect_launches(corr, {corr.KERNEL: 8 + 2, corr.KERNEL_BWD_ROWS: 8,
+                                corr.KERNEL_BWD_COLS: 8}, "the train CLI")
+        run_dir = root / "weights" / "smoke"
+        records = [json.loads(ln) for ln in (run_dir / "scalars.jsonl").read_text().splitlines()]
+        losses = [r["train/loss"] for r in records if "train/loss" in r]
+        val = [r["val_loss/loss"] for r in records if "val_loss/loss" in r]
+        files = sorted(p.name for p in run_dir.glob("*.pt"))
+        log(f"[cli] train CLI: {state.step} steps, {len(val)} validation in {elapsed:.2f} s "
+            f"(decode, steps, validation, checkpoints); launches {train_launches}; "
+            f"losses {' '.join(f'{x:.4f}' for x in losses)}; validation {val}; "
+            f"checkpoints {files}")
+        if state.step != 8 or len(losses) != 8 or len(val) != 1 \
+                or not np.all(np.isfinite(losses + val)):
+            raise AssertionError("the train CLI did not take 8 finite steps and one validation")
+        if files != ["last.pt", "step_8.pt"]:
+            raise AssertionError(f"the train CLI wrote the checkpoints {files}")
+
+        # the submission CLI on that run's last.pt: the trained weights move
+        # the poses away from those of the random initialisation
+        trained = run_submission_cli(
+            [model_cfg, *common, "--checkpoint", str(run_dir / "last.pt"),
+             "-o", str(root / "trained")], queries["test"], "submission CLI, last.pt")
+    moved = [max(np.abs(trained["poses"][s][f][0] - q).max(),
+                 np.abs(trained["poses"][s][f][1] - t).max())
+             for s, frames in random_run["poses"].items() for f, (q, t) in frames.items()]
+    log(f"[cli] the checkpoint moved the poses: median max |diff| {np.median(moved):.4f}, "
+        f"{np.mean(np.array(moved) > 1e-4):.1%} of {len(moved)} frames by more than 1e-4")
+    if np.mean(np.array(moved) > 1e-4) < 0.9:
+        raise AssertionError("the submission CLI's poses do not depend on the checkpoint")
+    return {"submission_cli": random_run["launches"], "train_cli": train_launches,
+            "submission_cli_checkpoint": trained["launches"],
+            "pairs_per_s": random_run["pairs_per_s"], "stages": random_run["stages"]}
+
+
 def main() -> None:
     try:
         import torch
@@ -1275,11 +1619,17 @@ def main() -> None:
     phase_device_parity()
     phase_train_parity()
     phase_train_parity_bf16()
+    phase_decode()
+    cli_launches = phase_clis()
 
     from mapfree_tpu_torch.ops import correlation as corr
 
     by_path = {name: {"train_loop": n} for name, n in train_launches.items()}
     by_path[corr.KERNEL]["inference_sweep"] = sweep_launches
+    for run in ("submission_cli", "train_cli", "submission_cli_checkpoint"):
+        for name, n in cli_launches[run].items():
+            if n:
+                by_path[name][run] = n
     kernels = []
     for name, source, replaces in (
             (corr.KERNEL, "correlation_fwd.cu", 60),

@@ -1,15 +1,18 @@
 """mapfree_tpu_torch — the PyTorch / CUDA port of mapfree_tpu for NVIDIA Hopper.
 
-The package mirrors mapfree_tpu's layout module for module (config/, ops/,
-geom/, models/, utils/, tools/) and keeps its public layouts (NHWC uint8 or
+The package mirrors mapfree_tpu's layout module for module (config/, data/,
+ops/, geom/, models/, train/, utils/, tools/) and keeps its public layouts (NHWC uint8 or
 planar YUV420 images, [B, HW, C] correlation features, R [B, 3, 3] and
 t [B, 1, 3] poses) so every module can be held against its JAX counterpart.
 It imports nothing of JAX or of mapfree_tpu. Entry points take an explicit
 ``device`` argument that defaults to ``"cuda"``.
 
-The one hand-written kernel of the regression inference path, the fused
-correlation softmax-warp forward, is CUDA C++ for sm_90a
-(``ops/csrc/correlation_fwd.cu``), built with nvcc at first use.
+The hand-written kernels, the fused correlation softmax-warp forward and its
+backward, are CUDA C++ for sm_90a (``ops/csrc/correlation_fwd.cu``,
+``ops/csrc/correlation_bwd.cu``), built with nvcc at first use; so is the
+data layer's JPEG decoder over nvJPEG (``data/csrc/jpeg_decode.cu``). The
+user's entry points are ``python -m mapfree_tpu_torch.train`` and
+``python -m mapfree_tpu_torch.submission``.
 """
 
 __version__ = "0.1.0"

@@ -1,13 +1,52 @@
-"""Quaternion <-> rotation matrix in float64 numpy, for pose extraction.
+"""Quaternion algebra on numpy: pose extraction (``mat2quat``) and the
+datasets' relative poses.
 
 The port's copy of the numpy branch of mapfree_tpu/geom/quaternion.py
-(``quat2mat``, ``mat2quat``). Convention: (w, x, y, z), scalar first, as in
-the MapFree pose-file format.
+(``qinverse``, ``qconjugate``, ``qmult``, ``rotate_vector``, ``quat2mat``,
+``mat2quat``, ``relative_pose_wxyz``); every function takes a batch of
+leading axes. Convention: (w, x, y, z), scalar first, as in the MapFree
+pose-file format.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def qinverse(q):
+    """Inverse of quaternion(s) ``[..., 4]`` (conjugate / squared norm)."""
+    conj = q * np.asarray([1.0, -1.0, -1.0, -1.0], dtype=q.dtype)
+    return conj / np.sum(q * q, axis=-1, keepdims=True)
+
+
+def qconjugate(q):
+    return q * np.asarray([1.0, -1.0, -1.0, -1.0], dtype=q.dtype)
+
+
+def qmult(q1, q2):
+    """Hamilton product of quaternions ``[..., 4] x [..., 4] -> [..., 4]``."""
+    w1, x1, y1, z1 = q1[..., 0], q1[..., 1], q1[..., 2], q1[..., 3]
+    w2, x2, y2, z2 = q2[..., 0], q2[..., 1], q2[..., 2], q2[..., 3]
+    return np.stack(
+        [
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+            w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+            w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+        ],
+        axis=-1,
+    )
+
+
+def rotate_vector(v, q):
+    """Rotate vector(s) ``[..., 3]`` by quaternion(s) ``[..., 4]``:
+    v' = v + 2 r x (s v + r x v) / m, where q = (s, r) and m = |q|^2."""
+    s = q[..., :1]
+    r = q[..., 1:]
+    m = np.sum(q * q, axis=-1, keepdims=True)
+    cross1 = np.cross(r, v)
+    cross2 = np.cross(r, s * v + cross1)
+    return v + 2.0 * cross2 / m
 
 
 def quat2mat(q):
@@ -70,3 +109,12 @@ def mat2quat(R):
     sign = np.where(q[..., :1] < 0, -1.0, 1.0)  # canonical hemisphere: w >= 0
     q = q * sign
     return q / np.linalg.norm(q, axis=-1, keepdims=True)
+
+
+def relative_pose_wxyz(q1_wxyz, t1, q2_wxyz, t2):
+    """Relative pose of world-to-camera poses (q1, t1) and (q2, t2): (q12,
+    t12) with X_c2 = R(q12) X_c1 + t12 (reference:
+    lib/utils/rotationutils.py:58-61)."""
+    q12 = qmult(q2_wxyz, qinverse(q1_wxyz))
+    t12 = t2 - rotate_vector(t1, q12)
+    return q12, t12

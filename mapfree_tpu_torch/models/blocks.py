@@ -11,6 +11,9 @@ in the JAX modules.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -127,9 +130,64 @@ class UpConv(nn.Module):
 
     def forward(self, x):
         H, W = x.shape[-2:]
-        x = F.interpolate(x, size=(H * self.scale, W * self.scale),
-                          mode="bilinear", align_corners=True)
+        x = resize_bilinear_align_corners(x, (H * self.scale, W * self.scale))
         return self.conv1(x)
+
+
+@lru_cache(maxsize=16)
+def _interp_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """[out, in] align-corners linear-interpolation matrix, two nonzeros per
+    row (mapfree_tpu/models/blocks.py::_interp_matrix). Cached per shape;
+    callers must not write to the result."""
+    if out_size == 1 or in_size == 1:
+        src = np.zeros((out_size,), np.float32)
+    else:
+        src = np.arange(out_size, dtype=np.float32) * (in_size - 1) / (out_size - 1)
+    lo = np.clip(np.floor(src).astype(np.int64), 0, in_size - 1)
+    hi = np.clip(lo + 1, 0, in_size - 1)
+    frac = src - lo
+    m = np.zeros((out_size, in_size), np.float32)
+    m[np.arange(out_size), lo] += 1.0 - frac
+    m[np.arange(out_size), hi] += frac
+    return m
+
+
+@lru_cache(maxsize=32)
+def _interp_tensor(in_size: int, out_size: int, device: torch.device,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """:func:`_interp_matrix` as a tensor of ``dtype`` on ``device``, made
+    once per key: a copy from pageable host memory on every call would stall
+    the host until the device caught up. Made outside inference mode, so
+    that autograd may save it; callers must not write to it."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_interp_matrix(in_size, out_size)).to(device, dtype)
+
+
+def resize_bilinear_align_corners(x, out_hw):
+    """Bilinear resize of NCHW ``x`` with align_corners=True, as the JAX
+    package computes it (mapfree_tpu/models/blocks.py:226-248): two
+    interpolation matmuls, along H and then along W, with the matrices in
+    the compute dtype (autocast's, else ``x``'s), float32 accumulation, and
+    the result rounded to the compute dtype after each axis."""
+    H, W = x.shape[-2:]
+    out_h, out_w = out_hw
+    if (out_h, out_w) == (H, W):
+        return x
+    dev = x.device.type
+    dtype = torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else x.dtype
+    mh = _interp_tensor(H, out_h, x.device, dtype)
+    mw = _interp_tensor(W, out_w, x.device, dtype)
+    with torch.autocast(dev, enabled=False):
+        x = x.to(dtype)
+        if x.is_contiguous() or not x.is_contiguous(memory_format=torch.channels_last):
+            x = torch.matmul(mh, x)                     # [N, C, out_h, W]
+            return torch.matmul(x, mw.transpose(0, 1))  # [N, C, out_h, out_w]
+        # channels-last memory (what cuDNN's convolutions keep here): the same
+        # products on the [N, H, W, C] view, so the result stays channels-last
+        N, C = x.shape[:2]
+        y = torch.matmul(mh, x.permute(0, 2, 3, 1).reshape(N, H, W * C))
+        y = torch.matmul(mw, y.reshape(N * out_h, W, C))
+        return y.reshape(N, out_h, out_w, C).permute(0, 3, 1, 2)
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:

@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` exports plain C functions and is compiled on its
 own by ``nvcc`` for sm_90a into a shared library under ``ops/_build/``
 (a directory git ignores), named by a hash of the source, the headers it
 includes from ``csrc/`` and the flags, so an edited source or header rebuilds
-and an unchanged one loads the existing library.
+and an unchanged one loads the existing library. A source may live in
+another package's ``csrc/`` (``data/csrc/jpeg_decode.cu``) and may name
+libraries to link (``-lnvjpeg``).
 No PyTorch headers are included: a build takes seconds, not minutes.
 """
 
@@ -72,32 +74,33 @@ def source_files(src: Path) -> list:
     return seen
 
 
-def source_digest(src: Path) -> str:
-    """Names a build: changes when ``src``, a header it includes or a
-    compiler flag changes."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def source_digest(src: Path, link=()) -> str:
+    """Names a build: changes when ``src``, a header it includes, a
+    compiler flag or a link flag changes."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(link)).encode())
     for path in sorted(source_files(src)):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
     return h.hexdigest()[:16]
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if needed and return the loaded library.
-    Each library has a lock of its own, so different sources build at once."""
+def load_library(name: str, src_dir: Path = CSRC_DIR, link=()) -> ctypes.CDLL:
+    """Build ``<src_dir>/<name>.cu`` if needed, linked with the flags
+    ``link``, and return the loaded library. Each library has a lock of its
+    own, so different sources build at once."""
     with _lock:
         name_lock = _name_locks.setdefault(name, threading.Lock())
     with name_lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        src = CSRC_DIR / f"{name}.cu"
-        so = BUILD_DIR / f"lib{name}-{source_digest(src)}.so"
+        src = Path(src_dir) / f"{name}.cu"
+        so = BUILD_DIR / f"lib{name}-{source_digest(src, link)}.so"
         if so.is_file():
             build_seconds[name] = 0.0
         else:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src), *link]
             t0 = time.perf_counter()
             proc = subprocess.run(cmd, capture_output=True, text=True)
             build_seconds[name] = time.perf_counter() - t0
@@ -112,12 +115,15 @@ def load_library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def load_libraries(names) -> None:
-    """Build and load several sources at once, one nvcc process each."""
-    threads = [threading.Thread(target=load_library, args=(n,)) for n in names]
+def load_libraries(libraries) -> None:
+    """Build and load several sources at once, one nvcc process each. Each
+    entry is a name in ``csrc/`` or a tuple of :func:`load_library`'s
+    arguments."""
+    specs = [(lib,) if isinstance(lib, str) else tuple(lib) for lib in libraries]
+    threads = [threading.Thread(target=load_library, args=spec) for spec in specs]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
-    for n in names:
-        load_library(n)  # raises here if that source failed to build
+    for spec in specs:
+        load_library(*spec)  # raises here if that source failed to build

@@ -10,9 +10,10 @@ reference's Lightning setup:
 
 :func:`fit_loaders` is the loop itself and takes its loaders as arguments:
 any re-iterable (with ``len``) of collated numpy batches holding ``image0``,
-``image1`` and ``T_0to1``. :func:`fit` keeps the JAX package's signature and
-is the one place that would build a ``DataModule``; the data layer is not
-ported yet, so it raises.
+``image1`` and ``T_0to1``. :func:`fit` keeps the JAX package's signature,
+plus the device: it builds the ``DataModule`` from the config, whose loaders
+decode on that device, and hands its loaders to :func:`fit_loaders`. One
+device, no mesh.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from mapfree_tpu_torch.data import DataModule
 from mapfree_tpu_torch.models.builder import resolve_device
 from mapfree_tpu_torch.models.regression import build_regression_net
 from mapfree_tpu_torch.train.loop import (
@@ -163,11 +165,18 @@ def fit_loaders(cfg, train_loader, val_loader, experiment: str = "default",
 
 
 def fit(cfg, experiment: str = "default", resume: str | None = None,
-        weights_dir: str = "weights", max_steps: int | None = None):
-    """The JAX package's entry point: build the ``DataModule`` from ``cfg``
-    and train. The data layer is not ported yet."""
-    raise NotImplementedError(
-        "fit(cfg) needs the data layer (DataModule, MapFreeDataset, the loaders), "
-        "which is not ported yet: it comes with the slice that ports the data layer "
-        "and the train and submission CLIs. Until then call fit_loaders(cfg, "
-        "train_loader, val_loader, ...) with loaders of collated numpy batches.")
+        weights_dir: str = "weights", max_steps: int | None = None, device="cuda"):
+    """Train ``cfg``'s model on its dataset (mapfree_tpu/train/fit.py:66-80):
+    the ``DataModule``'s train and validation loaders, decoding on
+    ``device``, feed :func:`fit_loaders`. Returns the final train state.
+
+    The JAX fit draws one batch from the train loader to give its model
+    shapes, and its loader's ``len`` draws a whole epoch from the
+    scene-balance sampler, so its first epoch trains on the sampler's third
+    draw. A torch module needs no shapes and the port's loader counts
+    without drawing, so here the first epoch trains on the sampler's first
+    draw: the batch the JAX fit initialises from."""
+    datamodule = DataModule(cfg, device=device)
+    return fit_loaders(cfg, datamodule.train_dataloader(), datamodule.val_dataloader(),
+                       experiment=experiment, resume=resume, weights_dir=weights_dir,
+                       max_steps=max_steps, device=device)

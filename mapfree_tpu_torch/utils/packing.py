@@ -16,8 +16,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# the field types the predictor packs: images, ref indices, float images
-_TORCH_DTYPES = {"uint8": torch.uint8, "int32": torch.int32, "float32": torch.float32}
+# the field types packed: images, ref indices, float images, bool masks
+_TORCH_DTYPES = {"uint8": torch.uint8, "int32": torch.int32, "float32": torch.float32,
+                 "bool": torch.bool}
 
 
 def pack_arrays(arrays, out: np.ndarray | None = None) -> np.ndarray:
@@ -63,6 +64,8 @@ def unpack(buf: torch.Tensor, spec) -> dict:
             if off % itemsize:
                 seg = seg.clone()  # view() needs an itemsize-aligned offset
             seg = seg.view(dtype)
+        elif dtype == torch.bool:  # nonzero bytes are True, as the JAX unpack casts
+            seg = seg != 0
         out[name] = seg.reshape(shape)
         off += n
     if off != buf.numel():

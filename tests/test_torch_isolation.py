@@ -57,6 +57,41 @@ def test_port_entry_points_load_no_jax_modules():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_data_layer_and_clis_load_without_jax_cv2_or_pil(tmp_path):
+    """The machine with the card has no JAX, cv2 or PIL: with each of them
+    unimportable, the data layer and both CLIs import, and a DataModule
+    builds its datasets and loaders over a MapFree tree (no image is read:
+    cv2 and PIL are imported only where the host decodes)."""
+    from fixtures import make_scene
+
+    for split in ("train", "val", "test"):
+        make_scene(tmp_path / split / "s00000", n_queries=5, img_hw=(16, 12),
+                   train=split == "train")
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'cv2', 'PIL'):\n"
+        "    sys.modules[name] = None  # import raises ImportError\n"
+        "import mapfree_tpu_torch.data, mapfree_tpu_torch.submission\n"
+        "import mapfree_tpu_torch.train.__main__\n"
+        "from mapfree_tpu_torch.config import cfg\n"
+        "from mapfree_tpu_torch.data import DataModule\n"
+        "c = cfg.clone()\n"
+        "c.merge_from_file('configs/mapfree.yaml')\n"
+        "c.merge_from_file('configs/regression/mapfree/3d3d.yaml')\n"
+        f"c.DATASET.DATA_ROOT = {str(tmp_path)!r}\n"
+        "dm = DataModule(c, device='cpu')\n"
+        "sizes = [len(dm.train_dataloader()), len(dm.val_dataloader().dataset),\n"
+        "         len(dm.test_dataloader(batch_size=2, unique_refs=True).dataset)]\n"
+        "print(sizes)\n"
+        f"bad = sorted(m for m, mod in sys.modules.items()\n"
+        f"             if mod is not None and m.split('.')[0] in {FORBIDDEN + ('cv2', 'PIL')!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad or sizes[1:] != [1, 1] else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 @pytest.mark.parametrize("where", ["checkout", "alone"])
 def test_chip_smoke_fails_without_cuda_or_checkout(where, tmp_path):
     """Here there is no card: the script must exit nonzero and print no

@@ -14,6 +14,7 @@ import torch
 
 import jax.numpy as jnp
 
+from mapfree_tpu.geom import projection as jax_proj
 from mapfree_tpu.geom import quaternion as jax_quat
 from mapfree_tpu.geom.procrustes import procrustes as jax_procrustes
 from mapfree_tpu.geom.smallblas import det3 as jax_det3, svd3 as jax_svd3
@@ -21,6 +22,7 @@ from mapfree_tpu.models.aggregators import _uv_grid as jax_uv_grid
 from mapfree_tpu.ops import image as jax_image
 from mapfree_tpu.ops.correlation import fused_correlation_warp as jax_fcw
 
+from mapfree_tpu_torch.geom import projection as pt_proj
 from mapfree_tpu_torch.geom import quaternion as pt_quat
 from mapfree_tpu_torch.geom.procrustes import procrustes as pt_procrustes
 from mapfree_tpu_torch.geom.smallblas import det3 as pt_det3, svd3 as pt_svd3
@@ -228,3 +230,119 @@ def test_pack_unpack_roundtrip_including_misaligned_fields():
         np.testing.assert_array_equal(parts[name].numpy(), a)
     with pytest.raises(ValueError):
         unpack(buf[:-1], spec_of(named))
+
+
+def test_quaternion_algebra_matches_jax():
+    """The helpers the datasets call on numpy: the same float64 arithmetic."""
+    rng = np.random.default_rng(8)
+    q1, q2 = rng.normal(size=(2, 16, 4))
+    t1, t2, v = rng.normal(size=(3, 16, 3))
+    for name in ("qinverse", "qconjugate"):
+        np.testing.assert_allclose(getattr(pt_quat, name)(q1), getattr(jax_quat, name)(q1),
+                                   rtol=0, atol=1e-15)
+    np.testing.assert_allclose(pt_quat.qmult(q1, q2), jax_quat.qmult(q1, q2), rtol=0, atol=1e-15)
+    np.testing.assert_allclose(pt_quat.rotate_vector(v, q1), jax_quat.rotate_vector(v, q1),
+                               rtol=0, atol=1e-15)
+    for got, ref in zip(pt_quat.relative_pose_wxyz(q1, t1, q2, t2),
+                        jax_quat.relative_pose_wxyz(q1, t1, q2, t2)):
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-15)
+
+
+def test_projection_matches_jax():
+    rng = np.random.default_rng(9)
+    K = np.array([[500.0, 0, 320], [0, 480.0, 240], [0, 0, 1]], np.float32)
+    for sx, sy in ((0.5, 0.5), (270 / 540, 360 / 720), (1.25, 0.75)):
+        np.testing.assert_array_equal(pt_proj.correct_intrinsic_scale(K, sx, sy),
+                                      jax_proj.correct_intrinsic_scale(K, sx, sy))
+    pts = rng.normal(size=(2, 10, 3)) + np.array([0, 0, 4.0])
+    Ks = np.stack([K, K * 1.1]).astype(np.float64)
+    for size in (None, (640, 480)):
+        np.testing.assert_array_equal(pt_proj.project(pts, Ks, size),
+                                      jax_proj.project(pts, Ks, size))
+    uv, depth = rng.uniform(0, 400, size=(2, 10, 2)), rng.uniform(1, 5, size=(2, 10))
+    np.testing.assert_array_equal(pt_proj.backproject_3d(uv, depth, Ks),
+                                  jax_proj.backproject_3d(uv, depth, Ks))
+
+
+def test_unpack_takes_bool_as_the_jax_unpack_does():
+    """Bool masks (the matching track's ICP masks) round-trip through the
+    packed buffer; the JAX unpack casts each byte, so a nonzero byte is
+    True in both."""
+    import jax
+
+    from mapfree_tpu.utils.packing import unpack as jax_unpack
+
+    rng = np.random.default_rng(10)
+    named = [("f", rng.normal(size=(2, 3)).astype(np.float32)),
+             ("mask0", rng.random((3, 5)) < 0.5), ("mask1", rng.random((7,)) < 0.3),
+             ("image", rng.integers(0, 255, (2, 3), dtype=np.uint8))]
+    buf = pack_arrays([a for _, a in named])
+    spec = spec_of(named)
+    parts = unpack(torch.from_numpy(buf), spec)
+    ref = jax.jit(lambda b: jax_unpack(b, spec))(jnp.asarray(buf))
+    for name, a in named:
+        assert str(parts[name].dtype) == f"torch.{a.dtype}"
+        np.testing.assert_array_equal(parts[name].numpy(), a)
+        np.testing.assert_array_equal(parts[name].numpy(), np.asarray(ref[name]))
+    buf[24] = 7  # a stray nonzero byte in mask0 reads as True in both
+    parts = unpack(torch.from_numpy(buf), spec)
+    ref = jax.jit(lambda b: jax_unpack(b, spec))(jnp.asarray(buf))
+    assert bool(parts["mask0"][0, 0]) and bool(np.asarray(ref["mask0"])[0, 0])
+
+
+@pytest.mark.parametrize("hw,out", [((9, 7), (18, 14)), ((23, 17), (46, 34))])
+def test_upsample_matches_jax_in_bf16_and_f32(hw, out):
+    """UpConv's upsample in the compute dtype, as the JAX package computes it:
+    two interpolation matmuls with bf16 matrices, float32 sums, and bf16
+    after each axis. Each output is the sum of two exact bf16 x bf16
+    products rounded once to float32 and once to bf16 on both sides, so the
+    two agree to the bit; the stated tolerance is one bf16 step (2^-8 of the
+    value) for a CPU whose bf16 matmul rounds its float32 sum otherwise. Both
+    memory layouts (NCHW, and the channels-last the convolutions keep) give
+    the same values and keep their layout. In
+    float32 it is held to the previous F.interpolate at 1e-5 on inputs of
+    magnitude up to ~4.5: the two compute the source coordinates by other
+    float32 formulas, so their weights differ by an ulp or two."""
+    import torch.nn.functional as F
+
+    from mapfree_tpu.models.blocks import _resize_bilinear_align_corners as jax_resize
+    from mapfree_tpu_torch.models.blocks import resize_bilinear_align_corners
+
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(2,) + hw + (6,)).astype(np.float32)  # NHWC
+    xj = jnp.asarray(x, jnp.bfloat16)
+    ref = np.asarray(jax_resize(xj, out).astype(jnp.float32))
+    xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).permute(0, 3, 1, 2)
+    for layout in (torch.contiguous_format, torch.channels_last):
+        with torch.autocast("cpu", dtype=torch.bfloat16):  # the bf16 model's setting
+            got = resize_bilinear_align_corners(xt.contiguous(memory_format=layout), out)
+        assert got.dtype == torch.bfloat16 and got.is_contiguous(memory_format=layout)
+        got = got.float().permute(0, 2, 3, 1).numpy()
+        np.testing.assert_allclose(got, ref, rtol=2.0 ** -8, atol=0)
+    got32 = resize_bilinear_align_corners(xt, out)
+    assert got32.dtype == torch.float32
+    old = F.interpolate(xt, size=out, mode="bilinear", align_corners=True)
+    np.testing.assert_allclose(got32.numpy(), old.numpy(), rtol=0, atol=1e-5)
+
+
+def test_upsample_matrices_are_made_once_and_serve_autograd():
+    """The interpolation matrices are made once per (size, device, dtype),
+    not copied from the host on every call; one first made in inference
+    mode (the predictor's) still serves a backward pass afterwards."""
+    from mapfree_tpu_torch.models.blocks import _interp_tensor, resize_bilinear_align_corners
+
+    _interp_tensor.cache_clear()
+    x = torch.randn(2, 3, 5, 4)
+    with torch.inference_mode():
+        resize_bilinear_align_corners(x, (10, 8))
+    resize_bilinear_align_corners(x, (10, 8))
+    info = _interp_tensor.cache_info()
+    assert (info.misses, info.hits) == (2, 2)
+    assert _interp_tensor(5, 10, x.device, x.dtype) is _interp_tensor(5, 10, x.device, x.dtype)
+    xg = x.clone().requires_grad_(True)
+    resize_bilinear_align_corners(xg, (10, 8)).sum().backward()
+    # each output row's weights sum to one, so each input pixel's gradient
+    # is the sum of its column of the matrix in H times that in W
+    mh, mw = _interp_tensor(5, 10, x.device, x.dtype), _interp_tensor(4, 8, x.device, x.dtype)
+    expected = mh.sum(0)[:, None] * mw.sum(0)[None, :]
+    torch.testing.assert_close(xg.grad, expected.expand_as(xg), rtol=1e-6, atol=1e-6)

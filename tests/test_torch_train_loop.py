@@ -186,9 +186,18 @@ def test_nan_guard():
     check_finite_or_die(1.0, 10)
 
 
-def test_fit_needs_the_data_layer():
-    with pytest.raises(NotImplementedError, match="data layer"):
-        pt_fit.fit(_fit_cfg())
+def test_fit_needs_the_data_layer(tmp_path):
+    """fit(cfg) trains on the DataModule of cfg.DATASET (the data layer's
+    loaders: tests/test_torch_data_cli.py drives it end to end): it reads
+    the configured tree, and its device defaults to the card."""
+    cfg = _fit_cfg(**{"DATASET.DATA_SOURCE": "MapFree",
+                      "DATASET.DATA_ROOT": str(tmp_path / "missing")})
+    with pytest.raises(FileNotFoundError, match="missing"):
+        pt_fit.fit(cfg, weights_dir=str(tmp_path), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if torch.cuda.is_available():
+            raise RuntimeError("no CUDA device here to refuse")
+        pt_fit.fit(cfg, weights_dir=str(tmp_path))  # device defaults to the card
     with pytest.raises(RuntimeError, match="no CUDA device"):
         if torch.cuda.is_available():
             raise RuntimeError("no CUDA device here to refuse")

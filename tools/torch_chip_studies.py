@@ -1,0 +1,313 @@
+#!/usr/bin/env python3
+"""Two measurements of the PyTorch port on one NVIDIA GPU that chip_smoke.py
+does not repeat on every run. From the root of a checkout:
+
+    python3 tools/torch_chip_studies.py decode-threads
+    python3 tools/torch_chip_studies.py bf16-seeds
+    python3 tools/torch_chip_studies.py bf16-faults
+    python3 tools/torch_chip_studies.py upsample-ab
+
+decode-threads: wall time of data/jpeg.py::decode_resize_batch for 64 frames
+of the 540x720 fixtures (tests/data/torch_port/) to 270x360 planar YUV420,
+with 1, 2, 4 and 8 host decode threads (the mean of 5 batches after one).
+
+bf16-seeds: chip_smoke.py phase 6's bf16 train-step comparison of the small
+3d3d model (1-1-1 blocks, 96x72, batch 4) over six (batch, weight) seeds:
+the kernels' step against the plain backward after the same K1 forward, and
+against the plain versions with the forward too (K1's bf16 rounding of P),
+the whole gradient in L2, once with the ResUNet's upsample in bf16 (the
+port's) and once with F.interpolate in float32 (the port before it).
+
+bf16-faults: the same comparison, forward too, with faults planted in K1
+(:data:`FAULTS`): the forward K1's wrapper returns is replaced by one that
+errs in one way, K2 and K3 run on it, and the step is held to the sound plain
+versions over the same six seeds, beside the sound K1's reading. It shows
+which faults phase 6's limits (STEP_BF16_L2_TOL, STEP_BF16_LOSS_RTOL) catch,
+and first whether phase 3's check of K1 alone (chip_smoke.py::forward_case
+and check_forward) catches each, at two of its bf16 shapes.
+
+upsample-ab: the 3d3d model of chip_smoke.py phase 4 (batch 64, bf16, random
+weights) in one process with the ResUNet's upsample as the port computes it
+(two matmuls in bf16) and as F.interpolate under autocast (float32, the port
+before it), alternated over four rounds: the forward by CUDA events, the
+host's time to issue one forward, and the sweep from memory (pairs/s and its
+dispatch stage) over the phase's synthetic pairs.
+
+Each line carries the card's name and power limit. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+
+SEEDS = ((21, 0), (22, 0), (23, 0), (21, 1), (21, 2), (24, 3))  # (batch, weights)
+# faults planted in K1's forward for bf16-faults: keyword arguments of
+# faulty_forward, each one way a tensor-core K1 could go wrong
+FAULTS = {
+    "P not rounded to bf16": dict(round_p=False),
+    "denominator summed from the bf16 P": dict(d_from_rounded=True),
+    "normaliser 1% small": dict(scale=1.01),
+    "accumulator not rescaled on a new max": dict(rescale=False),
+    "last key tile skipped": dict(drop_last=True),
+    "grid read one key off": dict(grid_shift=1),
+}
+
+
+def card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def decode_threads() -> None:
+    import torch
+
+    from mapfree_tpu_torch.data import jpeg
+
+    frames = sorted((REPO / "tests" / "data" / "torch_port").glob("frame_*.jpg"))
+    batch = [str(frames[i % len(frames)]) for i in range(64)]
+    for threads in (1, 2, 4, 8):
+        jpeg.DECODE_THREADS = threads
+        jpeg._decoder = None  # a new pool (and decode states) of that size
+        jpeg.decode_resize_batch(batch, 270, 360, yuv420=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            jpeg.decode_resize_batch(batch, 270, 360, yuv420=True)
+        ms = 1e3 * (time.perf_counter() - t0) / 5
+        print(f"[{card()}] decode 64 frames 540x720 -> 270x360 yuv420, {threads} threads: "
+              f"{ms:.2f} ms per batch, {64e3 / ms:.1f} frames/s", flush=True)
+
+
+def bf16_seeds() -> None:
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+    from mapfree_tpu_torch.models import blocks
+    from mapfree_tpu_torch.models.regression import build_regression_net
+    from mapfree_tpu_torch.ops import _build
+    from mapfree_tpu_torch.ops import correlation as corr
+    from mapfree_tpu_torch.train import init_state, make_train_step
+    from mapfree_tpu_torch.train.fit import _device_batch
+
+    _build.load_libraries(corr.LIBRARIES)
+
+    def grads_of(cfg, batch, init_seed):
+        net = build_regression_net(cfg)
+        state = init_state(net, cfg, torch.Generator().manual_seed(init_seed), device="cuda")
+        make_train_step(net, cfg)(state, _device_batch(batch, torch.device("cuda"), 4))
+        return {k: p.grad.detach().float().cpu() for k, p in net.named_parameters()}
+
+    def interpolate_f32(x, out_hw):
+        return F.interpolate(x, size=out_hw, mode="bilinear", align_corners=True)
+
+    bf16_upsample = blocks.resize_bilinear_align_corners
+    for name, upsample in (("bf16 upsample", bf16_upsample),
+                           ("float32 upsample", interpolate_f32)):
+        blocks.resize_bilinear_align_corners = upsample
+        try:
+            for batch_seed, init_seed in SEEDS:
+                cfg = cs.load_cfg({"ENCODER.NUM_BLOCKS": "1-1-1", "DATASET.HEIGHT": 96,
+                                   "DATASET.WIDTH": 72, "TRAINING.BATCH_SIZE": 4,
+                                   "TRAINING.LR": 1e-3, "TRAINING.GRAD_CLIP": 1.0,
+                                   "TPU.COMPUTE_DTYPE": "bfloat16", "TPU.SEED": init_seed})
+                batch = cs.train_batches(1, 4, 96, 72, seed=batch_seed)[0]
+                kernels = grads_of(cfg, batch, init_seed)
+                with cs.plain_versions_on_the_card(forward=False):
+                    plain_backward = grads_of(cfg, batch, init_seed)
+                with cs.plain_versions_on_the_card():
+                    plain = grads_of(cfg, batch, init_seed)
+                _, l2_b = cs._grad_errors(kernels, plain_backward)
+                per, l2 = cs._grad_errors(kernels, plain)
+                print(f"[{card()}] {name}, batch seed {batch_seed}, weight seed {init_seed}: "
+                      f"plain backward {l2_b:.3e} in L2, forward too {l2:.3e} in L2 "
+                      f"(worst {per[0][0]:.2e} at {per[0][1]})", flush=True)
+        finally:
+            blocks.resize_bilinear_align_corners = bf16_upsample
+
+
+def faulty_forward(q, k, v, grid, round_p=True, d_from_rounded=False, scale=1.0,
+                   rescale=True, drop_last=False, grid_shift=0):
+    """K1's [B, HW, Cv + 3] float32 buffer by its tensor-core arithmetic
+    (ops/correlation.py::_tiled_buffer with bf16_roundings), with one fault:
+    P left unrounded, the denominator summed from the rounded P, the buffer
+    scaled (a normaliser off by ``scale``), the accumulator and denominator
+    not rescaled when the running max grows, the last key tile skipped, or
+    the grid read ``grid_shift`` keys off."""
+    import torch
+
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    B, HW, _ = q.shape
+    tile = corr.FWD_KEY_TILE
+    grid = grid.expand(B, HW, 2).roll(grid_shift, dims=1) if grid_shift else grid
+    vg = torch.cat([v, grid.to(v.dtype).expand(B, HW, 2)], dim=-1).float()
+    qf, kf = q.float(), k.float()
+    m = qf.new_full((B, HW, 1), float("-inf"))
+    d = qf.new_zeros((B, HW, 1))
+    acc = qf.new_zeros((B, HW, vg.shape[-1]))
+    end = (HW - 1) // tile * tile if drop_last and HW > tile else HW
+    for j0 in range(0, end, tile):
+        s = torch.bmm(qf, kf[:, j0:min(j0 + tile, end)].transpose(1, 2))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new) if rescale else torch.ones_like(m)
+        p = torch.exp(s - m_new)
+        p_r = p.to(torch.bfloat16).float() if round_p else p
+        d = d * alpha + (p_r if d_from_rounded else p).sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.bmm(p_r, vg[:, j0:min(j0 + tile, end)])
+        m = m_new
+    inv = 1.0 / d
+    return torch.cat([acc * inv, inv], dim=-1) * scale
+
+
+def bf16_faults() -> None:
+    import torch
+
+    import chip_smoke as cs
+    from mapfree_tpu_torch.models.regression import build_regression_net
+    from mapfree_tpu_torch.ops import _build
+    from mapfree_tpu_torch.ops import correlation as corr
+    from mapfree_tpu_torch.train import init_state, make_train_step
+    from mapfree_tpu_torch.train.fit import _device_batch
+
+    _build.load_libraries(corr.LIBRARIES)
+
+    saved = corr._forward_cuda
+    for name, fault in [("sound K1", None)] + list(FAULTS.items()):
+        if fault is not None:
+            corr._forward_cuda = (lambda q, k, v, grid, f=fault:
+                                  faulty_forward(q, k, v, grid, **f))
+        try:
+            for shape in ((2, 10, 13), (2, 92, 68)):  # phase 3's bf16_hw130, bf16_hw6256_b2
+                res = cs.forward_case(*cs._kernel_inputs(*shape, 32, 32, "bfloat16", seed=5))
+                try:
+                    cs.check_forward(res, name)
+                    verdict = "passes"
+                except AssertionError:
+                    verdict = "FAILS"
+                print(f"[{card()}] phase 3's K1 check, {name}, B={shape[0]} HW="
+                      f"{shape[1] * shape[2]}: relative L2 {res['l2']:.2e} against the plain "
+                      f"forward with K1's rounding (limit {res['l2_tol']:g}), {res['err']:.2e} "
+                      f"against the exact one (limit {res['tol']:g}), max score "
+                      f"{res['ms_err']:.2e} (limit {res['ms_tol']:g}): {verdict}", flush=True)
+        finally:
+            corr._forward_cuda = saved
+
+    def step_of(cfg, batch, init_seed):
+        net = build_regression_net(cfg)
+        state = init_state(net, cfg, torch.Generator().manual_seed(init_seed), device="cuda")
+        _, logs = make_train_step(net, cfg)(state, _device_batch(batch, torch.device("cuda"), 4))
+        return (float(logs["train/loss"]),
+                {k: p.grad.detach().float().cpu() for k, p in net.named_parameters()})
+
+    readings: dict = {}
+    for batch_seed, init_seed in SEEDS:
+        cfg = cs.load_cfg({"ENCODER.NUM_BLOCKS": "1-1-1", "DATASET.HEIGHT": 96,
+                           "DATASET.WIDTH": 72, "TRAINING.BATCH_SIZE": 4,
+                           "TRAINING.LR": 1e-3, "TRAINING.GRAD_CLIP": 1.0,
+                           "TPU.COMPUTE_DTYPE": "bfloat16", "TPU.SEED": init_seed})
+        batch = cs.train_batches(1, 4, 96, 72, seed=batch_seed)[0]
+        with cs.plain_versions_on_the_card():
+            plain_loss, plain = step_of(cfg, batch, init_seed)
+        cases = [("sound K1", None)] + list(FAULTS.items())
+        for name, fault in cases:
+            saved = corr._forward_cuda
+            if fault is not None:
+                corr._forward_cuda = (lambda q, k, v, grid, f=fault:
+                                      faulty_forward(q, k, v, grid, **f))
+            try:
+                loss, grads = step_of(cfg, batch, init_seed)
+            finally:
+                corr._forward_cuda = saved
+            _, l2 = cs._grad_errors(grads, plain)
+            rel = abs(loss - plain_loss) / abs(plain_loss)
+            readings.setdefault(name, []).append((l2, rel))
+            print(f"[{card()}] {name}, batch seed {batch_seed}, weight seed {init_seed}: "
+                  f"whole gradient {l2:.3e} in L2 against the plain versions, loss rel "
+                  f"{rel:.2e}", flush=True)
+    for name, rs in readings.items():
+        l2s, rels = [r[0] for r in rs], [r[1] for r in rs]
+        print(f"[{card()}] {name} over {len(rs)} seeds: L2 {min(l2s):.3f}-{max(l2s):.3f}, "
+              f"loss rel {min(rels):.2e}-{max(rels):.2e}", flush=True)
+
+
+def upsample_ab() -> None:
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+    from mapfree_tpu_torch.models import blocks
+    from mapfree_tpu_torch.models.builder import build_model
+    from mapfree_tpu_torch.utils import submission
+    from mapfree_tpu_torch.utils.submission import predict
+    from mapfree_tpu_torch.utils.timing import StageTimes
+
+    cs.phase_build()
+    cfg = cs.load_cfg({"TPU.SEED": cs.SEED})
+    H, W, bs = cfg.DATASET.HEIGHT, cfg.DATASET.WIDTH, int(cfg.TPU.INFER_BATCH)
+    model = build_model(cfg, device="cuda")
+    batches = cs.synthetic_batches(5 * bs + 23, bs, H, W, seed=cs.SEED + 1)
+    warm = cs.synthetic_batches((submission.MAX_TRANSFERS + submission.DEPTH) * bs, bs, H, W,
+                                seed=cs.SEED + 2)
+    n_pairs = sum(len(b["ref_idx"]) for b in batches)
+    transferred = model.transfer_batch(batches[0])
+
+    def interpolate(x, out_hw):
+        return F.interpolate(x, size=out_hw, mode="bilinear", align_corners=True)
+
+    matmuls = blocks.resize_bilinear_align_corners
+    variants = {"two bf16 matmuls": matmuls, "F.interpolate (float32)": interpolate}
+    try:
+        for rnd in range(4):
+            order = list(variants) if rnd % 2 == 0 else list(reversed(variants))
+            for name in order:
+                blocks.resize_bilinear_align_corners = variants[name]
+                predict(warm, model)
+                torch.cuda.synchronize()
+                forward_ms = cs.cuda_time_ms(lambda: model.dispatch_device(transferred)(),
+                                             iters=10)
+                issue = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    finalize = model.dispatch_device(transferred)
+                    issue.append(1e3 * (time.perf_counter() - t0))
+                    finalize()
+                times = StageTimes()
+                t0 = time.perf_counter()
+                predict(batches, model, times)
+                torch.cuda.synchronize()
+                elapsed = time.perf_counter() - t0
+                print(f"[{card()}] round {rnd}, upsample by {name}: forward {forward_ms:.2f} ms "
+                      f"(CUDA events, 10 forwards), host issue of one forward "
+                      f"{min(issue):.2f}-{max(issue):.2f} ms, sweep from memory "
+                      f"{n_pairs / elapsed:.1f} pairs/s (dispatch "
+                      f"{1e3 * times.seconds['dispatch'] / len(batches):.2f} ms a batch)",
+                      flush=True)
+    finally:
+        blocks.resize_bilinear_align_corners = matmuls
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA device: torch.cuda.is_available() is False")
+    studies = {"decode-threads": decode_threads, "bf16-seeds": bf16_seeds,
+               "bf16-faults": bf16_faults, "upsample-ab": upsample_ab}
+    names = sys.argv[1:] or list(studies)
+    for name in names:
+        if name not in studies:
+            sys.exit(f"unknown study {name!r}; choose from {sorted(studies)}")
+    for name in names:
+        studies[name]()
+
+
+if __name__ == "__main__":
+    main()
