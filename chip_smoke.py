@@ -23,7 +23,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    library call (scaled_dot_product_attention and its backward, timed here
    only) and its bound: K1 at the inference shape (B=64, HW=6,256, C=32,
    bf16) in both designs, and K1, K2, K3 at the training shape (B=10), which
-   the tensor-core designs must serve;
+   the tensor-core designs must serve; then K1 at the fusion sweep's batch
+   (B = 64 x 9 = 576) and K2, K3 at the fusion train step's (B = 10 x 9 =
+   90), held to the plain versions on their first and last two batch rows
+   (the plain versions' [B, HW, HW] volumes would not fit the card);
 4. inference path: the 3d3d model (configs/regression/mapfree/3d3d.yaml over
    configs/mapfree.yaml: ResUNet 3-3-3 bottleneck, 360x270, bf16, batch 64,
    unique refs, planar YUV420 input) with random weights from a seed, driven
@@ -64,7 +67,28 @@ Phases, in order; any failure raises and the script exits nonzero:
    steps at batch 10 with one validation and its checkpoints, then the
    submission CLI on that run's last.pt: one line per query frame, finite
    poses, unit quaternions, K1 (tensor cores) once per sweep batch, K1-K3
-   in the train CLI, and poses that the checkpoint moved.
+   in the train CLI, and poses that the checkpoint moved;
+9. the QKV path: rotbin_transdirectionbin_scale_qkv.yaml over mapfree.yaml
+   (the QKV aggregator, whose K1 takes k and v that differ, and the
+   angular-bin head) at full width: the sweep from memory through predict
+   (64-pair YUV420 batches with unique refs), 10 timed train steps at batch
+   10 with its bin losses, and one float32 train step of the small model
+   with the kernels against the plain versions on the card, per tensor;
+10. the fusion path: multiframe/3d3d_multi_fusion.yaml over mapfree_multi.yaml
+   (F = 9) at full width: the sweep from memory (RGB uint8 [64, 9, 360, 270,
+   3] windows with device poses, a final partial batch), a profile window
+   over its forward and the line where it first waits for the device, 10
+   timed train steps at batch 10 (100 frames through the encoder a step),
+   and the float32 kernels-against-plain step of the small model;
+11. every config under configs/regression/ (and BLOCK_TYPE 2): one float32
+   forward at one block per stage and 96x72 on the card and on the CPU,
+   poses within 2e-4, K1 once for each config that takes the fused route;
+   then the ResNet encoder under the fused route must raise on the card,
+   naming its ROADMAP.md item;
+12. the fusion model's CLIs from JPEG files: a MapFree tree of fixture
+   copies with poses_device.txt, the submission CLI over 160 windows, the
+   train CLI for 8 steps at batch 10 with one validation, and the submission
+   CLI on its last.pt.
 
 The last line of standard output is {"ok": true, "device": {...}}; a
 "kernels" JSON line and the card's name and power limit precede it. With no
@@ -707,9 +731,153 @@ def time_backward(B, H, W, C, dtype, seed) -> tuple:
     return k2, k3
 
 
+def _batch_slices(B: int, n: int = 2) -> list:
+    """The first and the last ``n`` batch rows: where a kernel of the whole
+    batch is held to the plain version, whose [B, HW, HW] volume would not
+    fit the card for the whole batch."""
+    return [slice(0, n), slice(B - n, B)]
+
+
+def time_k1_batch(B, H, W, C, dtype, seed) -> dict:
+    """K1 at a batch whose plain version does not fit the card (the fusion
+    sweep's B * F = 576): the kernel over the whole batch, its first and last
+    two rows held to the plain version of those rows (the design's two
+    tolerances, as :func:`forward_case`), and its time beside its bound, the
+    library call's at the whole batch, and the plain version's on two rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    HW = H * W
+    q, k, v, grid = _kernel_inputs(B, H, W, C, C, dtype, seed=seed)
+    out = corr.fused_correlation_warp(q, k, v, grid)
+    torch.cuda.synchronize()
+    design = corr.forward_design(q.dtype, C, C)
+    res = {"design": design, "max_abs_err": 0.0, "err": 0.0, "l2": 0.0, "ms_err": 0.0,
+           "tol": corr.MMA_FWD_VS_EXACT_TOL, "l2_tol": corr.MMA_FWD_VS_MATCHED_L2_TOL,
+           "ms_tol": ATOL["float32"]}
+    for sl in _batch_slices(B):
+        part = [o[sl] for o in out]
+        ref = corr.fused_correlation_warp_plain(q[sl], k[sl], v[sl], grid)
+        matched = corr.fused_correlation_warp_plain(q[sl], k[sl], v[sl], grid,
+                                                    bf16_roundings=True)
+        res["max_abs_err"] = max(res["max_abs_err"], _max_err(part, ref))
+        res["err"] = max(res["err"], _scaled_err(part[:2], ref[:2]))
+        res["l2"] = max(res["l2"], _rel_l2(part[:2], matched[:2]))
+        res["ms_err"] = max(res["ms_err"], _max_err(part[2:], ref[2:]))
+        del ref, matched
+    if design != corr.DESIGN_MMA:
+        raise AssertionError(f"K1 at B={B} is served by the {design} design")
+    check_forward(res, f"B={B} HW={HW}, batch rows 0-1 and {B - 2}-{B - 1}")
+    log(f"[kernel] K1 B={B} HW={HW} C={C} {dtype}, rows 0-1 and {B - 2}-{B - 1}: "
+        f"{_forward_line(res)}")
+    del out
+    torch.cuda.empty_cache()
+    ms = cuda_time_ms(lambda: corr.fused_correlation_warp(q, k, v, grid), iters=5)
+    sl = _batch_slices(B)[0]
+    plain_ms = cuda_time_ms(lambda: corr.fused_correlation_warp_plain(q[sl], k[sl], v[sl], grid),
+                            iters=3)
+    vg = torch.cat([v, grid.expand(B, HW, 2), v.new_zeros(B, HW, 6)], dim=-1)[:, None]
+    library_ms = cuda_time_ms(
+        lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], vg, scale=1.0), iters=5)
+    bound_ms, bound_by = k1_bound(B, HW, C, C, dtype, _nbytes(q, k, v, grid) + B * HW * (C + 3) * 4)
+    log(f"[kernel] K1 B={B} HW={HW} C={C} {dtype}, design {design}: kernel_ms={ms:.3f} "
+        f"library_ms={library_ms:.3f} bound_ms={bound_ms:.4f} ({bound_by}); kernel at "
+        f"{100 * bound_ms / ms:.1f}% of its bound; plain version on 2 rows {plain_ms:.3f} ms")
+    return {"ms": ms, "plain_ms_2_rows": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": res["max_abs_err"],
+            "matched_rel_l2": res["l2"], "shape": f"B={B} HW={HW} C={C} {dtype}",
+            "design": design}
+
+
+def time_backward_batch(B, H, W, C, dtype, seed) -> tuple:
+    """K2 and K3 at a batch whose plain backward does not fit the card (the
+    fusion train step's B * F = 90), given the exact forward's buffer and
+    held to the plain backward on its first and last two rows as
+    :func:`backward_case` holds them; then timed after K1's forward, beside
+    their bounds, the library backward's at the whole batch, and the plain
+    versions' on two rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    HW = H * W
+    q, k, v, grid = _kernel_inputs(B, H, W, C, C, dtype, seed=seed)
+    dout = _cotangent(B, HW, C, seed=seed + 1)
+    design = corr.backward_design(q.dtype, C, C)
+    if design != corr.DESIGN_MMA:
+        raise AssertionError(f"K2, K3 at B={B} are served by the {design} design")
+    # the exact forward's buffer, a few rows at a time, as backward_case
+    # gives it (K1's own moves the row constant c by some 1e-3 relative:
+    # the hand-off is held in phase 3)
+    out = torch.cat([corr._plain_buffer(q[i:i + 6], k[i:i + 6], v[i:i + 6], grid)
+                     for i in range(0, B, 6)])
+    dq, rows = corr.correlation_bwd_rows(q, k, v, grid, out, dout)
+    dk, dv = corr.correlation_bwd_cols(q, k, v, grid, dout, rows)
+    torch.cuda.synchronize()
+    errs = {"k2": 0.0, "k3": 0.0, "k2_l2": 0.0, "k3_l2": 0.0}
+    for sl in _batch_slices(B):
+        amax = rows.amax[sl].long()
+        # the exact plain backward, and the one with the kernels' roundings,
+        # given the argmax K2 took (near-ties are held in phase 3)
+        exact = corr.fused_correlation_warp_bwd_plain(q[sl], k[sl], v[sl], grid, dout[sl], amax)
+        matched = corr.fused_correlation_warp_bwd_plain(q[sl], k[sl], v[sl], grid, dout[sl],
+                                                        amax, bf16_roundings=True)
+        errs["k2"] = max(errs["k2"], _scaled_err([dq[sl]], exact[:1]))
+        errs["k3"] = max(errs["k3"], _scaled_err([dk[sl], dv[sl]], exact[1:3]))
+        errs["k2_l2"] = max(errs["k2_l2"], _rel_l2([dq[sl]], matched[:1]))
+        errs["k3_l2"] = max(errs["k3_l2"], _rel_l2([dk[sl], dv[sl]], matched[1:3]))
+        del exact, matched
+    log(f"[kernel] K2, K3 B={B} HW={HW} C={C} {dtype}, design {design}, rows 0-1 and "
+        f"{B - 2}-{B - 1}: K2 {errs['k2']:.3g}, K3 {errs['k3']:.3g} of the largest gradient vs "
+        f"the exact plain backward (tol {corr.MMA_VS_EXACT_TOL:g}); relative L2 vs the plain "
+        f"backward with the kernels' roundings K2 {errs['k2_l2']:.3g}, K3 {errs['k3_l2']:.3g} "
+        f"(tol {corr.MMA_VS_MATCHED_L2_TOL:g})")
+    for kernel in ("k2", "k3"):
+        if errs[kernel] > corr.MMA_VS_EXACT_TOL or errs[kernel + "_l2"] > corr.MMA_VS_MATCHED_L2_TOL:
+            raise AssertionError(f"{kernel.upper()} disagrees with its plain version at B={B}")
+    del dq, dk, dv
+    torch.cuda.empty_cache()
+    out = torch.cat(corr.fused_correlation_warp(q, k, v, grid), dim=-1)  # K1's, as in training
+    k2_ms = cuda_time_ms(lambda: corr.correlation_bwd_rows(q, k, v, grid, out, dout), iters=5)
+    k3_ms = cuda_time_ms(lambda: corr.correlation_bwd_cols(q, k, v, grid, dout, rows), iters=5)
+    sl = _batch_slices(B)[0]
+    k2_plain = cuda_time_ms(
+        lambda: corr.correlation_bwd_rows_plain(q[sl], k[sl], v[sl], grid, dout[sl]), iters=3)
+    k3_plain = cuda_time_ms(
+        lambda: corr.correlation_bwd_cols_plain(q[sl], k[sl], v[sl], grid, dout[sl]), iters=3)
+    torch.cuda.empty_cache()
+    vg = torch.cat([v, grid.expand(B, HW, 2), v.new_zeros(B, HW, 6)], dim=-1)[:, None]
+    qh, kh, vh = (t.detach().requires_grad_(True) for t in (q[:, None], k[:, None], vg))
+    o = F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
+    do = torch.cat([dout[..., :C + 2], dout.new_zeros(B, HW, 6)], dim=-1)[:, None].to(o.dtype)
+    library_ms = cuda_time_ms(
+        lambda: torch.autograd.grad(o, (qh, kh, vh), do, retain_graph=True), iters=5)
+    common = _nbytes(q, k, v, grid, dout, rows.stats, rows.amax)
+    k2_bound_ms, k2_by = k2_bound(B, HW, C, C, dtype, common + _nbytes(out) + B * HW * C * 4)
+    k3_bound_ms, k3_by = k3_bound(B, HW, C, C, dtype, common + 2 * B * HW * C * 4)
+    shape = f"B={B} HW={HW} C={C} {dtype}, design {design}"
+    for name, ms, plain, bound, by in (("K2", k2_ms, k2_plain, k2_bound_ms, k2_by),
+                                       ("K3", k3_ms, k3_plain, k3_bound_ms, k3_by)):
+        log(f"[kernel] {name} {shape}: kernel_ms={ms:.3f} bound_ms={bound:.4f} ({by}), "
+            f"{100 * bound / ms:.1f}% of its bound; plain version on 2 rows {plain:.3f} ms")
+    log(f"[kernel] K2+K3 B={B}: {k2_ms + k3_ms:.3f} ms; library (attention backward) "
+        f"{library_ms:.3f} ms")
+    k2 = {"ms": k2_ms, "plain_ms_2_rows": k2_plain, "library_ms": library_ms,
+          "library_covers": "K2+K3", "bound_ms": k2_bound_ms, "bound_by": k2_by,
+          "max_abs_err": errs["k2"], "shape": shape, "design": design}
+    k3 = {"ms": k3_ms, "plain_ms_2_rows": k3_plain, "library_ms": library_ms,
+          "library_covers": "K2+K3", "bound_ms": k3_bound_ms, "bound_by": k3_by,
+          "max_abs_err": errs["k3"], "shape": shape, "design": design}
+    return k2, k3
+
+
 def phase_kernel_timing() -> dict:
     """K1 at the inference shape (batch 64) and K1, K2, K3 at the training
-    shape of 3d3d.yaml (batch 10)."""
+    shape of 3d3d.yaml (batch 10); then K1 at the fusion sweep's batch of
+    64 x 9 = 576 pairs and K2, K3 at the fusion train step's 10 x 9 = 90."""
     from mapfree_tpu_torch.ops import correlation as corr
 
     k1 = time_k1(64, 92, 68, 32, "bfloat16", seed=100, fma_too=True)
@@ -718,17 +886,28 @@ def phase_kernel_timing() -> dict:
         if t["design"] != corr.DESIGN_MMA:
             raise AssertionError(f"K1 at {t['shape']} is served by the {t['design']} design")
     k2, k3 = time_backward(10, 92, 68, 32, "bfloat16", seed=102)
+    k1["fusion_shape"] = time_k1_batch(576, 92, 68, 32, "bfloat16", seed=103)
+    k2["fusion_shape"], k3["fusion_shape"] = time_backward_batch(90, 92, 68, 32, "bfloat16",
+                                                                 seed=104)
     return {corr.KERNEL: k1, corr.KERNEL_BWD_ROWS: k2, corr.KERNEL_BWD_COLS: k3}
 
 
 # -- phase 4 -----------------------------------------------------------------
 
-def load_cfg(overrides: dict | None = None):
+def load_cfg(overrides: dict | None = None,
+             model_yaml: str = "configs/regression/mapfree/3d3d.yaml"):
+    """``model_yaml`` over its dataset config (configs/scannet.yaml for the
+    ScanNet models, configs/mapfree.yaml then configs/mapfree_multi.yaml for
+    the multi-frame ones, configs/mapfree.yaml otherwise), then dotted
+    ``overrides``."""
     from mapfree_tpu_torch.config import cfg as default_cfg
 
     cfg = default_cfg.clone()
-    cfg.merge_from_file(str(REPO / "configs/mapfree.yaml"))
-    cfg.merge_from_file(str(REPO / "configs/regression/mapfree/3d3d.yaml"))
+    cfg.merge_from_file(str(REPO / ("configs/scannet.yaml" if "/scannet/" in model_yaml
+                                    else "configs/mapfree.yaml")))
+    if "/multiframe/" in model_yaml:
+        cfg.merge_from_file(str(REPO / "configs/mapfree_multi.yaml"))
+    cfg.merge_from_file(str(REPO / model_yaml))
     for key, value in (overrides or {}).items():
         node = cfg
         *path, leaf = key.split(".")
@@ -1410,12 +1589,15 @@ def phase_decode() -> dict:
 
 # -- phase 8 -----------------------------------------------------------------
 
-def write_mapfree_tree(root: Path, seed: int) -> dict:
+def write_mapfree_tree(root: Path, seed: int, device_poses: bool = False) -> dict:
     """A MapFree scene tree of copies of the fixtures, with random poses:
     ``test`` 4 scenes of seq0/frame_00000 + seq1/frame_00000..00399 (80
     pairs each at the sample factor of 5), ``train`` 2 scenes of 40 pairs
     with overlaps.npz (all inside 3d3d.yaml's 0.4-0.8), ``val`` 1 scene of
-    20 pairs. Returns {split: {scene: [query frames in submission order]}}."""
+    20 pairs. With ``device_poses`` each scene also has poses_device.txt,
+    the poses moved by noise of 0.01 (the multi-frame models' tracking).
+    Returns {split: {scene: [single-frame query frames in submission
+    order]}}."""
     import shutil
 
     rng = np.random.default_rng(seed)
@@ -1439,6 +1621,14 @@ def write_mapfree_tree(root: Path, seed: int) -> dict:
                 poses.append(f"{name} " + " ".join(f"{v:.9f}" for v in np.concatenate([q, t])))
             (scene / "intrinsics.txt").write_text("\n".join(intr) + "\n")
             (scene / "poses.txt").write_text("\n".join(poses) + "\n")
+            if device_poses:
+                tracked = []
+                for line in poses:
+                    name, *vals = line.split(" ")
+                    qt = np.array(vals, float) + rng.normal(size=7) * 0.01
+                    qt[:4] /= np.linalg.norm(qt[:4])
+                    tracked.append(f"{name} " + " ".join(f"{v:.9f}" for v in qt))
+                (scene / "poses_device.txt").write_text("\n".join(tracked) + "\n")
             if train:
                 idxs = np.array([(0, 0, 1, i) for i in range(n_queries)], dtype=np.int64)
                 np.savez(scene / "overlaps.npz", idxs=idxs,
@@ -1447,14 +1637,17 @@ def write_mapfree_tree(root: Path, seed: int) -> dict:
     return queries
 
 
-def write_configs(root: Path) -> tuple:
-    """The dataset config with DATA_ROOT set to ``root`` and the run-length
-    config of the train CLI, both YAML files in ``root``."""
+def write_configs(root: Path, query_frames: int = 1) -> tuple:
+    """The dataset config with DATA_ROOT set to ``root`` (and
+    QUERY_FRAME_COUNT to ``query_frames``) and the run-length config of the
+    train CLI, both YAML files in ``root``."""
     text = (REPO / "configs/mapfree.yaml").read_text()
-    if "DATA_ROOT: 'data/mapfree/'" not in text:
-        raise AssertionError("configs/mapfree.yaml has no DATA_ROOT line to set")
+    for line in ("DATA_ROOT: 'data/mapfree/'", "QUERY_FRAME_COUNT: 1"):
+        if line not in text:
+            raise AssertionError(f"configs/mapfree.yaml has no line {line!r} to set")
     dataset = root / "mapfree.yaml"
-    dataset.write_text(text.replace("DATA_ROOT: 'data/mapfree/'", f"DATA_ROOT: '{root}'"))
+    dataset.write_text(text.replace("DATA_ROOT: 'data/mapfree/'", f"DATA_ROOT: '{root}'")
+                       .replace("QUERY_FRAME_COUNT: 1", f"QUERY_FRAME_COUNT: {query_frames}"))
     # one epoch of 2 scenes x 40 samples = 8 steps at batch 10, one validation
     # of 2 batches at its end; the model and optimizer are 3d3d.yaml's
     run = root / "run.yaml"
@@ -1484,7 +1677,7 @@ def read_submission(path: Path) -> dict:
     return out
 
 
-def run_submission_cli(argv: list, expected: dict, what: str) -> dict:
+def run_submission_cli(argv: list, expected: dict, what: str, tag: str = "cli") -> dict:
     """``mapfree_tpu_torch.submission.main(argv)`` with the counts reset
     before it: one line per query frame, K1's tensor-core design once per
     batch. Returns the poses, the launches and the stage times."""
@@ -1510,7 +1703,7 @@ def run_submission_cli(argv: list, expected: dict, what: str) -> dict:
     if launches != {corr.KERNEL: n_batches, corr.KERNEL_BWD_ROWS: 0, corr.KERNEL_BWD_COLS: 0}:
         raise AssertionError(f"{what}: launches {launches} for {n_batches} batches")
     sweep = times.seconds["sweep"]
-    log(f"[cli] {what}: {n_pairs} pairs from JPEG files in {n_batches} batches: CLI "
+    log(f"[{tag}] {what}: {n_pairs} pairs from JPEG files in {n_batches} batches: CLI "
         f"{elapsed:.3f} s, sweep {sweep:.3f} s, {n_pairs / sweep:.1f} pairs/s end to end "
         f"from files; {jpeg.stats['images']} frames decoded on the card, "
         f"{jpeg.stats['failures']} failed; K1 launches {launches[corr.KERNEL]}, "
@@ -1590,6 +1783,462 @@ def phase_clis() -> dict:
             "pairs_per_s": random_run["pairs_per_s"], "stages": random_run["stages"]}
 
 
+# -- phase 9: the QKV path ------------------------------------------------------
+
+# the card the phases below drive
+DEVICE = "cuda"
+QKV_YAML = "configs/regression/mapfree/rotbin_transdirectionbin_scale_qkv.yaml"
+FUSION_YAML = "configs/regression/mapfree/multiframe/3d3d_multi_fusion.yaml"
+
+
+def _check_poses(R, t, what: str) -> float:
+    """Finite R and t with det(R) = 1; returns max |det(R) - 1|."""
+    det = np.linalg.det(np.asarray(R, np.float64))
+    if not (np.all(np.isfinite(R)) and np.all(np.isfinite(t))
+            and np.abs(det - 1.0).max() < 1e-3):
+        raise AssertionError(f"{what}: bad poses, det(R) in [{det.min()}, {det.max()}]")
+    return float(np.abs(det - 1.0).max())
+
+
+def drive_sweep(cfg, batches: list, warm: list, what: str) -> dict:
+    """``predict`` over ``batches`` after a warm-up over ``warm``, with the
+    counts reset just before: K1 (tensor cores) once per batch, no backward
+    kernel, one finite pose per pair. Then the forward alone on a batch
+    already on the device. Returns the numbers, the launches and the model."""
+    import torch
+
+    from mapfree_tpu_torch.models.builder import build_model
+    from mapfree_tpu_torch.ops import correlation as corr
+    from mapfree_tpu_torch.utils.submission import predict
+    from mapfree_tpu_torch.utils.timing import StageTimes
+
+    model = build_model(cfg, device=DEVICE)
+    predict(warm, model)
+    torch.cuda.synchronize()
+    n_pairs = sum(len(b["pair_names"]) for b in batches)
+    times = StageTimes()
+    corr.reset_launches()
+    with designs_served() as seen:
+        t0 = time.perf_counter()
+        results = predict(batches, model, times)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    launches = dict(corr.launches)
+    _expect_designs(seen, {"forward": [corr.DESIGN_MMA]}, what)
+    _expect_launches(corr, {corr.KERNEL: len(batches), corr.KERNEL_BWD_ROWS: 0,
+                            corr.KERNEL_BWD_COLS: 0}, f"{what}: {len(batches)} batches")
+    poses = [p for ps in results.values() for p in ps]
+    if len(poses) != n_pairs or not all(np.all(np.isfinite(p.q)) and np.all(np.isfinite(p.t))
+                                        for p in poses):
+        raise AssertionError(f"{what}: {len(poses)} finite poses for {n_pairs} pairs")
+    R, t, _ = model.predict_batch(batches[-1])
+    det_err = _check_poses(R, t, what)
+    transferred = model.transfer_batch(batches[0])
+    model_ms = cuda_time_ms(lambda: model.dispatch_device(transferred)(), iters=5)
+    bs = int(cfg.TPU.INFER_BATCH)
+    log(f"[{what}] {n_pairs} pairs in {len(batches)} batches (the last of "
+        f"{len(batches[-1]['pair_names'])}): {elapsed:.3f} s, {n_pairs / elapsed:.1f} pairs/s "
+        f"from memory; forward {model_ms:.2f} ms per batch of {bs} "
+        f"({1e3 * bs / model_ms:.1f} pairs/s model-only); K1 launches {launches[corr.KERNEL]}, "
+        f"{corr.DESIGN_MMA} design; max |det(R) - 1| = {det_err:.2e}; stages "
+        f"{times.summary()}")
+    return {"launches": launches[corr.KERNEL], "pairs_per_s": n_pairs / elapsed,
+            "forward_ms": model_ms, "model": model, "transferred": transferred}
+
+
+def drive_train_steps(cfg, batches: list, n_warm: int, what: str) -> dict:
+    """Train steps through init_state -> make_train_step on batches already
+    on the device: ``n_warm`` warm-up steps, then the rest timed with the
+    counts reset just before. K1, K2, K3 (tensor cores) once per step, finite
+    losses, moved weights. Returns the numbers and the K1-K3 launches."""
+    import torch
+
+    from mapfree_tpu_torch.models.regression import build_regression_net
+    from mapfree_tpu_torch.ops import correlation as corr
+    from mapfree_tpu_torch.train import init_state, make_train_step
+    from mapfree_tpu_torch.train.fit import _device_batch, _train_keys
+
+    dev = torch.device(DEVICE)
+    bs = int(cfg.TRAINING.BATCH_SIZE)
+    net = build_regression_net(cfg)
+    state = init_state(net, cfg, torch.Generator().manual_seed(SEED), device=dev)
+    before = {k: v.clone() for k, v in net.state_dict().items()}
+    train_step = make_train_step(net, cfg)
+    dbatches = [_device_batch(b, dev, bs, _train_keys(net)) for b in batches]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for b in dbatches[:n_warm]:
+        state, _ = train_step(state, b)
+    torch.cuda.synchronize()
+    n_steps = len(dbatches) - n_warm
+    corr.reset_launches()
+    logs = []
+    with designs_served() as seen:
+        t0 = time.perf_counter()
+        for b in dbatches[n_warm:]:
+            state, step_logs = train_step(state, b)
+            logs.append(step_logs)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / n_steps
+    launches = dict(corr.launches)
+    _expect_launches(corr, {corr.KERNEL: n_steps, corr.KERNEL_BWD_ROWS: n_steps,
+                            corr.KERNEL_BWD_COLS: n_steps}, f"{what}: {n_steps} train steps")
+    _expect_designs(seen, {"forward": [corr.DESIGN_MMA], "backward": [corr.DESIGN_MMA]},
+                    f"{what}: the train steps")
+    losses = [float(lg["train/loss"]) for lg in logs]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[{what}] {n_steps} steps at batch {bs} after {n_warm} warm-up: {step_ms:.2f} ms/step, "
+        f"{1e3 * bs / step_ms:.1f} samples/s; peak memory {peak_gb:.2f} GB; K1, K2, K3 each "
+        f"launched {n_steps} times, all in the {corr.DESIGN_MMA} design; {cfg.TRAINING.ROT_LOSS} "
+        f"+ {cfg.TRAINING.LAMBDA} * {cfg.TRAINING.TRANS_LOSS}: loss per step "
+        + " ".join(f"{x:.4f}" for x in losses))
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{what}: non-finite training loss: {losses}")
+    after = net.state_dict()
+    unchanged = [k for k in ("encoder.firstconv.weight", "encoder.firstbn.running_var")
+                 if torch.equal(after[k], before[k])]
+    if unchanged:
+        raise AssertionError(f"{what}: {unchanged} did not change in the train steps")
+    batch = dbatches[-1]
+
+    def one_step():
+        train_step(state, batch)
+
+    profile_window(one_step, "train step")
+    return {"launches": launches, "step_ms": step_ms, "peak_gb": peak_gb}
+
+
+def f32_step_kernels_vs_plain(cfg, batch: dict, what: str) -> dict:
+    """One float32 train step of ``cfg``'s model on the card with K1-K3,
+    against the same step with the plain versions on the card (same
+    weights and batch): the loss, and every gradient per tensor, as phase 6
+    holds the 3d3d step. Returns the K1-K3 launches of the kernels' step."""
+    import torch
+
+    from mapfree_tpu_torch.models.regression import build_regression_net
+    from mapfree_tpu_torch.ops import correlation as corr
+    from mapfree_tpu_torch.train import init_state, make_train_step
+    from mapfree_tpu_torch.train.fit import _device_batch, _train_keys
+
+    loss, grads, launches = {}, {}, {}
+    bs = int(cfg.TRAINING.BATCH_SIZE)
+
+    def one_step(name):
+        net = build_regression_net(cfg)
+        state = init_state(net, cfg, torch.Generator().manual_seed(SEED), device=DEVICE)
+        dbatch = _device_batch(batch, torch.device(DEVICE), bs, _train_keys(net))
+        corr.reset_launches()
+        _, logs = make_train_step(net, cfg)(state, dbatch)
+        loss[name] = float(logs["train/loss"])
+        launches[name] = dict(corr.launches)
+        grads[name] = {k: p.grad.detach().cpu() for k, p in net.named_parameters()}
+
+    one_step("kernels")
+    with plain_versions_on_the_card():
+        one_step("plain")
+    _expect_launches(corr, {corr.KERNEL: 0, corr.KERNEL_BWD_ROWS: 0, corr.KERNEL_BWD_COLS: 0},
+                     f"{what}: the plain step")
+    if launches["kernels"] != {corr.KERNEL: 1, corr.KERNEL_BWD_ROWS: 1, corr.KERNEL_BWD_COLS: 1}:
+        raise AssertionError(f"{what}: the float32 step launched {launches['kernels']}")
+    per, l2 = _grad_errors(grads["kernels"], grads["plain"])
+    rel = abs(loss["kernels"] - loss["plain"]) / abs(loss["plain"])
+    log(f"[{what}] float32 train step, kernels vs plain versions on the card: loss "
+        f"{loss['kernels']:.6f} vs {loss['plain']:.6f} (rel {rel:.2e}, tol {STEP_LOSS_RTOL:g}); "
+        f"worst gradient {per[0][0]:.2e} of its tensor's largest entry at {per[0][1]} "
+        f"(tol {STEP_GRAD_TOL:g}); whole gradient {l2:.2e} in L2; {len(per)} tensors")
+    if not np.isfinite(loss["kernels"]) or rel > STEP_LOSS_RTOL or per[0][0] > STEP_GRAD_TOL:
+        raise AssertionError(f"{what}: the train step with the kernels disagrees with the "
+                             "plain versions")
+    return launches["kernels"]
+
+
+def phase_qkv_path() -> dict:
+    """The QKV model (rotbin_transdirectionbin_scale_qkv.yaml over
+    mapfree.yaml: ResUNet 3-3-3, 32 channels, 360x270, bf16, angular-bin
+    head): the sweep from memory through predict (64-pair YUV420 batches
+    with unique refs), 10 timed train steps at batch 10 with its bin losses,
+    and a float32 step of the small model with the kernels against the plain
+    versions. Returns the launches per path."""
+    cfg = load_cfg({"TPU.SEED": SEED}, QKV_YAML)
+    H, W, bs = cfg.DATASET.HEIGHT, cfg.DATASET.WIDTH, int(cfg.TPU.INFER_BATCH)
+    log(f"[qkv] {QKV_YAML}: {cfg.ENCODER.TYPE} {cfg.ENCODER.NUM_BLOCKS}, "
+        f"{cfg.AGGREGATOR.TYPE} (residual {cfg.AGGREGATOR.RESIDUAL_ATT}), {cfg.HEAD.TYPE}, "
+        f"{H}x{W}, {cfg.TPU.COMPUTE_DTYPE}")
+    sweep = drive_sweep(cfg, synthetic_batches(5 * bs + 23, bs, H, W, seed=SEED + 30),
+                        synthetic_batches(2 * bs, bs, H, W, seed=SEED + 31), "qkv")
+    del sweep["model"], sweep["transferred"]
+    tcfg = load_cfg({"TPU.SEED": SEED}, QKV_YAML)
+    train = drive_train_steps(tcfg, train_batches(13, int(tcfg.TRAINING.BATCH_SIZE), H, W,
+                                                  seed=SEED + 32), 3, "qkv")
+    small = load_cfg({"ENCODER.NUM_BLOCKS": "1-1-1", "DATASET.HEIGHT": 96, "DATASET.WIDTH": 72,
+                      "TRAINING.BATCH_SIZE": 4, "TRAINING.LR": 1e-3, "TRAINING.GRAD_CLIP": 1.0,
+                      "TPU.COMPUTE_DTYPE": "float32", "TPU.SEED": SEED}, QKV_YAML)
+    step = f32_step_kernels_vs_plain(small, train_batches(1, 4, 96, 72, seed=SEED + 33)[0], "qkv")
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    log(f"[qkv] the float32 comparison step launched {step}")
+    return {"launches": {"qkv_sweep": {corr.KERNEL: sweep["launches"]},
+                         "qkv_train": train["launches"]},
+            "numbers": {**sweep, "step_ms": train["step_ms"], "peak_gb": train["peak_gb"]}}
+
+
+# -- phase 10: multi-frame fusion --------------------------------------------------
+
+def window_batches(n_pairs: int, batch: int, F: int, H: int, W: int, seed: int,
+                   train: bool = False) -> list:
+    """Collated multi-frame batches: uint8 RGB noise ``image0`` [B, H, W, 3]
+    and windows ``image1`` [B, F, H, W, 3] with random unit w2c device
+    poses (``abs_q_1_w2c_device`` [B, F, 4], ``abs_c_1_c2w_device`` [B, F, 3],
+    float64 as the dataset yields them); with ``train`` a random
+    ``T_0to1``, else the sweep's ``scene_id`` and ``pair_names``."""
+    from mapfree_tpu_torch.geom.quaternion import quat2mat
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for b0 in range(0, n_pairs, batch):
+        B = min(batch, n_pairs - b0)
+        qd = rng.normal(size=(B, F, 4))
+        qd /= np.linalg.norm(qd, axis=-1, keepdims=True)
+        b = {"image0": rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8),
+             "image1": rng.integers(0, 256, (B, F, H, W, 3), dtype=np.uint8),
+             "abs_q_1_w2c_device": qd, "abs_c_1_c2w_device": rng.normal(size=(B, F, 3))}
+        if train:
+            q = rng.normal(size=(B, 4))
+            q /= np.linalg.norm(q, axis=1, keepdims=True)
+            T = np.tile(np.eye(4), (B, 1, 1))
+            T[:, :3, :3] = quat2mat(q)
+            T[:, :3, 3] = rng.normal(size=(B, 3)) * 0.1
+            b["T_0to1"] = T
+        else:
+            b["scene_id"] = [f"s{b0 // batch:05d}"] * B
+            b["pair_names"] = [("seq0/frame_00000.jpg", tuple(
+                f"seq1/frame_{10 * (b0 + i) + f:05d}.jpg" for f in range(F))) for i in range(B)]
+        out.append(b)
+    return out
+
+
+def first_sync(fn) -> str:
+    """Where one call of ``fn`` first makes the host wait for the device
+    (torch.cuda's sync debug mode set to raise): the innermost line of this
+    repository in the traceback, or "none"."""
+    import traceback
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        if "synchroniz" not in str(e):
+            raise
+        frames = [f for f in traceback.extract_tb(e.__traceback__)
+                  if str(REPO) in f.filename and "chip_smoke" not in f.filename]
+        where = frames[-1] if frames else traceback.extract_tb(e.__traceback__)[-1]
+        return f"{Path(where.filename).relative_to(REPO)}:{where.lineno}: {where.line}"
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    return "none"
+
+
+def phase_fusion_path() -> dict:
+    """The fusion model (multiframe/3d3d_multi_fusion.yaml over
+    mapfree_multi.yaml: F = 9, ResUNet 3-3-3, 32 channels, 360x270, bf16):
+    the sweep from memory (RGB uint8 [64, 9, 360, 270, 3] with device poses,
+    a final partial batch), a profile window over its forward and the
+    synchronising operations it makes, 10 timed train steps at batch 10 (100
+    frames through the encoder per step), and a float32 step of the small
+    model with the kernels against the plain versions. Returns the launches
+    per path."""
+    cfg = load_cfg({"TPU.SEED": SEED}, FUSION_YAML)
+    H, W, bs = cfg.DATASET.HEIGHT, cfg.DATASET.WIDTH, int(cfg.TPU.INFER_BATCH)
+    F = int(cfg.DATASET.QUERY_FRAME_COUNT)
+    log(f"[fusion] {FUSION_YAML} over mapfree_multi.yaml: F = {F}, {cfg.ENCODER.TYPE} "
+        f"{cfg.ENCODER.NUM_BLOCKS}, {H}x{W}, {cfg.TPU.COMPUTE_DTYPE}, batch {bs}: "
+        f"{bs * (F + 1)} frames through the encoder and K1 over {bs * F} pairs per batch")
+    batches = window_batches(2 * bs + 21, bs, F, H, W, seed=SEED + 40)
+    sweep = drive_sweep(cfg, batches, batches[:1], "fusion")
+    model, transferred = sweep.pop("model"), sweep.pop("transferred")
+    profile_window(lambda: model.dispatch_device(transferred)(), "fusion forward")
+    syncs = first_sync(lambda: model.dispatch_device(transferred))
+    log(f"[fusion] the forward's dispatch first waits for the device at: {syncs}")
+    del model, transferred, batches
+    import torch
+
+    torch.cuda.empty_cache()
+    tbs = int(cfg.TRAINING.BATCH_SIZE)
+    train = drive_train_steps(cfg, window_batches(13 * tbs, tbs, F, H, W, seed=SEED + 41,
+                                                  train=True), 3, "fusion")
+    torch.cuda.empty_cache()
+    small = load_cfg({"ENCODER.NUM_BLOCKS": "1-1-1", "DATASET.HEIGHT": 96, "DATASET.WIDTH": 72,
+                      "TRAINING.BATCH_SIZE": 4, "TRAINING.LR": 1e-3, "TRAINING.GRAD_CLIP": 1.0,
+                      "TPU.COMPUTE_DTYPE": "float32", "TPU.SEED": SEED}, FUSION_YAML)
+    step = f32_step_kernels_vs_plain(
+        small, window_batches(4, 4, F, 96, 72, seed=SEED + 42, train=True)[0], "fusion")
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    log(f"[fusion] the float32 comparison step launched {step}")
+    return {"launches": {"fusion_sweep": {corr.KERNEL: sweep["launches"]},
+                         "fusion_train": train["launches"]},
+            "numbers": {**sweep, "step_ms": train["step_ms"], "peak_gb": train["peak_gb"],
+                        "first_sync": syncs}}
+
+
+# -- phase 11: every regression config on the card against the CPU ------------
+
+def config_batch(cfg, n: int, seed: int) -> dict:
+    """A collated batch of ``n`` pairs for ``cfg``'s predictor: YUV420 pairs
+    sharing references for the two-view model, RGB windows with device poses
+    for the multi-frame ones."""
+    H, W = cfg.DATASET.HEIGHT, cfg.DATASET.WIDTH
+    if cfg.MODEL == "Regression":
+        return synthetic_batches(n, n, H, W, seed=seed)[0]
+    return window_batches(n, n, int(cfg.DATASET.QUERY_FRAME_COUNT), H, W, seed=seed)[0]
+
+
+def _fuses(cfg) -> bool:
+    """Whether ``cfg``'s aggregator takes the fused route (K1): every
+    correlation aggregator but the dustbin and compressed-volume variants,
+    which need the whole volume."""
+    agg = cfg.AGGREGATOR
+    if not cfg.TPU.FUSED_CORRELATION or agg.TYPE == "Concat":
+        return False
+    return agg.TYPE == "CorrelationVolumeWarpingQKV" or not (agg.DUSTBIN or agg.CV_OUTLAYERS)
+
+
+def phase_configs() -> dict:
+    """One float32 forward of every config under configs/regression/ (and
+    of ENCODER.BLOCK_TYPE 2 on the 3d3d model) on the card and on the CPU,
+    same weights and batch, at one block per stage and 96x72: poses within
+    PARITY_ATOL. Then the 3d3d model with the ResNet encoder on the card
+    under the fused route must raise, naming its ROADMAP.md item. Returns
+    K1's launches."""
+    import torch
+
+    from mapfree_tpu_torch.models.builder import build_model
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    small = {"ENCODER.NUM_BLOCKS": "1-1-1", "DATASET.HEIGHT": 96, "DATASET.WIDTH": 72,
+             "TPU.INFER_BATCH": 4, "TPU.COMPUTE_DTYPE": "float32", "TPU.SEED": SEED}
+    cases = [(str(p.relative_to(REPO)), {}) for p in
+             sorted((REPO / "configs/regression").rglob("*.yaml"))]
+    cases.append(("configs/regression/mapfree/3d3d.yaml", {"ENCODER.BLOCK_TYPE": 2}))
+    corr.reset_launches()
+    worst = 0.0
+    for i, (model_yaml, extra) in enumerate(cases):
+        cfg = load_cfg({**small, **extra}, model_yaml)
+        batch = config_batch(cfg, 3, seed=SEED + 50 + i)  # padded to the batch of 4
+        out = {}
+        for dev in (DEVICE, "cpu"):
+            out[dev] = build_model(cfg, device=dev).predict_batch(batch)[:2]
+        err = max(float(np.abs(out[DEVICE][j] - out["cpu"][j]).max()) for j in range(2))
+        worst = max(worst, err)
+        name = model_yaml.split("regression/")[1] + "".join(f" {k} {v}" for k, v in extra.items())
+        log(f"[configs] {name}: {cfg.MODEL}, {cfg.ENCODER.TYPE} block {cfg.ENCODER.BLOCK_TYPE}, "
+            f"{cfg.AGGREGATOR.TYPE}, {cfg.HEAD.TYPE}: max |GPU - CPU| over R and t "
+            f"{err:.3g} (atol {PARITY_ATOL:g})")
+        _check_poses(*out[DEVICE], name)
+        if err > PARITY_ATOL:
+            raise AssertionError(f"{name}: the GPU and CPU forwards disagree")
+    launches = dict(corr.launches)
+    fused = sum(_fuses(load_cfg({}, model_yaml)) for model_yaml, _ in cases)
+    log(f"[configs] {len(cases)} configs within {worst:.3g} of the CPU; K1 launched "
+        f"{launches[corr.KERNEL]} times, once for each of the {fused} that take the fused route")
+    _expect_launches(corr, {corr.KERNEL: fused, corr.KERNEL_BWD_ROWS: 0,
+                            corr.KERNEL_BWD_COLS: 0}, "the configs' forwards")
+
+    cfg = load_cfg({**small, "ENCODER.TYPE": "ResNet", "DATASET.HEIGHT": 192,
+                    "DATASET.WIDTH": 144, "TPU.COMPUTE_DTYPE": "bfloat16"})
+    try:
+        build_model(cfg, device=DEVICE).predict_batch(config_batch(cfg, 3, seed=SEED + 90))
+    except NotImplementedError as e:
+        if "ROADMAP.md item 18" not in str(e):
+            raise
+        log(f"[configs] ResNet encoder under the fused route on the card raises: {e}")
+    else:
+        raise AssertionError("the ResNet encoder ran on the card under the fused route")
+    return {"launches": {"configs_on_card": launches}}
+
+
+# -- phase 12: the fusion model's CLIs from JPEG files ------------------------------
+
+def phase_fusion_clis() -> dict:
+    """The fusion model's submission CLI and train CLI over a MapFree tree of
+    fixture copies with device-tracking poses (poses_device.txt): the test
+    split's 160 windows of 9 frames in batches of 64 (the last of 32), one
+    epoch of 8 train steps at batch 10 with one validation, and the
+    submission CLI on that run's last.pt. Returns the launches per CLI run."""
+    from mapfree_tpu_torch.ops import correlation as corr
+    from mapfree_tpu_torch.train.__main__ import main as train_main
+
+    model_cfg = str(REPO / FUSION_YAML)
+    F = int(load_cfg({}, FUSION_YAML).DATASET.QUERY_FRAME_COUNT)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        queries = write_mapfree_tree(root, seed=SEED + 60, device_poses=True)
+        dataset_cfg, run_cfg = write_configs(root, query_frames=F)
+        # the query frame of each window: the last of F consecutive frames,
+        # every (F + 1)-th frame from frame F
+        windows = {s: [f"seq1/frame_{i:05d}.jpg" for i in range(F, 400, F + 1)]
+                   for s in queries["test"]}
+        log(f"[fusion-cli] MapFree tree of fixture copies with device poses in "
+            f"{time.perf_counter() - t0:.2f} s: test {len(windows)} scenes, "
+            f"{sum(len(v) for v in windows.values())} windows of {F} frames")
+        common = ["--dataset_config", str(dataset_cfg), "--device", DEVICE]
+        random_run = run_submission_cli(
+            [model_cfg, *common, "-o", str(root / "random")], windows,
+            "fusion submission CLI, random weights", tag="fusion-cli")
+
+        corr.reset_launches()
+        captured = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.chdir(root), contextlib.redirect_stdout(captured), \
+                designs_served() as seen:
+            state = train_main([model_cfg, str(dataset_cfg), "--config", str(run_cfg),
+                                "--experiment", "fusion", "--device", DEVICE])
+        elapsed = time.perf_counter() - t0
+        train_launches = dict(corr.launches)
+        for line in captured.getvalue().splitlines():
+            log(f"[fusion-cli]   {line}")
+        _expect_designs(seen, {"forward": [corr.DESIGN_MMA], "backward": [corr.DESIGN_MMA]},
+                        "the fusion train CLI")
+        # 2 scenes x 40 samples at batch 10; one validation batch of the
+        # val scene's 10 windows
+        _expect_launches(corr, {corr.KERNEL: 8 + 1, corr.KERNEL_BWD_ROWS: 8,
+                                corr.KERNEL_BWD_COLS: 8}, "the fusion train CLI")
+        run_dir = root / "weights" / "fusion"
+        records = [json.loads(ln) for ln in (run_dir / "scalars.jsonl").read_text().splitlines()]
+        losses = [r["train/loss"] for r in records if "train/loss" in r]
+        val = [r["val_loss/loss"] for r in records if "val_loss/loss" in r]
+        log(f"[fusion-cli] train CLI: {state.step} steps, {len(val)} validation in "
+            f"{elapsed:.2f} s (decode of 100 frames a step, steps, validation, checkpoints); "
+            f"launches {train_launches}; losses {' '.join(f'{x:.4f}' for x in losses)}; "
+            f"validation {val}")
+        if state.step != 8 or len(losses) != 8 or len(val) != 1 \
+                or not np.all(np.isfinite(losses + val)):
+            raise AssertionError("the fusion train CLI did not take 8 finite steps and one "
+                                 "validation")
+        trained = run_submission_cli(
+            [model_cfg, *common, "--checkpoint", str(run_dir / "last.pt"),
+             "-o", str(root / "trained")], windows, "fusion submission CLI, last.pt",
+            tag="fusion-cli")
+    moved = [max(np.abs(trained["poses"][s][f][0] - q).max(),
+                 np.abs(trained["poses"][s][f][1] - t).max())
+             for s, frames in random_run["poses"].items() for f, (q, t) in frames.items()]
+    log(f"[fusion-cli] the checkpoint moved the poses: median max |diff| "
+        f"{np.median(moved):.4f}, {np.mean(np.array(moved) > 1e-4):.1%} of {len(moved)} "
+        f"windows by more than 1e-4")
+    if np.mean(np.array(moved) > 1e-4) < 0.9:
+        raise AssertionError("the fusion submission CLI's poses do not depend on the checkpoint")
+    return {"launches": {"fusion_submission_cli": random_run["launches"],
+                         "fusion_train_cli": train_launches,
+                         "fusion_submission_cli_checkpoint": trained["launches"]},
+            "numbers": {"pairs_per_s": random_run["pairs_per_s"],
+                        "stages": random_run["stages"], "train_cli_s": elapsed}}
+
+
 def main() -> None:
     try:
         import torch
@@ -1621,15 +2270,25 @@ def main() -> None:
     phase_train_parity_bf16()
     phase_decode()
     cli_launches = phase_clis()
+    # the QKV, fusion and other RPR paths: each phase resets the counts
+    # just before each path it drives and reads them just after
+    later = {"qkv": phase_qkv_path(), "fusion": phase_fusion_path(),
+             "configs": phase_configs(), "fusion_clis": phase_fusion_clis()}
 
     from mapfree_tpu_torch.ops import correlation as corr
 
     by_path = {name: {"train_loop": n} for name, n in train_launches.items()}
     by_path[corr.KERNEL]["inference_sweep"] = sweep_launches
-    for run in ("submission_cli", "train_cli", "submission_cli_checkpoint"):
-        for name, n in cli_launches[run].items():
+    runs = {run: cli_launches[run]
+            for run in ("submission_cli", "train_cli", "submission_cli_checkpoint")}
+    for phase in later.values():
+        runs.update(phase["launches"])
+    for run, counts in runs.items():
+        for name, n in counts.items():
             if n:
                 by_path[name][run] = n
+    paths = {name: phase.get("numbers", {}) for name, phase in later.items()}
+    log("[paths] " + json.dumps({"card": smi, **paths}, default=str))
     kernels = []
     for name, source, replaces in (
             (corr.KERNEL, "correlation_fwd.cu", 60),
@@ -1644,6 +2303,7 @@ def main() -> None:
             "replaces": f"mapfree_tpu/ops/correlation.py:{replaces}",
             "launches": sum(by_path[name].values()),
             "launches_by_path": by_path[name],
+            "card": smi,
             **t,
             "cases": cases[name],
         })

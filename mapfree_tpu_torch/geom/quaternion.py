@@ -1,16 +1,19 @@
-"""Quaternion algebra on numpy: pose extraction (``mat2quat``) and the
-datasets' relative poses.
+"""Quaternion algebra: numpy for pose extraction (``mat2quat``) and the
+datasets' relative poses, torch for the models and losses.
 
-The port's copy of the numpy branch of mapfree_tpu/geom/quaternion.py
-(``qinverse``, ``qconjugate``, ``qmult``, ``rotate_vector``, ``quat2mat``,
-``mat2quat``, ``relative_pose_wxyz``); every function takes a batch of
-leading axes. Convention: (w, x, y, z), scalar first, as in the MapFree
-pose-file format.
+The port's copy of mapfree_tpu/geom/quaternion.py, whose functions take
+numpy or jax arrays alike: the numpy branch (``qinverse``, ``qconjugate``,
+``qmult``, ``rotate_vector``, ``quat2mat``, ``mat2quat``,
+``relative_pose_wxyz``) and, for torch tensors, ``quat2mat_torch`` and
+``mat2quat_torch`` (the multi-frame fusion and the quaternion losses). Every
+function takes a batch of leading axes. Convention: (w, x, y, z), scalar
+first, as in the MapFree pose-file format.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def qinverse(q):
@@ -118,3 +121,55 @@ def relative_pose_wxyz(q1_wxyz, t1, q2_wxyz, t2):
     q12 = qmult(q2_wxyz, qinverse(q1_wxyz))
     t12 = t2 - rotate_vector(t1, q12)
     return q12, t12
+
+
+def quat2mat_torch(q):
+    """:func:`quat2mat` on a torch tensor ``[..., 4]`` (normalised first, so a
+    zero quaternion gives NaN, as it does in the JAX package)."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    row0 = torch.stack(
+        [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)], dim=-1)
+    row1 = torch.stack(
+        [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)], dim=-1)
+    row2 = torch.stack(
+        [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+def mat2quat_torch(R):
+    """:func:`mat2quat` on a torch tensor ``[..., 3, 3]``: the four Shepperd
+    candidates, the largest pivot by ``argmax`` (the first of equal pivots,
+    as in numpy and JAX), then w >= 0. Differentiable through the chosen
+    candidate."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+
+    tr = m00 + m11 + m22
+    qw2 = 1.0 + tr
+    qx2 = 1.0 + m00 - m11 - m22
+    qy2 = 1.0 - m00 + m11 - m22
+    qz2 = 1.0 - m00 - m11 + m22
+
+    def _safe_sqrt(v):
+        return torch.sqrt(torch.clamp(v, min=1e-24))
+
+    sw = _safe_sqrt(qw2) * 2.0
+    cand_w = torch.stack(
+        [0.25 * sw, (m21 - m12) / sw, (m02 - m20) / sw, (m10 - m01) / sw], dim=-1)
+    sx = _safe_sqrt(qx2) * 2.0
+    cand_x = torch.stack(
+        [(m21 - m12) / sx, 0.25 * sx, (m01 + m10) / sx, (m02 + m20) / sx], dim=-1)
+    sy = _safe_sqrt(qy2) * 2.0
+    cand_y = torch.stack(
+        [(m02 - m20) / sy, (m01 + m10) / sy, 0.25 * sy, (m12 + m21) / sy], dim=-1)
+    sz = _safe_sqrt(qz2) * 2.0
+    cand_z = torch.stack(
+        [(m10 - m01) / sz, (m02 + m20) / sz, (m12 + m21) / sz, 0.25 * sz], dim=-1)
+
+    choice = torch.argmax(torch.stack([qw2, qx2, qy2, qz2], dim=-1), dim=-1)
+    cands = torch.stack([cand_w, cand_x, cand_y, cand_z], dim=-2)  # [..., 4, 4]
+    q = torch.take_along_dim(cands, choice[..., None, None], dim=-2)[..., 0, :]
+    q = torch.where(q[..., :1] < 0, -q, q)  # canonical hemisphere: w >= 0
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)

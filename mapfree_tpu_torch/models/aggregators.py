@@ -1,5 +1,5 @@
-"""Correlation-volume warping aggregator (port of
-mapfree_tpu/models/aggregators.py::CorrelationVolumeWarping).
+"""Feature aggregators (port of mapfree_tpu/models/aggregators.py):
+correlation-volume warping, its QKV-projected variant, and concatenation.
 
 For each position i of view 0, a softmax over all positions j of view 1
 gives a matching distribution; view-1 features are soft-warped into view 0's
@@ -13,12 +13,15 @@ out, flattened position index i = h * W + w. The fused route calls the CUDA
 kernel (:func:`mapfree_tpu_torch.ops.correlation.fused_correlation_warp`)
 whenever the variant allows it; the dense route keeps the [B, HW, HW]
 volume for the dustbin and compressed-volume variants, which need it.
-The QKV variant and ``Concat`` come with a later slice.
+The QKV variant projects both views by 1x1 convolutions first and warps the
+projected values (reference aggregator.py:119-191); ``Concat`` is the
+ablation without correlation (aggregator.py:194-200).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from mapfree_tpu_torch.models.blocks import PreActBlock
@@ -162,6 +165,81 @@ class CorrelationVolumeWarping(nn.Module):
             return torch.cat(parts, dim=-1).reshape(B, H, W, -1).to(self.dtype)
 
 
+class CorrelationVolumeWarpingQKV(nn.Module):
+    """QKV-projected soft warping (reference aggregator.py:119-191): 1x1
+    convolutions without bias give q from view 0, k from view 1 and v from
+    both (one shared ``V_mlp``); with ``residual_att`` each adds its input,
+    in the compute dtype. View 1's projected values are warped into view 0's
+    frame and concatenated after view 0's (as float32), with the optional
+    soft-argmax position and max score. The fused route hands the kernel q,
+    k and v1 as contiguous [B, HW, C] tensors in the compute dtype."""
+
+    def __init__(self, channels: int, position_encoder: bool = False,
+                 max_score_channel: bool = False, normalise_dot: bool = False,
+                 residual_att: bool = False, fused: bool = True,
+                 dtype=torch.float32):
+        super().__init__()
+        self.position_encoder = position_encoder
+        self.max_score_channel = max_score_channel
+        self.normalise_dot = normalise_dot
+        self.residual_att = residual_att
+        self.fused = fused
+        self.dtype = dtype
+        self.Q_mlp = nn.Conv2d(channels, channels, 1, bias=False)
+        self.K_mlp = nn.Conv2d(channels, channels, 1, bias=False)
+        self.V_mlp = nn.Conv2d(channels, channels, 1, bias=False)
+
+    def _project(self, conv, x):
+        """The 1x1 convolution of NHWC ``x`` [B, H, W, C] as a product over
+        channels, in the compute dtype, plus ``x`` with ``residual_att``;
+        returns [B, HW, C] contiguous."""
+        B, H, W, C = x.shape
+        x = x.to(self.dtype).reshape(B, H * W, C)
+        bf16 = self.dtype == torch.bfloat16
+        with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
+            y = F.linear(x, conv.weight[:, :, 0, 0]).to(self.dtype)
+        return y + x if self.residual_att else y
+
+    def forward(self, vol0, vol1):
+        if vol0.shape != vol1.shape:
+            raise ValueError(f"feature volumes must match: {list(vol0.shape)} "
+                             f"vs {list(vol1.shape)}")
+        B, H, W, _ = vol0.shape
+        q = self._project(self.Q_mlp, vol0)
+        k = self._project(self.K_mlp, vol1)
+        v0 = self._project(self.V_mlp, vol0)
+        v1 = self._project(self.V_mlp, vol1)
+        grid = _uv_grid(H, W, device=vol0.device)
+
+        with torch.autocast(vol0.device.type, enabled=False):
+            if self.normalise_dot:
+                q = q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=1e-12)
+                k = k / torch.clamp(torch.linalg.norm(k, dim=-1, keepdim=True), min=1e-12)
+            if self.fused:
+                warped1, pos_enc, max_score = fused_correlation_warp(
+                    q.contiguous(), k.contiguous(), v1, grid)
+            else:
+                corr = torch.bmm(q.float(), k.float().transpose(1, 2))
+                cvol = torch.softmax(torch.nan_to_num(corr), dim=2)
+                warped1 = torch.bmm(cvol, v1.float())
+                pos_enc = torch.matmul(cvol, grid)
+                max_score = cvol.amax(dim=2, keepdim=True)
+            parts = [v0.float(), warped1]
+            if self.position_encoder:
+                parts.append(pos_enc)
+            if self.max_score_channel:
+                parts.append(max_score)
+            return torch.cat(parts, dim=-1).reshape(B, H, W, -1).to(self.dtype)
+
+
+class Concat(nn.Module):
+    """Channel concatenation [vol0 | vol1], the ablation without correlation
+    (reference aggregator.py:194-200)."""
+
+    def forward(self, vol0, vol1):
+        return torch.cat([vol0, vol1], dim=-1)
+
+
 def aggregator_out_channels(agg_cfg, volume_channels: int) -> int:
     """Channel count of the aggregated volume (reference aggregator.py:19-34)."""
     if agg_cfg.TYPE == "Concat":
@@ -182,7 +260,9 @@ def aggregator_out_channels(agg_cfg, volume_channels: int) -> int:
 
 
 def build_aggregator(agg_cfg, hw: int | None = None, dtype=torch.float32,
-                     fused: bool = True) -> nn.Module:
+                     fused: bool = True, channels: int | None = None) -> nn.Module:
+    """``hw`` (feature positions) sizes the compressed-volume block;
+    ``channels`` (the encoder's output channels) sizes the QKV projections."""
     if agg_cfg.TYPE == "CorrelationVolumeWarping":
         return CorrelationVolumeWarping(
             position_encoder=bool(agg_cfg.POSITION_ENCODER),
@@ -197,5 +277,18 @@ def build_aggregator(agg_cfg, hw: int | None = None, dtype=torch.float32,
             hw=hw,
             dtype=dtype,
         )
-    raise NotImplementedError(
-        f"aggregator {agg_cfg.TYPE} is not ported yet (a later slice of the port)")
+    if agg_cfg.TYPE == "CorrelationVolumeWarpingQKV":
+        if channels is None:
+            raise ValueError("the QKV aggregator needs the feature channels")
+        return CorrelationVolumeWarpingQKV(
+            channels,
+            position_encoder=bool(agg_cfg.POSITION_ENCODER),
+            max_score_channel=bool(agg_cfg.MAX_SCORE_CHANNEL),
+            normalise_dot=bool(agg_cfg.NORMALISE_DOT),
+            residual_att=bool(agg_cfg.RESIDUAL_ATT),
+            fused=fused,
+            dtype=dtype,
+        )
+    if agg_cfg.TYPE == "Concat":
+        return Concat()
+    raise NotImplementedError(f"Invalid aggregator {agg_cfg.TYPE}")

@@ -105,6 +105,33 @@ class PreActBottleneck(nn.Module):
         return out + shortcut
 
 
+class PreActBottleneckDepthwise(nn.Module):
+    """Grouped-conv bottleneck, expansion 4 (reference preact.py:67-96):
+    :class:`PreActBottleneck` with every conv, the shortcut's too, in
+    ``min(in_planes, planes)`` groups."""
+
+    expansion = 4
+
+    def __init__(self, in_planes: int, planes: int, stride: int = 1):
+        super().__init__()
+        groups = min(in_planes, planes)
+        self.bn1 = _bn(in_planes)
+        self.conv1 = nn.Conv2d(in_planes, planes, 1, groups=groups, bias=False)
+        self.bn2 = _bn(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, groups=groups, bias=False)
+        self.bn3 = _bn(planes)
+        self.conv3 = nn.Conv2d(planes, self.expansion * planes, 1, groups=groups,
+                               bias=False)
+        if stride != 1 or in_planes != self.expansion * planes:
+            self.shortcut = nn.Sequential(
+                nn.Conv2d(in_planes, self.expansion * planes, 1, stride, groups=groups,
+                          bias=False))
+        else:
+            self.shortcut = None
+
+    forward = PreActBottleneck.forward
+
+
 class ConvBnElu(nn.Module):
     """Conv (with bias) + BatchNorm + ELU (reference resunet.py:15-26)."""
 

@@ -2,7 +2,11 @@
 mapfree_tpu/models/builder.py::RegressionPredictor, build_model).
 
 ``predict_batch(batch) -> (R [B,3,3], t [B,1,3], inliers [B])`` numpy, and
-the split the pipelined sweep drives (utils/submission.py::iter_predictions):
+the split the pipelined sweep drives (utils/submission.py::iter_predictions).
+It serves every regression model: ``Regression``, and the multi-frame
+``RegressionMultiFrame`` and ``RegressionMultiFrameFusion``, whose image1 is
+an RGB uint8 window [B, F, H, W, 3] and whose fusion takes the batch's
+device-tracking poses as well.
 
 - :meth:`RegressionPredictor.transfer_batch` runs on worker threads. It pads
   the final partial batch, buckets the unique-ref rows, packs every array
@@ -29,7 +33,7 @@ import numpy as np
 import torch
 
 from mapfree_tpu_torch.models.blocks import init_weights
-from mapfree_tpu_torch.models.regression import build_regression_net
+from mapfree_tpu_torch.models.regression import REGRESSION_MODELS, build_regression_net
 from mapfree_tpu_torch.tools.convert_weights import load_checkpoint
 from mapfree_tpu_torch.utils.packing import pack_arrays, spec_of, unpack
 from mapfree_tpu_torch.utils.timing import NULL_TIMES
@@ -77,8 +81,11 @@ class RegressionPredictor:
         self._tf32_off = (self.device.type == "cuda"
                           and cfg.TPU.COMPUTE_DTYPE == "float32")
         self.batch_size = int(cfg.TPU.INFER_BATCH)
-        # deduped-reference path: encode U unique refs + B queries
-        self.u_max = min(self.batch_size, int(cfg.TPU.UNIQUE_REFS))
+        self.needs_device_poses = getattr(net, "needs_device_poses", False)
+        # deduped-reference path: encode U unique refs + B queries (the
+        # two-view model only)
+        self.u_max = (min(self.batch_size, int(cfg.TPU.UNIQUE_REFS))
+                      if cfg.MODEL == "Regression" else 0)
         self._tls = threading.local()
 
     def _copy_stream(self):
@@ -118,11 +125,19 @@ class RegressionPredictor:
             image0 = image0.astype(np.float32, copy=False)
             image1 = image1.astype(np.float32, copy=False)
         named = [("image0", image0), ("image1", image1)]
+        if self.needs_device_poses:  # float32 fields first: their offsets stay aligned
+            named = [("q_device", np.asarray(batch["abs_q_1_w2c_device"], np.float32)),
+                     ("t_device", np.asarray(batch["abs_c_1_c2w_device"], np.float32))] + named
         B = image0.shape[0]
         if B < self.batch_size:
             pad = self.batch_size - B
-            named = [(n, np.concatenate([a, np.zeros((pad,) + a.shape[1:], a.dtype)]))
-                     for n, a in named]
+            for i, (name, a) in enumerate(named):
+                filler = np.zeros((pad,) + a.shape[1:], a.dtype)
+                if name == "q_device":
+                    # unit quaternions: a zero one divides by zero in quat2mat
+                    # and puts NaN into the fusion's eigh
+                    filler[..., 0] = 1.0
+                named[i] = (name, np.concatenate([a, filler]))
         return named, B
 
     def transfer_batch(self, batch, times=None):
@@ -163,6 +178,10 @@ class RegressionPredictor:
                 if "ref_idx" in parts:
                     R, t, _ = self.net(parts["image0u"], parts["image1"],
                                        ref_idx=parts["ref_idx"])
+                elif "q_device" in parts:
+                    R, t, _ = self.net(parts["image0"], parts["image1"],
+                                       q_device=parts["q_device"],
+                                       t_device=parts["t_device"])
                 else:
                     R, t, _ = self.net(parts["image0"], parts["image1"])
                 out = torch.cat([R, t.reshape(-1, 1, 3)], dim=1)  # [bs, 4, 3]
@@ -188,10 +207,9 @@ class RegressionPredictor:
 
 
 def build_model(cfg, checkpoint: str = "", device="cuda"):
-    if cfg.MODEL == "Regression":
+    if cfg.MODEL in REGRESSION_MODELS:
         return RegressionPredictor(cfg, checkpoint, device=device)
-    if cfg.MODEL in ("RegressionMultiFrame", "RegressionMultiFrameFusion",
-                     "FeatureMatching"):
+    if cfg.MODEL == "FeatureMatching":
         raise NotImplementedError(
             f"model {cfg.MODEL} is not ported yet (a later slice of the port)")
     raise NotImplementedError(f"Invalid model {cfg.MODEL}")

@@ -1,11 +1,16 @@
-"""Feature encoder ResUNet (port of mapfree_tpu/models/encoders.py::ResUNet).
+"""Feature encoders ResNet and ResUNet (port of
+mapfree_tpu/models/encoders.py).
 
-CAPS-style residual U-Net (reference lib/models/regression/encoder/
-resunet.py:41-128): a 7x7 stride-2 stem and 3x3 stride-2 max-pool to H/4,
-three pre-activation stages to H/16, and a decoder with skip-concats back to
-H/4 with ``NUM_OUT_LAYERS`` channels. The public layout is the JAX
-package's, NHWC in and out; the convolutions run NCHW inside. ``ResNet``
-comes with a later slice.
+- ResNet (reference lib/models/regression/encoder/resnet.py:7-37): a 7x7
+  stride-2 stem (padding 1), three pre-activation stages, each followed by
+  a 2x2 average pool; 256 * expansion channels out.
+- ResUNet (reference encoder/resunet.py:41-128), CAPS-style residual U-Net:
+  a 7x7 stride-2 stem and 3x3 stride-2 max-pool to H/4, three
+  pre-activation stages to H/16, and a decoder with skip-concats back to H/4
+  with ``NUM_OUT_LAYERS`` channels.
+
+The public layout is the JAX package's, NHWC in and out; the convolutions
+run NCHW inside.
 """
 
 from __future__ import annotations
@@ -21,10 +26,11 @@ from mapfree_tpu_torch.models.blocks import (
     ConvBnElu,
     PreActBlock,
     PreActBottleneck,
+    PreActBottleneckDepthwise,
     UpConv,
 )
 
-BLOCK_TYPES = {0: PreActBlock, 1: PreActBottleneck}
+BLOCK_TYPES = [PreActBlock, PreActBottleneck, PreActBottleneckDepthwise]
 
 
 def parse_num_blocks(spec: str) -> list:
@@ -33,11 +39,12 @@ def parse_num_blocks(spec: str) -> list:
 
 def encoder_out_channels(encoder_cfg) -> int:
     """Number of channels of the encoder output volume."""
+    if encoder_cfg.TYPE == "ResNet":
+        return 256 * BLOCK_TYPES[encoder_cfg.BLOCK_TYPE].expansion
     if encoder_cfg.TYPE == "ResUNet":
         n = encoder_cfg.NUM_OUT_LAYERS
         return 128 if n is None else n
-    raise NotImplementedError(
-        f"encoder {encoder_cfg.TYPE} is not ported yet (a later slice of the port)")
+    raise NotImplementedError(f"Invalid encoder {encoder_cfg.TYPE}")
 
 
 def _half(n: int) -> int:
@@ -46,13 +53,21 @@ def _half(n: int) -> int:
 
 
 def encoder_out_hw(encoder_cfg, height: int, width: int) -> tuple:
-    """Spatial size of the ResUNet output grid for a [height, width] image:
-    stem /2, pool /2, two stride-2 stages, then two 2x upsamples (the skips
-    are padded or cropped to the upsampled size)."""
-    if encoder_cfg.TYPE != "ResUNet":
-        raise NotImplementedError(f"encoder {encoder_cfg.TYPE} is not ported yet")
+    """Spatial size of the encoder's output grid for a [height, width] image.
+    ResUNet: stem /2, pool /2, two stride-2 stages, then two 2x upsamples
+    (the skips are padded or cropped to the upsampled size). ResNet: stem /2
+    (padding 1), then three 2x2 average pools with two stride-2 stages
+    between them."""
+    if encoder_cfg.TYPE not in ("ResNet", "ResUNet"):
+        raise NotImplementedError(f"Invalid encoder {encoder_cfg.TYPE}")
     out = []
     for n in (height, width):
+        if encoder_cfg.TYPE == "ResNet":
+            n = (n + 2 * 1 - 7) // 2 + 1   # 7x7 stride-2 stem, padding 1
+            n = _half(n // 2) // 2         # pool, layer2, pool
+            n = _half(n) // 2              # layer3, pool
+            out.append(n)
+            continue
         n = (n + 2 * 3 - 7) // 2 + 1   # 7x7 stride-2 stem, padding 3
         n = (n + 2 - 3) // 2 + 1       # 3x3 stride-2 max-pool, padding 1
         n = _half(_half(n))            # encoder2, encoder3
@@ -86,15 +101,34 @@ def _skip_concat(y, skip):
     return torch.cat([y, skip], dim=1)
 
 
+class ResNet(nn.Module):
+    """(reference: encoder/resnet.py:7-37) No normalisation after the stem,
+    whose padding of 1 crops the borders slightly, as the reference's does."""
+
+    def __init__(self, block_type: int, num_blocks: Sequence[int]):
+        super().__init__()
+        block = BLOCK_TYPES[block_type]
+        e = block.expansion
+        self.conv1 = nn.Conv2d(3, 64, 7, 2, 1, bias=False)
+        self.layer1 = _Stage(block, 64, 64, num_blocks[0], 1)
+        self.layer2 = _Stage(block, 64 * e, 128, num_blocks[1], 2)
+        self.layer3 = _Stage(block, 128 * e, 256, num_blocks[2], 2)
+
+    def forward(self, x):
+        """x: [N, H, W, 3] -> [N, h, w, 256 * expansion] (NHWC), h and w as
+        :func:`encoder_out_hw` gives them."""
+        x = self.conv1(x.permute(0, 3, 1, 2))
+        for stage in (self.layer1, self.layer2, self.layer3):
+            x = F.avg_pool2d(stage(x), 2, 2)
+        return x.permute(0, 2, 3, 1)
+
+
 class ResUNet(nn.Module):
     """(reference: encoder/resunet.py:41-128)"""
 
     def __init__(self, block_type: int, num_blocks: Sequence[int],
                  num_out_layers: int = 128, not_concat: bool = False):
         super().__init__()
-        if block_type not in BLOCK_TYPES:
-            raise NotImplementedError(
-                f"BLOCK_TYPE {block_type} is not ported yet (a later slice)")
         block = BLOCK_TYPES[block_type]
         e = block.expansion
         self.not_concat = not_concat
@@ -132,6 +166,8 @@ class ResUNet(nn.Module):
 
 
 def build_encoder(encoder_cfg) -> nn.Module:
+    if encoder_cfg.TYPE == "ResNet":
+        return ResNet(encoder_cfg.BLOCK_TYPE, parse_num_blocks(encoder_cfg.NUM_BLOCKS))
     if encoder_cfg.TYPE == "ResUNet":
         n = encoder_cfg.NUM_OUT_LAYERS
         return ResUNet(
@@ -140,5 +176,4 @@ def build_encoder(encoder_cfg) -> nn.Module:
             num_out_layers=128 if n is None else n,
             not_concat=bool(encoder_cfg.NOT_CONCAT),
         )
-    raise NotImplementedError(
-        f"encoder {encoder_cfg.TYPE} is not ported yet (a later slice of the port)")
+    raise NotImplementedError(f"Invalid encoder {encoder_cfg.TYPE}")

@@ -127,6 +127,12 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+def kernels_take(Cq: int, Cv: int) -> bool:
+    """Whether K1-K3 (either design) take these widths on the card: Cq up to
+    128 and Cv + 2 up to 128 (the accumulator columns of a row)."""
+    return 1 <= Cq <= 128 and 0 <= Cv and Cv + 2 <= 128
+
+
 def forward_design(dtype, Cq: int, Cv: int) -> str:
     """Which hand-written design of K1 serves these inputs on the card:
     ``DESIGN_MMA`` for bf16 with Cq and Cv multiples of 8, Cq <= 128 and
@@ -477,6 +483,12 @@ def fused_correlation_warp(q, k, v, grid):
         raise ValueError(f"fused_correlation_warp runs on CPU or CUDA, not {q.device}")
     _check_inputs(q, k, v, grid)
     if q.device.type == "cuda":
+        if not kernels_take(q.shape[-1], v.shape[-1]):
+            raise NotImplementedError(
+                f"the correlation kernels take Cq <= 128 and Cv + 2 <= 128 channels on the "
+                f"card, not Cq={q.shape[-1]}, Cv={v.shape[-1]} (the ResNet encoder's width): "
+                "ROADMAP.md item 18, K1-K3 for Cv + 2 > 128. The dense route "
+                "(TPU.FUSED_CORRELATION false) serves such widths")
         grid = grid.to(device=q.device, dtype=v.dtype)
         _check_cuda(q, k, v, grid)
     return _split(_FusedCorrelationWarp.apply(q, k, v, grid.detach()), v.shape[-1])

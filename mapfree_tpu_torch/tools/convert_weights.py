@@ -13,8 +13,14 @@ of the name mapping in mapfree_tpu/tools/convert_weights.py, and
 - BatchNorm ``scale``/``mean``/``var`` -> ``weight``/``running_mean``/
   ``running_var``.
 
-Any leaf without a destination, any destination without a leaf and any
-shape mismatch raises: silent random weights are worse than failing.
+The same rules carry every module of the RPR family: the QKV projections
+(``aggregator.Q_mlp``, ``K_mlp``, ``V_mlp``, 1x1 convolutions), the heads'
+``mlp`` (a Sequential of three, or one dense layer), the fusion net's
+``frame_weight``, the ResNet encoder's ``conv1`` and ``layer1-3``, and
+grouped convolutions, whose HWIO kernel [kh, kw, in / groups, out] takes the
+same transpose to [out, in / groups, kh, kw]. Any leaf without a
+destination, any destination without a leaf and any shape mismatch raises:
+silent random weights are worse than failing.
 
 :func:`to_jax_variables` goes the other way: the port's module as the JAX
 package's ``{"params", "batch_stats"}`` tree of numpy arrays in flax layout,

@@ -10,7 +10,8 @@ reference's Lightning setup:
 
 :func:`fit_loaders` is the loop itself and takes its loaders as arguments:
 any re-iterable (with ``len``) of collated numpy batches holding ``image0``,
-``image1`` and ``T_0to1``. :func:`fit` keeps the JAX package's signature,
+``image1`` and ``T_0to1`` (and, for the fusion net, ``abs_q_1_w2c_device``
+and ``abs_c_1_c2w_device``). :func:`fit` keeps the JAX package's signature,
 plus the device: it builds the ``DataModule`` from the config, whose loaders
 decode on that device, and hands its loaders to :func:`fit_loaders`. One
 device, no mesh.
@@ -41,19 +42,32 @@ from mapfree_tpu_torch.utils.data import (
 )
 
 _TRAIN_KEYS = ("image0", "image1", "T_0to1")
+_DEVICE_POSE_KEYS = ("abs_q_1_w2c_device", "abs_c_1_c2w_device")
 PROFILE_STEPS = 20
+
+
+def _train_keys(net) -> tuple:
+    """Batch keys the training step takes: the fusion net needs the
+    device-tracking poses as well."""
+    if getattr(net, "needs_device_poses", False):
+        return _TRAIN_KEYS + _DEVICE_POSE_KEYS
+    return _TRAIN_KEYS
 
 
 def _device_batch(batch, device, pad_to: int, keys=_TRAIN_KEYS, stream=None):
     """Keep the numeric training keys, pad the leading axis to the fixed
-    batch size, and move them to the device."""
+    batch size (with unit quaternions for the device poses), and move them
+    to the device."""
     out = {}
     for k in keys:
         x = np.asarray(batch[k])
         if x.dtype == np.float64:  # pose metadata loads f64; train in f32
             x = x.astype(np.float32)
         if x.shape[0] < pad_to:
-            x = np.concatenate([x, np.zeros((pad_to - x.shape[0],) + x.shape[1:], x.dtype)])
+            filler = np.zeros((pad_to - x.shape[0],) + x.shape[1:], x.dtype)
+            if k == "abs_q_1_w2c_device":  # quaternions stay unit-norm
+                filler[..., 0] = 1.0
+            x = np.concatenate([x, filler])
         out[k] = x
     return data_to_device(out, device, stream=stream)
 
@@ -89,6 +103,7 @@ def fit_loaders(cfg, train_loader, val_loader, experiment: str = "default",
 
     train_step = make_train_step(net, cfg)
     val_step = make_val_step(net, cfg)
+    train_keys = _train_keys(net)
 
     steps_per_epoch = len(train_loader)
     val_every = max(1, int(steps_per_epoch * float(cfg.TRAINING.VAL_INTERVAL or 1.0)))
@@ -100,7 +115,7 @@ def fit_loaders(cfg, train_loader, val_loader, experiment: str = "default",
             for i, vb in enumerate(val_loader):
                 if val_batches is not None and i >= val_batches:
                     break
-                yield _device_batch(vb, device, batch_size)
+                yield _device_batch(vb, device, batch_size, train_keys)
         return run_validation(val_step, state, batches())
 
     # optional torch.profiler trace of the first few steps
@@ -122,7 +137,7 @@ def fit_loaders(cfg, train_loader, val_loader, experiment: str = "default",
     copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
     def _transfer(batch):
-        return _device_batch(batch, device, batch_size, stream=copy_stream)
+        return _device_batch(batch, device, batch_size, train_keys, stream=copy_stream)
 
     step = int(state.step)
     first_step = step

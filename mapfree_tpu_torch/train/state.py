@@ -119,8 +119,17 @@ def _precision_context(net, cfg):
     return contextlib.nullcontext()
 
 
+def _net_kwargs(net, batch) -> dict:
+    """Extra inputs some models take: the fusion net's device-tracking
+    poses."""
+    if getattr(net, "needs_device_poses", False):
+        return {"q_device": batch["abs_q_1_w2c_device"],
+                "t_device": batch["abs_c_1_c2w_device"]}
+    return {}
+
+
 def _forward_loss(net, cfg, batch):
-    R, t, aux = net(batch["image0"], batch["image1"])
+    R, t, aux = net(batch["image0"], batch["image1"], **_net_kwargs(net, batch))
     preds = dict(aux)
     preds["R"] = R
     preds["t"] = t
@@ -132,7 +141,8 @@ def _forward_loss(net, cfg, batch):
 
 def make_train_step(net, cfg):
     """``train_step(state, batch) -> (state, logs)``: one optimizer step on a
-    batch of tensors on the net's device (``image0``, ``image1``, ``T_0to1``).
+    batch of tensors on the net's device (``image0``, ``image1``, ``T_0to1``,
+    and the device-tracking poses for the fusion net).
     ``logs`` are 0-d tensors on the device."""
     augment = make_device_augment(cfg)
     aug_seed = int(cfg.TPU.SEED)
@@ -189,7 +199,8 @@ def make_predict_step(net, cfg):
     def predict(state: TrainState, batch):
         state.net.eval()
         with torch.no_grad(), _precision_context(state.net, cfg):
-            R, t, _ = state.net(batch["image0"], batch["image1"])
+            R, t, _ = state.net(batch["image0"], batch["image1"],
+                                **_net_kwargs(state.net, batch))
         return R, t
 
     return predict

@@ -12,7 +12,10 @@ resize set by YAML files in tmp_path.
   (float32, the frameworks sum in other orders);
 - the loader's unique-ref batch form (``getbatch``: deduplicated refs,
   ``ref_idx``, planar YUV420) gives both predictors the same poses within
-  1e-4.
+  1e-4;
+- the same for the multi-frame fusion model over a tree with device poses
+  (``poses_device.txt``): windows of 9 frames through the train CLI and the
+  submission CLI, against the JAX package's fit and ``submission.py``.
 """
 
 import importlib.util
@@ -30,7 +33,7 @@ import jax  # noqa: E402
 
 import mapfree_tpu.data.io as jax_io  # noqa: E402
 import mapfree_tpu.train.fit as jax_fit  # noqa: E402
-from fixtures import make_scene  # noqa: E402
+from fixtures import make_device_poses, make_scene  # noqa: E402
 from mapfree_tpu.config import cfg as jax_default_cfg  # noqa: E402
 from mapfree_tpu.data import MapFreeDataset as JaxMapFreeDataset  # noqa: E402
 from mapfree_tpu.models.builder import build_model as jax_build_model  # noqa: E402
@@ -210,3 +213,103 @@ def test_unique_ref_batches_give_both_predictors_the_same_poses(tmp_path):
         Rj, tj, _ = jmodel.predict_batch(jb)
         np.testing.assert_allclose(R, np.asarray(Rj), rtol=0, atol=1e-4)
         np.testing.assert_allclose(t, np.asarray(tj), rtol=0, atol=1e-4)
+
+
+FUSION_CFG = REPO / "configs/regression/mapfree/multiframe/3d3d_multi_fusion.yaml"
+
+
+def write_multiframe_tree(root: Path) -> tuple:
+    """Scenes with device-tracking poses (poses_device.txt, the tracked poses
+    moved by noise of 0.01): train 2 scenes of 16 queries, val 1 and test 2
+    of 20 (two windows of 9 frames each at the sample factor of 10); the
+    dataset config with QUERY_FRAME_COUNT 9 (configs/mapfree_multi.yaml's)
+    and the fusion model config cut as SMALL cuts 3d3d.yaml."""
+    for split, train, n, count in (("train", True, 16, 2), ("val", False, 20, 1),
+                                   ("test", False, 20, 2)):
+        for i in range(count):
+            scene = root / split / f"s{i:05}"
+            poses = make_scene(scene, n_queries=n, img_hw=(64, 48), train=train,
+                               seed=11 * i + len(split), max_angle=0.5)
+            make_device_poses(scene, poses, noise=0.01, seed=i + len(split))
+    text = (REPO / "configs/mapfree.yaml").read_text()
+    dataset = root / "dataset.yaml"
+    dataset.write_text(text.replace("DATA_ROOT: 'data/mapfree/'", f"DATA_ROOT: '{root}'")
+                       .replace("QUERY_FRAME_COUNT: 1", "QUERY_FRAME_COUNT: 9"))
+    model_cfg = yaml.safe_load(FUSION_CFG.read_text())
+    for node, values in yaml.safe_load(SMALL).items():
+        model_cfg.setdefault(node, {}).update(values)
+    model = root / "model.yaml"
+    model.write_text(yaml.safe_dump(model_cfg))
+    return dataset, model
+
+
+def test_fusion_train_cli_then_submission_cli_match_jax(tmp_path, monkeypatch):
+    """The fusion model (3d3d_multi_fusion.yaml over QUERY_FRAME_COUNT 9) on
+    a tree with device poses: the port's fit trains on the JAX fit's first
+    batch, device poses included; the train CLI takes 2 steps; the
+    submission CLI on its last.pt writes one line per window's query frame,
+    and agrees with the JAX package's submission.py on the same weights
+    within 1e-4 per q and t."""
+    dataset, model = write_multiframe_tree(tmp_path)
+    seen = []
+    real_fit_loaders = pt_fit.fit_loaders
+
+    def spying_fit_loaders(cfg, train_loader, val_loader, **kwargs):
+        class Recording:
+            def __len__(self):
+                return len(train_loader)
+
+            def __iter__(self):
+                for batch in train_loader:
+                    seen.append(batch)
+                    yield batch
+        return real_fit_loaders(cfg, Recording(), val_loader, **kwargs)
+
+    monkeypatch.setattr(pt_fit, "fit_loaders", spying_fit_loaders)
+    monkeypatch.chdir(tmp_path)  # the train CLI writes weights/<experiment>/ here
+    state = train_main([str(FUSION_CFG), str(dataset), "--config", str(model),
+                        "--device", "cpu"])
+    ckpt = tmp_path / "weights" / "default" / "last.pt"
+    assert state.step == 2 and ckpt.is_file() and len(seen) == 2
+
+    class Drawn(Exception):
+        pass
+
+    def first_batch(net, cfg, rng, init_batch):
+        raise Drawn(init_batch)
+
+    monkeypatch.setattr(jax_fit, "init_state", first_batch)
+    with pytest.raises(Drawn) as drawn:
+        jax_fit.fit(merged(jax_default_cfg, dataset, model), weights_dir=str(tmp_path / "j"))
+    ref = drawn.value.args[0]
+    assert set(ref) == {"image0", "image1", "T_0to1", "abs_q_1_w2c_device",
+                        "abs_c_1_c2w_device"}
+    assert seen[0]["image1"].shape[1] == 9
+    for key in ref:
+        np.testing.assert_allclose(np.asarray(seen[0][key], np.float32), ref[key],
+                                   rtol=0, atol=1e-6, err_msg=key)
+
+    argv = [str(model), "--dataset_config", str(dataset), "--checkpoint", str(ckpt),
+            "-o", str(tmp_path / "port"), "--device", "cpu"]
+    path = pt_submission.main(argv)
+    spec = importlib.util.spec_from_file_location("jax_submission_cli", REPO / "submission.py")
+    jax_cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jax_cli)
+    net = pt_build_model(merged(pt_default_cfg, dataset, model), checkpoint=str(ckpt),
+                         device="cpu").net
+    monkeypatch.setattr(jax_cli, "cfg", jax_default_cfg.clone())
+    monkeypatch.setattr(jax_cli, "build_model", lambda cfg, checkpoint: _jax_predictor_with(cfg, net))
+    jax_cli.eval(types.SimpleNamespace(
+        config=str(model), dataset_config=str(dataset), checkpoint="",
+        output_root=tmp_path / "jax", split="test", num_hosts=None, host_id=None))
+
+    port, ref = _zip_lines(path), _zip_lines(tmp_path / "jax" / "submission.zip")
+    assert list(port) == list(ref) == ["pose_s00000.txt", "pose_s00001.txt"]
+    for name in ref:
+        frames = [line.split(" ")[0] for line in port[name]]
+        assert frames == ["seq1/frame_00009.jpg", "seq1/frame_00019.jpg"]
+        for a, b in zip(port[name], ref[name]):
+            a, b = a.split(" "), b.split(" ")
+            assert a[0] == b[0] and a[8] == b[8]
+            np.testing.assert_allclose(np.array(a[1:8], float), np.array(b[1:8], float),
+                                       rtol=0, atol=1e-4)

@@ -31,6 +31,7 @@ from mapfree_tpu_torch.models import aggregators as pt_agg
 from mapfree_tpu_torch.models import blocks as pt_blocks
 from mapfree_tpu_torch.models import encoders as pt_enc
 from mapfree_tpu_torch.models import heads as pt_heads
+from mapfree_tpu_torch.models.builder import build_model as pt_build_model
 from mapfree_tpu_torch.models.regression import build_regression_net as pt_build_net
 from mapfree_tpu_torch.tools.convert_weights import load_jax_variables
 
@@ -262,11 +263,17 @@ def test_load_jax_variables_rejects_missing_extra_and_misshapen_leaves():
 
 
 def test_unported_variants_raise():
+    """What is left to port raises: the feature-matching model (every
+    regression model, head and aggregator builds: tests/test_torch_variants*.py),
+    and names no module knows."""
     cfg = narrow_cfg(pt_default_cfg)
-    cfg.HEAD.TYPE = "QuatDeepResBlock"
+    cfg.MODEL = "FeatureMatching"
     with pytest.raises(NotImplementedError, match="not ported yet"):
+        pt_build_model(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="Invalid regression model"):
         pt_build_net(cfg)
-    cfg = narrow_cfg(pt_default_cfg)
-    cfg.MODEL = "RegressionMultiFrame"
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        pt_build_net(cfg)
+    for node, key in (("HEAD", "TYPE"), ("AGGREGATOR", "TYPE"), ("ENCODER", "TYPE")):
+        cfg = narrow_cfg(pt_default_cfg)
+        cfg[node][key] = "NoSuchModule"
+        with pytest.raises(NotImplementedError, match="Invalid"):
+            pt_build_net(cfg)
