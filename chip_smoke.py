@@ -8,8 +8,9 @@ Phases, in order; any failure raises and the script exits nonzero:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels (correlation_fwd: K1; correlation_bwd: K2, K3;
    each in two designs, tensor cores for bf16 and float32 FMA, and K2's
-   prologue), compiled at once from this checkout's sources with nvcc, with
-   ptxas's registers and spills per kernel instantiation;
+   prologue), the nvJPEG decoder and the PNG reader's host unfilter,
+   compiled at once from this checkout's sources with nvcc, with ptxas's
+   registers and spills per kernel instantiation;
 3. kernel: K1 (the fused correlation softmax-warp), K2 and K3 (its backward
    row and column passes) against their plain PyTorch versions on the card
    (ragged HW, HW < 64, Cq != Cv, 8 to 128 channels, bf16 and float32, a bf16
@@ -88,7 +89,22 @@ Phases, in order; any failure raises and the script exits nonzero:
 12. the fusion model's CLIs from JPEG files: a MapFree tree of fixture
    copies with poses_device.txt, the submission CLI over 160 windows, the
    train CLI for 8 steps at batch 10 with one validation, and the submission
-   CLI on its last.pt.
+   CLI on its last.pt;
+13. the feature-matching track (no kernel of its own): (a) the PNG reader
+   on the fixture PNGs, bit-exact against their stored arrays with the C
+   unfilter and the numpy one, and its ms per 540x720 depth map; (b) the
+   essential metric, PnP and Procrustes + ICP solvers on the card against
+   the CPU with the same minimal samples (B=4, N=512), and the essential
+   solve with TF32 on and off (equal bits); (c) each solver at full width
+   (INFER_BATCH 64, 2,048 correspondences, 1,024 hypotheses, the adaptive
+   ladder on) on 3 batches of synthetic pairs with outliers and pixel
+   noise: accuracy against the truth (medians under 1.5 deg and 0.08 m),
+   ms per batch, launches, device busy share, escalations, and every host
+   sync of the dispatch (only the adaptive fetch may wait); (d) the
+   submission CLI over a MapFree tree of the fixtures with depth PNGs and
+   correspondences from known poses, for loftr_emat_dptkitti,
+   sg_pnp_dptkitti, sg_procrustes_dptkitti and sift_emat_ingraph (the depth
+   net at random weights).
 
 The last line of standard output is {"ok": true, "device": {...}}; a
 "kernels" JSON line and the card's name and power limit precede it. With no
@@ -243,8 +259,11 @@ def phase_build() -> None:
     from mapfree_tpu_torch.ops import correlation as corr
 
     t0 = time.perf_counter()
-    names = list(corr.LIBRARIES) + [jpeg.LIBRARY]
-    _build.load_libraries(list(corr.LIBRARIES) + [jpeg.library_spec()])
+    from mapfree_tpu_torch.data import png
+
+    names = list(corr.LIBRARIES) + [jpeg.LIBRARY, png.LIBRARY]
+    _build.load_libraries(list(corr.LIBRARIES) + [jpeg.library_spec(),
+                                                  (png.LIBRARY, png.SOURCE_DIR)])
     log(f"[build] {len(names)} libraries in {time.perf_counter() - t0:.2f} s")
     for name in names:
         log(f"[build] {name}: nvcc {_build.build_seconds[name]:.2f} s")
@@ -1101,7 +1120,7 @@ def _expect_designs(seen: dict, expected: dict, what: str) -> None:
         raise AssertionError(f"{what} ran the designs {got}, expected {expected}")
 
 
-def profile_window(fn, what: str, n: int = 3) -> None:
+def profile_window(fn, what: str, n: int = 3) -> dict:
     """Device time by kernel over ``n`` calls of ``fn`` (a forward or a train
     step on a batch already on the device), and the share of the window the
     device was busy."""
@@ -1133,6 +1152,7 @@ def profile_window(fn, what: str, n: int = 3) -> None:
     rows = [(us, count, name) for name, (us, count) in totals.items()]
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
+    launches = sum(r[1] for r in rows) // n
     log(f"[profile] {n} {what}s: wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), {len(rows)} kinds of "
         f"kernel, {sum(r[1] for r in rows) // n} launches per {what}; annotation ranges "
@@ -1141,6 +1161,7 @@ def profile_window(fn, what: str, n: int = 3) -> None:
         if rank < 15 or "correlation_" in key:  # this package's kernels wherever they rank
             log(f"[profile] {us / 1e3 / n:9.3f} ms/{what} {100 * us / busy:5.1f}%  "
                 f"x{count // n:<4d} {key[:90]}")
+    return {"launches": launches, "busy_share": busy / wall_us}
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -2239,6 +2260,512 @@ def phase_fusion_clis() -> dict:
                         "stages": random_run["stages"], "train_cli_s": elapsed}}
 
 
+# -- phase 13: the feature-matching track ----------------------------------------
+
+MATCH_ROT_TOL_DEG = 1.5  # tests/test_integration.py::TestMatchingSubmission's limits
+MATCH_T_TOL_M = 0.08
+# the port on the card against the port on the CPU, both handed the same
+# minimal samples (and the same for TF32 on and off): float32 solvers whose
+# arithmetic differs only in summation order and fused multiply-adds, on
+# noise-free pairs (with noise the Gauss-Newton polishes amplify round-off
+# differences, ROADMAP.md section 3)
+CARD_CPU_R_TOL = 1e-3     # radians
+CARD_CPU_T_TOL = 1e-3     # relative to |t|
+CARD_CPU_INLIER_TOL = 0   # equal inlier counts
+MATCH_K = np.array([[590.0, 0.0, 270.0], [0.0, 590.0, 360.0], [0.0, 0.0, 1.0]], np.float32)
+MATCH_H, MATCH_W = 720, 540  # configs/mapfree.yaml
+
+
+def encode_png16(depth_mm: np.ndarray) -> bytes:
+    """A 16-bit gray PNG of ``depth_mm`` (filter type 0), with the stdlib:
+    the card's machine has no image library to write one."""
+    import struct
+    import zlib
+
+    H, W = depth_mm.shape
+    raw = np.zeros((H, 1 + 2 * W), np.uint8)
+    raw[:, 1:] = depth_mm.astype(">u2").view(np.uint8).reshape(H, 2 * W)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 16, 0, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def matching_png() -> dict:
+    """(a) The PNG reader on the fixtures: equal to their stored arrays, bit
+    for bit, with the C unfilter and with its numpy version; ms per
+    540x720 depth map."""
+    from mapfree_tpu_torch.data import png
+
+    stored = np.load(FIXTURES / "png_decoded.npz")
+    files = [(FIXTURES / f"depth_{i}.png", stored["depth"][i]) for i in range(4)]
+    files.append((FIXTURES / "color_0.png", stored["color"]))
+    for path, ref in files:
+        for native in (True, False):
+            got = png.read_png(path, native=native)
+            if got.dtype != ref.dtype or got.shape != ref.shape or not np.array_equal(got, ref):
+                raise AssertionError(f"read_png({path.name}, native={native}) differs from "
+                                     "its stored array")
+    datas = [p.read_bytes() for p, _ in files[:4]]
+    t0 = time.perf_counter()
+    for _ in range(5):
+        for data in datas:
+            png.decode_png(data, native=True)
+    ms = 1e3 * (time.perf_counter() - t0) / (5 * len(datas))
+    t0 = time.perf_counter()
+    for data in datas:
+        png.decode_png(data, native=False)
+    ms_numpy = 1e3 * (time.perf_counter() - t0) / len(datas)
+    log(f"[match] PNG reader: 4 depth maps (540x720, 16-bit) and one RGB PNG equal to their "
+        f"stored arrays, bit for bit, with the C unfilter and the numpy one; "
+        f"{ms:.2f} ms per depth map (inflate + C unfilter), {ms_numpy:.2f} ms with numpy")
+    return {"png_ms": ms, "png_numpy_ms": ms_numpy}
+
+
+def _rotation(rng, max_angle):
+    axis = rng.normal(size=3)
+    axis /= np.linalg.norm(axis)
+    angle = rng.uniform(0.3 * max_angle, max_angle)
+    Kx = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    return np.eye(3) + np.sin(angle) * Kx + (1 - np.cos(angle)) * Kx @ Kx
+
+
+def synthetic_matching_batch(B, N, seed, outliers=0.3, noise_px=0.5, hard=0,
+                             maps=True):
+    """B synthetic pairs seen by MATCH_K at 540x720 with known relative pose
+    (X1 = R X0 + t, up to 0.3 rad and 0.3-1 m) and metric depth: N
+    correspondences of points 2-8 m away, ``noise_px`` pixel noise, a share
+    ``outliers`` of query keypoints replaced by random pixels (0.75 for the
+    first ``hard`` pairs). Depth maps hold each point's depth at the floor of
+    its (noisy) keypoint. Returns the collated batch and the true (R, t)."""
+    rng = np.random.default_rng(seed)
+    Kinv = np.linalg.inv(MATCH_K)
+    out = {k: [] for k in ("pts0", "pts1", "mask", "R", "t", "d0", "d1")}
+    for b in range(B):
+        R = _rotation(rng, 0.3)
+        t = rng.normal(size=3)
+        t *= rng.uniform(0.3, 1.0) / np.linalg.norm(t)
+        uv = rng.uniform([0, 0], [MATCH_W, MATCH_H], size=(4 * N, 2))
+        z = rng.uniform(2.0, 8.0, size=4 * N)
+        X0 = (np.concatenate([uv, np.ones((4 * N, 1))], 1) @ Kinv.T) * z[:, None]
+        X1 = X0 @ R.T + t
+        uv1 = X1 @ MATCH_K.T
+        uv1 = uv1[:, :2] / uv1[:, 2:]
+        vis = ((X1[:, 2] > 0.5) & (uv1[:, 0] >= 0) & (uv1[:, 0] < MATCH_W - 1)
+               & (uv1[:, 1] >= 0) & (uv1[:, 1] < MATCH_H - 1))
+        sel = np.nonzero(vis)[0][:N]
+        k0 = uv[sel] + rng.normal(0, noise_px, (len(sel), 2))
+        k1 = uv1[sel] + rng.normal(0, noise_px, (len(sel), 2))
+        z0, z1 = z[sel], X1[sel, 2]
+        n_out = int(round((0.75 if b < hard else outliers) * len(sel)))
+        bad = rng.choice(len(sel), n_out, replace=False)
+        k1[bad] = rng.uniform([0, 0], [MATCH_W - 1, MATCH_H - 1], size=(n_out, 2))
+        z1[bad] = rng.uniform(2.0, 8.0, size=n_out)
+        k0 = np.clip(k0, 0, [MATCH_W - 1e-3, MATCH_H - 1e-3])
+        k1 = np.clip(k1, 0, [MATCH_W - 1e-3, MATCH_H - 1e-3])
+        pad = N - len(sel)
+        out["pts0"].append(np.pad(k0, ((0, pad), (0, 0))).astype(np.float32))
+        out["pts1"].append(np.pad(k1, ((0, pad), (0, 0))).astype(np.float32))
+        out["mask"].append(np.arange(N) < len(sel))
+        out["R"].append(R)
+        out["t"].append(t)
+        for key, k, zz in (("d0", k0, z0), ("d1", k1, z1)):
+            if maps:
+                d = np.zeros((MATCH_H, MATCH_W), np.float32)
+                d[k[:, 1].astype(int), k[:, 0].astype(int)] = zz
+                out[key].append(d)
+            else:
+                out[key].append(np.pad(zz, (0, pad)).astype(np.float32))
+    batch = {"pts0": np.stack(out["pts0"]), "pts1": np.stack(out["pts1"]),
+             "mask": np.stack(out["mask"]), "K_color0": np.tile(MATCH_K, (B, 1, 1)),
+             "K_color1": np.tile(MATCH_K, (B, 1, 1)),
+             "depth0": out["d0"] if maps else np.stack(out["d0"]),
+             "depth1": out["d1"] if maps else np.stack(out["d1"])}
+    return batch, np.stack(out["R"]), np.stack(out["t"])
+
+
+class _BatchCorrespondences:
+    """The correspondences a synthetic batch carries, as the matcher's."""
+
+    @staticmethod
+    def get_correspondences(batch):
+        return batch["pts0"], batch["pts1"], batch["mask"]
+
+
+class _FixedSampler:
+    """Minimal samples drawn on the CPU from a seeded generator and moved to
+    the solve's device: the card and the CPU get the same ones."""
+
+    def __init__(self, seed):
+        self.seed = seed
+
+    def __call__(self, tag, mask, n_iters, sample_size):
+        import torch
+
+        from mapfree_tpu_torch.ops.ransac import masked_sample_indices
+
+        g = torch.Generator().manual_seed(self.seed + sum(map(ord, tag)))
+        return masked_sample_indices(g, mask.cpu(), n_iters, sample_size).to(mask.device)
+
+
+def _pose_errors(R, t, R_gt, t_gt):
+    """Rotation error in degrees and translation error in metres per pair."""
+    c = (np.einsum("bij,bij->b", R.astype(np.float64), R_gt) - 1) / 2
+    rot = np.degrees(np.arccos(np.clip(c, -1, 1)))
+    return rot, np.linalg.norm(t.reshape(-1, 3) - t_gt, axis=-1)
+
+
+def _solve_all(device, batch, sampler_seed, n_iters):
+    """Essential metric, PnP, Procrustes + ICP on ``device`` with samples
+    from _FixedSampler(sampler_seed): {solver: (R, t, inliers)} numpy."""
+    import torch
+
+    from mapfree_tpu_torch.ops.essential import essential_pose_metric
+    from mapfree_tpu_torch.ops.pnp import pnp_pose
+    from mapfree_tpu_torch.ops.procrustes_ransac import (dense_cloud_from_depth,
+                                                         procrustes_pose)
+
+    T = {k: torch.as_tensor(np.asarray(v)).to(device) for k, v in batch.items()
+         if k not in ("depth0", "depth1")}
+    d0 = torch.as_tensor(np.stack(batch["depth0"])).to(device)
+    d1 = torch.as_tensor(np.stack(batch["depth1"])).to(device)
+    pd0 = torch.gather(d0.flatten(1), 1, (torch.floor(T["pts0"][..., 1]).long() * MATCH_W
+                                          + torch.floor(T["pts0"][..., 0]).long()))
+    pd1 = torch.gather(d1.flatten(1), 1, (torch.floor(T["pts1"][..., 1]).long() * MATCH_W
+                                          + torch.floor(T["pts1"][..., 0]).long()))
+    clouds = [dense_cloud_from_depth(np.asarray(batch[k][i]), MATCH_K, 1024, seed=i + j)
+              for i in range(len(batch["depth0"])) for j, k in enumerate(("depth0", "depth1"))]
+    icp = {"icp_cloud0": np.stack([c for c, _ in clouds[0::2]]),
+           "icp_mask0": np.stack([m for _, m in clouds[0::2]]),
+           "icp_cloud1": np.stack([c for c, _ in clouds[1::2]]),
+           "icp_mask1": np.stack([m for _, m in clouds[1::2]])}
+    icp = {k: torch.as_tensor(v).to(device) for k, v in icp.items()}
+    args = (T["pts0"], T["pts1"], T["mask"])
+    K0, K1 = T["K_color0"], T["K_color1"]
+    outs = {
+        "essential metric": essential_pose_metric(*args, K0, K1, 3.0, pd0, pd1, 0.1,
+                                                  _FixedSampler(sampler_seed), n_iters=n_iters),
+        "PnP": pnp_pose(*args, pd0, K0, K1, 3.0, _FixedSampler(sampler_seed),
+                        n_iters=n_iters, point_depths=True),
+        "Procrustes + ICP": procrustes_pose(*args, d0, d1, K0, K1, 0.05,
+                                            _FixedSampler(sampler_seed), n_iters=n_iters,
+                                            refine=True, **icp),
+    }
+    return {k: tuple(o[n].cpu().numpy() for n in ("R", "t", "inliers")) for k, o in outs.items()}
+
+
+def matching_card_vs_cpu() -> dict:
+    """(b) The solvers on the card against the same on the CPU, with the
+    same injected samples, at B=4, N=512; and the essential solve with TF32
+    on and off, which must agree (the solvers switch TF32 off for
+    themselves and put the process's flags back)."""
+    import torch
+
+    batch, R_gt, t_gt = synthetic_matching_batch(4, 512, SEED + 60, outliers=0.2, noise_px=0.0)
+    n_iters = 256
+    card = _solve_all("cuda", batch, SEED + 61, n_iters)
+    cpu = _solve_all("cpu", batch, SEED + 61, n_iters)
+    worst = {}
+    for name in card:
+        Rc, tc, nc = card[name]
+        Rh, th, nh = cpu[name]
+        dR = np.arccos(np.clip((np.einsum("bij,bij->b", Rc.astype(np.float64), Rh) - 1) / 2,
+                               -1, 1))
+        dt = np.linalg.norm(tc - th, axis=-1) / np.maximum(np.linalg.norm(th, axis=-1), 1e-9)
+        dn = np.abs(nc.astype(np.int64) - nh.astype(np.int64))
+        rot, terr = _pose_errors(Rc, tc, R_gt, t_gt)
+        worst[name] = (float(dR.max()), float(dt.max()), int(dn.max()))
+        log(f"[match] card vs CPU, {name}, B=4, N=512, {n_iters} hypotheses, the same samples: "
+            f"R {dR.max():.3g} rad (limit {CARD_CPU_R_TOL}), t {dt.max():.3g} relative (limit "
+            f"{CARD_CPU_T_TOL}), inlier counts differ by {dn.max()} (limit "
+            f"{CARD_CPU_INLIER_TOL}); against the truth: rotation {rot.max():.3g} deg, "
+            f"translation {terr.max():.3g} m at most")
+        if not (dR.max() <= CARD_CPU_R_TOL and dt.max() <= CARD_CPU_T_TOL
+                and dn.max() <= CARD_CPU_INLIER_TOL):
+            raise AssertionError(f"{name}: the card and the CPU disagree")
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        runs = []
+        for flag in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = flag
+            runs.append(_solve_all("cuda", batch, SEED + 61, n_iters)["essential metric"])
+            if torch.backends.cuda.matmul.allow_tf32 != flag:
+                raise AssertionError("the solver did not put the process's TF32 flag back")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    diff = max(float(np.nanmax(np.abs(a.astype(np.float64) - b))) for a, b in zip(*runs))
+    log(f"[match] the essential metric solve with TF32 on and off: largest difference {diff:.3g} "
+        "(must be 0: the solver turns TF32 off for itself)")
+    if diff != 0.0:
+        raise AssertionError("the essential solve depends on the process's TF32 flags")
+    return {"card_vs_cpu": worst, "tf32_diff": diff}
+
+
+def _allowed_sync_lines():
+    """(file name, first, last line) of the adaptive ladder's finish, the
+    one place of the dispatch that may wait for the device."""
+    import inspect
+
+    from mapfree_tpu_torch.ops import essential
+
+    lines, start = inspect.getsourcelines(essential.essential_pose_adaptive_async)
+    first = next(i for i, ln in enumerate(lines) if "def _finish" in ln)
+    return "essential.py", start + first, start + len(lines)
+
+
+def dispatch_syncs(model, transferred) -> list:
+    """Every place the dispatch of one batch makes the host wait for the
+    device (torch's sync debug mode, warning on each), then its finalize:
+    sorted "file:line" of the innermost frame of this repository (or of
+    the call's own innermost frame), with the thread it ran on."""
+    import threading
+    import traceback
+    import warnings
+
+    import torch
+
+    found = set()
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" not in str(message):
+            return  # e.g. the debug mode's own notice that it is a prototype
+        stack = traceback.extract_stack()[:-1]
+        mine = [f for f in stack if str(REPO) in f.filename and "chip_smoke" not in f.filename]
+        where = mine[-1] if mine else stack[-1]
+        found.add(f"{Path(where.filename).name}:{where.lineno} "
+                  f"({threading.current_thread().name})")
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            finalize = model.dispatch_device(transferred)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    finalize()
+    torch.cuda.synchronize()
+    return sorted(found)
+
+
+def matching_full_width() -> dict:
+    """(c) Each solver at full width (INFER_BATCH 64, MAX_CORRESPONDENCES
+    2,048, RANSAC_ITERATIONS 1,024, the adaptive ladder on for the essential
+    one) on 3 batches of synthetic pairs with 30% outliers and 0.5 px noise
+    (4 pairs a batch at 75% for the essential one, which escalate), through
+    the predictor's transfer/dispatch split: accuracy against the truth, ms
+    per batch, launches and device busy share, escalations, and every host
+    sync of the dispatch."""
+    import torch
+
+    from mapfree_tpu_torch.models.builder import build_model
+
+    allowed_file, lo, hi = _allowed_sync_lines()
+    numbers = {}
+    for yaml, tag in (("configs/matching/mapfree/loftr_emat_dptkitti.yaml", "essential"),
+                      ("configs/matching/mapfree/sg_pnp_dptkitti.yaml", "pnp"),
+                      ("configs/matching/mapfree/sg_procrustes_dptkitti.yaml", "procrustes")):
+        cfg = load_cfg({"TPU.SEED": SEED}, yaml)
+        B, N = int(cfg.TPU.INFER_BATCH), int(cfg.TPU.MAX_CORRESPONDENCES)
+        model = build_model(cfg, device=DEVICE)
+        model.model.feature_matching = _BatchCorrespondences()
+        made = [synthetic_matching_batch(B, N, SEED + 70 + i, hard=4 if tag == "essential" else 0)
+                for i in range(3)]
+        transferred = [model.transfer_batch(b) for b, _, _ in made]
+        model.dispatch_device(transferred[0])()  # first use: device constants
+        torch.cuda.synchronize()
+        model.model.escalated_pairs = 0
+        rots, terrs = [], []
+        t0 = time.perf_counter()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        results = [model.dispatch_device(tr)() for tr in transferred]
+        end.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / len(transferred)
+        ms = start.elapsed_time(end) / len(transferred)
+        escalated = model.model.escalated_pairs
+        for (R, t, _), (_, R_gt, t_gt) in zip(results, made):
+            rot, terr = _pose_errors(R, t, R_gt, t_gt)
+            rots.append(rot)
+            terrs.append(terr)
+        rot, terr = np.concatenate(rots), np.concatenate(terrs)
+        prof = profile_window(lambda: model.dispatch_device(transferred[1])(),
+                              f"{tag} batch", n=1)
+        syncs = dispatch_syncs(model, transferred[2])
+        bad = [s for s in syncs if not (s.startswith(allowed_file + ":")
+                                        and lo <= int(s.split(":")[1].split(" ")[0]) <= hi)]
+        log(f"[match] {tag} ({Path(yaml).name}) at B={B}, N={N}, {cfg.TPU.RANSAC_ITERATIONS} "
+            f"hypotheses, adaptive {bool(cfg.TPU.ADAPTIVE_RANSAC)}: {ms:.1f} ms per batch by "
+            f"CUDA events ({1e3 * wall:.1f} ms wall, {B / wall:.1f} pairs/s); "
+            f"{prof['launches']} launches a batch, device busy {prof['busy_share']:.1%}; "
+            f"{escalated} of {3 * B} pairs escalated to tier 2; rotation error median "
+            f"{np.median(rot):.3f} deg (limit {MATCH_ROT_TOL_DEG}), max {rot.max():.3f}; "
+            f"translation error median {np.median(terr):.4f} m (limit {MATCH_T_TOL_M}), max "
+            f"{terr.max():.4f}; host syncs in the dispatch: {syncs or 'none'}")
+        if not (np.median(rot) < MATCH_ROT_TOL_DEG and np.median(terr) < MATCH_T_TOL_M):
+            raise AssertionError(f"{tag}: full-width accuracy out of its limits")
+        if bad:
+            raise AssertionError(f"{tag}: the dispatch waits for the device at {bad}")
+        numbers[tag] = {"ms": ms, "wall_ms": 1e3 * wall, "launches": prof["launches"],
+                        "busy": prof["busy_share"], "escalated": escalated,
+                        "rot_median_deg": float(np.median(rot)),
+                        "t_median_m": float(np.median(terr)), "syncs": syncs}
+        del model, transferred, made
+        torch.cuda.empty_cache()
+    return numbers
+
+
+def write_matching_tree(root: Path, n_scenes: int = 2, n_queries: int = 320,
+                        n_poses: int = 8, seed: int = SEED + 80) -> dict:
+    """A MapFree test split for the matching configs: per scene a reference
+    frame (identity pose, a fixture JPEG, a fixture depth map as
+    ``.dptkitti.png``) and ``n_queries`` query frames, of which every 5th is
+    evaluated, with poses from a pool of ``n_poses``; each evaluated query
+    gets the reference depth rendered into it (``.dptkitti.png``) and a
+    correspondence row of up to 2,048 reference pixels projected into it
+    (``correspondences_{LoFTR,SG,SIFT}.npz``). Returns {scene: {frame:
+    (R, t)}} of the evaluated queries."""
+    import shutil
+
+    from mapfree_tpu_torch.geom.quaternion import mat2quat
+
+    rng = np.random.default_rng(seed)
+    stored = np.load(FIXTURES / "png_decoded.npz")["depth"]
+    frames = sorted(FIXTURES.glob("frame_*.jpg"))
+    Kinv = np.linalg.inv(MATCH_K)
+    vv, uu = np.mgrid[0:MATCH_H, 0:MATCH_W]
+    truth = {}
+    for s in range(n_scenes):
+        scene = root / "test" / f"s{s:05d}"
+        (scene / "seq0").mkdir(parents=True)
+        (scene / "seq1").mkdir(parents=True)
+        shutil.copyfile(frames[s % 4], scene / "seq0/frame_00000.jpg")
+        shutil.copyfile(FIXTURES / f"depth_{s % 4}.png", scene / "seq0/frame_00000.dptkitti.png")
+        D0 = stored[s % 4].astype(np.float64) / 1000.0
+        X0 = (np.stack([uu, vv, np.ones_like(uu)], -1).reshape(-1, 3) @ Kinv.T) * D0.reshape(-1, 1)
+        grid = np.zeros((MATCH_H, MATCH_W), bool)
+        grid[4::9, 4::9] = True
+        grid = grid.reshape(-1)
+        pool = []
+        for _ in range(n_poses):
+            R = _rotation(rng, 0.2)
+            t = rng.normal(size=3)
+            t *= rng.uniform(0.2, 0.5) / np.linalg.norm(t)
+            X1 = X0 @ R.T + t
+            uv1 = X1 @ MATCH_K.T
+            uv1 = uv1[:, :2] / uv1[:, 2:]
+            vis = ((X1[:, 2] > 0.1) & (uv1[:, 0] >= 0) & (uv1[:, 0] < MATCH_W - 1)
+                   & (uv1[:, 1] >= 0) & (uv1[:, 1] < MATCH_H - 1))
+            depth1 = np.zeros((MATCH_H, MATCH_W))
+            order = np.argsort(-X1[vis, 2])  # nearest written last
+            ui, vi = uv1[vis, 0].astype(int)[order], uv1[vis, 1].astype(int)[order]
+            depth1[vi, ui] = X1[vis, 2][order]
+            pick = np.nonzero(vis & grid)[0]
+            pick = pick[np.linspace(0, len(pick) - 1, min(2048, len(pick))).astype(int)]
+            corr = np.concatenate([np.stack([uu.reshape(-1)[pick], vv.reshape(-1)[pick]], -1),
+                                   uv1[pick]], 1).astype(np.float32)
+            png_bytes = encode_png16(np.round(depth1 * 1000.0).astype(np.uint16))
+            pool.append((R, t, corr, png_bytes))
+        names = ["seq0/frame_00000.jpg"] + [f"seq1/frame_{i:05d}.jpg" for i in range(n_queries)]
+        table = np.full((n_queries, 2048, 4), np.nan, np.float32)
+        intr, poses = [], []
+        truth[scene.name] = {}
+        for j, name in enumerate(names):
+            intr.append(f"{name} 590.0 590.0 270.0 360.0 540 720")
+            if j == 0:
+                q, t = np.array([1.0, 0, 0, 0]), np.zeros(3)
+            else:
+                i = j - 1
+                R, t, corr, png_bytes = pool[i % n_poses]
+                q = mat2quat(R).reshape(-1)
+                if i % 5 == 0:
+                    shutil.copyfile(frames[(i + s) % 4], scene / name)
+                    (scene / name.replace(".jpg", ".dptkitti.png")).write_bytes(png_bytes)
+                    table[i, :len(corr)] = corr
+                    truth[scene.name][name] = (R, t)
+            poses.append(f"{name} " + " ".join(f"{v:.9f}" for v in np.concatenate([q, t])))
+        (scene / "intrinsics.txt").write_text("\n".join(intr) + "\n")
+        (scene / "poses.txt").write_text("\n".join(poses) + "\n")
+        np.savez(scene / "correspondences_SG.npz", correspondences=table)
+        for other in ("LoFTR", "SIFT"):
+            shutil.copyfile(scene / "correspondences_SG.npz",
+                            scene / f"correspondences_{other}.npz")
+    return truth
+
+
+def matching_clis() -> dict:
+    """(d) The submission CLI (its main(argv)) over a MapFree tree of the
+    fixtures for loftr_emat_dptkitti, sg_pnp_dptkitti, sg_procrustes_dptkitti
+    and sift_emat_ingraph (the depth net at random weights, ALLOW_RANDOM):
+    one line per query, accuracy against the truth (for the in-graph config
+    the rotation only: random depth gives no metric scale), pairs/s and the
+    stage times."""
+    from mapfree_tpu_torch import submission
+    from mapfree_tpu_torch.geom.quaternion import quat2mat
+    from mapfree_tpu_torch.utils.timing import StageTimes
+
+    numbers = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        truth = write_matching_tree(root)
+        dataset_cfg, _ = write_configs(root)
+        n_pairs = sum(len(v) for v in truth.values())
+        log(f"[match] MapFree tree for the matching configs in {time.perf_counter() - t0:.2f} s: "
+            f"{len(truth)} scenes, {n_pairs} pairs, depth PNGs and correspondences")
+        ingraph = root / "sift_emat_ingraph.yaml"
+        ingraph.write_text((REPO / "configs/matching/mapfree/sift_emat_ingraph.yaml").read_text()
+                           + "  ALLOW_RANDOM: true\n")
+        for cfg_path in ("configs/matching/mapfree/loftr_emat_dptkitti.yaml",
+                         "configs/matching/mapfree/sg_pnp_dptkitti.yaml",
+                         "configs/matching/mapfree/sg_procrustes_dptkitti.yaml", ingraph):
+            path = Path(cfg_path) if Path(cfg_path).is_absolute() else REPO / cfg_path
+            times = StageTimes()
+            t0 = time.perf_counter()
+            out = submission.main([str(path), "--dataset_config", str(dataset_cfg),
+                                   "--device", DEVICE, "-o", str(root / path.stem)], times=times)
+            elapsed = time.perf_counter() - t0
+            poses = read_submission(out)
+            if {s: sorted(p) for s, p in poses.items()} != {s: sorted(p) for s, p in truth.items()}:
+                raise AssertionError(f"{path.name}: submission.zip does not hold one line per query")
+            rot, terr = [], []
+            for s, frames in truth.items():
+                for f, (R_gt, t_gt) in frames.items():
+                    q, t = poses[s][f]
+                    r, e = _pose_errors(quat2mat(q)[None], t[None], R_gt[None], t_gt[None])
+                    rot.append(r[0])
+                    terr.append(e[0])
+            sweep = times.seconds["sweep"]
+            name = path.stem
+            metric = "ingraph" not in name
+            log(f"[match] CLI {name}: {n_pairs} pairs, CLI {elapsed:.2f} s, sweep {sweep:.3f} s, "
+                f"{n_pairs / sweep:.1f} pairs/s from files; rotation error median "
+                f"{np.median(rot):.4f} deg, translation error median {np.median(terr):.4f} m"
+                f"{'' if metric else ' (random depth net: no metric scale)'}; stages "
+                f"{times.summary()}")
+            if np.median(rot) >= MATCH_ROT_TOL_DEG or (metric and np.median(terr) >= MATCH_T_TOL_M):
+                raise AssertionError(f"{name}: the CLI's poses are out of the accuracy limits")
+            numbers[name] = {"pairs_per_s": n_pairs / sweep, "stages": times.summary(),
+                             "rot_median_deg": float(np.median(rot)),
+                             "t_median_m": float(np.median(terr))}
+    return numbers
+
+
+def phase_matching() -> dict:
+    """Phase 13: the feature-matching track (no kernel of its own)."""
+    numbers = {"png": matching_png()}
+    numbers["card_vs_cpu"] = matching_card_vs_cpu()
+    numbers["full_width"] = matching_full_width()
+    numbers["clis"] = matching_clis()
+    return {"launches": {}, "numbers": numbers}
+
+
 def main() -> None:
     try:
         import torch
@@ -2273,7 +2800,8 @@ def main() -> None:
     # the QKV, fusion and other RPR paths: each phase resets the counts
     # just before each path it drives and reads them just after
     later = {"qkv": phase_qkv_path(), "fusion": phase_fusion_path(),
-             "configs": phase_configs(), "fusion_clis": phase_fusion_clis()}
+             "configs": phase_configs(), "fusion_clis": phase_fusion_clis(),
+             "matching": phase_matching()}
 
     from mapfree_tpu_torch.ops import correlation as corr
 

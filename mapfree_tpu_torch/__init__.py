@@ -10,8 +10,12 @@ It imports nothing of JAX or of mapfree_tpu. Entry points take an explicit
 The hand-written kernels, the fused correlation softmax-warp forward and its
 backward, are CUDA C++ for sm_90a (``ops/csrc/correlation_fwd.cu``,
 ``ops/csrc/correlation_bwd.cu``), built with nvcc at first use; so is the
-data layer's JPEG decoder over nvJPEG (``data/csrc/jpeg_decode.cu``). The
-user's entry points are ``python -m mapfree_tpu_torch.train`` and
+data layer's JPEG decoder over nvJPEG (``data/csrc/jpeg_decode.cu``) and
+the PNG reader's row unfilter (``data/csrc/png_unfilter.cu``, host code).
+The feature-matching track (``models/matching.py``: the essential-matrix,
+PnP and Procrustes RANSAC solvers of ``ops/``, the in-graph depth net of
+``models/depth.py``) is plain PyTorch: the JAX package has no kernel there.
+The user's entry points are ``python -m mapfree_tpu_torch.train`` and
 ``python -m mapfree_tpu_torch.submission``.
 """
 

@@ -5,19 +5,17 @@ arrays.
 (``data/jpeg.py``) for a CUDA device, and on the host with cv2 or PIL for
 ``device="cpu"``, as the JAX package's cv2/PIL branch does. cv2 and PIL are
 imported only on the host path, at first use; on the card neither is touched.
-PNGs (depth maps, 7Scenes colour frames) are read on the host with cv2 or
-PIL; a host with neither raises (a PNG reader that needs no library is
-``ROADMAP.md`` item 15).
+PNGs (depth maps, 7Scenes colour frames) are read on every host by the
+port's own reader, which needs neither (``data/png.py``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from mapfree_tpu_torch.data.png import read_png
 from mapfree_tpu_torch.models.builder import resolve_device
 from mapfree_tpu_torch.ops.image import yuv420_pack_host
-
-PNG_ITEM = "ROADMAP.md item 15"
 
 
 def _cv2():
@@ -36,14 +34,14 @@ def _pil_image():
     return Image
 
 
+def _is_png(path) -> bool:
+    return str(path).lower().endswith(".png")
+
+
 def _no_host_reader(path) -> RuntimeError:
-    if str(path).lower().endswith(".png"):
-        return RuntimeError(
-            f"reading the PNG {path} needs cv2 or PIL, and this host has neither "
-            f"(a PNG reader that needs no library is {PNG_ITEM})")
     return RuntimeError(
         f"reading {path} on the host needs cv2 or PIL, and this host has neither: "
-        "decode JPEGs on the card with device='cuda' (data/jpeg.py)")
+        "decode JPEGs on the card with device='cuda' (data/jpeg.py); PNGs need neither")
 
 
 def decode_resize_batch(paths, width: int, height: int, uint8: bool = False,
@@ -71,7 +69,18 @@ def decode_resize_batch(paths, width: int, height: int, uint8: bool = False,
 
 
 def imread_rgb(path) -> np.ndarray:
-    """Read an image on the host as RGB uint8 [H, W, 3] (cv2, else PIL)."""
+    """Read an image on the host as RGB uint8 [H, W, 3]: a PNG with the
+    port's reader (gray repeated to three channels, alpha dropped, as
+    cv2's IMREAD_COLOR gives it), anything else with cv2, else PIL."""
+    if _is_png(path):
+        img = read_png(path)
+        if img.dtype != np.uint8:
+            raise ValueError(f"{path}: a 16-bit PNG is not a colour image")
+        if img.ndim == 2:
+            img = img[..., None]
+        if img.shape[-1] in (1, 2):
+            return np.repeat(img[..., :1], 3, axis=-1)
+        return np.ascontiguousarray(img[..., :3])
     cv2 = _cv2()
     if cv2 is not None:
         img = cv2.imread(str(path), cv2.IMREAD_COLOR)
@@ -101,8 +110,14 @@ def read_color_image(path, resize=None, augment_fn=None) -> np.ndarray:
 
 
 def read_depth_image(path) -> np.ndarray:
-    """Read a 16-bit depth png in millimeters -> float32 meters [H, W]
-    (reference lib/datasets/utils.py:77-81)."""
+    """Read a 16-bit depth image in millimeters -> float32 meters [H, W]
+    (reference lib/datasets/utils.py:77-81): a PNG with the port's reader,
+    anything else (ScanNet's .pgm) with cv2, else PIL."""
+    if _is_png(path):
+        depth = read_png(path)
+        if depth.ndim != 2:
+            raise ValueError(f"{path}: a depth map is a one-channel PNG, got {depth.shape}")
+        return (depth / 1000.0).astype(np.float32)
     cv2 = _cv2()
     if cv2 is not None:
         depth = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
@@ -111,9 +126,7 @@ def read_depth_image(path) -> np.ndarray:
     else:
         Image = _pil_image()
         if Image is None:
-            raise RuntimeError(
-                f"reading the depth map {path} needs cv2 or PIL, and this host has "
-                f"neither (a PNG reader that needs no library is {PNG_ITEM})")
+            raise _no_host_reader(path)
         depth = np.asarray(Image.open(path))
     return (depth / 1000.0).astype(np.float32)
 

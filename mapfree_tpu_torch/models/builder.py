@@ -50,16 +50,81 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+_tf32_lock = threading.Lock()
+_tf32_depth = 0
+_tf32_saved = None
+
+
 @contextlib.contextmanager
 def tf32_off():
     """TF32 off for float32 matmuls and cuDNN convolutions (cuDNN defaults to
-    on) inside the block; the process's settings are restored after it."""
-    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    on) inside the block; the process's settings are restored after it.
+
+    The flags are process-global and blocks may overlap on several threads
+    (the matching track's adaptive ladder finishes on a pool thread), so the
+    blocks share one count: the first to enter saves the settings, the last
+    to leave restores them, and a block that leaves early cannot switch TF32
+    back on under another still running."""
+    global _tf32_depth, _tf32_saved
+    with _tf32_lock:
+        if _tf32_depth == 0:
+            _tf32_saved = (torch.backends.cuda.matmul.allow_tf32,
+                           torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _tf32_depth += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+        with _tf32_lock:
+            _tf32_depth -= 1
+            if _tf32_depth == 0:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = _tf32_saved
+
+
+def ship_packed(arrays, device, tls):
+    """Pack ``arrays`` into one uint8 buffer and start its copy to
+    ``device``: on the card from pinned memory on a side stream of the
+    calling thread (kept in ``tls``, a ``threading.local``), with an event
+    recorded there. Returns (device buffer, event or None, host buffer: it
+    must outlive the asynchronous copy)."""
+    if device.type != "cuda":
+        return torch.from_numpy(pack_arrays(arrays)), None, None
+    total = sum(int(a.nbytes) for a in arrays)
+    host = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+    pack_arrays(arrays, out=host.numpy())
+    stream = getattr(tls, "stream", None)
+    if stream is None:
+        stream = tls.stream = torch.cuda.Stream(device=device)
+    with torch.cuda.stream(stream):
+        dev = host.to(device, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(stream)
+    return dev, ready, host
+
+
+def receive_packed(dev, ready, spec):
+    """The compute side of :func:`ship_packed`: the current stream waits for
+    the copy and keeps the buffer alive until its work is done; returns the
+    unpacked fields."""
+    if ready is not None:
+        compute = torch.cuda.current_stream(dev.device)
+        compute.wait_event(ready)
+        dev.record_stream(compute)
+    return unpack(dev, spec)
+
+
+def fetch_later(t):
+    """Start copying ``t`` to pinned host memory behind the current
+    stream's work: (host tensor, event to wait on, or None on the CPU)."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(t.device))
+    return host, done
 
 
 class RegressionPredictor:
@@ -87,12 +152,6 @@ class RegressionPredictor:
         self.u_max = (min(self.batch_size, int(cfg.TPU.UNIQUE_REFS))
                       if cfg.MODEL == "Regression" else 0)
         self._tls = threading.local()
-
-    def _copy_stream(self):
-        stream = getattr(self._tls, "stream", None)
-        if stream is None:
-            stream = self._tls.stream = torch.cuda.Stream(device=self.device)
-        return stream
 
     def _named_arrays(self, batch):
         """[(name, array)] in packing order, padded to the batch size, and
@@ -148,17 +207,7 @@ class RegressionPredictor:
         spec = spec_of(named)
         arrays = [a for _, a in named]
         with times.stage("h2d"):
-            if self.device.type != "cuda":
-                return torch.from_numpy(pack_arrays(arrays)), None, None, B, spec
-            total = sum(int(a.nbytes) for a in arrays)
-            host = torch.empty(total, dtype=torch.uint8, pin_memory=True)
-            pack_arrays(arrays, out=host.numpy())
-            stream = self._copy_stream()
-            with torch.cuda.stream(stream):
-                dev = host.to(self.device, non_blocking=True)
-                ready = torch.cuda.Event()
-                ready.record(stream)
-        # ``host`` rides along so the pinned source outlives the async copy
+            dev, ready, host = ship_packed(arrays, self.device, self._tls)
         return dev, ready, host, B, spec
 
     def dispatch_device(self, transferred, times=None):
@@ -167,12 +216,7 @@ class RegressionPredictor:
         times = times or NULL_TIMES
         dev, ready, _host, B, spec = transferred
         with times.stage("dispatch"):
-            cuda = self.device.type == "cuda"
-            if cuda:
-                compute = torch.cuda.current_stream(self.device)
-                compute.wait_event(ready)
-                dev.record_stream(compute)
-            parts = unpack(dev, spec)
+            parts = receive_packed(dev, ready, spec)
             with torch.inference_mode(), \
                     (tf32_off() if self._tf32_off else contextlib.nullcontext()):
                 if "ref_idx" in parts:
@@ -185,13 +229,7 @@ class RegressionPredictor:
                 else:
                     R, t, _ = self.net(parts["image0"], parts["image1"])
                 out = torch.cat([R, t.reshape(-1, 1, 3)], dim=1)  # [bs, 4, 3]
-                if cuda:
-                    host_out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-                    host_out.copy_(out, non_blocking=True)
-                    done = torch.cuda.Event()
-                    done.record(compute)
-                else:
-                    host_out, done = out, None
+                host_out, done = fetch_later(out)
 
         def finalize():
             with times.stage("d2h_wait"):
@@ -206,10 +244,32 @@ class RegressionPredictor:
         return self.dispatch_device(self.transfer_batch(batch))()
 
 
+class MatchingPredictor:
+    """The feature-matching track behind the same transfer/dispatch split as
+    :class:`RegressionPredictor`, so the sweep overlaps the correspondence
+    fetch and copy of batch i+1 with the solve of batch i
+    (models/matching.py). ``sampler_for_step`` is
+    :class:`~mapfree_tpu_torch.models.matching.FeatureMatchingModel`'s."""
+
+    def __init__(self, cfg, device="cuda", sampler_for_step=None):
+        from mapfree_tpu_torch.models.matching import FeatureMatchingModel
+
+        self.device = resolve_device(device)
+        self.model = FeatureMatchingModel(cfg, self.device, sampler_for_step)
+
+    def transfer_batch(self, batch, times=None):
+        return self.model.transfer_batch(batch, times)
+
+    def dispatch_device(self, transferred, times=None):
+        return self.model.dispatch_device(transferred, times)
+
+    def predict_batch(self, batch):
+        return self.model(batch)
+
+
 def build_model(cfg, checkpoint: str = "", device="cuda"):
     if cfg.MODEL in REGRESSION_MODELS:
         return RegressionPredictor(cfg, checkpoint, device=device)
     if cfg.MODEL == "FeatureMatching":
-        raise NotImplementedError(
-            f"model {cfg.MODEL} is not ported yet (a later slice of the port)")
+        return MatchingPredictor(cfg, device=device)
     raise NotImplementedError(f"Invalid model {cfg.MODEL}")

@@ -18,7 +18,10 @@ The same rules carry every module of the RPR family: the QKV projections
 ``mlp`` (a Sequential of three, or one dense layer), the fusion net's
 ``frame_weight``, the ResNet encoder's ``conv1`` and ``layer1-3``, and
 grouped convolutions, whose HWIO kernel [kh, kw, in / groups, out] takes the
-same transpose to [out, in / groups, kh, kw]. Any leaf without a
+same transpose to [out, in / groups, kh, kw], and the matching track's depth
+net (``models/depth.py::MonoDepthNet``: ``stem``, ``stage1-3``, ``up3-0``,
+``i3-1``, ``head``), which :func:`save_jax_variables` writes out as the
+``.pt`` that ``DEPTH_NET.CHECKPOINT`` names. Any leaf without a
 destination, any destination without a leaf and any shape mismatch raises:
 silent random weights are worse than failing.
 
@@ -110,6 +113,15 @@ def load_jax_variables(net: nn.Module, variables) -> None:
     missing = [k for k in state if k not in filled and not _is_bn_counter(k)]
     if missing:
         raise KeyError(f"JAX variables miss {len(missing)} tensors: {missing}")
+
+
+def save_jax_variables(net: nn.Module, variables, path) -> None:
+    """Fill ``net`` from the JAX package's variables (:func:`load_jax_variables`)
+    and write its state dict to ``path`` with ``torch.save``: how a depth net
+    trained by the JAX package (``MonoDepthNet``, orbax) becomes the ``.pt``
+    that ``DEPTH_NET.CHECKPOINT`` names in the port."""
+    load_jax_variables(net, variables)
+    torch.save(net.state_dict(), path)
 
 
 def _flax_module_path(net: nn.Module, module_key: str) -> tuple:

@@ -13,6 +13,13 @@ Writes, beside this script:
   uint8 [4, 540, 270]) and ``uint8`` (NHWC [4, 360, 270, 3]), from the
   package's cv2 branch (the one that runs where the C++ decoder is not
   built);
+- ``depth_{0..3}.png``: one smooth synthetic 16-bit depth map in
+  millimetres (540x720, as MapFree's ``*.dpt*.png``, in steps of 1 cm to
+  keep the files small) per frame, written by cv2 at compression level 9,
+  and ``color_0.png``, frame 0 at 135x180 as an 8-bit RGB PNG written by
+  PIL (adaptive filters): the encoders' own filter choices are what the
+  port's PNG reader undoes; ``png_decoded.npz``: what they hold (``depth``
+  uint16 [4, 720, 540], ``color`` uint8 RGB [180, 135, 3]);
 - ``decode_gap.json``, when the C++ decoder ``mapfree_native`` is importable
   (built with ``native/build.py``, or on PYTHONPATH): the largest and mean
   absolute difference between the JAX package's two decode paths on these
@@ -21,7 +28,8 @@ Writes, beside this script:
   decoder is held to the mean limit of 1.0 level and to that largest
   difference.
 
-Needs cv2, numpy and the JAX package.
+Needs cv2, numpy and the JAX package; ``make_fixtures.py png`` writes
+only the PNG fixtures (cv2 and numpy).
 """
 
 from __future__ import annotations
@@ -69,8 +77,39 @@ def frame(seed: int) -> np.ndarray:
     return np.clip(img + 0.5, 0, 255).astype(np.uint8)
 
 
+def depth_map(seed: int) -> np.ndarray:
+    """A smooth depth field of 1.5-8 m (a slanted plane and a few long
+    waves), in millimetres rounded to centimetres: uint16 [HEIGHT, WIDTH]."""
+    rng = np.random.default_rng(100 + seed)
+    y, x = np.mgrid[0:HEIGHT, 0:WIDTH].astype(np.float64)
+    d = 3.0 + rng.uniform(-1, 1) * x / WIDTH + rng.uniform(0.5, 2.0) * y / HEIGHT
+    for _ in range(3):
+        fx, fy = rng.uniform(0.5, 2.5, size=2) * 2 * np.pi
+        d += rng.uniform(0.1, 0.4) * np.sin(fx * x / WIDTH + fy * y / HEIGHT + rng.uniform(0, 6.3))
+    return (np.round(np.clip(d * 100.0, 150, 800)) * 10).astype(np.uint16)
+
+
+def write_png_fixtures() -> None:
+    import cv2
+    from PIL import Image
+
+    depth = np.stack([depth_map(i) for i in range(N_FRAMES)])
+    for i in range(N_FRAMES):
+        cv2.imwrite(str(HERE / f"depth_{i}.png"), depth[i], [cv2.IMWRITE_PNG_COMPRESSION, 9])
+    color = cv2.resize(frame(seed=0), (OUT_W // 2, OUT_H // 2), interpolation=cv2.INTER_AREA)
+    Image.fromarray(color).save(HERE / "color_0.png")
+    np.savez_compressed(HERE / "png_decoded.npz", depth=depth, color=color)
+    sizes = sum((HERE / n).stat().st_size for n in
+                [f"depth_{i}.png" for i in range(N_FRAMES)] + ["color_0.png", "png_decoded.npz"])
+    print(f"wrote {N_FRAMES} depth PNGs, color_0.png and png_decoded.npz, {sizes} bytes in all")
+
+
 def main() -> None:
     import cv2
+
+    if sys.argv[1:] == ["png"]:
+        write_png_fixtures()
+        return
 
     import mapfree_tpu.data.io as jax_io
 
@@ -91,6 +130,7 @@ def main() -> None:
     finally:
         jax_io._HAS_NATIVE = native
     np.savez_compressed(HERE / "jax_decode_270x360.npz", yuv420=yuv, uint8=u8)
+    write_png_fixtures()
     print(f"jax_decode_270x360.npz: yuv420 {yuv.shape}, uint8 {u8.shape}")
 
     if not native:

@@ -201,13 +201,23 @@ def test_build_digest_follows_link_flags():
     assert _build.source_digest(src, ("-lnvjpeg",)) == _build.source_digest(src, ("-lnvjpeg",))
 
 
-def test_host_reads_raise_without_cv2_or_pil(monkeypatch):
+def test_host_reads_raise_without_cv2_or_pil(monkeypatch, tmp_path):
+    """Without cv2 and PIL a JPEG read on the host raises (the card decodes
+    JPEGs); PNGs are read by the port's own reader, which needs neither, and
+    a missing PNG raises as cv2's read did."""
+    import cv2
+
+    depth = (np.arange(35, dtype=np.uint16).reshape(5, 7) * 300)
+    color = np.arange(105, dtype=np.uint8).reshape(5, 7, 3)
+    cv2.imwrite(str(tmp_path / "frame.depth.png"), depth)
+    cv2.imwrite(str(tmp_path / "frame.color.png"), color[..., ::-1])
     monkeypatch.setattr(pt_io, "_cv2", lambda: None)
     monkeypatch.setattr(pt_io, "_pil_image", lambda: None)
-    with pytest.raises(RuntimeError, match="ROADMAP.md item 15"):
-        pt_io.imread_rgb("frame.color.png")
-    with pytest.raises(RuntimeError, match="ROADMAP.md item 15"):
-        pt_io.read_depth_image("frame.depth.png")
+    np.testing.assert_array_equal(pt_io.imread_rgb(tmp_path / "frame.color.png"), color)
+    np.testing.assert_array_equal(pt_io.read_depth_image(tmp_path / "frame.depth.png"),
+                                  (depth / 1000.0).astype(np.float32))
+    with pytest.raises(FileNotFoundError):
+        pt_io.read_depth_image(tmp_path / "missing.depth.png")
     with pytest.raises(RuntimeError, match="device='cuda'"):
         pt_io.read_color_image(PATHS[0])
 

@@ -263,15 +263,19 @@ def test_load_jax_variables_rejects_missing_extra_and_misshapen_leaves():
 
 
 def test_unported_variants_raise():
-    """What is left to port raises: the feature-matching model (every
-    regression model, head and aggregator builds: tests/test_torch_variants*.py),
+    """What is left to port raises: SIFT matching (every regression model,
+    head and aggregator builds: tests/test_torch_variants*.py; the matching
+    track with precomputed correspondences too: tests/test_torch_matching*.py),
     and names no module knows."""
     cfg = narrow_cfg(pt_default_cfg)
-    cfg.MODEL = "FeatureMatching"
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        pt_build_model(cfg, device="cpu")
+    cfg.MODEL, cfg.FEATURE_MATCHING, cfg.POSE_SOLVER = "FeatureMatching", "SIFT", "PNP"
+    with pytest.raises(NotImplementedError, match="not ported"):
+        pt_build_model(cfg, device="cpu").predict_batch({})
     with pytest.raises(NotImplementedError, match="Invalid regression model"):
         pt_build_net(cfg)
+    cfg.MODEL = "NoSuchModel"
+    with pytest.raises(NotImplementedError, match="Invalid model"):
+        pt_build_model(cfg, device="cpu")
     for node, key in (("HEAD", "TYPE"), ("AGGREGATOR", "TYPE"), ("ENCODER", "TYPE")):
         cfg = narrow_cfg(pt_default_cfg)
         cfg[node][key] = "NoSuchModule"

@@ -1,5 +1,7 @@
-"""Batch comparison for the PyTorch port's data-layer tests: a batch (or a
-sample) of the JAX package against the port's, key by key."""
+"""Shared pieces of the PyTorch port's data-layer and matching tests: batch
+comparison (a batch or a sample of the JAX package against the port's, key
+by key), a MapFree scene whose depth maps and correspondences agree with
+its poses, and a matching config over it in either package's schema."""
 
 import numpy as np
 
@@ -30,3 +32,84 @@ def assert_same_batches(jax_batches, pt_batches):
         assert list(a) == list(b), n  # the same keys in the same order
         for key in a:
             assert_same_value(a[key], b[key], f"batch {n} {key}")
+
+
+def make_consistent_scene(root, n_queries=10, H=64, W=48, seed=3, depth_suffix="gt",
+                          npz_name="correspondences.npz"):
+    """A MapFree scene whose depth maps and precomputed correspondences agree
+    with its ground-truth poses (the idea of tests/test_integration.py's
+    scene): a smooth non-planar depth surface seen from view 0, a sparse grid
+    of its pixels back-projected, moved by each query's relative pose and
+    projected into it. Writes ``*.{depth_suffix}.png`` depth maps (16-bit mm)
+    and the NaN-padded ``npz_name`` (one row per query). Returns the poses."""
+    import cv2
+
+    from fixtures import make_scene
+    from mapfree_tpu.geom import quat2mat
+
+    poses = make_scene(root, n_queries=n_queries, img_hw=(H, W), seed=seed,
+                       max_angle=0.25, t_scale=0.2)
+    K = np.array([[100.0, 0, W / 2], [0, 100.0, H / 2], [0, 0, 1]], np.float32)
+    uu, vv = np.meshgrid(np.arange(W), np.arange(H))
+    depth0 = (2.0 + 0.4 * np.sin(uu / 5.0) + 0.3 * np.cos(vv / 4.0)).astype(np.float32)
+    cv2.imwrite(str(root / f"seq0/frame_00000.{depth_suffix}.png"), (depth0 * 1000).astype(np.uint16))
+    gu, gv = np.meshgrid(np.arange(4, W - 4, 3), np.arange(4, H - 4, 3))
+    uv0 = np.stack([gu.reshape(-1), gv.reshape(-1)], axis=-1).astype(np.float32)
+    z0 = depth0[uv0[:, 1].astype(int), uv0[:, 0].astype(int)]
+    X0 = np.concatenate([uv0, np.ones_like(uv0[:, :1])], axis=1) @ np.linalg.inv(K).T * z0[:, None]
+    correspondences = []
+    for i in range(n_queries):
+        name = f"seq1/frame_{i:05}.jpg"
+        q, t = poses[name]
+        X1 = X0 @ quat2mat(q).T + t
+        uv1h = X1 @ K.T
+        uv1 = uv1h[:, :2] / uv1h[:, 2:]
+        vis = ((uv1[:, 0] >= 0) & (uv1[:, 0] < W - 1) & (uv1[:, 1] >= 0)
+               & (uv1[:, 1] < H - 1) & (X1[:, 2] > 0.1))
+        depth1 = np.zeros((H, W), np.float32)
+        ui = np.clip(uv1[vis, 0].astype(int), 0, W - 1)
+        vi = np.clip(uv1[vis, 1].astype(int), 0, H - 1)
+        depth1[vi, ui] = X1[vis, 2]
+        cv2.imwrite(str(root / name).replace(".jpg", f".{depth_suffix}.png"),
+                    (depth1 * 1000).astype(np.uint16))
+        correspondences.append(np.concatenate([uv0[vis], uv1[vis]], axis=1).astype(np.float32))
+    max_n = max(len(c) for c in correspondences)
+    stacked = np.full((n_queries, max_n, 4), np.nan, np.float32)
+    for i, c in enumerate(correspondences):
+        stacked[i, :len(c)] = c
+    np.savez(root / npz_name, correspondences=stacked)
+    return poses
+
+
+def matching_case(tmp_path, solver, default_cfg, n_queries=20, batch=2):
+    """A consistent scene (``make_consistent_scene``, 64x48, depth ``gt``)
+    under ``tmp_path/val`` and a FeatureMatching config for ``solver`` in
+    ``default_cfg``'s schema (either package's): precomputed ground-truth
+    correspondences, file depth, float32, ``batch`` pairs a batch, 256
+    hypotheses over at most 512 correspondences. Returns (cfg, poses)."""
+    root = tmp_path / "val" / "s00000"
+    poses = make_consistent_scene(root, n_queries=n_queries)
+    c = default_cfg.clone()
+    c.DATASET.DATA_SOURCE = "MapFree"
+    c.DATASET.DATA_ROOT = str(tmp_path)
+    c.DATASET.HEIGHT, c.DATASET.WIDTH = 64, 48
+    c.DATASET.ESTIMATED_DEPTH = "gt"
+    c.TRAINING.NUM_WORKERS = 1
+    c.TPU.INFER_BATCH = batch
+    c.TPU.COMPUTE_DTYPE = "float32"
+    c.TPU.RANSAC_ITERATIONS = 256
+    c.TPU.MAX_CORRESPONDENCES = 512
+    c.MODEL, c.FEATURE_MATCHING, c.POSE_SOLVER = "FeatureMatching", "Precomputed", solver
+    c.EMAT_RANSAC.PIX_THRESHOLD, c.EMAT_RANSAC.SCALE_THRESHOLD = 2.0, 0.1
+    c.PNP.REPROJECTION_INLIER_THRESHOLD = 3.0
+    c.PROCRUSTES.MAX_CORR_DIST = 0.1
+    c.MATCHES_FILE_PATH = str(root / "correspondences.npz")
+    return c, poses
+
+
+def predictions(results):
+    """{(scene, frame): (R, t, inliers)} from either package's predict."""
+    from mapfree_tpu_torch.geom.quaternion import quat2mat
+
+    return {(s, p.image_name): (quat2mat(np.asarray(p.q, np.float64)), np.asarray(p.t), p.inliers)
+            for s, poses in results.items() for p in poses}
