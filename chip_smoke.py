@@ -104,7 +104,24 @@ Phases, in order; any failure raises and the script exits nonzero:
    submission CLI over a MapFree tree of the fixtures with depth PNGs and
    correspondences from known poses, for loftr_emat_dptkitti,
    sg_pnp_dptkitti, sg_procrustes_dptkitti and sift_emat_ingraph (the depth
-   net at random weights).
+   net at random weights);
+14. the evaluation path (no kernel of its own but K1): (a) a ScanNet test
+   split of 80 copies of the 1296x968 JPEG fixtures (views of a textured
+   room, tests/data/torch_port/room.py) with 640x480 .pgm depth written
+   here in numpy, 324 pairs: nvJPEG on the fixtures against the JAX
+   package's cv2 decode of them at 320x240 and its ms per 64 frames, then
+   configs/regression/scannet/3d3d.yaml through the ScanNet CLI's main(argv)
+   (bf16, INFER_BATCH 64): K1 once per batch, pairs/s; (b) K1 at that
+   sweep's shape (B=64, HW=4,800) held to its whole plain version and timed
+   beside SDPA and its bound; (c) sift_emat_gt.yaml with FEATURE_MATCHING
+   SIFT_TPU through the same CLI and tree: accuracy against the truth, ms
+   of SIFT and of the solve on a batch, launches, busy share, keypoints and
+   matches, the card's SIFT against the CPU's on two pairs and against
+   itself; (d) the 7Scenes CLI with sift_emat_planercnn.yaml without and
+   with --triang over a tree of the room rendered here (640x480 PNGs,
+   correspondences from the known geometry); (e) the MapFree scorer on
+   phase 13's loftr_emat_dptkitti submission.zip and on a zip of the
+   ground truth (zero error, precision 1).
 
 The last line of standard output is {"ok": true, "device": {...}}; a
 "kernels" JSON line and the card's name and power limit precede it. With no
@@ -2699,71 +2716,464 @@ def write_matching_tree(root: Path, n_scenes: int = 2, n_queries: int = 320,
     return truth
 
 
-def matching_clis() -> dict:
+def matching_clis(root: Path) -> dict:
     """(d) The submission CLI (its main(argv)) over a MapFree tree of the
-    fixtures for loftr_emat_dptkitti, sg_pnp_dptkitti, sg_procrustes_dptkitti
-    and sift_emat_ingraph (the depth net at random weights, ALLOW_RANDOM):
-    one line per query, accuracy against the truth (for the in-graph config
-    the rotation only: random depth gives no metric scale), pairs/s and the
-    stage times."""
+    fixtures in ``root`` for loftr_emat_dptkitti, sg_pnp_dptkitti,
+    sg_procrustes_dptkitti and sift_emat_ingraph (the depth net at random
+    weights, ALLOW_RANDOM): one line per query, accuracy against the truth
+    (for the in-graph config the rotation only: random depth gives no metric
+    scale), pairs/s and the stage times. Each config's submission.zip stays
+    in ``root/<config>/`` (phase 14 scores one)."""
     from mapfree_tpu_torch import submission
     from mapfree_tpu_torch.geom.quaternion import quat2mat
     from mapfree_tpu_torch.utils.timing import StageTimes
 
     numbers = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    truth = write_matching_tree(root)
+    dataset_cfg, _ = write_configs(root)
+    n_pairs = sum(len(v) for v in truth.values())
+    log(f"[match] MapFree tree for the matching configs in {time.perf_counter() - t0:.2f} s: "
+        f"{len(truth)} scenes, {n_pairs} pairs, depth PNGs and correspondences")
+    ingraph = root / "sift_emat_ingraph.yaml"
+    ingraph.write_text((REPO / "configs/matching/mapfree/sift_emat_ingraph.yaml").read_text()
+                       + "  ALLOW_RANDOM: true\n")
+    for cfg_path in ("configs/matching/mapfree/loftr_emat_dptkitti.yaml",
+                     "configs/matching/mapfree/sg_pnp_dptkitti.yaml",
+                     "configs/matching/mapfree/sg_procrustes_dptkitti.yaml", ingraph):
+        path = Path(cfg_path) if Path(cfg_path).is_absolute() else REPO / cfg_path
+        times = StageTimes()
         t0 = time.perf_counter()
-        truth = write_matching_tree(root)
-        dataset_cfg, _ = write_configs(root)
-        n_pairs = sum(len(v) for v in truth.values())
-        log(f"[match] MapFree tree for the matching configs in {time.perf_counter() - t0:.2f} s: "
-            f"{len(truth)} scenes, {n_pairs} pairs, depth PNGs and correspondences")
-        ingraph = root / "sift_emat_ingraph.yaml"
-        ingraph.write_text((REPO / "configs/matching/mapfree/sift_emat_ingraph.yaml").read_text()
-                           + "  ALLOW_RANDOM: true\n")
-        for cfg_path in ("configs/matching/mapfree/loftr_emat_dptkitti.yaml",
-                         "configs/matching/mapfree/sg_pnp_dptkitti.yaml",
-                         "configs/matching/mapfree/sg_procrustes_dptkitti.yaml", ingraph):
-            path = Path(cfg_path) if Path(cfg_path).is_absolute() else REPO / cfg_path
-            times = StageTimes()
-            t0 = time.perf_counter()
-            out = submission.main([str(path), "--dataset_config", str(dataset_cfg),
-                                   "--device", DEVICE, "-o", str(root / path.stem)], times=times)
-            elapsed = time.perf_counter() - t0
-            poses = read_submission(out)
-            if {s: sorted(p) for s, p in poses.items()} != {s: sorted(p) for s, p in truth.items()}:
-                raise AssertionError(f"{path.name}: submission.zip does not hold one line per query")
-            rot, terr = [], []
-            for s, frames in truth.items():
-                for f, (R_gt, t_gt) in frames.items():
-                    q, t = poses[s][f]
-                    r, e = _pose_errors(quat2mat(q)[None], t[None], R_gt[None], t_gt[None])
-                    rot.append(r[0])
-                    terr.append(e[0])
-            sweep = times.seconds["sweep"]
-            name = path.stem
-            metric = "ingraph" not in name
-            log(f"[match] CLI {name}: {n_pairs} pairs, CLI {elapsed:.2f} s, sweep {sweep:.3f} s, "
-                f"{n_pairs / sweep:.1f} pairs/s from files; rotation error median "
-                f"{np.median(rot):.4f} deg, translation error median {np.median(terr):.4f} m"
-                f"{'' if metric else ' (random depth net: no metric scale)'}; stages "
-                f"{times.summary()}")
-            if np.median(rot) >= MATCH_ROT_TOL_DEG or (metric and np.median(terr) >= MATCH_T_TOL_M):
-                raise AssertionError(f"{name}: the CLI's poses are out of the accuracy limits")
-            numbers[name] = {"pairs_per_s": n_pairs / sweep, "stages": times.summary(),
-                             "rot_median_deg": float(np.median(rot)),
-                             "t_median_m": float(np.median(terr))}
+        out = submission.main([str(path), "--dataset_config", str(dataset_cfg),
+                               "--device", DEVICE, "-o", str(root / path.stem)], times=times)
+        elapsed = time.perf_counter() - t0
+        poses = read_submission(out)
+        if {s: sorted(p) for s, p in poses.items()} != {s: sorted(p) for s, p in truth.items()}:
+            raise AssertionError(f"{path.name}: submission.zip does not hold one line per query")
+        rot, terr = [], []
+        for s, frames in truth.items():
+            for f, (R_gt, t_gt) in frames.items():
+                q, t = poses[s][f]
+                r, e = _pose_errors(quat2mat(q)[None], t[None], R_gt[None], t_gt[None])
+                rot.append(r[0])
+                terr.append(e[0])
+        sweep = times.seconds["sweep"]
+        name = path.stem
+        metric = "ingraph" not in name
+        log(f"[match] CLI {name}: {n_pairs} pairs, CLI {elapsed:.2f} s, sweep {sweep:.3f} s, "
+            f"{n_pairs / sweep:.1f} pairs/s from files; rotation error median "
+            f"{np.median(rot):.4f} deg, translation error median {np.median(terr):.4f} m"
+            f"{'' if metric else ' (random depth net: no metric scale)'}; stages "
+            f"{times.summary()}")
+        if np.median(rot) >= MATCH_ROT_TOL_DEG or (metric and np.median(terr) >= MATCH_T_TOL_M):
+            raise AssertionError(f"{name}: the CLI's poses are out of the accuracy limits")
+        numbers[name] = {"pairs_per_s": n_pairs / sweep, "stages": times.summary(),
+                         "rot_median_deg": float(np.median(rot)),
+                         "t_median_m": float(np.median(terr))}
     return numbers
 
 
-def phase_matching() -> dict:
-    """Phase 13: the feature-matching track (no kernel of its own)."""
+def phase_matching(root: Path) -> dict:
+    """Phase 13: the feature-matching track (no kernel of its own); its
+    MapFree tree and submissions go to ``root``."""
     numbers = {"png": matching_png()}
     numbers["card_vs_cpu"] = matching_card_vs_cpu()
     numbers["full_width"] = matching_full_width()
-    numbers["clis"] = matching_clis()
+    numbers["clis"] = matching_clis(root)
     return {"launches": {}, "numbers": numbers}
+
+
+# -- phase 14: the evaluation path -------------------------------------------------
+
+SCANNET_FRAMES = 80       # copies of the 4 ScanNet fixtures, each its own file
+SCANNET_PAIRS = 5 * 64 + 4  # 6 batches of INFER_BATCH 64, the last partial
+SEVENSCENES_REFS, SEVENSCENES_QUERIES = 4, 12
+# the card's SIFT against the port's CPU SIFT: tests/test_torch_sift.py's
+# per-keypoint tolerance (the blurs sum in other orders: equal masks, scores
+# to 1e-6, the valid keypoints as sets to 1e-3 px (scores that tie to
+# round-off may swap slots), at least 95% of the descriptors to 1e-4 in
+# every entry. The rest are printed with their largest L2 difference: a
+# gradient sample across an orientation bin edge moves one entry, and a
+# near-tie of the 36-bin orientation histogram's argmax rotates the whole
+# descriptor by 10 degrees (0.61 in L2 once in 1,734 on an H100)
+SIFT_SCORE_TOL = 1e-6
+SIFT_KP_TOL = 1e-3
+SIFT_DESC_ENTRY_TOL = 1e-4
+SIFT_DESC_EXACT_SHARE = 0.95
+# the decode of the 1296x968 fixtures to 320x240 against the JAX package's
+# cv2 branch, mean |diff| in levels: nvJPEG read 1.07 on an H100 (its IDCT
+# and chroma upsampling against libjpeg's on these fine colour textures;
+# phase 7's smooth frames read 0.72), a decode whose resize sampled one
+# source pixel off reads 2.21 (cv2 on the same files), and the JAX package's
+# own two paths differ by 0.12 (tests/data/torch_port/scannet_decode_gap.json):
+# the limit lies between the sound reading and the fault. The largest
+# difference is printed only (40 on the card: single texels at colour edges)
+SCANNET_DECODE_MEAN_TOL = 1.5
+
+
+def room():
+    """tests/data/torch_port/room.py: the textured room of the ScanNet
+    fixtures, rendered at any size with its depth, and trees of it."""
+    import importlib.util
+
+    name = "torch_port_room"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(name, FIXTURES / "room.py")
+        sys.modules[name] = module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+    return sys.modules[name]
+
+
+def write_scannet_tree(root: Path) -> tuple:
+    """A ScanNet test split of SCANNET_FRAMES copies of the 1296x968 fixtures
+    (frame k shows view k % 4), 640x480 ``.pgm`` depth rendered from the
+    room, SCANNET_PAIRS pairs; and its dataset config. Returns (dataset
+    config, the frames' colour paths)."""
+    import shutil
+
+    frames = [k % 4 for k in range(SCANNET_FRAMES)]
+    pairs = [(p % SCANNET_FRAMES, (7 * p + 3) % SCANNET_FRAMES) for p in range(SCANNET_PAIRS)]
+    paths = []
+
+    def write_color(k, path):
+        shutil.copyfile(FIXTURES / f"scannet_{frames[k]}.jpg", path)
+        paths.append(str(path))
+
+    room().write_scannet_room(root, 640, 480, frames, pairs, write_color)
+    text = (REPO / "configs/scannet.yaml").read_text()
+    for line in ("DATA_ROOT: data/scannet/", "NPZ_ROOT: data/scannet_indices/scene_data"):
+        if line not in text:
+            raise AssertionError(f"configs/scannet.yaml has no line {line!r} to set")
+    dataset = root / "scannet.yaml"
+    dataset.write_text(text.replace("DATA_ROOT: data/scannet/", f"DATA_ROOT: {root}")
+                       .replace("NPZ_ROOT: data/scannet_indices/scene_data",
+                                f"NPZ_ROOT: {root / 'indices'}"))
+    return dataset, paths
+
+
+def scannet_decode(paths: list) -> dict:
+    """nvJPEG on the 1296x968 fixtures to 320x240 (uint8, what the RPR
+    sweep's loader asks for) against the JAX package's cv2 decode of them
+    (tests/data/torch_port/jax_decode_scannet_320x240.npz), and the wall
+    time of a 64-frame batch of the tree's files."""
+    import torch
+
+    from mapfree_tpu_torch.data import jpeg
+
+    fixtures = [str(FIXTURES / f"scannet_{i}.jpg") for i in range(4)]
+    ref = np.load(FIXTURES / "jax_decode_scannet_320x240.npz")["uint8"]
+    own = json.loads((FIXTURES / "scannet_decode_gap.json").read_text())
+    got = jpeg.decode_resize_batch(fixtures, 320, 240, device="cuda", uint8=True)
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"decode: {got.dtype}{got.shape}, expected {ref.dtype}{ref.shape}")
+    diff = np.abs(got.astype(np.int32) - ref.astype(np.int32))
+    gap = {"uint8": {"max_abs": int(diff.max()), "mean_abs": float(diff.mean())},
+           "what": "nvJPEG (data/jpeg.py) against the cv2 branch of mapfree_tpu/data/io.py, "
+                   "on scannet_0..3.jpg (1296x968) at 320x240"}
+    log(f"[eval] decode gap: {json.dumps(gap)} (mean limit {SCANNET_DECODE_MEAN_TOL}); the "
+        f"JAX package's own native vs cv2 gap on these files: {json.dumps(own['uint8'])}")
+    if diff.mean() > SCANNET_DECODE_MEAN_TOL:
+        raise AssertionError("the card's decode of the ScanNet fixtures disagrees with the "
+                             "JAX package's")
+    batch = paths[:64]
+    jpeg.decode_resize_batch(batch, 320, 240, device="cuda", uint8=True)
+    torch.cuda.synchronize()
+    n = 5
+    t0 = time.perf_counter()
+    for _ in range(n):
+        jpeg.decode_resize_batch(batch, 320, 240, device="cuda", uint8=True)
+    ms = 1e3 * (time.perf_counter() - t0) / n
+    log(f"[eval] nvJPEG: 64 frames of 1296x968 to 320x240 uint8: {ms:.2f} ms per batch, "
+        f"{64e3 / ms:.1f} frames/s (wall, {jpeg.DECODE_THREADS} host threads)")
+    return {"gap": gap, "ms_per_batch": ms}
+
+
+def eval_scannet_rpr(root: Path, dataset: Path) -> dict:
+    """(a) configs/regression/scannet/3d3d.yaml through the ScanNet CLI's
+    main(argv) (random weights from TPU.SEED; bf16, INFER_BATCH 64, 320x240,
+    K1 at HW = 60 x 80 = 4,800): K1 once per batch in its tensor-core
+    design, a finite metric per pair, pairs/s and the stage times."""
+    from mapfree_tpu_torch.benchmark import scannet as cli
+    from mapfree_tpu_torch.ops import correlation as corr
+    from mapfree_tpu_torch.utils.timing import StageTimes
+
+    times = StageTimes()
+    yaml = REPO / "configs/regression/scannet/3d3d.yaml"
+    n_batches = -(-SCANNET_PAIRS // int(load_cfg(model_yaml=str(yaml.relative_to(REPO)))
+                                        .TPU.INFER_BATCH))
+    corr.reset_launches()
+    with designs_served() as seen, contextlib.chdir(root):
+        t0 = time.perf_counter()
+        agg = cli.main([str(yaml), "--dataset_config", str(dataset), "--device", DEVICE],
+                       times=times)
+        elapsed = time.perf_counter() - t0
+    launches = dict(corr.launches)
+    _expect_designs(seen, {"forward": [corr.DESIGN_MMA]}, "the ScanNet RPR sweep")
+    if launches[corr.KERNEL] != n_batches or launches[corr.KERNEL_BWD_ROWS] \
+            or launches[corr.KERNEL_BWD_COLS]:
+        raise AssertionError(f"the ScanNet RPR sweep launched {launches}, expected K1 "
+                             f"{n_batches} times")
+    if any(v.shape != (SCANNET_PAIRS,) or not np.isfinite(v).all() for v in agg.values()):
+        raise AssertionError("the ScanNet RPR sweep's metrics are not one finite value a pair")
+    if not (root / "results/scannet/3d3d.npz").is_file():
+        raise AssertionError("the ScanNet CLI wrote no results/scannet/3d3d.npz")
+    sweep = times.seconds["sweep"]
+    log(f"[eval] ScanNet CLI, 3d3d.yaml (random weights): {SCANNET_PAIRS} pairs in {n_batches} "
+        f"batches, CLI {elapsed:.2f} s, sweep {sweep:.3f} s, {SCANNET_PAIRS / sweep:.1f} pairs/s "
+        f"from files; K1 launches {launches[corr.KERNEL]} ({corr.DESIGN_MMA}); median R_err "
+        f"{np.median(agg['R_err']):.2f} deg; stages {times.summary()}")
+    return {"pairs_per_s": SCANNET_PAIRS / sweep, "stages": times.summary(),
+            "launches": {corr.KERNEL: launches[corr.KERNEL]}}
+
+
+def _sift_cfg(dataset: Path):
+    from mapfree_tpu_torch.config import cfg as default_cfg
+
+    cfg = default_cfg.clone()
+    cfg.merge_from_file(str(dataset))
+    cfg.merge_from_file(str(REPO / "configs/matching/scannet/sift_emat_gt.yaml"))
+    cfg.FEATURE_MATCHING = "SIFT_TPU"
+    return cfg
+
+
+def sift_card_vs_cpu(gray) -> dict:
+    """The card's SIFT against the port's CPU SIFT on the same gray images
+    (two pairs), at the CPU tests' tolerance; and two runs on the card of
+    the whole batch, which must give the same bits."""
+    import torch
+
+    from mapfree_tpu_torch.ops.sift import sift_detect_describe
+
+    small = gray[:4]
+    card = {k: v.cpu().numpy() for k, v in sift_detect_describe(small, 2048).items()}
+    cpu = {k: v.numpy() for k, v in sift_detect_describe(small.cpu(), 2048).items()}
+    if not np.array_equal(card["mask"], cpu["mask"]):
+        raise AssertionError("SIFT on the card and on the CPU keep other slots")
+    score_err = float(np.abs(card["scores"] - cpu["scores"]).max())
+    kp_err = desc_l2 = 0.0
+    exact = n = swapped = 0
+    for b in range(4):
+        m = cpu["mask"][b]
+        kc, kg = cpu["keypoints"][b][m], card["keypoints"][b][m]
+        # as sets: scores that tie to round-off may take each other's slot
+        d = np.abs(kc[:, None] - kg[None]).max(-1)
+        nearest = d.argmin(1)
+        if len(set(nearest.tolist())) != len(kc):
+            raise AssertionError("SIFT on the card and on the CPU find other keypoints")
+        kp_err = max(kp_err, float(d[np.arange(len(kc)), nearest].max()))
+        swapped += int((nearest != np.arange(len(kc))).sum())
+        dg, dc = card["descriptors"][b][m][nearest], cpu["descriptors"][b][m]
+        desc_l2 = max(desc_l2, float(np.linalg.norm(dg - dc, axis=-1).max()))
+        exact += int((np.abs(dg - dc).max(-1) <= SIFT_DESC_ENTRY_TOL).sum())
+        n += int(m.sum())
+    log(f"[eval] SIFT card vs CPU, 2 pairs (4 images, {n} valid keypoints, {swapped} in "
+        f"each other's slots): scores {score_err:.3g} (limit {SIFT_SCORE_TOL}), keypoints "
+        f"{kp_err:.3g} px (limit {SIFT_KP_TOL}), descriptors within {SIFT_DESC_ENTRY_TOL} for "
+        f"{exact} of {n} (limit {SIFT_DESC_EXACT_SHARE:.0%}), the others at most {desc_l2:.3g} "
+        f"in L2")
+    if not (score_err <= SIFT_SCORE_TOL and kp_err <= SIFT_KP_TOL
+            and exact >= SIFT_DESC_EXACT_SHARE * n):
+        raise AssertionError("SIFT on the card disagrees with SIFT on the CPU")
+    runs = [sift_detect_describe(gray, 2048) for _ in range(2)]
+    torch.cuda.synchronize()
+    differ = sum(int((a != b).any(-1).sum()) if a.dim() == 3 else int((a != b).sum())
+                 for a, b in ((runs[0][k], runs[1][k]) for k in runs[0]))
+    log(f"[eval] SIFT twice on the card over {gray.shape[0]} images: {differ} slots differ "
+        "(the histograms sum in a fixed order: must be 0)")
+    if differ:
+        raise AssertionError("SIFT on the card gives other bits on a second run")
+    return {"card_vs_cpu": {"scores": score_err, "keypoints_px": kp_err, "swapped": swapped,
+                            "descriptors_exact": exact / n, "descriptor_l2": desc_l2},
+            "repeat_differ": differ}
+
+
+def eval_sift(root: Path, dataset: Path) -> dict:
+    """(c) configs/matching/scannet/sift_emat_gt.yaml with FEATURE_MATCHING
+    SIFT_TPU (on-device SIFT, the matcher, the metric essential solve on the
+    .pgm depth) through the ScanNet CLI over the tree: accuracy against the
+    truth; then on one batch of 64 pairs: ms of SIFT (both views) and of the
+    solve by CUDA events, the dispatch's launches and device busy share,
+    keypoints per image and matches per pair; and the card's SIFT against
+    the CPU's."""
+    import torch
+
+    from mapfree_tpu_torch.benchmark import scannet as cli
+    from mapfree_tpu_torch.data import DataModule
+    from mapfree_tpu_torch.models.builder import build_model
+    from mapfree_tpu_torch.ops import correlation as corr
+    from mapfree_tpu_torch.ops.sift import rgb_to_gray, sift_detect_describe
+    from mapfree_tpu_torch.utils.timing import StageTimes
+
+    yaml = root / "sift_tpu_emat_gt.yaml"
+    text = (REPO / "configs/matching/scannet/sift_emat_gt.yaml").read_text()
+    if "FEATURE_MATCHING: SIFT\n" not in text:
+        raise AssertionError("sift_emat_gt.yaml has no line FEATURE_MATCHING: SIFT to set")
+    yaml.write_text(text.replace("FEATURE_MATCHING: SIFT\n", "FEATURE_MATCHING: SIFT_TPU\n"))
+    times = StageTimes()
+    corr.reset_launches()
+    with contextlib.chdir(root):
+        t0 = time.perf_counter()
+        agg = cli.main([str(yaml), "--dataset_config", str(dataset), "--device", DEVICE],
+                       times=times)
+        elapsed = time.perf_counter() - t0
+    if any(corr.launches.values()):
+        raise AssertionError(f"the SIFT sweep launched a correlation kernel: {corr.launches}")
+    rot, terr = np.nanmedian(agg["R_err"]), np.nanmedian(agg["t_err_euc"])
+    failures = float(np.isnan(agg["R_err"]).mean())
+    sweep = times.seconds["sweep"]
+    log(f"[eval] ScanNet CLI, sift_emat_gt.yaml with SIFT_TPU: {SCANNET_PAIRS} pairs, CLI "
+        f"{elapsed:.2f} s, sweep {sweep:.3f} s, {SCANNET_PAIRS / sweep:.1f} pairs/s from files; "
+        f"median R_err {rot:.3f} deg (limit {MATCH_ROT_TOL_DEG}), t_err_euc {terr:.4f} m (limit "
+        f"{MATCH_T_TOL_M}), failures {failures:.1%}; stages {times.summary()}")
+    if not (rot < MATCH_ROT_TOL_DEG and terr < MATCH_T_TOL_M):
+        raise AssertionError("the SIFT_TPU sweep's poses are out of the accuracy limits")
+
+    cfg = _sift_cfg(dataset)
+    bs = int(cfg.TPU.INFER_BATCH)
+    batch = next(iter(DataModule(cfg, device=DEVICE).test_dataloader(batch_size=bs)))
+    model = build_model(cfg, device=DEVICE)
+    fm = model.model.feature_matching
+    img0 = torch.as_tensor(np.asarray(batch["image0"])).to(DEVICE)
+    img1 = torch.as_tensor(np.asarray(batch["image1"])).to(DEVICE)
+    sift_ms = cuda_time_ms(lambda: fm.correspond(img0, img1), iters=3)
+    gray = rgb_to_gray(torch.cat([img0, img1]))
+    kps = sift_detect_describe(gray, fm.num_features)["mask"].sum(1).float()
+    matches = fm.correspond(img0, img1)[2].sum(1).float()
+    transferred = model.transfer_batch(batch)
+    model.dispatch_device(transferred)()
+    prof = profile_window(lambda: model.dispatch_device(transferred)(), "SIFT_TPU batch", n=1)
+    # the solve alone, on the correspondences SIFT gave
+    pts0, pts1, mask = (t.cpu().numpy() for t in fm.correspond(img0, img1))
+    model.model.feature_matching = _BatchCorrespondences()
+    held = dict(batch, pts0=pts0, pts1=pts1, mask=mask)
+    solve_in = model.transfer_batch(held)
+    solve_ms = cuda_time_ms(lambda: model.dispatch_device(solve_in)(), iters=2)
+    log(f"[eval] SIFT_TPU on a batch of {bs} pairs (640x480): SIFT and matching {sift_ms:.1f} ms, "
+        f"the essential solve {solve_ms:.1f} ms (CUDA events); the whole dispatch "
+        f"{prof['launches']} launches, device busy {prof['busy_share']:.1%}; keypoints per "
+        f"image {kps.mean().item():.0f} (min {kps.min().item():.0f}), matches per pair "
+        f"{matches.mean().item():.0f} (min {matches.min().item():.0f})")
+    numbers = {"pairs_per_s": SCANNET_PAIRS / sweep, "stages": times.summary(),
+               "rot_median_deg": float(rot), "t_median_m": float(terr), "failures": failures,
+               "sift_ms": sift_ms, "solve_ms": solve_ms, "launches": prof["launches"],
+               "busy": prof["busy_share"], "keypoints_per_image": kps.mean().item(),
+               "matches_per_pair": matches.mean().item()}
+    numbers.update(sift_card_vs_cpu(gray))
+    return numbers
+
+
+def eval_sevenscenes(root: Path) -> dict:
+    """(d) The 7Scenes CLI's main(argv) with sift_emat_planercnn.yaml over a
+    7Scenes tree of the room (640x480 PNG frames and ``prcnn`` depth
+    rendered here, correspondences_SIFT_<pairs>.npz from the known
+    geometry), without and with --triang: every query localised within the
+    phase's limits, results.npy and the pose files written, and where
+    matplotlib does not import no plot and the line that says so."""
+    import importlib.util
+
+    from mapfree_tpu_torch.benchmark import sevenscenes as cli
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    t0 = time.perf_counter()
+    pairs_txt = "test_pairs.5nn.5cm10m.vlad.minmax.txt"  # configs/sevenscenes.yaml's
+    room().write_7scenes_room(root, "chess", 640, 480, SEVENSCENES_REFS, SEVENSCENES_QUERIES,
+                              pairs_txt, "prcnn")
+    text = (REPO / "configs/sevenscenes.yaml").read_text()
+    if "DATA_ROOT: data/sevenscenes" not in text or pairs_txt not in text:
+        raise AssertionError("configs/sevenscenes.yaml has no DATA_ROOT or test pairs to set")
+    dataset = root / "sevenscenes.yaml"
+    dataset.write_text(text.replace("DATA_ROOT: data/sevenscenes", f"DATA_ROOT: {root}"))
+    log(f"[eval] 7Scenes tree: {SEVENSCENES_REFS + SEVENSCENES_QUERIES} frames rendered, "
+        f"{SEVENSCENES_REFS * SEVENSCENES_QUERIES} pairs, {time.perf_counter() - t0:.2f} s")
+    plots = importlib.util.find_spec("matplotlib") is not None
+    numbers = {}
+    for triang in (False, True):
+        out = root / ("triang" if triang else "median")
+        corr.reset_launches()
+        t0 = time.perf_counter()
+        cli.main([str(REPO / "configs/matching/sevenscenes/sift_emat_planercnn.yaml"),
+                  str(dataset), "-odir", str(out), "--device", DEVICE]
+                 + (["--triang"] if triang else []))
+        elapsed = time.perf_counter() - t0
+        if any(corr.launches.values()):
+            raise AssertionError("the 7Scenes sweep launched a correlation kernel")
+        res = np.load(out / "results.npy", allow_pickle=True).item()["chess"]
+        t_err = np.array([r["abs_t_err"] for r in res.values() if r is not None])
+        r_err = np.array([r["abs_r_err"] for r in res.values() if r is not None])
+        report = (out / "test_results.txt").read_text()
+        jpgs = sorted(p.name for p in out.glob("*.jpg"))
+        tag = "--triang" if triang else "median"
+        log(f"[eval] 7Scenes CLI {tag}: {len(t_err)} of {SEVENSCENES_QUERIES} queries localised "
+            f"in {elapsed:.2f} s, median {np.median(t_err):.4f} m / {np.median(r_err):.3f} deg "
+            f"(limits {MATCH_T_TOL_M} m, {MATCH_ROT_TOL_DEG} deg); plots {jpgs or 'none'}")
+        if len(t_err) != SEVENSCENES_QUERIES or not (np.median(t_err) < MATCH_T_TOL_M
+                                                    and np.median(r_err) < MATCH_ROT_TOL_DEG):
+            raise AssertionError(f"7Scenes {tag}: queries not localised within the limits")
+        if not (out / "pose_chess.txt").is_file():
+            raise AssertionError(f"7Scenes {tag}: no pose_chess.txt")
+        if not plots and (jpgs or "matplotlib is not installed" not in report):
+            raise AssertionError(f"7Scenes {tag}: without matplotlib, plots {jpgs} and no line "
+                                 "saying so")
+        numbers[tag] = {"s": elapsed, "t_median_m": float(np.median(t_err)),
+                        "r_median_deg": float(np.median(r_err)), "plots": jpgs}
+    return numbers
+
+
+def eval_scorer(mapfree_root: Path) -> dict:
+    """(e) The MapFree scorer's main(argv) on phase 13's submission.zip of
+    loftr_emat_dptkitti.yaml, and on a zip of the ground-truth poses, which
+    must score zero error and precision 1."""
+    from mapfree_tpu_torch.benchmark import mapfree as cli
+
+    zip_path = mapfree_root / "loftr_emat_dptkitti" / "submission.zip"
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        got = cli.main([str(zip_path), "--dataset_path", str(mapfree_root)])
+    if got is None or json.loads(out.getvalue()) != json.loads(json.dumps(got)):
+        raise AssertionError("the scorer printed no JSON of its metrics")
+    pose_key = next(k for k in got if k.startswith("Precision @ Pose"))
+    log(f"[eval] MapFree scorer on phase 13's loftr_emat_dptkitti submission: {json.dumps(got)}")
+    if not (all(np.isfinite(v) for v in got.values()) and got["Estimates for % of frames"] == 1.0
+            and got[pose_key] >= 0.9):
+        raise AssertionError("the scorer's metrics of phase 13's submission are off")
+    gt_zip = mapfree_root / "ground_truth.zip"
+    with ZipFile(gt_zip, "w") as z:
+        for scene in sorted(p for p in (mapfree_root / "test").iterdir() if p.is_dir()):
+            lines = [ln + " 1.0" for ln in (scene / "poses.txt").read_text().splitlines()
+                     if ln.startswith("seq1/")]
+            z.writestr(f"pose_{scene.name}.txt", "\n".join(lines))
+    with contextlib.redirect_stdout(io.StringIO()):
+        gt = cli.main([str(gt_zip), "--dataset_path", str(mapfree_root)])
+    log(f"[eval] MapFree scorer on the ground truth: {json.dumps(gt)}")
+    if not (gt["Average Median Translation Error"] < 1e-6
+            and gt["Average Median Rotation Error"] < 1e-3
+            and gt["Average Median Reprojection Error"] < 1e-3
+            and gt[pose_key] == 1.0 and gt["Precision @ VCRE < 90px"] == 1.0):
+        raise AssertionError("the ground truth does not score zero error and precision 1")
+    return {"phase13_loftr_emat": got, "ground_truth": gt}
+
+
+def phase_evaluation(root: Path, mapfree_root: Path) -> dict:
+    """Phase 14: the evaluation path (the ScanNet and 7Scenes CLIs, SIFT on
+    the card, the MapFree scorer) and K1 at the ScanNet RPR shape."""
+    numbers = {}
+    t0 = time.perf_counter()
+    scannet = root / "scannet"
+    scannet.mkdir()
+    dataset, paths = write_scannet_tree(scannet)
+    log(f"[eval] ScanNet tree: {SCANNET_FRAMES} frames (copies of the 4 1296x968 fixtures), "
+        f"{SCANNET_PAIRS} pairs, 640x480 .pgm depth, {time.perf_counter() - t0:.2f} s")
+    numbers["decode"] = scannet_decode(paths)
+    numbers["scannet_rpr"] = eval_scannet_rpr(scannet, dataset)
+    k1 = time_k1(64, 60, 80, 32, "bfloat16", seed=SEED + 105)
+    numbers["sift"] = eval_sift(scannet, dataset)
+    (root / "sevenscenes").mkdir()
+    numbers["sevenscenes"] = eval_sevenscenes(root / "sevenscenes")
+    numbers["scorer"] = eval_scorer(mapfree_root)
+    launches = {"scannet_cli": numbers["scannet_rpr"].pop("launches")}
+    return {"launches": launches, "numbers": numbers, "k1_scannet_shape": k1}
+
 
 
 def main() -> None:
@@ -2797,13 +3207,19 @@ def main() -> None:
     phase_train_parity_bf16()
     phase_decode()
     cli_launches = phase_clis()
-    # the QKV, fusion and other RPR paths: each phase resets the counts
-    # just before each path it drives and reads them just after
+    # the QKV, fusion and other RPR paths, the matching track and the
+    # evaluation path: each phase resets the counts just before each path it
+    # drives and reads them just after
     later = {"qkv": phase_qkv_path(), "fusion": phase_fusion_path(),
-             "configs": phase_configs(), "fusion_clis": phase_fusion_clis(),
-             "matching": phase_matching()}
+             "configs": phase_configs(), "fusion_clis": phase_fusion_clis()}
+    with tempfile.TemporaryDirectory() as tmp:
+        later["matching"] = phase_matching(Path(tmp) / "mapfree")
+        later["evaluation"] = phase_evaluation(Path(tmp), Path(tmp) / "mapfree")
 
     from mapfree_tpu_torch.ops import correlation as corr
+
+    # K1 at the ScanNet RPR sweep's shape (phase 14 b) beside its other shapes
+    timing[corr.KERNEL]["scannet_shape"] = later["evaluation"].pop("k1_scannet_shape")
 
     by_path = {name: {"train_loop": n} for name, n in train_launches.items()}
     by_path[corr.KERNEL]["inference_sweep"] = sweep_launches

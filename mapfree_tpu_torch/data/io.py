@@ -6,10 +6,13 @@ arrays.
 ``device="cpu"``, as the JAX package's cv2/PIL branch does. cv2 and PIL are
 imported only on the host path, at first use; on the card neither is touched.
 PNGs (depth maps, 7Scenes colour frames) are read on every host by the
-port's own reader, which needs neither (``data/png.py``).
+port's own reader, which needs neither (``data/png.py``), and so are 16-bit
+binary PGMs (ScanNet's depth maps, :func:`read_pgm16`).
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 
@@ -36,6 +39,59 @@ def _pil_image():
 
 def _is_png(path) -> bool:
     return str(path).lower().endswith(".png")
+
+
+def _is_pgm(path) -> bool:
+    return str(path).lower().endswith(".pgm")
+
+
+def _pnm_header(data: bytes, path) -> tuple:
+    """The Netpbm header's four tokens (magic, width, height, maxval) and
+    the offset of the raster: tokens split by whitespace, ``#`` comments to
+    the end of their line, and one whitespace byte after the last."""
+    tokens, i, n = [], 0, len(data)
+    while len(tokens) < 4:
+        while i < n and (data[i:i + 1].isspace() or data[i:i + 1] == b"#"):
+            if data[i:i + 1] == b"#":
+                while i < n and data[i:i + 1] not in (b"\n", b"\r"):
+                    i += 1
+            else:
+                i += 1
+        start = i
+        while i < n and not data[i:i + 1].isspace() and data[i:i + 1] != b"#":
+            i += 1
+        if start == i:
+            raise ValueError(f"{path}: the Netpbm header is cut off")
+        tokens.append(data[start:i])
+    if i >= n or not data[i:i + 1].isspace():
+        raise ValueError(f"{path}: no whitespace between the Netpbm header and the raster")
+    return tokens, i + 1
+
+
+def read_pgm16(path) -> np.ndarray:
+    """A 16-bit binary PGM (Netpbm ``P5``, maxval 65535, big-endian samples)
+    -> uint16 [H, W], as cv2's IMREAD_UNCHANGED gives it. Any other PNM
+    variant (ASCII, 8-bit, PPM, PAM) raises."""
+    data = Path(path).read_bytes()
+    if data[:2] != b"P5" or not data[2:3].isspace():
+        raise ValueError(f"{path}: {data[:2]!r} is not a binary PGM (P5); only "
+                         "16-bit binary PGMs are read")
+    tokens, offset = _pnm_header(data, path)
+    try:
+        width, height, maxval = (int(t) for t in tokens[1:])
+    except ValueError:
+        raise ValueError(f"{path}: the PGM header's sizes are not integers") from None
+    if maxval != 65535:
+        raise ValueError(f"{path}: PGM maxval {maxval}; only 16-bit PGMs (maxval 65535) "
+                         "are read")
+    if width <= 0 or height <= 0:
+        raise ValueError(f"{path}: PGM of {width}x{height}")
+    nbytes = 2 * width * height
+    if len(data) - offset < nbytes:
+        raise ValueError(f"{path}: the PGM raster holds {len(data) - offset} bytes of "
+                         f"{nbytes}")
+    raster = np.frombuffer(data, ">u2", width * height, offset)
+    return raster.astype(np.uint16).reshape(height, width)
 
 
 def _no_host_reader(path) -> RuntimeError:
@@ -97,12 +153,17 @@ def read_color_image(path, resize=None, augment_fn=None) -> np.ndarray:
     """Read on the host, resize to (w, h), normalize to [0, 1] float32 NHWC
     (reference lib/datasets/utils.py:58-74, minus the CHW permute)."""
     image = imread_rgb(path)
-    if resize is not None:
+    if resize is not None and tuple(resize) != (image.shape[1], image.shape[0]):
+        # at the size asked for cv2.resize returns its input unchanged, so
+        # only a real resize needs an image library
         cv2 = _cv2()
         if cv2 is not None:
             image = cv2.resize(image, tuple(resize))
         else:
-            image = np.asarray(_pil_image().fromarray(image).resize(tuple(resize)))
+            Image = _pil_image()
+            if Image is None:
+                raise _no_host_reader(path)
+            image = np.asarray(Image.fromarray(image).resize(tuple(resize)))
     image = image.astype(np.float32) / 255.0
     if augment_fn is not None:
         image = augment_fn(image)
@@ -111,13 +172,15 @@ def read_color_image(path, resize=None, augment_fn=None) -> np.ndarray:
 
 def read_depth_image(path) -> np.ndarray:
     """Read a 16-bit depth image in millimeters -> float32 meters [H, W]
-    (reference lib/datasets/utils.py:77-81): a PNG with the port's reader,
-    anything else (ScanNet's .pgm) with cv2, else PIL."""
+    (reference lib/datasets/utils.py:77-81): a PNG or a 16-bit PGM
+    (ScanNet's) with the port's readers, anything else with cv2, else PIL."""
     if _is_png(path):
         depth = read_png(path)
         if depth.ndim != 2:
             raise ValueError(f"{path}: a depth map is a one-channel PNG, got {depth.shape}")
         return (depth / 1000.0).astype(np.float32)
+    if _is_pgm(path):
+        return (read_pgm16(path) / 1000.0).astype(np.float32)
     cv2 = _cv2()
     if cv2 is not None:
         depth = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)

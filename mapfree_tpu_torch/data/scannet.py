@@ -4,8 +4,8 @@ mapfree_tpu/data/scannet.py).
 Behavioural equivalent of reference lib/datasets/scannet.py:19-163: pair lists
 + overlap scores from npz index files, c2w poses converted to w2c relative
 transforms, intrinsics from ``_info.txt``, GT pgm depth or precomputed-depth
-npz. Samples use the framework's NHWC numpy contract. The pgm depth maps
-are read on the host with cv2 or PIL (data/io.py).
+npz. Samples use the framework's NHWC numpy contract. The 16-bit pgm depth
+maps are read on every host by the port's own reader (data/io.py).
 """
 
 from __future__ import annotations

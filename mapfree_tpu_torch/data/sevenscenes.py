@@ -5,7 +5,9 @@ Behavioural equivalent of reference lib/datasets/sevenscenes.py:14-196:
 (reference, query) pairs with relative pose + DVLAD similarity from a pair
 txt, absolute poses from dataset_{train,test}.txt, fixed f=525 intrinsics,
 optional one-NN filtering and estimated-depth suffixes. Its colour frames
-and depth maps are PNGs, read on the host with cv2 or PIL (data/io.py).
+and depth maps are PNGs, read on every host by the port's own reader
+(data/io.py); the 640x480 frames at configs/sevenscenes.yaml's size need no
+resize, so no image library either.
 """
 
 from __future__ import annotations

@@ -4,8 +4,9 @@ datasets' relative poses, torch for the models and losses.
 The port's copy of mapfree_tpu/geom/quaternion.py, whose functions take
 numpy or jax arrays alike: the numpy branch (``qinverse``, ``qconjugate``,
 ``qmult``, ``rotate_vector``, ``quat2mat``, ``mat2quat``,
-``relative_pose_wxyz``) and, for torch tensors, ``quat2mat_torch`` and
-``mat2quat_torch`` (the multi-frame fusion and the quaternion losses). Every
+``relative_pose_wxyz``, ``convert_world2cam_to_cam2world``) and, for torch
+tensors, ``quat2mat_torch`` and ``mat2quat_torch`` (the multi-frame fusion
+and the quaternion losses). Every
 function takes a batch of leading axes. Convention: (w, x, y, z), scalar
 first, as in the MapFree pose-file format.
 """
@@ -121,6 +122,14 @@ def relative_pose_wxyz(q1_wxyz, t1, q2_wxyz, t2):
     q12 = qmult(q2_wxyz, qinverse(q1_wxyz))
     t12 = t2 - rotate_vector(t1, q12)
     return q12, t12
+
+
+def convert_world2cam_to_cam2world(q, t):
+    """World-to-camera (q, t) -> camera-to-world (reference:
+    benchmark/utils.py:12-15)."""
+    qinv = qinverse(q)
+    tinv = -rotate_vector(t, qinv)
+    return qinv, tinv
 
 
 def quat2mat_torch(q):

@@ -28,6 +28,19 @@ Writes, beside this script:
   decoder is held to the mean limit of 1.0 level and to that largest
   difference.
 
+``make_fixtures.py scannet`` writes the ScanNet fixtures (cv2, numpy and
+the JAX package):
+- ``scannet_{0..3}.jpg``: 1296x968 colour frames (ScanNet's colour size) at
+  JPEG quality 80, views of the textured room of ``room.py::render_view``
+  from the camera poses of ``room.py::scannet_views``, so that a matcher
+  finds true correspondences between them and their depth (rendered at any
+  size by the same function) agrees with their poses;
+- ``jax_decode_scannet_320x240.npz``: the JAX package's cv2-branch decode of
+  those files at the ScanNet RPR size (``uint8`` NHWC [4, 240, 320, 3]);
+- ``scannet_decode_gap.json``, when ``mapfree_native`` is importable: the
+  JAX package's own two decode paths' gap on those files (native against
+  cv2), as ``decode_gap.json`` holds it for the MapFree frames.
+
 Needs cv2, numpy and the JAX package; ``make_fixtures.py png`` writes
 only the PNG fixtures (cv2 and numpy).
 """
@@ -43,6 +56,7 @@ import numpy as np
 HERE = Path(__file__).resolve().parent
 REPO = HERE.parents[2]
 sys.path.insert(0, str(REPO))
+sys.path.insert(0, str(HERE))
 
 WIDTH, HEIGHT = 540, 720       # source frames
 OUT_W, OUT_H = 270, 360        # configs/regression/mapfree/3d3d.yaml
@@ -89,6 +103,43 @@ def depth_map(seed: int) -> np.ndarray:
     return (np.round(np.clip(d * 100.0, 150, 800)) * 10).astype(np.uint16)
 
 
+def write_scannet_fixtures() -> None:
+    import cv2
+
+    import mapfree_tpu.data.io as jax_io
+    from room import SCANNET_H, SCANNET_K, SCANNET_W, render_view, scannet_views
+
+    paths = []
+    for i, (R, C) in enumerate(scannet_views()):
+        rgb, _ = render_view(SCANNET_K, R, C, SCANNET_W, SCANNET_H)
+        path = HERE / f"scannet_{i}.jpg"
+        cv2.imwrite(str(path), cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR),
+                    [cv2.IMWRITE_JPEG_QUALITY, 80])
+        paths.append(str(path))
+    native = jax_io._HAS_NATIVE
+    jax_io._HAS_NATIVE = False  # the cv2 branch, as where the C++ decoder is not built
+    try:
+        u8 = jax_io.decode_resize_batch(paths, 320, 240, uint8=True)
+    finally:
+        jax_io._HAS_NATIVE = native
+    np.savez_compressed(HERE / "jax_decode_scannet_320x240.npz", uint8=u8)
+    sizes = sum(Path(p).stat().st_size for p in paths)
+    print(f"wrote {len(paths)} ScanNet JPEGs ({sizes} bytes in all) and "
+          f"jax_decode_scannet_320x240.npz {u8.shape}")
+    if not native:
+        print("mapfree_native is not importable: scannet_decode_gap.json not written")
+        return
+    import mapfree_native
+
+    diff = np.abs(mapfree_native.decode_resize_batch(paths, 320, 240, uint8=True).astype(np.int32)
+                  - u8.astype(np.int32))
+    gap = {"uint8": {"max_abs": int(diff.max()), "mean_abs": float(diff.mean())},
+           "what": "native/decoder.cpp against the cv2 branch of mapfree_tpu/data/io.py, on "
+                   "scannet_0..3.jpg (1296x968) at 320x240 uint8"}
+    (HERE / "scannet_decode_gap.json").write_text(json.dumps(gap, indent=1) + "\n")
+    print(f"scannet_decode_gap.json: {gap}")
+
+
 def write_png_fixtures() -> None:
     import cv2
     from PIL import Image
@@ -109,6 +160,9 @@ def main() -> None:
 
     if sys.argv[1:] == ["png"]:
         write_png_fixtures()
+        return
+    if sys.argv[1:] == ["scannet"]:
+        write_scannet_fixtures()
         return
 
     import mapfree_tpu.data.io as jax_io

@@ -49,6 +49,11 @@ def test_port_entry_points_load_no_jax_modules():
         "import mapfree_tpu_torch.models.builder, mapfree_tpu_torch.utils.submission\n"
         "import mapfree_tpu_torch.tools.convert_weights, mapfree_tpu_torch.config\n"
         "import mapfree_tpu_torch.train.fit, mapfree_tpu_torch.utils.data\n"
+        "import mapfree_tpu_torch.ops.sift, mapfree_tpu_torch.ops.matching\n"
+        "import mapfree_tpu_torch.models.matching, mapfree_tpu_torch.utils.logger\n"
+        "import mapfree_tpu_torch.benchmark.mapfree, mapfree_tpu_torch.benchmark.scannet\n"
+        "import mapfree_tpu_torch.benchmark.sevenscenes, mapfree_tpu_torch.benchmark.localize\n"
+        "import mapfree_tpu_torch.tools.precompute_correspondences\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
@@ -59,7 +64,8 @@ def test_port_entry_points_load_no_jax_modules():
 
 def test_data_layer_and_clis_load_without_jax_cv2_or_pil(tmp_path):
     """The machine with the card has no JAX, cv2 or PIL: with each of them
-    unimportable, the data layer and both CLIs import, and a DataModule
+    unimportable, the data layer, the train and submission CLIs, the
+    evaluation CLIs and the precompute tool import, and a DataModule
     builds its datasets and loaders over a MapFree tree (no image is read:
     cv2 and PIL are imported only where the host decodes)."""
     from fixtures import make_scene
@@ -73,6 +79,9 @@ def test_data_layer_and_clis_load_without_jax_cv2_or_pil(tmp_path):
         "    sys.modules[name] = None  # import raises ImportError\n"
         "import mapfree_tpu_torch.data, mapfree_tpu_torch.submission\n"
         "import mapfree_tpu_torch.train.__main__\n"
+        "import mapfree_tpu_torch.benchmark.mapfree, mapfree_tpu_torch.benchmark.scannet\n"
+        "import mapfree_tpu_torch.benchmark.sevenscenes\n"
+        "import mapfree_tpu_torch.tools.precompute_correspondences\n"
         "from mapfree_tpu_torch.config import cfg\n"
         "from mapfree_tpu_torch.data import DataModule\n"
         "c = cfg.clone()\n"

@@ -7,7 +7,7 @@ transfer worker, so its steps follow the loader's order, as the port's
 do): R within 1e-3 rad, t within 1e-3 of |t|, equal inlier counts; the
 submission CLI against the JAX package's submission.py at 1e-3 per q and
 t; and the rules around the predictor (a matching config on a machine
-without a card raises; SIFT matching raises naming its ROADMAP item). The
+without a card raises; SIFT matching without cv2 raises naming SIFT_TPU). The
 essential solver's case is tests/test_torch_matching_emat.py."""
 
 import importlib.util
@@ -123,13 +123,25 @@ def test_a_matching_config_without_a_card_raises(tmp_path):
         build_model(cfg)
 
 
-def test_sift_matching_raises_naming_its_roadmap_item(tmp_path):
+def test_sift_matching_raises_naming_its_roadmap_item(tmp_path, monkeypatch):
+    """SIFT matching is ported (its item, 11b, is done): ``SIFT`` needs cv2
+    and, without it, raises when the model is built, naming ``SIFT_TPU``,
+    the on-device source, which builds and predicts with no library (blank
+    frames: no keypoints, so no estimate)."""
+    import sys
+
     cfg, _ = matching_case(tmp_path, "PNP", pt_default_cfg)
-    for kind in ("SIFT", "SIFT_TPU"):
-        cfg.FEATURE_MATCHING = kind
-        model = build_model(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item 11b"):
-            model.predict_batch({"image0": np.zeros((1, 64, 48, 3), np.uint8)})
+    cfg.FEATURE_MATCHING, cfg.SIFT.NUM_FEATURES, cfg.SIFT.RATIO_THRESHOLD = "SIFT", 64, 0.8
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(RuntimeError, match="use FEATURE_MATCHING SIFT_TPU"):
+        build_model(cfg, device="cpu")
+    cfg.FEATURE_MATCHING = "SIFT_TPU"
+    model = build_model(cfg, device="cpu")
+    blank = np.zeros((1, 64, 48, 3), np.uint8)
+    R, t, inliers = model.predict_batch({
+        "image0": blank, "image1": blank, "depth0": [np.ones((64, 48), np.float32)],
+        "K_color0": np.eye(3, dtype=np.float32)[None], "K_color1": np.eye(3, dtype=np.float32)[None]})
+    assert np.isnan(R).all() and inliers[0] == 0
 
 
 def test_tf32_off_blocks_on_two_threads_restore_the_flags():

@@ -2,8 +2,9 @@
 tiny batch on the CPU (its solver, its REFINE and DEPTH_NET settings, with
 budgets cut to 32 hypotheses over 64 correspondences and the depth net to
 one block a stage at random weights). Correspondences come with the batch;
-for the SIFT configs the config's own matcher must raise, naming
-ROADMAP.md item 11b, where SIFT is queued."""
+for the SIFT configs the config's own matcher (OpenCV's SIFT on the host,
+cv2 is installed here) first matches the batch's images, padded to the
+config's correspondence budget."""
 
 from pathlib import Path
 
@@ -15,6 +16,7 @@ from torch_threads import one_torch_thread  # noqa: F401
 
 from mapfree_tpu_torch.config import cfg as pt_default_cfg
 from mapfree_tpu_torch.models.builder import MatchingPredictor, build_model
+from mapfree_tpu_torch.models.matching import SIFTMatching
 
 REPO = Path(__file__).resolve().parents[1]
 CONFIGS = sorted(str(p.relative_to(REPO)) for p in (REPO / "configs/matching").rglob("*.yaml"))
@@ -45,10 +47,6 @@ def test_config_builds_and_solves_a_tiny_batch(path, tmp_path):
         np.savez(cfg.MATCHES_FILE_PATH, correspondences=np.zeros((1, 8, 4), np.float32))
     model = build_model(cfg, device="cpu")
     assert isinstance(model, MatchingPredictor)
-    if cfg.FEATURE_MATCHING != "Precomputed":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item 11b"):
-            model.model.feature_matching.get_correspondences({})
-    model.model.feature_matching = _Carried()
     p = synth_pairs(1, n_points=60, n_outliers=6, seed=len(path), pad=4)
     d0, d1 = depth_maps(p)
     rng = np.random.default_rng(0)
@@ -56,6 +54,12 @@ def test_config_builds_and_solves_a_tiny_batch(path, tmp_path):
              "K_color0": K[None], "K_color1": K[None], "depth0": list(d0), "depth1": list(d1),
              "image0": rng.integers(0, 256, (1, IMG_H, IMG_W, 3)).astype(np.uint8),
              "image1": rng.integers(0, 256, (1, IMG_H, IMG_W, 3)).astype(np.uint8)}
+    if cfg.FEATURE_MATCHING != "Precomputed":
+        assert cfg.FEATURE_MATCHING == "SIFT"
+        assert type(model.model.feature_matching) is SIFTMatching
+        pts0, pts1, mask = model.model.feature_matching.get_correspondences(batch)
+        assert pts0.shape == pts1.shape == (1, 64, 2) and mask.shape == (1, 64)
+    model.model.feature_matching = _Carried()
     if cfg.PROCRUSTES.REFINE and cfg.DEPTH_NET.ENABLED:
         return  # the JAX package refuses this pair of settings too (ROADMAP.md section 3)
     R, t, inliers = model.predict_batch(batch)

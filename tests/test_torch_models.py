@@ -263,14 +263,18 @@ def test_load_jax_variables_rejects_missing_extra_and_misshapen_leaves():
 
 
 def test_unported_variants_raise():
-    """What is left to port raises: SIFT matching (every regression model,
-    head and aggregator builds: tests/test_torch_variants*.py; the matching
-    track with precomputed correspondences too: tests/test_torch_matching*.py),
-    and names no module knows."""
+    """Names no module knows raise (every regression model, head and
+    aggregator builds: tests/test_torch_variants*.py; the matching track
+    with every correspondence source too, SIFT included:
+    tests/test_torch_matching*.py, test_torch_sift_matching.py); a matching
+    config is no regression net."""
     cfg = narrow_cfg(pt_default_cfg)
-    cfg.MODEL, cfg.FEATURE_MATCHING, cfg.POSE_SOLVER = "FeatureMatching", "SIFT", "PNP"
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pt_build_model(cfg, device="cpu").predict_batch({})
+    cfg.MODEL, cfg.FEATURE_MATCHING, cfg.POSE_SOLVER = "FeatureMatching", "SIFT_TPU", "PNP"
+    cfg.SIFT.NUM_FEATURES, cfg.SIFT.RATIO_THRESHOLD = 64, 0.8
+    assert pt_build_model(cfg, device="cpu").model.feature_matching.on_device
+    cfg.FEATURE_MATCHING = "NoSuchSource"
+    with pytest.raises(NotImplementedError, match="Invalid feature matching"):
+        pt_build_model(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="Invalid regression model"):
         pt_build_net(cfg)
     cfg.MODEL = "NoSuchModel"

@@ -1,7 +1,10 @@
 """Shared pieces of the PyTorch port's data-layer and matching tests: batch
 comparison (a batch or a sample of the JAX package against the port's, key
 by key), a MapFree scene whose depth maps and correspondences agree with
-its poses, and a matching config over it in either package's schema."""
+its poses, a matching config over it in either package's schema, and
+batches of the textured room the ScanNet fixtures show."""
+
+from pathlib import Path
 
 import numpy as np
 
@@ -113,3 +116,60 @@ def predictions(results):
 
     return {(s, p.image_name): (quat2mat(np.asarray(p.q, np.float64)), np.asarray(p.t), p.inliers)
             for s, poses in results.items() for p in poses}
+
+
+def room_module():
+    """tests/data/torch_port/room.py, imported: the textured room of the
+    ScanNet fixtures, rendered at any size, and trees of it."""
+    import importlib.util
+    import sys
+
+    name = "torch_port_room"
+    if name not in sys.modules:
+        path = Path(__file__).resolve().parent / "data" / "torch_port" / "room.py"
+        spec = importlib.util.spec_from_file_location(name, path)
+        sys.modules[name] = module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+    return sys.modules[name]
+
+
+def room_batch(W, H, pairs, n_views=4):
+    """A collated matching batch of the textured room seen from
+    ``room.scannet_views`` at W x H: uint8 RGB images, depth maps (lists,
+    as the loader keeps them), intrinsics, and the true relative poses
+    [B, 4, 4] (view i to view j of each pair (i, j))."""
+    room = room_module()
+    K = room.correct_intrinsic_scale(room.SCANNET_K, W / room.SCANNET_W, H / room.SCANNET_H)
+    views = [room.render_view(K, R, C, W, H) for R, C in room.scannet_views(n_views)]
+    w2c = []
+    for R, C in room.scannet_views(n_views):
+        T = np.eye(4)
+        T[:3, :3], T[:3, 3] = R, C
+        w2c.append(np.linalg.inv(T))
+    B = len(pairs)
+    return {
+        "image0": np.stack([views[i][0] for i, _ in pairs]),
+        "image1": np.stack([views[j][0] for _, j in pairs]),
+        "depth0": [views[i][1] for i, _ in pairs],
+        "depth1": [views[j][1] for _, j in pairs],
+        "K_color0": np.tile(K.astype(np.float32), (B, 1, 1)),
+        "K_color1": np.tile(K.astype(np.float32), (B, 1, 1)),
+        "T_0to1": np.stack([w2c[j] @ np.linalg.inv(w2c[i]) for i, j in pairs]).astype(np.float32),
+    }
+
+
+def model_yaml(root, src, overrides):
+    """A copy of the repository's config ``src`` (a path under the
+    repository) in ``root``, with ``overrides`` merged: {node: {key: value}}
+    updates a node, {key: value} sets a key."""
+    import yaml
+
+    cfg = yaml.safe_load((Path(__file__).resolve().parents[1] / src).read_text())
+    for node, values in overrides.items():
+        if isinstance(values, dict):
+            cfg.setdefault(node, {}).update(values)
+        else:
+            cfg[node] = values
+    path = Path(root) / Path(src).name
+    path.write_text(yaml.safe_dump(cfg))
+    return path
