@@ -59,7 +59,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    most 1 level, the largest no larger than the JAX package's own two
    decode paths differ on those files), the zero-fill of a missing file and
    of four that nvJPEG reports as bad input (empty, no JPEG, cut off,
-   garbage scan), and the wall time of a 64-frame batch;
+   garbage scan), the wall time of a 64-frame batch, and the same batch
+   decoded beside queued work on the card equal to the quiet decode;
 8. the user's CLIs from JPEG files: a MapFree tree of fixture copies in a
    temporary directory (DATA_ROOT set by a YAML there), the submission CLI
    (python -m mapfree_tpu_torch.submission's main) at 3d3d.yaml's width,
@@ -121,7 +122,26 @@ Phases, in order; any failure raises and the script exits nonzero:
    with --triang over a tree of the room rendered here (640x480 PNGs,
    correspondences from the known geometry); (e) the MapFree scorer on
    phase 13's loftr_emat_dptkitti submission.zip and on a zip of the
-   ground truth (zero error, precision 1).
+   ground truth (zero error, precision 1);
+15. the tools (no kernel of their own but K1): (a) the depth net's training
+   tool (python -m mapfree_tpu_torch.tools.train_depth's main) at full width
+   (configs/mapfree.yaml: 720x540, bf16, NUM_BLOCKS 2-2-2) for 20 steps of
+   8 pairs over a MapFree train tree of the fixture JPEGs with 16-bit GT
+   depth PNGs written here, every logged loss finite; the full-width step
+   timed on the card (ms, images/s, peak memory, a profiler window); one
+   float32 step of a small depth net on the card against the CPU (phase
+   6's tolerances); the submission CLI with sift_emat_ingraph.yaml over
+   phase 13's tree on the written depth.pt (no ALLOW_RANDOM); (b) a
+   Lightning checkpoint of the 3d3d net at random weights through the
+   converter's CLI, and the submission CLI on the .ckpt and on the .pt
+   (bit-equal poses); (c) the submission CLI on the .pt with --num_hosts 3
+   --host_id 2, 1, 0 (host 0 merges), then single-host: the same files and
+   frames, poses within SHARDED_POSE_TOL; (d) render_estimates over a scene
+   of 40 query photos at 960x720 on the card (an MP4 where cv2 imports,
+   else every frame rendered and counted and one line), render_frames on
+   the card against the CPU on the same photos (share of differing
+   pixels), ms per frame on both, and render_scene on the card with cv2
+   hidden (no MP4, the frames counted, one line).
 
 The last line of standard output is {"ok": true, "device": {...}}; a
 "kernels" JSON line and the card's name and power limit precede it. With no
@@ -931,19 +951,22 @@ def phase_kernel_timing() -> dict:
 # -- phase 4 -----------------------------------------------------------------
 
 def load_cfg(overrides: dict | None = None,
-             model_yaml: str = "configs/regression/mapfree/3d3d.yaml"):
+             model_yaml: str | None = "configs/regression/mapfree/3d3d.yaml"):
     """``model_yaml`` over its dataset config (configs/scannet.yaml for the
     ScanNet models, configs/mapfree.yaml then configs/mapfree_multi.yaml for
-    the multi-frame ones, configs/mapfree.yaml otherwise), then dotted
-    ``overrides``."""
+    the multi-frame ones, configs/mapfree.yaml otherwise; with ``None``
+    configs/mapfree.yaml alone, the depth net's training config), then
+    dotted ``overrides``."""
     from mapfree_tpu_torch.config import cfg as default_cfg
 
     cfg = default_cfg.clone()
+    model_yaml = model_yaml or ""
     cfg.merge_from_file(str(REPO / ("configs/scannet.yaml" if "/scannet/" in model_yaml
                                     else "configs/mapfree.yaml")))
     if "/multiframe/" in model_yaml:
         cfg.merge_from_file(str(REPO / "configs/mapfree_multi.yaml"))
-    cfg.merge_from_file(str(REPO / model_yaml))
+    if model_yaml:
+        cfg.merge_from_file(str(REPO / model_yaml))
     for key, value in (overrides or {}).items():
         node = cfg
         *path, leaf = key.split(".")
@@ -1622,6 +1645,22 @@ def phase_decode() -> dict:
         out[key].update(ms_per_batch=ms, frames_per_s=64e3 / ms)
         log(f"[decode] 64 frames of 540x720 to 270x360 {key}: {ms:.2f} ms per batch, "
             f"{64e3 / ms:.1f} frames/s (wall, {jpeg.DECODE_THREADS} host threads)")
+
+    # the same batch decoded while the card is busy with other work on this
+    # thread's stream, as the loader decodes beside the sweep's forwards:
+    # the frames must be those of the quiet decode
+    quiet = jpeg.decode_resize_batch(batch, 270, 360, device="cuda", uint8=True)
+    x = torch.randn(4096, 4096, device="cuda")
+    torch.cuda.synchronize()
+    for _ in range(60):  # some 0.2 s of float32 products queued ahead
+        torch.mm(x, x)
+    busy = jpeg.decode_resize_batch(batch, 270, 360, device="cuda", uint8=True)
+    torch.cuda.synchronize()
+    differing = int((busy != quiet).any(axis=(1, 2, 3)).sum())
+    log(f"[decode] 64 frames decoded beside 60 queued 4096^2 products: {differing} frames "
+        "differ from the quiet decode's")
+    if differing:
+        raise AssertionError("frames decoded beside other work on the card differ")
     return out
 
 
@@ -3175,6 +3214,449 @@ def phase_evaluation(root: Path, mapfree_root: Path) -> dict:
     return {"launches": launches, "numbers": numbers, "k1_scannet_shape": k1}
 
 
+# -- phase 15: the depth net's training tool, the converter, the sharded sweep, the renderer
+
+DEPTH_TRAIN_STEPS = 20
+DEPTH_BATCH = 8          # pairs a step: 16 views of 720x540
+DEPTH_LOG_EVERY = 5
+# the sharded sweep against the single-host sweep: the same files and
+# frames, and each pose within this (the rotation angle in radians, t
+# relative to max(1, |t|)): a host's batches hold other scenes' pairs, so
+# their unique-ref buckets (the encoder's batch) differ, and cuDNN may pick
+# another engine for another shape, which moves a pose by bf16 round-off
+# (the random weights' near-degenerate Kabsch solves amplify it)
+SHARDED_POSE_TOL = 2e-2
+# the card's frames against the CPU's: the fill is float64 operation for
+# operation on both, the triangle setup is the same numpy, so no pixel should
+# differ; the limit allows a pixel centre within round-off of an edge
+RENDER_PIXEL_SHARE_TOL = 1e-4
+RENDER_FRAMES = 40       # query frames of the rendered scene (every 5th of 200)
+RENDER_CPU_FRAMES = 3
+
+
+def write_depth_tree(root: Path, n_scenes: int = 2, n_queries: int = 40) -> dict:
+    """A MapFree train split of fixture JPEG copies (540x720) with 16-bit GT
+    depth PNGs (``.gt.png``, the fixtures' depth maps encoded here with
+    zlib), all pairs with overlaps inside configs/mapfree.yaml's limits."""
+    import shutil
+
+    rng = np.random.default_rng(SEED + 150)
+    frames = sorted(FIXTURES.glob("frame_*.jpg"))
+    stored = np.load(FIXTURES / "png_decoded.npz")["depth"]
+    pngs = [encode_png16(d) for d in stored]
+    for s in range(n_scenes):
+        scene = root / "train" / f"s{s:05d}"
+        names = ["seq0/frame_00000.jpg"] + [f"seq1/frame_{i:05d}.jpg" for i in range(n_queries)]
+        intr, poses = [], []
+        for j, name in enumerate(names):
+            (scene / name).parent.mkdir(parents=True, exist_ok=True)
+            k = (j + s) % len(frames)
+            shutil.copyfile(frames[k], scene / name)
+            (scene / name.replace(".jpg", ".gt.png")).write_bytes(pngs[k])
+            q = rng.normal(size=4)
+            q /= np.linalg.norm(q)
+            intr.append(f"{name} 590.0 590.0 270.0 360.0 540 720")
+            poses.append(f"{name} " + " ".join(f"{v:.9f}" for v in np.concatenate(
+                [q, rng.normal(size=3)])))
+        (scene / "intrinsics.txt").write_text("\n".join(intr) + "\n")
+        (scene / "poses.txt").write_text("\n".join(poses) + "\n")
+        np.savez(scene / "overlaps.npz",
+                 idxs=np.array([(0, 0, 1, i) for i in range(n_queries)], dtype=np.int64),
+                 overlaps=rng.uniform(0.3, 0.6, size=n_queries))
+    return {"pairs": n_scenes * n_queries}
+
+
+def depth_card_vs_cpu() -> dict:
+    """One float32 step of a small depth net (one block per stage, 96x72,
+    batch 2 pairs) on the card and on the CPU, same weights and batch: the
+    loss and every gradient (phase 6's tolerances: ReLU inputs within
+    round-off of zero flip branches between the two)."""
+    import torch
+
+    from mapfree_tpu_torch.tools import train_depth
+
+    cfg = load_cfg({"DEPTH_NET.NUM_BLOCKS": "1-1-1", "TPU.COMPUTE_DTYPE": "float32",
+                    "TPU.SEED": SEED}, model_yaml=None)
+    rng = np.random.default_rng(SEED + 151)
+    images = rng.integers(0, 256, (4, 96, 72, 3), dtype=np.uint8)
+    gt = rng.uniform(0.5, 8.0, (4, 96, 72)).astype(np.float32)
+    gt[:, :8] = 0.0
+    loss, grads = {}, {}
+    for name, dev in (("card", DEVICE), ("cpu", "cpu")):
+        net = train_depth.build_net(cfg).to(dev)
+        step = train_depth.make_step(net, torch.optim.Adam(net.parameters(), lr=1e-4))
+        loss[name] = float(step(torch.from_numpy(images).to(dev), torch.from_numpy(gt).to(dev)))
+        grads[name] = {k: p.grad.detach().cpu() for k, p in net.named_parameters()}
+    per, l2 = _grad_errors(grads["card"], grads["cpu"])
+    rel = abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"])
+    median = per[len(per) // 2][0]
+    log(f"[depth] float32 depth step, GPU vs CPU: loss {loss['card']:.6f} vs {loss['cpu']:.6f} "
+        f"(rel {rel:.2e}, tol {STEP_LOSS_RTOL:g}); whole gradient {l2:.2e} in L2 (tol "
+        f"{STEP_CPU_L2_TOL:g}); median tensor {median:.2e} of its largest entry (tol "
+        f"{STEP_CPU_MEDIAN_TOL:g}); worst tensor {per[0][0]:.2e} at {per[0][1]}")
+    if rel > STEP_LOSS_RTOL or l2 > STEP_CPU_L2_TOL or median > STEP_CPU_MEDIAN_TOL:
+        raise AssertionError("the GPU and CPU depth train steps disagree")
+    return {"loss_rel": rel, "grad_l2": l2, "grad_median": median}
+
+
+def depth_step_timing(root: Path) -> dict:
+    """The full-width depth step (configs/mapfree.yaml: 720x540, bf16, 2-2-2)
+    on one loader batch of the tree already on the card: ms per step by CUDA
+    events, images/s, peak memory, and a profiler window."""
+    import torch
+
+    from mapfree_tpu_torch.data import MapFreeDataset, collate
+    from mapfree_tpu_torch.tools import train_depth
+
+    cfg = load_cfg({"DATASET.DATA_ROOT": str(root), "DATASET.ESTIMATED_DEPTH": "gt"},
+                   model_yaml=None)
+    dataset = MapFreeDataset(cfg, "train", device=DEVICE)
+    images, gt = train_depth.fold_batch(collate(dataset.getitems(list(range(DEPTH_BATCH)))))
+    images, gt = torch.from_numpy(images).to(DEVICE), torch.from_numpy(gt).to(DEVICE)
+    net = train_depth.build_net(cfg).to(DEVICE)
+    step = train_depth.make_step(net, torch.optim.Adam(net.parameters(), lr=1e-4))
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_time_ms(lambda: step(images, gt), iters=10, warmup=3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = profile_window(lambda: step(images, gt), "depth step")
+    n = images.shape[0]
+    log(f"[depth] full-width step ({n} views of {tuple(images.shape[1:3])}, {images.dtype}, "
+        f"bf16, NUM_BLOCKS {cfg.DEPTH_NET.NUM_BLOCKS}): {ms:.2f} ms per step, "
+        f"{1e3 * n / ms:.1f} images/s, peak {peak:.2f} GB, device busy "
+        f"{100 * prof['busy_share']:.1f}%, {prof['launches']} launches per step")
+    return {"ms_per_step": ms, "images_per_s": 1e3 * n / ms, "peak_gb": peak,
+            "busy_share": prof["busy_share"], "launches_per_step": prof["launches"]}
+
+
+def depth_training(root: Path, mapfree_root: Path) -> dict:
+    """(a) The training tool's CLI at full width, the card against the CPU on
+    a small step, and the in-graph sweep on the written .pt."""
+    import re
+
+    import torch
+
+    from mapfree_tpu_torch import submission
+    from mapfree_tpu_torch.tools import train_depth
+
+    tree = root / "depth"
+    t0 = time.perf_counter()
+    n_pairs = write_depth_tree(tree)["pairs"]
+    dataset_cfg, _ = write_configs(tree)
+    log(f"[depth] MapFree train tree with GT depth PNGs in {time.perf_counter() - t0:.2f} s: "
+        f"{n_pairs} pairs")
+    out = root / "depth.pt"
+    captured = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(captured):
+        path, last = train_depth.main([
+            str(dataset_cfg), "--data_root", str(tree), "--depth_suffix", "gt",
+            "--steps", str(DEPTH_TRAIN_STEPS), "--batch", str(DEPTH_BATCH), "--lr", "1e-4",
+            "--out", str(out), "--log_every", str(DEPTH_LOG_EVERY), "--device", DEVICE])
+        torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    text = captured.getvalue()
+    losses = [float(x) for x in re.findall(r"\[train_depth s\d+\] log-L1=(\S+)", text)]
+    for line in text.splitlines():
+        log(f"[depth]   {line}")
+    log(f"[depth] train_depth CLI: {DEPTH_TRAIN_STEPS} steps at batch {DEPTH_BATCH} "
+        f"({2 * DEPTH_BATCH} views) in {elapsed:.2f} s (build, nvJPEG and PNG loading, steps, "
+        f"save): {1e3 * elapsed / DEPTH_TRAIN_STEPS:.1f} ms per step end to end, "
+        f"{2 * DEPTH_BATCH * DEPTH_TRAIN_STEPS / elapsed:.1f} images/s; peak {peak:.2f} GB; "
+        f"losses {losses}")
+    if (len(losses) != DEPTH_TRAIN_STEPS // DEPTH_LOG_EVERY or not np.all(np.isfinite(losses))
+            or not path.is_file()):
+        raise AssertionError("the depth training tool did not log finite losses and write "
+                             "its checkpoint")
+    numbers = {"cli_s": elapsed, "cli_ms_per_step": 1e3 * elapsed / DEPTH_TRAIN_STEPS,
+               "losses": losses, "cli_peak_gb": peak}
+    numbers["step"] = depth_step_timing(tree)
+    numbers["card_vs_cpu"] = depth_card_vs_cpu()
+
+    # the in-graph matching config on the trained weights, over phase 13's tree
+    ingraph = root / "sift_emat_ingraph_trained.yaml"
+    ingraph.write_text((REPO / "configs/matching/mapfree/sift_emat_ingraph.yaml").read_text()
+                       + f"  CHECKPOINT: '{path}'\n")
+    t0 = time.perf_counter()
+    zip_path = submission.main([str(ingraph), "--dataset_config",
+                                str(mapfree_root / "mapfree.yaml"), "--device", DEVICE,
+                                "-o", str(root / "ingraph_trained")])
+    elapsed = time.perf_counter() - t0
+    trained = read_submission(zip_path)
+    random = read_submission(mapfree_root / "sift_emat_ingraph" / "submission.zip")
+    if {s: sorted(p) for s, p in trained.items()} != {s: sorted(p) for s, p in random.items()}:
+        raise AssertionError("the in-graph sweep on the trained .pt misses query frames")
+    moved = [np.abs(trained[s][f][1] - t).max() for s, fr in random.items()
+             for f, (_, t) in fr.items()]
+    n = len(moved)
+    log(f"[depth] sift_emat_ingraph on the trained depth.pt (no ALLOW_RANDOM): {n} finite "
+        f"poses in {elapsed:.2f} s; the translation moved from the random-weight run's "
+        f"(phase 13) on {np.mean(np.array(moved) > 1e-6):.1%} of the frames")
+    if np.mean(np.array(moved) > 1e-6) < 0.5:
+        raise AssertionError("the in-graph sweep's poses do not depend on the trained depth net")
+    numbers["ingraph_s"] = elapsed
+    return numbers
+
+
+def write_lightning_ckpt(path: Path, cfg, seed: int) -> None:
+    """A Lightning-style checkpoint of the config's net at random weights:
+    ``model.``-prefixed tensors, an optimizer state, loop counters."""
+    import torch
+
+    from mapfree_tpu_torch.models.blocks import init_weights
+    from mapfree_tpu_torch.models.regression import build_regression_net
+
+    net = build_regression_net(cfg)
+    init_weights(net, torch.Generator().manual_seed(seed))
+    state = net.state_dict()
+    params = [k for k, _ in net.named_parameters()]
+    torch.save({
+        "epoch": 7, "global_step": 3000, "pytorch-lightning_version": "1.6.0",
+        "state_dict": {f"model.{k}": v for k, v in state.items()},
+        "optimizer_states": [{
+            "state": {i: {"step": torch.tensor(3000.0), "exp_avg": torch.zeros_like(state[k]),
+                          "exp_avg_sq": torch.zeros_like(state[k])}
+                      for i, k in enumerate(params)},
+            "param_groups": [{"lr": 1e-4, "betas": (0.9, 0.999), "eps": 1e-6,
+                              "params": list(range(len(params)))}]}],
+    }, path)
+
+
+def _zip_files(path: Path) -> dict:
+    with ZipFile(path) as z:
+        return {n: z.read(n) for n in z.namelist()}
+
+
+def _pose_differences(a: dict, b: dict) -> np.ndarray:
+    """Per frame of ``b``: 0 where the two poses are equal, else max(rotation
+    angle between them in radians, |t_a - t_b| / max(1, |t_b|))."""
+    from mapfree_tpu_torch.geom.quaternion import quat2mat
+
+    out = []
+    for s, frames in b.items():
+        for f, (q, t) in frames.items():
+            qa, ta = a[s][f]
+            if np.array_equal(qa, q) and np.array_equal(ta, t):
+                out.append(0.0)
+                continue
+            R = quat2mat(qa).T @ quat2mat(q)
+            angle = np.arccos(np.clip((np.trace(R) - 1) / 2, -1.0, 1.0))
+            out.append(max(angle, np.abs(ta - t).max() / max(1.0, np.abs(t).max())))
+    return np.array(out)
+
+
+def converter_and_sharded_sweep(root: Path) -> dict:
+    """(b) A Lightning checkpoint of the 3d3d net through the converter's
+    CLI, and the submission CLI on both; (c) the sharded sweep on the .pt
+    for 3 hosts (2, 1, then 0, which merges), then single-host."""
+    from mapfree_tpu_torch import submission
+    from mapfree_tpu_torch.ops import correlation as corr
+    from mapfree_tpu_torch.tools.convert_weights import main as convert_main
+
+    model_cfg = str(REPO / "configs/regression/mapfree/3d3d.yaml")
+    tree = root / "sweep"
+    queries = write_mapfree_tree(tree, seed=SEED + 160)["test"]
+    dataset_cfg, _ = write_configs(tree)
+    ckpt, pt = root / "ref.ckpt", root / "converted.pt"
+    write_lightning_ckpt(ckpt, load_cfg(), SEED + 161)
+    t0 = time.perf_counter()
+    convert_main([str(ckpt), str(pt), "--config", model_cfg, "--dataset_config",
+                  str(REPO / "configs/mapfree.yaml"), "--device", DEVICE])
+    log(f"[convert] Lightning checkpoint of 3d3d ({ckpt.stat().st_size / 1e6:.1f} MB with its "
+        f"optimizer state) -> {pt.name} ({pt.stat().st_size / 1e6:.1f} MB) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    common = [model_cfg, "--dataset_config", str(dataset_cfg), "--device", DEVICE]
+    runs = {}
+    from_ckpt = run_submission_cli(common + ["--checkpoint", str(ckpt), "-o", str(root / "ckpt")],
+                                   queries, "submission CLI, Lightning .ckpt", tag="convert")
+    from_pt = run_submission_cli(common + ["--checkpoint", str(pt), "-o", str(root / "pt")],
+                                 queries, "submission CLI, converted .pt", tag="convert")
+    runs["convert_ckpt_cli"], runs["convert_pt_cli"] = from_ckpt["launches"], from_pt["launches"]
+    a, b = _zip_files(root / "ckpt" / "submission.zip"), _zip_files(root / "pt" / "submission.zip")
+    moved = _pose_differences(from_pt["poses"], from_ckpt["poses"])
+    log(f"[convert] the .pt's submission against the .ckpt's: {len(a)} scene files, "
+        f"{'bit-equal' if a == b else 'DIFFERENT'}; {np.mean(moved == 0):.1%} of the poses "
+        f"equal, largest difference {moved.max():.2e}")
+    if a != b:
+        raise AssertionError("the converted checkpoint gives other poses than the Lightning one")
+
+    # (c) the sharded sweep, host 0 last (it merges); then single-host
+    n_pairs = sum(len(v) for v in queries.values())
+    corr.reset_launches()
+    t0 = time.perf_counter()
+    for host in (2, 1, 0):
+        out = submission.main(common + ["--checkpoint", str(pt), "--num_hosts", "3",
+                                        "--host_id", str(host), "-o", str(root / "hosts")])
+    sharded_s = time.perf_counter() - t0
+    runs["sharded_cli"] = dict(corr.launches)
+    scenes = sorted(queries)
+    expected = sum(-(-sum(len(queries[s]) for s in scenes[h::3]) // 64) for h in range(3))
+    if runs["sharded_cli"][corr.KERNEL] != expected:
+        raise AssertionError(f"the sharded sweep launched K1 {runs['sharded_cli']} times, "
+                             f"expected {expected}")
+    single = run_submission_cli(common + ["--checkpoint", str(pt), "-o", str(root / "single")],
+                                queries, "submission CLI, single host", tag="sharded")
+    runs["single_host_cli"] = single["launches"]
+    merged, one = read_submission(out), single["poses"]
+    if {s: sorted(p) for s, p in merged.items()} != {s: sorted(p) for s, p in one.items()}:
+        raise AssertionError("the merged zip does not hold the single-host zip's frames")
+    errs = _pose_differences(merged, one)
+    equal = _zip_files(out) == _zip_files(root / "single" / "submission.zip")
+    log(f"[sharded] 3 hosts (each its own CLI run, host 0 merging): {n_pairs} pairs in "
+        f"{sharded_s:.2f} s, {n_pairs / sharded_s:.1f} pairs/s over the three runs "
+        f"(model builds included); K1 {runs['sharded_cli'][corr.KERNEL]} launches; merged zip "
+        f"against the single-host zip: {'bit-equal' if equal else 'not bit-equal'}, "
+        f"{np.mean(np.array(errs) == 0):.1%} of the poses equal, largest difference "
+        f"{max(errs):.2e} (limit {SHARDED_POSE_TOL:g})")
+    if max(errs) > SHARDED_POSE_TOL:
+        raise AssertionError("the sharded sweep's poses disagree with the single-host sweep's")
+    numbers = {"sharded_pairs_per_s": n_pairs / sharded_s, "sharded_bit_equal": equal,
+               "sharded_max_err": max(errs), "single_pairs_per_s": single["pairs_per_s"],
+               "convert_pairs_per_s": from_pt["pairs_per_s"]}
+    return {"launches": runs, "numbers": numbers}
+
+
+def write_render_tree(root: Path) -> Path:
+    """A MapFree val scene of RENDER_FRAMES query photos (every 5th of 200
+    frames; fixture JPEG copies, 540x720) on a smooth trajectory, and a
+    submission zip of noisy estimates for all but every 7th of them."""
+    import shutil
+
+    from mapfree_tpu_torch.geom.quaternion import mat2quat
+
+    rng = np.random.default_rng(SEED + 170)
+    frames = sorted(FIXTURES.glob("frame_*.jpg"))
+    scene = root / "val" / "s00000"
+    names = ["seq0/frame_00000.jpg"] + [f"seq1/frame_{i:05d}.jpg" for i in range(5 * RENDER_FRAMES)]
+    poses, lines = [], []
+    for j, name in enumerate(names):
+        a = 0.02 * j
+        R = _rotation(np.random.default_rng(j), 0.15) if j else np.eye(3)
+        c = np.array([np.sin(a), 0.1 * np.cos(3 * a), 0.5 * a]) if j else np.zeros(3)
+        q, t = mat2quat(R).reshape(-1), -R @ c  # world-to-camera, as poses.txt holds
+        poses.append(f"{name} " + " ".join(f"{v:.9f}" for v in np.concatenate([q, t])))
+        if name.startswith("seq1") and (j - 1) % 5 == 0:
+            (scene / name).parent.mkdir(parents=True, exist_ok=True)
+            shutil.copyfile(frames[j % len(frames)], scene / name)
+            if (j - 1) % 35:
+                qe = q + rng.normal(size=4) * 0.02
+                qe /= np.linalg.norm(qe)
+                te = t + rng.normal(size=3) * 0.1
+                lines.append(f"{name} " + " ".join(f"{v:.6f}" for v in np.concatenate([qe, te]))
+                             + f" {rng.uniform(0, 100):.1f}")
+    (scene / "seq0").mkdir(parents=True, exist_ok=True)
+    shutil.copyfile(frames[0], scene / names[0])
+    (scene / "poses.txt").write_text("\n".join(poses) + "\n")
+    with ZipFile(root / "submission.zip", "w") as z:
+        z.writestr("pose_s00000.txt", "\n".join(lines))
+    return root / "submission.zip"
+
+
+@contextlib.contextmanager
+def cv2_hidden():
+    """Inside the block ``import cv2`` raises ImportError, as on a machine
+    without it."""
+    saved = sys.modules.get("cv2")
+    sys.modules["cv2"] = None
+    try:
+        yield
+    finally:
+        if saved is None:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = saved
+
+
+def render(root: Path) -> dict:
+    """(d) render_estimates on the card (an MP4 where cv2 imports; else the
+    frames counted and one line), its frames on the card against the CPU's
+    on the same photos, and the scene once more with cv2 hidden."""
+    import itertools
+    from io import TextIOWrapper
+
+    import torch
+
+    from mapfree_tpu_torch.benchmark.utils import load_poses, subsample_poses
+    from mapfree_tpu_torch.visualisation import render_estimates
+    from mapfree_tpu_torch.visualisation.render_scene import render_frames
+
+    tree = root / "render"
+    zip_path = write_render_tree(tree)
+    captured = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(captured):
+        rendered = render_estimates.main([str(zip_path), "--dataset_path", str(tree),
+                                          "--split", "val", "-o", str(root / "renders"),
+                                          "--device", DEVICE])
+        torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    for line in captured.getvalue().splitlines():
+        log(f"[render]   {line}")
+    mp4 = root / "renders" / "s00000.mp4"
+    said_no_cv2 = any(line.startswith("render_scene: cv2 is not installed")
+                   for line in captured.getvalue().splitlines())
+    if rendered != {"s00000": RENDER_FRAMES} or mp4.exists() == said_no_cv2:
+        raise AssertionError(f"render_estimates rendered {rendered}, MP4 written: "
+                             f"{mp4.exists()}")
+    log(f"[render] render_estimates CLI on the card: {RENDER_FRAMES} frames of 960x720 with "
+        f"their query photos (nvJPEG) in {elapsed:.2f} s, {1e3 * elapsed / RENDER_FRAMES:.1f} "
+        f"ms per frame end to end")
+
+    scene = tree / "val" / "s00000"
+    with (scene / "poses.txt").open() as f:
+        gt = subsample_poses(load_poses(f), 5)
+    with ZipFile(zip_path) as z, z.open("pose_s00000.txt") as f:
+        est = load_poses(TextIOWrapper(f, encoding="utf-8"), load_confidence=True)
+    paths = {k: scene / "seq1" / f"frame_{k:05d}.jpg" for k in gt}
+    paths = {k: p for k, p in paths.items() if p.exists()}
+    photos = dict(zip(paths, render_estimates.read_photos(list(paths.values()), DEVICE)))
+
+    def frames_on(device, n):
+        out, t = [], time.perf_counter()
+        for frame, _ in itertools.islice(render_frames(gt, est, scene_images=photos,
+                                                       device=device), n):
+            out.append(frame.cpu().numpy())
+        return out, 1e3 * (time.perf_counter() - t) / n
+
+    card, card_ms = frames_on(DEVICE, RENDER_FRAMES)
+    cpu, cpu_ms = frames_on("cpu", RENDER_CPU_FRAMES)
+    differing = sum(int((a != b).any(-1).sum()) for a, b in zip(card, cpu))
+    share = differing / (RENDER_CPU_FRAMES * card[0].shape[0] * card[0].shape[1])
+    log(f"[render] render_frames: {card_ms:.1f} ms per 960x720 frame on the card "
+        f"({RENDER_FRAMES} frames), {cpu_ms:.1f} ms on the CPU ({RENDER_CPU_FRAMES} frames, "
+        f"{torch.get_num_threads()} threads); the first {RENDER_CPU_FRAMES} frames differ in "
+        f"{differing} pixels, a share of {share:.2e} (limit {RENDER_PIXEL_SHARE_TOL:g})")
+    if share > RENDER_PIXEL_SHARE_TOL:
+        raise AssertionError("the card's frames differ from the CPU's")
+    if not all(f.any() for f in card) or len({f.tobytes() for f in card}) < RENDER_FRAMES // 2:
+        raise AssertionError("the card's frames are blank or repeat")
+
+    from mapfree_tpu_torch.visualisation.render_scene import render_scene
+
+    captured = io.StringIO()
+    with cv2_hidden(), contextlib.redirect_stdout(captured):
+        n = render_scene(gt, est, root / "no_cv2.mp4", scene_images=photos, device=DEVICE)
+    lines = captured.getvalue().splitlines()
+    for line in lines:
+        log(f"[render]   {line}")
+    if n != RENDER_FRAMES or (root / "no_cv2.mp4").exists() or len(lines) != 1:
+        raise AssertionError("render_scene without cv2 did not render, count and say so")
+    return {"cli_ms_per_frame": 1e3 * elapsed / RENDER_FRAMES, "card_ms_per_frame": card_ms,
+            "cpu_ms_per_frame": cpu_ms, "pixel_share_differing": share}
+
+
+def phase_tools(root: Path, mapfree_root: Path) -> dict:
+    """Phase 15: the depth net's training tool, the converter's CLI, the
+    multi-host sweep and the renderer through their main(argv); phase 13's
+    tree is ``mapfree_root``."""
+    numbers = {"depth": depth_training(root, mapfree_root)}
+    swept = converter_and_sharded_sweep(root)
+    numbers["sweeps"] = swept["numbers"]
+    numbers["render"] = render(root)
+    return {"launches": swept["launches"], "numbers": numbers}
+
+
 
 def main() -> None:
     try:
@@ -3215,6 +3697,8 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         later["matching"] = phase_matching(Path(tmp) / "mapfree")
         later["evaluation"] = phase_evaluation(Path(tmp), Path(tmp) / "mapfree")
+        (Path(tmp) / "tools").mkdir()
+        later["tools"] = phase_tools(Path(tmp) / "tools", Path(tmp) / "mapfree")
 
     from mapfree_tpu_torch.ops import correlation as corr
 

@@ -10,7 +10,8 @@
 //   jd_state_create                     one decode state per host thread
 //   jd_image_info                       the frame's width, height, components
 //   jd_decode_rgbi                      one frame to interleaved RGB uint8 in
-//                                       device memory, on the caller's stream
+//                                       device memory, on the caller's stream,
+//                                       waiting for it
 //   jd_library_path, jd_version         which libnvjpeg was loaded
 //
 // The handle and the states live as long as the process. Every function
@@ -65,8 +66,14 @@ int jd_image_info(void* handle, const unsigned char* data, size_t length,
 }
 
 // Decode one frame into ``dst``: interleaved RGB uint8, ``pitch`` bytes a
-// row, in device memory. The card's work is queued on ``stream``; nvJPEG
-// converts a grayscale frame to RGB itself.
+// row, in device memory, on ``stream``; nvJPEG converts a grayscale frame
+// to RGB itself. Returns once the frame is in ``dst``: the hybrid backend
+// stages the frame's Huffman-decoded coefficients in the state's host
+// buffers and copies them to the card on ``stream``, so the state may take
+// its next frame only after that copy. Without the wait, a stream still
+// busy with earlier work let the next frame overwrite the staged
+// coefficients (frames decoded beside a forward came out different). A
+// CUDA error in the wait returns 1000 + its cudaError_t.
 int jd_decode_rgbi(void* handle, void* state, const unsigned char* data,
                    size_t length, unsigned char* dst, size_t pitch,
                    void* stream) {
@@ -74,10 +81,13 @@ int jd_decode_rgbi(void* handle, void* state, const unsigned char* data,
   std::memset(&image, 0, sizeof(image));
   image.channel[0] = dst;
   image.pitch[0] = pitch;
-  return static_cast<int>(nvjpegDecode(
+  const nvjpegStatus_t status = nvjpegDecode(
       static_cast<nvjpegHandle_t>(handle),
       static_cast<nvjpegJpegState_t>(state), data, length,
-      NVJPEG_OUTPUT_RGBI, &image, static_cast<cudaStream_t>(stream)));
+      NVJPEG_OUTPUT_RGBI, &image, static_cast<cudaStream_t>(stream));
+  if (status != NVJPEG_STATUS_SUCCESS) return static_cast<int>(status);
+  const cudaError_t err = cudaStreamSynchronize(static_cast<cudaStream_t>(stream));
+  return err == cudaSuccess ? 0 : 1000 + static_cast<int>(err);
 }
 
 // The file the dynamic loader took nvJPEG from.

@@ -7,9 +7,13 @@ has no libjpeg, cv2 or PIL). For a batch of JPEG files:
 1. each file's bytes are read on the host, and nvJPEG reads its size from the
    headers (``nvjpegGetImageInfo``);
 2. nvJPEG decodes each frame to interleaved RGB uint8 in device memory
-   (``nvjpegDecode`` to ``NVJPEG_OUTPUT_RGBI``) on torch's current stream,
-   ``DECODE_THREADS`` frames at a time on host threads with a decode state of
-   their own (the Huffman decode runs on the host);
+   (``nvjpegDecode`` to ``NVJPEG_OUTPUT_RGBI``), ``DECODE_THREADS`` frames at
+   a time on host threads with a decode state of their own (the Huffman
+   decode runs on the host), each call waiting for its frame before its
+   state takes the next (``jpeg_decode.cu``). The batch's work runs on a
+   stream of the calling thread's own (:func:`private_stream`), so that
+   wait covers the decode alone, not the caller's work on its streams (a
+   forward in flight);
 3. frames of one size are resized together to (width, height) with the
    arithmetic of ``native/decoder.cpp:142-215`` (:func:`resize_blend`);
 4. the result is emitted as one of the host decoder's three outputs: float32
@@ -150,7 +154,7 @@ class _Decoder:
                                          dst.data_ptr(), dst.shape[1] * 3, stream)
         if status in BAD_INPUT:
             return False
-        _check(status, "nvjpegDecode")
+        _check(status, "nvjpegDecode (1000 + e: the wait for the frame, cudaError_t e)")
         return True
 
 
@@ -170,6 +174,20 @@ def decoder() -> _Decoder:
         if _decoder is None:
             _decoder = _Decoder()
         return _decoder
+
+
+_streams = threading.local()
+
+
+def private_stream(device: torch.device) -> torch.cuda.Stream:
+    """The calling thread's own stream on ``device``, made at first use: the
+    decode's allocations, nvJPEG's work and the resize run on it."""
+    streams = getattr(_streams, "by_device", None)
+    if streams is None:
+        streams = _streams.by_device = {}
+    if device not in streams:
+        streams[device] = torch.cuda.Stream(device=device)
+    return streams[device]
 
 
 def _axis(src: int, dst: int):
@@ -268,7 +286,7 @@ def decode_resize_batch(paths, width: int, height: int, uint8: bool = False,
         shape, dtype = (n, height + height // 2, width), torch.uint8
     else:
         shape, dtype = (n, height, width, 3), (torch.uint8 if uint8 else torch.float32)
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), torch.cuda.stream(private_stream(device)):
         stream = torch.cuda.current_stream(device).cuda_stream
         infos = list(dec.pool.map(dec.read_info, paths))
         groups: dict = {}  # (h, w) -> indices of the frames of that size

@@ -1,12 +1,19 @@
 """Submission CLI of the port (the counterpart of the repository's
-submission.py, its single-host branch): runs the model over the val or test
-split in batches of ``TPU.INFER_BATCH`` and writes ``submission.zip``.
+submission.py): runs the model over the val or test split in batches of
+``TPU.INFER_BATCH`` and writes ``submission.zip``.
 
     python -m mapfree_tpu_torch.submission configs/regression/mapfree/3d3d.yaml \\
         --dataset_config configs/mapfree.yaml --checkpoint weights/default/last.pt
 
 ``--device`` (default ``cuda``) is where the model runs and the loader
 decodes; pass ``--device cpu`` to run on the CPU.
+
+With ``--num_hosts`` (or in a torch.distributed process group of more than
+one process) the sweep is sharded over hosts by scene
+(``parallel/multihost.py``): each host writes
+``submission.part<host_id>.zip`` and host 0, after a barrier where the
+group has one, merges them into ``submission.zip``. ``--host_id`` defaults
+to the process group's rank, else 0; ``--checkpoint`` reaches every host.
 """
 
 import argparse
@@ -15,6 +22,7 @@ from pathlib import Path
 from mapfree_tpu_torch.config import cfg as default_cfg
 from mapfree_tpu_torch.data import DataLoader, DataModule
 from mapfree_tpu_torch.models.builder import build_model
+from mapfree_tpu_torch.parallel import default_barrier, host_topology, run_sharded_sweep
 from mapfree_tpu_torch.utils.submission import predict, save_submission
 from mapfree_tpu_torch.utils.timing import NULL_TIMES
 
@@ -28,6 +36,11 @@ def parse_args(argv=None):
                         help="path to model checkpoint (learned models)")
     parser.add_argument("--output_root", "-o", type=Path, default=Path("results/"))
     parser.add_argument("--split", choices=("val", "test"), default="test")
+    parser.add_argument("--num_hosts", type=int, default=None,
+                        help="override host count for a sharded sweep "
+                             "(default: torch.distributed's world size, else 1)")
+    parser.add_argument("--host_id", type=int, default=None,
+                        help="override this host's shard id")
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on (default: cuda)")
     return parser.parse_args(argv)
@@ -35,13 +48,23 @@ def parse_args(argv=None):
 
 def main(argv=None, times=None) -> Path:
     """Parse ``argv`` (default: the command line), run the sweep and write
-    ``<output_root>/submission.zip``; returns its path. ``times`` (a
+    ``<output_root>/submission.zip``; returns its path (a host other than 0
+    of a sharded sweep: its partial zip's). ``times`` (a
     ``utils.timing.StageTimes``) receives the model's build time, the
-    loader's and the sweep's stage times, and the whole sweep's."""
+    loader's and the sweep's stage times, and the whole sweep's (single
+    host)."""
     args = parse_args(argv)
     cfg = default_cfg.clone()
     cfg.merge_from_file(args.dataset_config)
     cfg.merge_from_file(args.config)
+
+    if args.num_hosts or host_topology()[0] > 1:
+        out = run_sharded_sweep(
+            cfg, args.split, args.output_root, n_hosts=args.num_hosts,
+            host_id=args.host_id, barrier=default_barrier(), device=args.device,
+            checkpoint=args.checkpoint)
+        print(f"wrote {out}")
+        return out
 
     batch = int(cfg.TPU.INFER_BATCH)
     unique_refs = cfg.MODEL == "Regression" and int(cfg.TPU.UNIQUE_REFS) > 0

@@ -29,9 +29,19 @@ silent random weights are worse than failing.
 package's ``{"params", "batch_stats"}`` tree of numpy arrays in flax layout,
 so that gradients, updated parameters and running statistics can be compared
 tensor by tensor, and a port checkpoint can be read by the JAX package.
+
+CLI (:func:`main`): a reference Lightning ``.ckpt`` -> the port's ``.pt``
+state dict, which ``build_model(cfg, checkpoint)`` and the submission CLI
+read::
+
+    python -m mapfree_tpu_torch.tools.convert_weights ckpt.ckpt out.pt \\
+        --config configs/regression/mapfree/3d3d.yaml \\
+        --dataset_config configs/mapfree.yaml
 """
 
 from __future__ import annotations
+
+import argparse
 
 import numpy as np
 import torch
@@ -212,3 +222,42 @@ def load_checkpoint(net: nn.Module, path) -> None:
     or a bare state_dict) into ``net``."""
     ckpt = torch.load(path, map_location="cpu")
     load_state_dict(net, ckpt.get("state_dict", ckpt))
+
+
+def main(argv=None):
+    """Convert a reference Lightning checkpoint into the port's ``.pt``: the
+    net of the two configs is built on ``--device`` and loaded with
+    :func:`load_checkpoint` (a missing tensor or a shape mismatch raises);
+    its state dict, without the ``model.`` prefix and the optimizer state,
+    is written to ``output``. Returns the output path."""
+    from pathlib import Path
+
+    from mapfree_tpu_torch.config import cfg as default_cfg
+    from mapfree_tpu_torch.models.builder import resolve_device
+    from mapfree_tpu_torch.models.regression import build_regression_net
+
+    parser = argparse.ArgumentParser(prog="python -m mapfree_tpu_torch.tools.convert_weights")
+    parser.add_argument("checkpoint", help="reference .ckpt path")
+    parser.add_argument("output", help=".pt state dict to write")
+    parser.add_argument("--config", required=True)
+    parser.add_argument("--dataset_config", default="configs/mapfree.yaml")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to build the net on (default: cuda)")
+    args = parser.parse_args(argv)
+
+    cfg = default_cfg.clone()
+    cfg.merge_from_file(args.dataset_config)
+    cfg.merge_from_file(args.config)
+
+    net = build_regression_net(cfg).to(resolve_device(args.device))
+    load_checkpoint(net, args.checkpoint)
+    state = {k: v.cpu() for k, v in net.state_dict().items()}
+    out = Path(args.output)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(state, out)
+    print(f"converted {len(state)} tensors -> {out}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Two measurements of the PyTorch port on one NVIDIA GPU that chip_smoke.py
+"""Measurements of the PyTorch port on one NVIDIA GPU that chip_smoke.py
 does not repeat on every run. From the root of a checkout:
 
     python3 tools/torch_chip_studies.py decode-threads
     python3 tools/torch_chip_studies.py bf16-seeds
     python3 tools/torch_chip_studies.py bf16-faults
     python3 tools/torch_chip_studies.py upsample-ab
+    python3 tools/torch_chip_studies.py sweep-determinism
+    python3 tools/torch_chip_studies.py decode-under-load [CHECKOUT ...]
 
 decode-threads: wall time of data/jpeg.py::decode_resize_batch for 64 frames
 of the 540x720 fixtures (tests/data/torch_port/) to 270x360 planar YUV420,
@@ -32,6 +34,21 @@ weights) in one process with the ResUNet's upsample as the port computes it
 before it), alternated over four rounds: the forward by CUDA events, the
 host's time to issue one forward, and the sweep from memory (pairs/s and its
 dispatch stage) over the phase's synthetic pairs.
+
+sweep-determinism: the 3d3d submission CLI (random weights, bf16) over
+chip_smoke.py phase 8's tree of 320 pairs, run again and again in one
+process: with cuDNN's default engines and the sweep's four transfer
+workers, with one transfer worker, and with
+torch.backends.cudnn.deterministic; each run's poses against the first
+run's of its setting (the number of runs with other bits, and the largest
+difference: rotation angle in radians, t relative to max(1, |t|)).
+
+decode-under-load: 64 frames of the fixtures decoded to 270x360 uint8 by
+data/jpeg.py while 60 float32 4096^2 products are queued on the card,
+three times, against the same batch decoded on an idle card: the frames
+that differ. For this checkout and for each other CHECKOUT given (a
+directory holding a mapfree_tpu_torch/, e.g. a parent commit unpacked with
+git archive), each in a process of its own.
 
 Each line carries the card's name and power limit. Imports nothing of JAX.
 """
@@ -294,17 +311,87 @@ def upsample_ab() -> None:
         blocks.resize_bilinear_align_corners = matmuls
 
 
+def sweep_determinism(runs: int = 5) -> None:
+    import tempfile
+
+    import torch
+
+    import chip_smoke as cs
+    import mapfree_tpu_torch.utils.submission as us
+    from mapfree_tpu_torch import submission
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        cs.write_mapfree_tree(root, seed=cs.SEED + 160)
+        dataset_cfg, _ = cs.write_configs(root)
+        argv = [str(REPO / "configs/regression/mapfree/3d3d.yaml"), "--dataset_config",
+                str(dataset_cfg), "--device", "cuda"]
+        settings = (("default engines, 4 transfer workers", 4, False),
+                    ("default engines, 1 transfer worker", 1, False),
+                    ("cudnn.deterministic, 4 transfer workers", 4, True),
+                    ("cudnn.deterministic, 1 transfer worker", 1, True))
+        saved = us.TRANSFER_WORKERS, us.MAX_TRANSFERS, torch.backends.cudnn.deterministic
+        try:
+            for name, workers, deterministic in settings:
+                us.TRANSFER_WORKERS, us.MAX_TRANSFERS = workers, workers + 1
+                torch.backends.cudnn.deterministic = deterministic
+                poses = [cs.read_submission(submission.main(argv + ["-o", str(root / f"o{i}")]))
+                         for i in range(runs)]
+                moved = [cs._pose_differences(p, poses[0]) for p in poses[1:]]
+                print(f"[{card()}] {name}: {sum(int(m.max() > 0) for m in moved)} of "
+                      f"{runs - 1} runs differ from the first, largest difference "
+                      f"{max(m.max() for m in moved):.3e}, frames differing per run "
+                      f"{[int((m > 0).sum()) for m in moved]} of {len(moved[0])}", flush=True)
+        finally:
+            us.TRANSFER_WORKERS, us.MAX_TRANSFERS, torch.backends.cudnn.deterministic = saved
+
+
+DECODE_UNDER_LOAD = """
+import sys
+from pathlib import Path
+root = Path(sys.argv[1]).resolve()
+sys.path.insert(0, str(root))
+import torch
+from mapfree_tpu_torch.data import jpeg
+frames = sorted((root / "tests/data/torch_port").glob("frame_*.jpg"))
+batch = [str(frames[i % len(frames)]) for i in range(64)]
+quiet = jpeg.decode_resize_batch(batch, 270, 360, device="cuda", uint8=True)
+x = torch.randn(4096, 4096, device="cuda")
+counts = []
+for _ in range(3):
+    torch.cuda.synchronize()
+    for _ in range(60):
+        torch.mm(x, x)
+    busy = jpeg.decode_resize_batch(batch, 270, 360, device="cuda", uint8=True)
+    torch.cuda.synchronize()
+    counts.append(int((busy != quiet).any(axis=(1, 2, 3)).sum()))
+print(counts)
+"""
+
+
+def decode_under_load(*checkouts) -> None:
+    for root in (REPO, *[Path(c) for c in checkouts]):
+        got = subprocess.run([sys.executable, "-c", DECODE_UNDER_LOAD, str(root)],
+                             capture_output=True, text=True, timeout=600, check=True)
+        print(f"[{card()}] {root}: frames of 64 decoded beside queued work that differ "
+              f"from the idle decode, three trials: {got.stdout.strip()}", flush=True)
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("no CUDA device: torch.cuda.is_available() is False")
     studies = {"decode-threads": decode_threads, "bf16-seeds": bf16_seeds,
-               "bf16-faults": bf16_faults, "upsample-ab": upsample_ab}
+               "bf16-faults": bf16_faults, "upsample-ab": upsample_ab,
+               "sweep-determinism": sweep_determinism}
+    if sys.argv[1:2] == ["decode-under-load"]:
+        decode_under_load(*sys.argv[2:])
+        return
     names = sys.argv[1:] or list(studies)
     for name in names:
         if name not in studies:
-            sys.exit(f"unknown study {name!r}; choose from {sorted(studies)}")
+            sys.exit(f"unknown study {name!r}; choose from {sorted(studies) + ['decode-under-load']}")
     for name in names:
         studies[name]()
 
