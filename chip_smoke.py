@@ -27,7 +27,12 @@ Phases, in order; any failure raises and the script exits nonzero:
    the tensor-core designs must serve; then K1 at the fusion sweep's batch
    (B = 64 x 9 = 576) and K2, K3 at the fusion train step's (B = 10 x 9 =
    90), held to the plain versions on their first and last two batch rows
-   (the plain versions' [B, HW, HW] volumes would not fit the card);
+   (the plain versions' [B, HW, HW] volumes would not fit the card); then
+   the FMA designs at every width (Cq = Cv of 126, 128, 256 and 1,024, and
+   256 / 96, at HW 20, 70 and 1,000, float32 and bf16: the channels in
+   chunks and the accumulator columns in tiles of 128), and K1, K2, K3 timed
+   at the ResNet bottleneck's 1,024 channels on its 5x4 grid and at 128
+   channels on the 3d3d grid;
 4. inference path: the 3d3d model (configs/regression/mapfree/3d3d.yaml over
    configs/mapfree.yaml: ResUNet 3-3-3 bottleneck, 360x270, bf16, batch 64,
    unique refs, planar YUV420 input) with random weights from a seed, driven
@@ -85,8 +90,12 @@ Phases, in order; any failure raises and the script exits nonzero:
 11. every config under configs/regression/ (and BLOCK_TYPE 2): one float32
    forward at one block per stage and 96x72 on the card and on the CPU,
    poses within 2e-4, K1 once for each config that takes the fused route;
-   then the ResNet encoder under the fused route must raise on the card,
-   naming its ROADMAP.md item;
+   then the models wider than the tensor-core K1 takes, at full width
+   (360x270, bf16): the ResNet bottleneck (1,024 channels) and a ResUNet
+   with NUM_OUT_LAYERS 128, each a sweep through build_model -> predict with
+   K1 (FMA) once per batch and a float32 forward at one block per stage on
+   the card and the CPU, and one float32 train step of the ResNet model with
+   the kernels against the plain versions on the card;
 12. the fusion model's CLIs from JPEG files: a MapFree tree of fixture
    copies with poses_device.txt, the submission CLI over 160 windows, the
    train CLI for 8 steps at batch 10 with one validation, and the submission
@@ -141,7 +150,19 @@ Phases, in order; any failure raises and the script exits nonzero:
    else every frame rendered and counted and one line), render_frames on
    the card against the CPU on the same photos (share of differing
    pixels), ms per frame on both, and render_scene on the card with cv2
-   hidden (no MP4, the frames counted, one line).
+   hidden (no MP4, the frames counted, one line);
+16. the data mesh (one card here: more than one is not shown): (a)
+   make_mesh() holds the visible cards, and the predictor over them gives
+   phase 4's poses to the bit; two replicas on the card (the predictor's
+   multi-device path) within 2e-4 of one in float32, and a full-width sweep
+   through them; (b) the train CLI under one NCCL rank (torchrun's
+   environment) for 8 steps of 3d3d at batch 10, bf16, its losses within
+   three times the spread of two runs without a process group; (c) two gloo
+   ranks sharing the card on one float32 3d3d train step at full width, 5
+   rows each of a batch of 10, against one process on the 10: the loss at
+   phase 6's limit, the BatchNorm statistics within 1e-5, the gradients (in
+   L2 and the median tensor) within three times what the same step on the
+   rows in reverse order moves them; the ms per step of (b) and (c).
 
 The last line of standard output is {"ok": true, "device": {...}}; a
 "kernels" JSON line and the card's name and power limit precede it. With no
@@ -191,6 +212,13 @@ ATOL = {"float32": 5e-5, "bfloat16": 1e-3}
 # The tensor-core design's two tolerances are the package's
 # (ops/correlation.py: MMA_VS_EXACT_TOL, MMA_VS_MATCHED_L2_TOL).
 BWD_TOL = 1e-4
+# (Cq, Cv) of phase 3's wide cases, each at HW 20, 70 and 1,000 in float32
+# and bf16 (q and k scaled by _kernel_inputs' spread32; float32 at 1,024
+# unscaled too)
+WIDE_CHANNELS = ((126, 126), (128, 128), (256, 256), (1024, 1024), (256, 96))
+# the ResNet encoder's output grid for 360x270 frames
+# (models/encoders.py::encoder_out_hw): 5 x 4
+RESNET_GRID = (5, 4)
 # the prologue's row constant c = dout . out against the plain prologue's, as
 # a share of the largest |c| (or of 1): 35 float32 terms in another order
 PROLOGUE_TOL = 1e-5
@@ -337,7 +365,12 @@ def ptxas_report(build_log: str) -> list:
 
 # -- phase 3 -----------------------------------------------------------------
 
-def _kernel_inputs(B, H, W, cq, cv, dtype, seed):
+def _kernel_inputs(B, H, W, cq, cv, dtype, seed, spread32=False):
+    """Standard normal q, k, v on the card. With ``spread32`` q and k are
+    scaled by (32 / Cq)^(1/4) above 32 channels, so that the scores q . k
+    spread as they do at 32 channels; phase 3 also holds float32 K1-K3 to the
+    same tolerances on unscaled inputs at 1,024 channels, whose scores reach
+    some 100."""
     import torch
 
     from mapfree_tpu_torch.models.aggregators import _uv_grid
@@ -346,7 +379,8 @@ def _kernel_inputs(B, H, W, cq, cv, dtype, seed):
     HW = H * W
     dev = torch.device("cuda", 0)
     td = getattr(torch, dtype)
-    q, k = (torch.from_numpy(rng.standard_normal((B, HW, cq), np.float32)).to(dev, td)
+    scale = (32.0 / max(cq, 32)) ** 0.25 if spread32 else 1.0
+    q, k = (torch.from_numpy(scale * rng.standard_normal((B, HW, cq), np.float32)).to(dev, td)
             for _ in range(2))
     v = torch.from_numpy(rng.standard_normal((B, HW, cv), np.float32)).to(dev, td)
     return q, k, v, _uv_grid(H, W, device=dev).to(td)
@@ -594,7 +628,7 @@ def phase_kernel_cases() -> dict:
         "bf16_q16_v32": (2, 10, 13, 16, 32, "bfloat16"),
         "bf16_hw576_b1_c8": (1, 24, 24, 8, 8, "bfloat16"),
         "bf16_hw130_c64": (2, 10, 13, 64, 64, "bfloat16"),
-        # K1 takes Cv + 2 <= 128, so 120 is the widest v the backward is given
+        # K1's tensor-core design takes Cv + 2 <= 128: 120 is the widest v both serve
         "bf16_hw130_q128_v120": (1, 10, 13, 128, 120, "bfloat16"),
         "bf16_hw130_c12_fma": (2, 10, 13, 12, 12, "bfloat16"),
         # HW below one row of 8: the key and the row tile both ragged
@@ -641,6 +675,36 @@ def phase_kernel_cases() -> dict:
                        exact_rel_l2_given_exact_buffer=hand[
                            key + "_exact_l2_given_exact_buffer"])
         del res
+
+    # every channel width the Pallas kernel takes: the FMA designs tile the
+    # channels and the accumulator columns by 128, so these cross one, two
+    # and eight tile edges (the ResNet encoder's 256 and 1,024 channels, a
+    # ResUNet's 128 with Cv + 2 = 130); the tensor-core K2, K3 take bf16 at
+    # 128, K1 does not (Cv + 2 > 128)
+    # at the same tolerances; the last three cases take float32 q and k
+    # unscaled at 1,024 channels, where the scores reach some 100
+    hw_shapes = {20: (4, 5), 70: (7, 10), 1000: (25, 40)}
+    wide = [(cq, cv, HW, dtype, True, 200 + 10 * i + 2 * j + (dtype == "bfloat16"))
+            for i, (cq, cv) in enumerate(WIDE_CHANNELS) for j, HW in enumerate(hw_shapes)
+            for dtype in ("float32", "bfloat16")]
+    wide += [(1024, 1024, HW, "float32", False, 300 + j) for j, HW in enumerate(hw_shapes)]
+    for cq, cv, HW, dtype, spread32, seed in wide:
+        name = (f"wide_{'f32' if dtype == 'float32' else 'bf16'}"
+                f"{'' if spread32 else '_unscaled'}_hw{HW}_q{cq}_v{cv}")
+        q, k, v, grid = _kernel_inputs(2, *hw_shapes[HW], cq, cv, dtype, seed=seed,
+                                       spread32=spread32)
+        fwd = forward_case(q, k, v, grid)
+        res = backward_case(q, k, v, grid, _cotangent(2, HW, cv, seed=seed + 500))
+        bwd_expected = corr.DESIGN_MMA if (dtype == "bfloat16" and cq == cv == 128) \
+            else corr.DESIGN_FMA
+        if fwd["design"] != corr.DESIGN_FMA or res["design"] != bwd_expected:
+            raise AssertionError(f"case {name} was served by the {fwd['design']} (K1) and "
+                                 f"{res['design']} (K2, K3) designs, not "
+                                 f"{corr.DESIGN_FMA} and {bwd_expected}")
+        log(f"[kernel] {name}: {_forward_line(fwd)}; {_case_line(res)}")
+        record_forward(name, fwd)
+        record_backward(name, res)
+        del q, k, v, res
     return cases
 
 
@@ -670,7 +734,7 @@ def k3_bound(B, HW, cq, cv, dtype, nbytes) -> tuple:
     return op_bound(2.0 * B * HW * HW * (2 * cq + 2 * cv + 2), B * HW * HW, nbytes, dtype)
 
 
-def time_k1(B, H, W, C, dtype, seed, fma_too=False) -> dict:
+def time_k1(B, H, W, C, dtype, seed, fma_too=False, spread32=False) -> dict:
     """K1 at one shape: agreement, then its time beside the plain version's,
     one library call's and its bound. With ``fma_too`` the FMA design is
     checked and timed on the same inputs as well, beside the design that
@@ -681,7 +745,7 @@ def time_k1(B, H, W, C, dtype, seed, fma_too=False) -> dict:
     from mapfree_tpu_torch.ops import correlation as corr
 
     HW = H * W
-    q, k, v, grid = _kernel_inputs(B, H, W, C, C, dtype, seed=seed)
+    q, k, v, grid = _kernel_inputs(B, H, W, C, C, dtype, seed=seed, spread32=spread32)
     res = forward_case(q, k, v, grid)
     check_forward(res, f"B={B} HW={HW}")
     log(f"[kernel] K1 B={B} HW={HW} C={C} {dtype}: {_forward_line(res)}")
@@ -730,21 +794,22 @@ def time_k1(B, H, W, C, dtype, seed, fma_too=False) -> dict:
             **({"matched_rel_l2": res["l2"]} if "l2" in res else {}), **fma}
 
 
-def time_backward(B, H, W, C, dtype, seed) -> tuple:
+def time_backward(B, H, W, C, dtype, seed, spread32=False) -> tuple:
     """K2 and K3 at one shape, each beside its plain version and its bound;
     the library call (the backward of scaled_dot_product_attention over
-    [v | grid], without the max-score route) stands for the pair."""
+    [v | grid], without the max-score route) stands for the pair. A bf16
+    shape the tensor-core design takes must be served by it."""
     import torch
     import torch.nn.functional as F
 
     from mapfree_tpu_torch.ops import correlation as corr
 
     HW = H * W
-    q, k, v, grid = _kernel_inputs(B, H, W, C, C, dtype, seed=seed)
+    q, k, v, grid = _kernel_inputs(B, H, W, C, C, dtype, seed=seed, spread32=spread32)
     dout = _cotangent(B, HW, C, seed=seed + 1)
     res = backward_case(q, k, v, grid, dout)
     log(f"[kernel] K2, K3 B={B} HW={HW} C={C} {dtype}: {_case_line(res)}")
-    if dtype == "bfloat16" and res["design"] != corr.DESIGN_MMA:
+    if dtype == "bfloat16" and C % 8 == 0 and C <= 128 and res["design"] != corr.DESIGN_MMA:
         raise AssertionError(f"B={B} HW={HW} C={C} {dtype} is not served by the tensor-core "
                              f"design but by {res['design']}")
     check_backward(res, f"B={B} HW={HW}")
@@ -945,6 +1010,21 @@ def phase_kernel_timing() -> dict:
     k1["fusion_shape"] = time_k1_batch(576, 92, 68, 32, "bfloat16", seed=103)
     k2["fusion_shape"], k3["fusion_shape"] = time_backward_batch(90, 92, 68, 32, "bfloat16",
                                                                  seed=104)
+    # the wide FMA designs: the ResNet bottleneck's 1,024 channels at the 5x4
+    # grid of its 360x270 frames (K1 at the sweep's batch, K2 and K3 at the
+    # train batch), and a ResUNet's 128 channels (NUM_OUT_LAYERS 128) at the
+    # 3d3d grid and the train batch, where K1 takes the FMA design and K2,
+    # K3 the tensor cores
+    H, W = RESNET_GRID
+    k1["resnet_shape"] = time_k1(64, H, W, 1024, "bfloat16", seed=105, spread32=True)
+    k2["resnet_shape"], k3["resnet_shape"] = time_backward(10, H, W, 1024, "bfloat16", seed=106,
+                                                           spread32=True)
+    k1["c128_shape"] = time_k1(10, 92, 68, 128, "bfloat16", seed=107, spread32=True)
+    k2["c128_shape"], k3["c128_shape"] = time_backward(10, 92, 68, 128, "bfloat16", seed=108,
+                                                       spread32=True)
+    for t in (k1["resnet_shape"], k1["c128_shape"], k2["resnet_shape"]):
+        if t["design"] != corr.DESIGN_FMA:
+            raise AssertionError(f"{t['shape']} is served by the {t['design']} design")
     return {corr.KERNEL: k1, corr.KERNEL_BWD_ROWS: k2, corr.KERNEL_BWD_COLS: k3}
 
 
@@ -1877,9 +1957,9 @@ def _check_poses(R, t, what: str) -> float:
     return float(np.abs(det - 1.0).max())
 
 
-def drive_sweep(cfg, batches: list, warm: list, what: str) -> dict:
+def drive_sweep(cfg, batches: list, warm: list, what: str, design: str = "mma") -> dict:
     """``predict`` over ``batches`` after a warm-up over ``warm``, with the
-    counts reset just before: K1 (tensor cores) once per batch, no backward
+    counts reset just before: K1 (in ``design``) once per batch, no backward
     kernel, one finite pose per pair. Then the forward alone on a batch
     already on the device. Returns the numbers, the launches and the model."""
     import torch
@@ -1901,7 +1981,7 @@ def drive_sweep(cfg, batches: list, warm: list, what: str) -> dict:
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
     launches = dict(corr.launches)
-    _expect_designs(seen, {"forward": [corr.DESIGN_MMA]}, what)
+    _expect_designs(seen, {"forward": [design]}, what)
     _expect_launches(corr, {corr.KERNEL: len(batches), corr.KERNEL_BWD_ROWS: 0,
                             corr.KERNEL_BWD_COLS: 0}, f"{what}: {len(batches)} batches")
     poses = [p for ps in results.values() for p in ps]
@@ -1917,7 +1997,7 @@ def drive_sweep(cfg, batches: list, warm: list, what: str) -> dict:
         f"{len(batches[-1]['pair_names'])}): {elapsed:.3f} s, {n_pairs / elapsed:.1f} pairs/s "
         f"from memory; forward {model_ms:.2f} ms per batch of {bs} "
         f"({1e3 * bs / model_ms:.1f} pairs/s model-only); K1 launches {launches[corr.KERNEL]}, "
-        f"{corr.DESIGN_MMA} design; max |det(R) - 1| = {det_err:.2e}; stages "
+        f"{design} design; max |det(R) - 1| = {det_err:.2e}; stages "
         f"{times.summary()}")
     return {"launches": launches[corr.KERNEL], "pairs_per_s": n_pairs / elapsed,
             "forward_ms": model_ms, "model": model, "transferred": transferred}
@@ -2188,9 +2268,8 @@ def phase_configs() -> dict:
     """One float32 forward of every config under configs/regression/ (and
     of ENCODER.BLOCK_TYPE 2 on the 3d3d model) on the card and on the CPU,
     same weights and batch, at one block per stage and 96x72: poses within
-    PARITY_ATOL. Then the 3d3d model with the ResNet encoder on the card
-    under the fused route must raise, naming its ROADMAP.md item. Returns
-    K1's launches."""
+    PARITY_ATOL. Then the models wider than the tensor-core K1 takes
+    (:func:`wide_models`). Returns K1's launches per path."""
     import torch
 
     from mapfree_tpu_torch.models.builder import build_model
@@ -2225,17 +2304,70 @@ def phase_configs() -> dict:
     _expect_launches(corr, {corr.KERNEL: fused, corr.KERNEL_BWD_ROWS: 0,
                             corr.KERNEL_BWD_COLS: 0}, "the configs' forwards")
 
-    cfg = load_cfg({**small, "ENCODER.TYPE": "ResNet", "DATASET.HEIGHT": 192,
-                    "DATASET.WIDTH": 144, "TPU.COMPUTE_DTYPE": "bfloat16"})
-    try:
-        build_model(cfg, device=DEVICE).predict_batch(config_batch(cfg, 3, seed=SEED + 90))
-    except NotImplementedError as e:
-        if "ROADMAP.md item 18" not in str(e):
-            raise
-        log(f"[configs] ResNet encoder under the fused route on the card raises: {e}")
-    else:
-        raise AssertionError("the ResNet encoder ran on the card under the fused route")
-    return {"launches": {"configs_on_card": launches}}
+    wide = wide_models(small)
+    return {"launches": {"configs_on_card": launches, **wide.pop("launches")}, "numbers": wide}
+
+
+# the two models whose correlation is wider than the tensor-core K1 takes:
+# the ResNet encoder with the bottleneck block (1,024 channels) and a ResUNet
+# with 128 output channels (Cv + 2 = 130)
+WIDE_MODELS = {"resnet": {"ENCODER.TYPE": "ResNet", "ENCODER.BLOCK_TYPE": 1},
+               "resunet128": {"ENCODER.NUM_OUT_LAYERS": 128}}
+
+
+def wide_models(small: dict) -> dict:
+    """The two models of WIDE_MODELS on 3d3d.yaml at full width (360x270,
+    bf16, INFER_BATCH 64): the sweep through build_model -> predict with K1
+    in its FMA design once per batch; each at one block per stage in float32
+    on the card and on the CPU (the ResNet at 192x144, its output being
+    1/64 of the frame), poses within PARITY_ATOL; and one float32 train step
+    of the ResNet model at full width with the kernels against the plain
+    versions on the card, per tensor at phase 6's limits. Returns the
+    sweeps' launches and numbers."""
+    import torch
+
+    from mapfree_tpu_torch.models.builder import build_model
+    from mapfree_tpu_torch.models.encoders import encoder_out_channels, encoder_out_hw
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    launches, numbers = {}, {}
+    for i, (name, extra) in enumerate(WIDE_MODELS.items()):
+        cfg = load_cfg({**extra, "TPU.SEED": SEED})
+        H, W, bs = cfg.DATASET.HEIGHT, cfg.DATASET.WIDTH, int(cfg.TPU.INFER_BATCH)
+        h, w = encoder_out_hw(cfg.ENCODER, H, W)
+        log(f"[configs] {name}: {cfg.ENCODER.TYPE} block {cfg.ENCODER.BLOCK_TYPE} "
+            f"{cfg.ENCODER.NUM_BLOCKS}, {encoder_out_channels(cfg.ENCODER)} channels on a "
+            f"{h}x{w} grid, {H}x{W}, {cfg.TPU.COMPUTE_DTYPE}, batch {bs}")
+        sweep = drive_sweep(cfg, synthetic_batches(2 * bs + 23, bs, H, W, seed=SEED + 91 + i),
+                            synthetic_batches(bs, bs, H, W, seed=SEED + 93 + i),
+                            f"configs, {name}", design=corr.DESIGN_FMA)
+        del sweep["model"], sweep["transferred"]
+        torch.cuda.empty_cache()
+        launches[f"{name}_sweep"] = {corr.KERNEL: sweep["launches"]}
+        numbers[name] = sweep
+        size = {"DATASET.HEIGHT": 192, "DATASET.WIDTH": 144} if name == "resnet" else {}
+        scfg = load_cfg({**small, **extra, **size})
+        batch = config_batch(scfg, 3, seed=SEED + 95 + i)
+        out = {dev: build_model(scfg, device=dev).predict_batch(batch)[:2]
+               for dev in (DEVICE, "cpu")}
+        err = max(float(np.abs(out[DEVICE][j] - out["cpu"][j]).max()) for j in range(2))
+        log(f"[configs] {name}, float32 at one block per stage, "
+            f"{scfg.DATASET.HEIGHT}x{scfg.DATASET.WIDTH}: max |GPU - CPU| over R and t "
+            f"{err:.3g} (atol {PARITY_ATOL:g})")
+        _check_poses(*out[DEVICE], name)
+        if err > PARITY_ATOL:
+            raise AssertionError(f"{name}: the GPU and CPU forwards disagree")
+    tcfg = load_cfg({**WIDE_MODELS["resnet"], "TRAINING.BATCH_SIZE": 4, "TRAINING.LR": 1e-3,
+                     "TRAINING.GRAD_CLIP": 1.0, "TPU.COMPUTE_DTYPE": "float32", "TPU.SEED": SEED})
+    H, W = tcfg.DATASET.HEIGHT, tcfg.DATASET.WIDTH
+    with designs_served() as seen:
+        step = f32_step_kernels_vs_plain(tcfg, train_batches(1, 4, H, W, seed=SEED + 97)[0],
+                                         "configs, resnet")
+    _expect_designs(seen, {"forward": [corr.DESIGN_FMA], "backward": [corr.DESIGN_FMA]},
+                    "the ResNet float32 train step")
+    log(f"[configs] the ResNet float32 comparison step at {H}x{W} launched {step}")
+    torch.cuda.empty_cache()
+    return {"launches": launches, **numbers}
 
 
 # -- phase 12: the fusion model's CLIs from JPEG files ------------------------------
@@ -3658,6 +3790,368 @@ def phase_tools(root: Path, mapfree_root: Path) -> dict:
 
 
 
+# -- phase 16: the data mesh -------------------------------------------------------
+
+MESH_JOIN_LIMIT_S = 300   # the two ranks of (c), from spawn to exit
+MESH_STATS_TOL = 1e-5     # BatchNorm statistics, as a share of max(1, the largest entry)
+MESH_TIMED_STEPS = 3
+# phase 16 (c)'s gradients: at most this many times what reversing the
+# batch's order moves the single-process step's, in the whole gradient's L2
+# norm, the median tensor and the worst tensor (each as a share of its
+# largest entry). tools/torch_chip_studies.py mesh-faults plants faults of
+# the mesh in the ranks and shows that each fails these limits.
+MESH_NOISE_FACTOR = 3.0
+
+
+def _mesh_rank(rank, world, port, out_dir, cfg, batch, n_timed):
+    """One of phase 16 (c)'s ranks: a gloo group over tcp://localhost, the
+    card shared with the other rank; one float32 train step on this rank's
+    block of ``batch`` (rank 0 writes its loss, gradients and BatchNorm
+    statistics), then ``n_timed`` more, timed."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from mapfree_tpu_torch.models.regression import build_regression_net
+    from mapfree_tpu_torch.ops import correlation as corr
+    from mapfree_tpu_torch.parallel import make_mesh
+    from mapfree_tpu_torch.train import init_state, make_train_step
+    from mapfree_tpu_torch.train.fit import _device_batch, _train_keys
+    from mapfree_tpu_torch.utils.data import data_to_device
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank, timeout=timedelta(minutes=3))
+    try:
+        net = build_regression_net(cfg)
+        state = init_state(net, cfg, torch.Generator().manual_seed(SEED), device="cuda")
+        mesh = make_mesh(cfg)  # the ranks' current devices: cuda:0 twice
+        step = make_train_step(net, cfg, mesh=mesh)
+        # the training keys of the whole batch in float32, then this rank's block
+        whole = _device_batch(batch, torch.device("cpu"), int(cfg.TRAINING.BATCH_SIZE),
+                              _train_keys(net))
+        dbatch = data_to_device(whole, mesh=mesh)[0]
+        corr.reset_launches()
+        state, logs = step(state, dbatch)
+        result = {"loss": float(logs["train/loss"]), "rows": int(dbatch["image0"].shape[0]),
+                  "mesh": repr(mesh), "step_launches": dict(corr.launches),
+                  "grads": {k: p.grad.detach().cpu() for k, p in net.named_parameters()},
+                  "stats": {k: b.detach().cpu() for k, b in net.named_buffers()}}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_timed):
+            step(state, dbatch)
+        torch.cuda.synchronize()
+        result["ms_per_step"] = 1e3 * (time.perf_counter() - t0) / max(1, n_timed)
+        result["launches"] = dict(corr.launches)
+        torch.save(result, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_predictor() -> dict:
+    """(a) make_mesh() holds the visible cards; the predictor built over its
+    devices drops a one-device mesh and gives phase 4's poses to the bit on
+    phase 4's first batch; the predictor over two replicas on the one card
+    (the multi-device path: a block of rows each) within PARITY_ATOL of one
+    replica in float32, and through predict at full width with K1 once per
+    replica and batch."""
+    import torch
+
+    from mapfree_tpu_torch.models.builder import build_model
+    from mapfree_tpu_torch.ops import correlation as corr
+    from mapfree_tpu_torch.parallel import make_mesh
+    from mapfree_tpu_torch.utils.submission import predict
+
+    mesh = make_mesh()
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    if list(mesh.devices.flat) != cards or mesh.group is not None:
+        raise AssertionError(f"make_mesh() is {mesh}, not the visible cards {cards}")
+    cfg = load_cfg({"TPU.SEED": SEED})
+    H, W, bs = cfg.DATASET.HEIGHT, cfg.DATASET.WIDTH, int(cfg.TPU.INFER_BATCH)
+    batches = synthetic_batches(2 * bs + 23, bs, H, W, seed=SEED + 1)  # phase 4's first ones
+    phase4 = build_model(cfg, device="cuda")
+    on_mesh = build_model(cfg, devices=list(mesh.devices.flat))
+    if len(cards) == 1 and on_mesh.mesh is not None:
+        raise AssertionError("the predictor kept a one-device mesh")
+    ref, got = phase4.predict_batch(batches[0]), on_mesh.predict_batch(batches[0])
+    equal = all(np.array_equal(a, b) for a, b in zip(ref[:2], got[:2]))
+    log(f"[mesh] make_mesh(): {mesh}; the predictor over it: batch {on_mesh.batch_size}, mesh "
+        f"{on_mesh.mesh}; poses equal to phase 4's predictor's to the bit: {equal}")
+    if not equal:
+        raise AssertionError("the predictor over the default mesh moved phase 4's poses")
+    del phase4, on_mesh
+
+    two = [torch.device("cuda", 0)] * 2
+    small = load_cfg({"ENCODER.NUM_BLOCKS": "1-1-1", "DATASET.HEIGHT": 96, "DATASET.WIDTH": 72,
+                      "TPU.INFER_BATCH": 6, "TPU.COMPUTE_DTYPE": "float32", "TPU.SEED": SEED})
+    batch = config_batch(small, 5, seed=SEED + 61)
+    one_r = build_model(small, device="cuda").predict_batch(batch)
+    two_r = build_model(small, devices=two).predict_batch(batch)
+    err = max(float(np.abs(a - b).max()) for a, b in zip(one_r[:2], two_r[:2]))
+    log(f"[mesh] two replicas on the card, float32, 5 pairs in blocks of 3: max |two - one| "
+        f"over R and t {err:.3g} (atol {PARITY_ATOL:g})")
+    if err > PARITY_ATOL:
+        raise AssertionError("the predictor over two replicas disagrees with one")
+
+    model = build_model(cfg, devices=two)
+    predict(batches[:1], model)
+    torch.cuda.synchronize()
+    corr.reset_launches()
+    t0 = time.perf_counter()
+    results = predict(batches, model)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(corr.launches)
+    n_pairs = sum(len(b["pair_names"]) for b in batches)
+    poses = [p for ps in results.values() for p in ps]
+    log(f"[mesh] two replicas on the card at full width: {n_pairs} pairs in {len(batches)} "
+        f"batches, {n_pairs / elapsed:.1f} pairs/s; K1 launches {launches[corr.KERNEL]}")
+    _expect_launches(corr, {corr.KERNEL: 2 * len(batches), corr.KERNEL_BWD_ROWS: 0,
+                            corr.KERNEL_BWD_COLS: 0}, "the two-replica sweep")
+    if len(poses) != n_pairs or not all(np.all(np.isfinite(p.q)) and np.all(np.isfinite(p.t))
+                                        for p in poses):
+        raise AssertionError("the two-replica sweep gave non-finite or missing poses")
+    return {"two_replica_sweep": launches, "two_replica_pairs_per_s": n_pairs / elapsed}
+
+
+def mesh_train_cli() -> dict:
+    """(b) the train CLI under one NCCL rank (RANK, WORLD_SIZE, LOCAL_RANK,
+    MASTER_ADDR and MASTER_PORT set, as torchrun sets them): 8 steps of 3d3d
+    at full width, batch 10, bf16, over phase 8's kind of tree, against two
+    runs without a process group: each step's loss within three times the
+    largest difference between those two runs (cuDNN's bf16 weight
+    gradients sum with atomics, so two runs differ), and K1-K3 once per step
+    (K1 also once per validation batch)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from mapfree_tpu_torch.ops import correlation as corr
+    from mapfree_tpu_torch.train.__main__ import main as train_main
+
+    model_cfg = str(REPO / "configs/regression/mapfree/3d3d.yaml")
+    bs = int(load_cfg().TRAINING.BATCH_SIZE)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_mapfree_tree(root, seed=SEED + 62)
+        dataset_cfg, run_cfg = write_configs(root)
+        for tag in ("single_a", "single_b", "nccl_rank"):
+            env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                   "MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port())} \
+                if tag == "nccl_rank" else {}
+            saved = {k: os.environ.get(k) for k in env}
+            os.environ.update(env)
+            corr.reset_launches()
+            captured = io.StringIO()
+            try:
+                with contextlib.chdir(root), contextlib.redirect_stdout(captured):
+                    state = train_main([model_cfg, str(dataset_cfg), "--config", str(run_cfg),
+                                        "--experiment", tag, "--device", "cuda"])
+                torch.cuda.synchronize()
+            finally:
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+            if dist.is_initialized():
+                raise AssertionError("the train CLI left its process group behind")
+            records = [json.loads(ln) for ln in
+                       (root / "weights" / tag / "scalars.jsonl").read_text().splitlines()]
+            steps = [r for r in records if "train/loss" in r]
+            runs[tag] = {"losses": [r["train/loss"] for r in steps], "step": state.step,
+                         "launches": dict(corr.launches),
+                         "ms_per_step": 1e3 * bs / steps[-1]["train/samples_per_sec"]}
+            log(f"[mesh] train CLI, {tag}: {state.step} steps, losses "
+                + " ".join(f"{x:.5f}" for x in runs[tag]["losses"])
+                + f"; {runs[tag]['ms_per_step']:.2f} ms per step over the run (fit's rate); "
+                f"launches {runs[tag]['launches']}")
+            _expect_launches(corr, {corr.KERNEL: 8 + 2, corr.KERNEL_BWD_ROWS: 8,
+                                    corr.KERNEL_BWD_COLS: 8}, f"the train CLI, {tag}")
+    a, b, c = (np.array(runs[t]["losses"]) for t in ("single_a", "single_b", "nccl_rank"))
+    if not (len(a) == len(b) == len(c) == 8 and np.all(np.isfinite(c))):
+        raise AssertionError("the train CLI runs did not log 8 finite losses each")
+    spread = float(np.abs(a - b).max())
+    diff = float(np.abs(c - a).max())
+    limit = max(3.0 * spread, 1e-6 * float(np.abs(a).max()))
+    log(f"[mesh] one NCCL rank against no process group: largest loss difference {diff:.3g}; "
+        f"two runs without a group differ by up to {spread:.3g}; limit {limit:.3g}")
+    if diff > limit:
+        raise AssertionError("the train CLI under one NCCL rank strays from the single process")
+    return {"launches": runs["nccl_rank"]["launches"], "spread": spread, "diff": diff,
+            "ms_per_step": {t: r["ms_per_step"] for t, r in runs.items()}}
+
+
+def mesh_step_inputs() -> tuple:
+    """Phase 16 (c)'s float32 3d3d config at full width and its batch of
+    BATCH_SIZE (10) rows."""
+    cfg = load_cfg({"TPU.COMPUTE_DTYPE": "float32", "TPU.SEED": SEED})
+    batch = train_batches(1, int(cfg.TRAINING.BATCH_SIZE), cfg.DATASET.HEIGHT,
+                          cfg.DATASET.WIDTH, seed=SEED + 63)[0]
+    return cfg, batch
+
+
+def spawn_mesh_ranks(cfg, batch, n_timed=MESH_TIMED_STEPS, rank_fn=None) -> list:
+    """Run ``rank_fn`` (:func:`_mesh_rank`, or a function that plants a
+    fault and calls it) in two spawned processes over a gloo group, within
+    MESH_JOIN_LIMIT_S; each rank's result."""
+    import torch
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(rank_fn or _mesh_rank, nprocs=2, join=False,
+                                 start_method="spawn",
+                                 args=(2, _free_port(), out_dir, cfg, batch, n_timed))
+        deadline = time.monotonic() + MESH_JOIN_LIMIT_S
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"the two ranks still ran after {MESH_JOIN_LIMIT_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        ranks = [torch.load(Path(out_dir) / f"rank{r}.pt") for r in range(2)]
+    log(f"[mesh] two gloo ranks on the card: {time.perf_counter() - t0:.1f} s from spawn "
+        f"to exit; {ranks[0]['mesh']}; rows per rank {[r['rows'] for r in ranks]}")
+    return ranks
+
+
+def single_mesh_step(cfg, rows) -> tuple:
+    """One float32 train step in one process on ``rows``: (loss, gradients,
+    BatchNorm statistics, (state, step, device batch))."""
+    import torch
+
+    from mapfree_tpu_torch.models.regression import build_regression_net
+    from mapfree_tpu_torch.train import init_state, make_train_step
+    from mapfree_tpu_torch.train.fit import _device_batch, _train_keys
+
+    net = build_regression_net(cfg)
+    state = init_state(net, cfg, torch.Generator().manual_seed(SEED), device="cuda")
+    step = make_train_step(net, cfg)
+    dbatch = _device_batch(rows, torch.device("cuda"), int(cfg.TRAINING.BATCH_SIZE),
+                           _train_keys(net))
+    state, logs = step(state, dbatch)
+    return (float(logs["train/loss"]),
+            {k: p.grad.detach().cpu() for k, p in net.named_parameters()},
+            {k: b.detach().cpu() for k, b in net.named_buffers()}, (state, step, dbatch))
+
+
+def mesh_control(cfg, batch, single) -> dict:
+    """How far round-off alone moves the single-process step's gradients:
+    the same step on the batch in reverse order (the same function, its
+    sums in other orders: cuDNN's, BatchNorm's), against ``single`` (the
+    step on ``batch``). The synced BatchNorm sums in yet another order."""
+    loss, grads = single[:2]
+    loss_r, grads_r, _, _ = single_mesh_step(
+        cfg, {k: np.ascontiguousarray(v[::-1]) for k, v in batch.items()})
+    per, l2 = _grad_errors(grads_r, grads)
+    control = {"loss_rel": abs(loss_r - loss) / abs(loss), "l2": l2,
+               "median": per[len(per) // 2][0], "worst": per[0][0], "worst_at": per[0][1]}
+    log(f"[mesh] float32 step, one process x 10 rows, against the same on the rows in reverse "
+        f"order: loss rel {control['loss_rel']:.2e}; whole gradient {l2:.2e} in L2, median "
+        f"tensor {control['median']:.2e}, worst {control['worst']:.2e} at {per[0][1]}")
+    return control
+
+
+def mesh_verdict(r0, single, control, what="2 ranks x 5 rows") -> dict:
+    """Rank 0 of the two against the single-process step on the same rows:
+    the loss within STEP_LOSS_RTOL (phase 6's), the BatchNorm statistics
+    within MESH_STATS_TOL, and the gradients within MESH_NOISE_FACTOR times
+    ``control`` (:func:`mesh_control`) in the whole gradient's L2 norm, the
+    median tensor and the worst tensor. Returns the readings, their limits
+    and ``ok``."""
+    loss, grads, stats = single[:3]
+    per, l2 = _grad_errors(r0["grads"], grads)
+    stat_err = max((float((r0["stats"][k].double() - v.double()).abs().max())
+                    / max(1.0, float(v.abs().max())), k)
+                   for k, v in stats.items() if v.is_floating_point())
+    got = {"loss_rel": abs(r0["loss"] - loss) / abs(loss), "l2": l2,
+           "median": per[len(per) // 2][0], "worst": per[0][0], "stats": stat_err[0]}
+    limits = {"loss_rel": STEP_LOSS_RTOL, "stats": MESH_STATS_TOL,
+              **{k: MESH_NOISE_FACTOR * control[k] + 1e-6 for k in ("l2", "median", "worst")}}
+    ok = all(got[k] <= limits[k] for k in limits)
+    log(f"[mesh] float32 step, {what} vs one process x 10 rows: loss {r0['loss']:.6f} "
+        f"vs {loss:.6f} (rel {got['loss_rel']:.2e}, tol {STEP_LOSS_RTOL:g}); whole gradient "
+        f"{l2:.2e} in L2 (limit {limits['l2']:.3g}); median tensor {got['median']:.2e} of its "
+        f"largest entry (limit {limits['median']:.3g}); worst tensor {got['worst']:.2e} at "
+        f"{per[0][1]} (limit {limits['worst']:.3g}); worst BatchNorm statistic "
+        f"{stat_err[0]:.2e} at {stat_err[1]} (tol {MESH_STATS_TOL:g}); "
+        f"{'within' if ok else 'OUT OF'} limits")
+    return {"got": got, "limits": limits, "ok": ok}
+
+
+def mesh_two_ranks() -> dict:
+    """(c) two gloo ranks share the card on one float32 3d3d train step at
+    full width, 5 rows each of a global batch of 10, against one process on
+    the same 10 rows (:func:`mesh_verdict`, against :func:`mesh_control`
+    measured here). Then each side's ms per step over MESH_TIMED_STEPS
+    steps."""
+    import torch
+
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    cfg, batch = mesh_step_inputs()
+    ranks = spawn_mesh_ranks(cfg, batch)
+    single = single_mesh_step(cfg, batch)
+    state, step, dbatch = single[3]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MESH_TIMED_STEPS):
+        step(state, dbatch)
+    torch.cuda.synchronize()
+    single_ms = 1e3 * (time.perf_counter() - t0) / MESH_TIMED_STEPS
+    del state, step, dbatch
+    control = mesh_control(cfg, batch, single)
+    verdict = mesh_verdict(ranks[0], single, control)
+    r0 = ranks[0]
+    log(f"[mesh] launches per rank in its first step {[r['step_launches'] for r in ranks]}")
+    log(f"[mesh] float32 3d3d step at batch 10: {single_ms:.2f} ms in one process, "
+        f"{r0['ms_per_step']:.2f} ms per step on rank 0 of two sharing the card (gloo)")
+    for r in ranks:
+        if r["step_launches"] != {corr.KERNEL: 1, corr.KERNEL_BWD_ROWS: 1,
+                                  corr.KERNEL_BWD_COLS: 1}:
+            raise AssertionError(f"a rank's step launched {r['step_launches']}")
+    if not verdict["ok"]:
+        raise AssertionError("the two ranks' step disagrees with the single-process step")
+    launches = {name: sum(r["launches"][name] for r in ranks) for name in ranks[0]["launches"]}
+    return {"launches": launches, "single_ms": single_ms, "rank_ms": r0["ms_per_step"]}
+
+
+def phase_mesh() -> dict:
+    """Phase 16: the data mesh on the one card (a), the train CLI under one
+    NCCL rank (b), two gloo ranks sharing the card on one train step (c).
+    More than one card is not shown here: the machine has one."""
+    predictor = mesh_predictor()
+    cli = mesh_train_cli()
+    ranks = mesh_two_ranks()
+    return {"launches": {"mesh_two_replica_sweep": predictor.pop("two_replica_sweep"),
+                         "mesh_train_cli_nccl_rank": cli.pop("launches"),
+                         "mesh_two_gloo_ranks": ranks.pop("launches")},
+            "numbers": {**predictor, **cli, **ranks}}
+
+
+def timed(name: str, phase, *args):
+    """Run one phase and log its wall time."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    log(f"[time] {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -3674,31 +4168,36 @@ def main() -> None:
 
     t_start = time.perf_counter()
     smi = phase_device()
-    phase_build()
-    cases = phase_kernel_cases()
+    timed("build", phase_build)
+    cases = timed("kernel cases", phase_kernel_cases)
     if "--kernels-only" in sys.argv[1:]:
         # a quick check while working on a kernel; prints no result line
         phase_kernel_timing()
         log(f"[done] kernels only, {time.perf_counter() - t_start:.1f} s")
         return
-    timing = phase_kernel_timing()
-    sweep_launches = phase_main_path()
-    train_launches = phase_train_path()
-    phase_device_parity()
-    phase_train_parity()
-    phase_train_parity_bf16()
-    phase_decode()
-    cli_launches = phase_clis()
-    # the QKV, fusion and other RPR paths, the matching track and the
-    # evaluation path: each phase resets the counts just before each path it
-    # drives and reads them just after
-    later = {"qkv": phase_qkv_path(), "fusion": phase_fusion_path(),
-             "configs": phase_configs(), "fusion_clis": phase_fusion_clis()}
+    timing = timed("kernel timing", phase_kernel_timing)
+    sweep_launches = timed("inference path", phase_main_path)
+    train_launches = timed("training path", phase_train_path)
+    timed("device parity", phase_device_parity)
+    timed("train parity", phase_train_parity)
+    timed("bf16 train parity", phase_train_parity_bf16)
+    timed("decode", phase_decode)
+    cli_launches = timed("CLIs", phase_clis)
+    # the QKV, fusion and other RPR paths, the matching track, the
+    # evaluation path, the tools and the mesh: each phase resets the counts
+    # just before each path it drives and reads them just after
+    later = {"qkv": timed("QKV path", phase_qkv_path),
+             "fusion": timed("fusion path", phase_fusion_path),
+             "configs": timed("configs", phase_configs),
+             "fusion_clis": timed("fusion CLIs", phase_fusion_clis)}
     with tempfile.TemporaryDirectory() as tmp:
-        later["matching"] = phase_matching(Path(tmp) / "mapfree")
-        later["evaluation"] = phase_evaluation(Path(tmp), Path(tmp) / "mapfree")
+        later["matching"] = timed("matching", phase_matching, Path(tmp) / "mapfree")
+        later["evaluation"] = timed("evaluation", phase_evaluation, Path(tmp),
+                                    Path(tmp) / "mapfree")
         (Path(tmp) / "tools").mkdir()
-        later["tools"] = phase_tools(Path(tmp) / "tools", Path(tmp) / "mapfree")
+        later["tools"] = timed("tools", phase_tools, Path(tmp) / "tools",
+                               Path(tmp) / "mapfree")
+    later["mesh"] = timed("mesh", phase_mesh)
 
     from mapfree_tpu_torch.ops import correlation as corr
 

@@ -75,10 +75,20 @@ def _lead_shape(image):
 
 
 def device_color_jitter(generator, image, brightness=0.4, contrast=0.4,
-                        saturation=0.4):
-    """Random brightness/contrast/saturation, one factor triple PER IMAGE."""
-    factors = draw_jitter_factors(generator, _lead_shape(image), image.device,
+                        saturation=0.4, rows=None):
+    """Random brightness/contrast/saturation, one factor triple PER IMAGE.
+    With ``rows`` = (start, stop, n) ``image`` is rows [start, stop) of a
+    batch of n: the factors are drawn for all n and this block's are taken,
+    so that a block's augmentation does not depend on how the batch is
+    split."""
+    lead = _lead_shape(image)
+    if rows is not None:
+        start, stop, n = rows
+        lead = (n,) + tuple(lead[1:])
+    factors = draw_jitter_factors(generator, lead, image.device,
                                   brightness, contrast, saturation)
+    if rows is not None:
+        factors = tuple(f[start:stop] for f in factors)
     return apply_color_jitter(image, factors)
 
 
@@ -91,9 +101,11 @@ def augment_generator(seed: int, step: int, device) -> torch.Generator:
 
 
 def make_device_augment(cfg):
-    """Augment callable ``fn(generator, batch_dict) -> batch_dict`` for the
-    train step, or None when the config needs no on-device augmentation
-    (``TPU.DEVICE_AUGMENT`` off, or no augmentation requested)."""
+    """Augment callable ``fn(generator, batch_dict, rows=None) ->
+    batch_dict`` for the train step, or None when the config needs no
+    on-device augmentation (``TPU.DEVICE_AUGMENT`` off, or no augmentation
+    requested). ``rows`` as :func:`device_color_jitter` takes it: the batch
+    is one block of a larger one."""
     if not bool(cfg.TPU.DEVICE_AUGMENT):
         return None
     black_white = bool(cfg.DATASET.BLACK_WHITE)
@@ -101,11 +113,11 @@ def make_device_augment(cfg):
     if not (black_white or jitter):
         return None
 
-    def augment(generator, batch):
+    def augment(generator, batch, rows=None):
         batch = dict(batch)
         for key in ("image0", "image1"):
             batch[key] = (device_grayscale(batch[key]) if black_white
-                          else device_color_jitter(generator, batch[key]))
+                          else device_color_jitter(generator, batch[key], rows=rows))
         return batch
 
     return augment

@@ -46,7 +46,7 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size: int, sampler=None, shuffle: bool = False,
                  num_workers: int = 1, drop_last: bool = False, prefetch: int = 2,
-                 seed: int = 0, times=None, unique_refs: bool = False):
+                 seed: int = 0, times=None, unique_refs: bool = False, rows=None):
         from mapfree_tpu_torch.utils.timing import NULL_TIMES
 
         self.dataset = dataset
@@ -61,6 +61,11 @@ class DataLoader:
         # emit image0_unique/ref_idx batches (dataset.getbatch) for consumers
         # that gather the deduped reference frames on-device
         self.unique_refs = unique_refs
+        # (start, stop): decode only these rows of each batch, as one rank of
+        # a data-parallel run does (the sampler's order is every rank's); a
+        # batch with none of them yields its metadata and numeric entries of
+        # zero rows, which the consumer pads
+        self.rows = rows
 
     def _indices(self):
         if self.sampler is not None:
@@ -114,6 +119,11 @@ class DataLoader:
         def fill():
             with ThreadPoolExecutor(max_workers=self.num_workers) as ex:
                 for b in batches:
+                    none_here = False
+                    if self.rows is not None:
+                        mine = b[self.rows[0]:self.rows[1]]
+                        none_here = not mine
+                        b = mine or b[:1]  # one row for the entries' shapes
                     item = None
                     if use_getbatch:
                         with times.stage("decode"):
@@ -127,6 +137,8 @@ class DataLoader:
                                     ex.map(self.dataset.__getitem__, b))
                         with times.stage("collate"):
                             item = collate(samples)
+                    if none_here:
+                        item = {k: v[:0] for k, v in item.items()}
                     with times.stage("queue_put"):  # backpressure wait
                         q.put(item)
 

@@ -3,8 +3,9 @@ datasets' relative poses, torch for the models and losses.
 
 The port's copy of mapfree_tpu/geom/quaternion.py, whose functions take
 numpy or jax arrays alike: the numpy branch (``qinverse``, ``qconjugate``,
-``qmult``, ``rotate_vector``, ``quat2mat``, ``mat2quat``,
-``relative_pose_wxyz``, ``convert_world2cam_to_cam2world``) and, for torch
+``qmult``, ``rotate_vector``, ``quat2mat``, ``mat2quat``, ``axangle2quat``,
+``euler2quat``, ``relative_pose_wxyz``, ``convert_world2cam_to_cam2world``)
+and, for torch
 tensors, ``quat2mat_torch`` and ``mat2quat_torch`` (the multi-frame fusion
 and the quaternion losses). Every
 function takes a batch of leading axes. Convention: (w, x, y, z), scalar
@@ -113,6 +114,26 @@ def mat2quat(R):
     sign = np.where(q[..., :1] < 0, -1.0, 1.0)  # canonical hemisphere: w >= 0
     q = q * sign
     return q / np.linalg.norm(q, axis=-1, keepdims=True)
+
+
+def axangle2quat(vector, theta, is_normalized=False):
+    """Axis-angle (3-vector, scalar angle) -> quaternion [4]."""
+    vector = np.asarray(vector)
+    if not is_normalized:
+        vector = vector / np.linalg.norm(vector, axis=-1, keepdims=True)
+    half = theta / 2.0
+    return np.concatenate([np.atleast_1d(np.cos(half)), vector * np.sin(half)], axis=-1)
+
+
+def euler2quat(ai, aj, ak):
+    """Intrinsic sxyz Euler angles -> quaternion (as transforms3d.euler.euler2quat)."""
+    ai, aj, ak = ai / 2.0, aj / 2.0, ak / 2.0
+    ci, si = np.cos(ai), np.sin(ai)
+    cj, sj = np.cos(aj), np.sin(aj)
+    ck, sk = np.cos(ak), np.sin(ak)
+    cc, cs = ci * ck, ci * sk
+    sc, ss = si * ck, si * sk
+    return np.array([cj * cc + sj * ss, cj * sc - sj * cs, cj * ss + sj * cc, cj * cs - sj * sc])
 
 
 def relative_pose_wxyz(q1_wxyz, t1, q2_wxyz, t2):

@@ -12,11 +12,50 @@ call), are slow for millions of tiny matrices, and on degenerate input would
 not pick the reference's vectors. The products are written as
 broadcast-multiply-sums, which float32 evaluates the same whatever the
 process's TF32 settings are (3x3 rotation algebra loses degrees under TF32).
+:func:`tf32_off` is the port's counterpart of the JAX module's
+``f32_matmuls`` scope, for the callers whose products are matmuls and
+convolutions.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
+
+_tf32_lock = threading.Lock()
+_tf32_depth = 0
+_tf32_saved = None
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """TF32 off for float32 matmuls and cuDNN convolutions (cuDNN defaults to
+    on) inside the block; the process's settings are restored after it.
+
+    The flags are process-global and blocks may overlap on several threads
+    (the matching track's adaptive ladder finishes on a pool thread), so the
+    blocks share one count: the first to enter saves the settings, the last
+    to leave restores them, and a block that leaves early cannot switch TF32
+    back on under another still running."""
+    global _tf32_depth, _tf32_saved
+    with _tf32_lock:
+        if _tf32_depth == 0:
+            _tf32_saved = (torch.backends.cuda.matmul.allow_tf32,
+                           torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _tf32_depth += 1
+    try:
+        yield
+    finally:
+        with _tf32_lock:
+            _tf32_depth -= 1
+            if _tf32_depth == 0:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = _tf32_saved
+
 
 
 def _cross(a, b):

@@ -26,12 +26,27 @@ class BatchNorm2d(nn.BatchNorm2d):
     n / (n - 1)). The normalisation itself and the state_dict keys are
     torch's. In training the op writes momentum * unbiased variance into a
     scratch tensor (the one autograd keeps), and the running variance is
-    updated from it: three small kernels per layer."""
+    updated from it: three small kernels per layer.
+
+    With ``process_group`` set (:func:`sync_batchnorm`, a group of more than
+    one rank) training normalises by the statistics of the whole batch over
+    the group's ranks (:class:`_SyncBatchNorm`), as the JAX step's
+    BatchNorm does over a sharded batch."""
+
+    process_group = None
 
     def forward(self, x):
         if not (self.training and self.track_running_stats) or self.momentum is None:
             return super().forward(x)
         self._check_input_dim(x)
+        if self.process_group is not None:
+            y, mean, var = _SyncBatchNorm.apply(x, self.weight, self.bias, self.eps,
+                                                self.process_group)
+            with torch.no_grad():
+                self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+                self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+                self.num_batches_tracked.add_(1)
+            return y
         n = x.numel() // x.shape[1]
         scratch = torch.zeros_like(self.running_var)
         y = F.batch_norm(x, self.running_mean, scratch, self.weight, self.bias,
@@ -41,6 +56,73 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.mul_(1.0 - self.momentum).add_(scratch, alpha=(n - 1) / n)
             self.num_batches_tracked.add_(1)
         return y
+
+
+def _all_reduce(t, group):
+    import torch.distributed as dist
+
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return t
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """Training-mode BatchNorm over the batch of every rank of ``group``.
+
+    Forward, in float32 whatever x's type: the global mean from the
+    all-reduced per-channel sums and counts, then the BIASED global
+    variance from the all-reduced sums of squared deviations from it (two
+    passes, as torch's own BatchNorm, not E[x^2] - E[x]^2). Returns y in x's
+    type and the batch mean and variance for the running statistics.
+
+    Backward: the two per-channel sums, of dy and of dy * x_hat, all-reduced
+    in one call, give the input gradient of the whole batch's loss; the
+    weight and bias gradients are this rank's own sums (the train step
+    averages every parameter gradient over the ranks)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        xf = x.float()
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        n_local = xf.numel() // xf.shape[1]
+        sums = torch.cat([xf.sum(dims), xf.new_full((1,), float(n_local))])
+        sums = _all_reduce(sums, group)
+        n = sums[-1]
+        mean = sums[:-1] / n
+        xc = xf - mean.reshape(shape)
+        var = _all_reduce((xc * xc).sum(dims), group) / n
+        invstd = torch.rsqrt(var + eps)
+        x_hat = xc * invstd.reshape(shape)
+        y = x_hat * weight.reshape(shape) + bias.reshape(shape)
+        ctx.save_for_backward(x_hat, weight, invstd, n)
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, _dmean, _dvar):
+        x_hat, weight, invstd, n = ctx.saved_tensors
+        dims = [0] + list(range(2, x_hat.dim()))
+        shape = [1, -1] + [1] * (x_hat.dim() - 2)
+        dyf = dy.float()
+        sum_dy = dyf.sum(dims)
+        sum_dy_xhat = (dyf * x_hat).sum(dims)
+        total = _all_reduce(torch.stack([sum_dy, sum_dy_xhat]), ctx.group)
+        dx = (weight * invstd).reshape(shape) * (
+            dyf - (total[0] / n).reshape(shape) - x_hat * (total[1] / n).reshape(shape))
+        return dx.to(dy.dtype), sum_dy_xhat, sum_dy, None, None
+
+
+def sync_batchnorm(module: nn.Module, group) -> nn.Module:
+    """Point every :class:`BatchNorm2d` of ``module`` at ``group`` (a process
+    group of more than one rank). Not
+    ``nn.SyncBatchNorm.convert_sync_batchnorm``: that layer folds the
+    unbiased variance into the running statistics."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm2d):
+            m.process_group = group
+    return module
 
 
 def _bn(channels: int) -> BatchNorm2d:

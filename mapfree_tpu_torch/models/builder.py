@@ -22,19 +22,35 @@ device-tracking poses as well.
 
 On the CPU (``device="cpu"``, as the tests run) the same code runs without
 streams or pinning.
+
+Several cards (port of the JAX predictor's sharded forward): with the bare
+``device="cuda"`` on a machine with more than one card, or with
+``devices=[...]``, the predictor holds one replica of the net per device of
+the mesh (``parallel/mesh.py``), rounds ``INFER_BATCH`` up to a multiple of
+the device count, ships each device the contiguous block of rows the data
+axis gives it (the unique reference frames to every device) in a packed
+buffer of its own, runs the replicas one after another from the calling
+thread (each on its device's stream, so they overlap on the cards) and
+gathers the poses in order. With one device the mesh is dropped: one
+replica, one block of the whole batch, the single-device path above.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import threading
 
 import numpy as np
 import torch
 
+from mapfree_tpu_torch.geom.smallblas import tf32_off
 from mapfree_tpu_torch.models.blocks import init_weights
 from mapfree_tpu_torch.models.regression import REGRESSION_MODELS, build_regression_net
+from mapfree_tpu_torch.parallel.mesh import (batch_sharding, local_mesh, make_mesh,
+                                             pad_to_multiple, world_and_rank)
 from mapfree_tpu_torch.tools.convert_weights import load_checkpoint
+from mapfree_tpu_torch.utils.data import fetch_later
 from mapfree_tpu_torch.utils.packing import pack_arrays, spec_of, unpack
 from mapfree_tpu_torch.utils.timing import NULL_TIMES
 
@@ -50,39 +66,6 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-_tf32_lock = threading.Lock()
-_tf32_depth = 0
-_tf32_saved = None
-
-
-@contextlib.contextmanager
-def tf32_off():
-    """TF32 off for float32 matmuls and cuDNN convolutions (cuDNN defaults to
-    on) inside the block; the process's settings are restored after it.
-
-    The flags are process-global and blocks may overlap on several threads
-    (the matching track's adaptive ladder finishes on a pool thread), so the
-    blocks share one count: the first to enter saves the settings, the last
-    to leave restores them, and a block that leaves early cannot switch TF32
-    back on under another still running."""
-    global _tf32_depth, _tf32_saved
-    with _tf32_lock:
-        if _tf32_depth == 0:
-            _tf32_saved = (torch.backends.cuda.matmul.allow_tf32,
-                           torch.backends.cudnn.allow_tf32)
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-        _tf32_depth += 1
-    try:
-        yield
-    finally:
-        with _tf32_lock:
-            _tf32_depth -= 1
-            if _tf32_depth == 0:
-                (torch.backends.cuda.matmul.allow_tf32,
-                 torch.backends.cudnn.allow_tf32) = _tf32_saved
-
-
 def ship_packed(arrays, device, tls):
     """Pack ``arrays`` into one uint8 buffer and start its copy to
     ``device``: on the card from pinned memory on a side stream of the
@@ -94,9 +77,12 @@ def ship_packed(arrays, device, tls):
     total = sum(int(a.nbytes) for a in arrays)
     host = torch.empty(total, dtype=torch.uint8, pin_memory=True)
     pack_arrays(arrays, out=host.numpy())
-    stream = getattr(tls, "stream", None)
+    streams = getattr(tls, "streams", None)
+    if streams is None:
+        streams = tls.streams = {}
+    stream = streams.get(device)
     if stream is None:
-        stream = tls.stream = torch.cuda.Stream(device=device)
+        stream = streams[device] = torch.cuda.Stream(device=device)
     with torch.cuda.stream(stream):
         dev = host.to(device, non_blocking=True)
         ready = torch.cuda.Event()
@@ -115,30 +101,42 @@ def receive_packed(dev, ready, spec):
     return unpack(dev, spec)
 
 
-def fetch_later(t):
-    """Start copying ``t`` to pinned host memory behind the current
-    stream's work: (host tensor, event to wait on, or None on the CPU)."""
-    if t.device.type != "cuda":
-        return t, None
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record(torch.cuda.current_stream(t.device))
-    return host, done
+def _predictor_mesh(cfg, device, devices):
+    """The mesh the predictor splits a batch over, or None for one device:
+    ``devices`` if given, else every visible card for the bare "cuda" (not
+    inside a process group of several ranks, whose processes each drive
+    their own card)."""
+    if devices is None:
+        device = torch.device(device)
+        if (device.type != "cuda" or device.index is not None or world_and_rank()[0] > 1
+                or not torch.cuda.is_available() or torch.cuda.device_count() < 2):
+            return None
+        mesh = make_mesh(cfg)
+    else:
+        mesh = local_mesh(cfg, [resolve_device(d) for d in devices])
+    return mesh if mesh.size > 1 else None  # a 1-device mesh shards nothing
 
 
 class RegressionPredictor:
     """Batched inference with one fixed batch size; smaller (final) batches
-    are padded up to it."""
+    are padded up to it. Over a mesh of several devices, one replica each
+    (see the module's docstring)."""
 
-    def __init__(self, cfg, checkpoint: str = "", device="cuda"):
-        self.device = resolve_device(device)
+    def __init__(self, cfg, checkpoint: str = "", device="cuda", devices=None):
+        self.mesh = _predictor_mesh(cfg, device, devices)
+        if self.mesh is None:
+            self.device = resolve_device(devices[0] if devices else device)
+        else:
+            self.device = self.mesh.devices.flat[0]
         self.cfg = cfg
         net = build_regression_net(cfg)
         init_weights(net, torch.Generator().manual_seed(int(cfg.TPU.SEED)))
         if checkpoint:
             load_checkpoint(net, checkpoint)
         self.net = net.to(self.device).eval()
+        # one replica per device; one device is a mesh of one
+        self.devices = [self.device] if self.mesh is None else list(self.mesh.devices.flat)
+        self.replicas = [self.net] + [copy.deepcopy(self.net).to(d) for d in self.devices[1:]]
         # float32 mode runs its forward with TF32 off, so float32 stays
         # float32. bfloat16 mode needs no setting: its convolutions run in
         # bf16 under autocast, and its float32 MLP and 3x3 Kabsch matmuls
@@ -146,6 +144,11 @@ class RegressionPredictor:
         self._tf32_off = (self.device.type == "cuda"
                           and cfg.TPU.COMPUTE_DTYPE == "float32")
         self.batch_size = int(cfg.TPU.INFER_BATCH)
+        if self.mesh is None:
+            self.blocks = [(0, self.batch_size)]
+        else:
+            self.batch_size = pad_to_multiple(self.batch_size, self.mesh.size)
+            self.blocks = batch_sharding(self.mesh).blocks(self.batch_size)
         self.needs_device_poses = getattr(net, "needs_device_poses", False)
         # deduped-reference path: encode U unique refs + B queries (the
         # two-view model only)
@@ -200,42 +203,53 @@ class RegressionPredictor:
         return named, B
 
     def transfer_batch(self, batch, times=None):
-        """Host -> device stage (safe on a worker thread). Returns what
+        """Host -> device stage (safe on a worker thread): each device's
+        contiguous block of the padded batch (the unique reference frames
+        whole), packed and shipped to it. Returns what
         :meth:`dispatch_device` consumes."""
         times = times or NULL_TIMES
         named, B = self._named_arrays(batch)
-        spec = spec_of(named)
-        arrays = [a for _, a in named]
+        shipped = []
         with times.stage("h2d"):
-            dev, ready, host = ship_packed(arrays, self.device, self._tls)
-        return dev, ready, host, B, spec
+            for dev, (start, stop) in zip(self.devices, self.blocks):
+                part = [(name, a if name == "image0u" else a[start:stop]) for name, a in named]
+                shipped.append((*ship_packed([a for _, a in part], dev, self._tls),
+                                spec_of(part)))
+        return shipped, B
+
+    def _forward(self, net, parts):
+        """The packed [bs, 4, 3] (R | t) of one replica's forward."""
+        with torch.inference_mode(), \
+                (tf32_off() if self._tf32_off else contextlib.nullcontext()):
+            if "ref_idx" in parts:
+                R, t, _ = net(parts["image0u"], parts["image1"], ref_idx=parts["ref_idx"])
+            elif "q_device" in parts:
+                R, t, _ = net(parts["image0"], parts["image1"],
+                              q_device=parts["q_device"], t_device=parts["t_device"])
+            else:
+                R, t, _ = net(parts["image0"], parts["image1"])
+            return torch.cat([R, t.reshape(-1, 1, 3)], dim=1)
 
     def dispatch_device(self, transferred, times=None):
-        """Compute stage: the forward on the device-resident buffer; returns
-        finalize() -> (R, t, inliers) numpy."""
+        """Compute stage: each replica's forward on its device-resident
+        block, launched on its device in turn; returns finalize() -> (R, t,
+        inliers) numpy, the poses gathered in block order."""
         times = times or NULL_TIMES
-        dev, ready, _host, B, spec = transferred
+        shipped, B = transferred
+        fetched = []
         with times.stage("dispatch"):
-            parts = receive_packed(dev, ready, spec)
-            with torch.inference_mode(), \
-                    (tf32_off() if self._tf32_off else contextlib.nullcontext()):
-                if "ref_idx" in parts:
-                    R, t, _ = self.net(parts["image0u"], parts["image1"],
-                                       ref_idx=parts["ref_idx"])
-                elif "q_device" in parts:
-                    R, t, _ = self.net(parts["image0"], parts["image1"],
-                                       q_device=parts["q_device"],
-                                       t_device=parts["t_device"])
-                else:
-                    R, t, _ = self.net(parts["image0"], parts["image1"])
-                out = torch.cat([R, t.reshape(-1, 1, 3)], dim=1)  # [bs, 4, 3]
-                host_out, done = fetch_later(out)
+            for net, dev, (buf, ready, _host, spec) in zip(self.replicas, self.devices, shipped):
+                with (torch.cuda.device(dev) if dev.type == "cuda"
+                      else contextlib.nullcontext()):
+                    parts = receive_packed(buf, ready, spec)
+                    fetched.append(fetch_later(self._forward(net, parts)))
 
         def finalize():
             with times.stage("d2h_wait"):
-                if done is not None:
-                    done.synchronize()
-                host = host_out.numpy()[:B]
+                for _, done in fetched:
+                    if done is not None:
+                        done.synchronize()
+                host = np.concatenate([h.numpy() for h, _ in fetched])[:B]
             return host[:, :3], host[:, 3:].reshape(B, 1, 3), np.zeros((B,), np.float32)
 
         return finalize
@@ -267,9 +281,12 @@ class MatchingPredictor:
         return self.model(batch)
 
 
-def build_model(cfg, checkpoint: str = "", device="cuda"):
+def build_model(cfg, checkpoint: str = "", device="cuda", devices=None):
+    """The predictor of ``cfg``'s model on ``device``; a regression model
+    over ``devices`` (or every card for the bare "cuda") when there are
+    several (:class:`RegressionPredictor`)."""
     if cfg.MODEL in REGRESSION_MODELS:
-        return RegressionPredictor(cfg, checkpoint, device=device)
+        return RegressionPredictor(cfg, checkpoint, device=device, devices=devices)
     if cfg.MODEL == "FeatureMatching":
         return MatchingPredictor(cfg, device=device)
     raise NotImplementedError(f"Invalid model {cfg.MODEL}")

@@ -37,7 +37,9 @@ one serves a (dtype, Cq, Cv):
   ``fused_correlation_warp_plain(..., bf16_roundings=True)`` rounds at the
   same place.
 - ``"fma"``: float32 inputs (exact float32 arithmetic, no TF32) and any other
-  bf16 shape: scalar fused multiply-adds on float32 tiles in shared memory.
+  bf16 shape, at any Cq >= 1 and Cv >= 0: scalar fused multiply-adds on
+  float32 tiles in shared memory, the channels in chunks of at most 128 and
+  the accumulator columns in tiles of at most 128 (a grid dimension).
 
 K2 and K3 exist in two hand-written designs too, and :func:`backward_design`
 says which one serves a (dtype, Cq, Cv):
@@ -53,7 +55,7 @@ says which one serves a (dtype, Cq, Cv):
   rounded to bf16 where the other design keeps float32;
   ``bf16_roundings=True`` makes the plain backward round at the same places.
 - ``"fma"``: float32 inputs (exact float32 arithmetic, no TF32) and any other
-  bf16 shape: scalar fused multiply-adds on float32 tiles in shared memory.
+  bf16 shape, at any width, as K1's.
 
 Every design is a kernel of this package; none gives way to another or to
 the plain version.
@@ -127,16 +129,10 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def kernels_take(Cq: int, Cv: int) -> bool:
-    """Whether K1-K3 (either design) take these widths on the card: Cq up to
-    128 and Cv + 2 up to 128 (the accumulator columns of a row)."""
-    return 1 <= Cq <= 128 and 0 <= Cv and Cv + 2 <= 128
-
-
 def forward_design(dtype, Cq: int, Cv: int) -> str:
     """Which hand-written design of K1 serves these inputs on the card:
     ``DESIGN_MMA`` for bf16 with Cq and Cv multiples of 8, Cq <= 128 and
-    Cv + 2 <= 128, ``DESIGN_FMA`` for float32 and every other bf16 shape."""
+    Cv + 2 <= 128, ``DESIGN_FMA`` for float32 and every other shape."""
     if dtype == torch.bfloat16 and Cq % 8 == 0 and Cv % 8 == 0 and 8 <= Cq <= 128 \
             and 8 <= Cv and Cv + 2 <= 128:
         return DESIGN_MMA
@@ -146,7 +142,7 @@ def forward_design(dtype, Cq: int, Cv: int) -> str:
 def backward_design(dtype, Cq: int, Cv: int) -> str:
     """Which hand-written design of K2 and K3 serves these inputs on the
     card: ``DESIGN_MMA`` for bf16 with Cq and Cv multiples of 8 from 8 to
-    128, ``DESIGN_FMA`` for float32 and every other bf16 shape."""
+    128, ``DESIGN_FMA`` for float32 and every other shape."""
     if dtype == torch.bfloat16 and all(c % 8 == 0 and 8 <= c <= 128 for c in (Cq, Cv)):
         return DESIGN_MMA
     return DESIGN_FMA
@@ -483,12 +479,6 @@ def fused_correlation_warp(q, k, v, grid):
         raise ValueError(f"fused_correlation_warp runs on CPU or CUDA, not {q.device}")
     _check_inputs(q, k, v, grid)
     if q.device.type == "cuda":
-        if not kernels_take(q.shape[-1], v.shape[-1]):
-            raise NotImplementedError(
-                f"the correlation kernels take Cq <= 128 and Cv + 2 <= 128 channels on the "
-                f"card, not Cq={q.shape[-1]}, Cv={v.shape[-1]} (the ResNet encoder's width): "
-                "ROADMAP.md item 18, K1-K3 for Cv + 2 > 128. The dense route "
-                "(TPU.FUSED_CORRELATION false) serves such widths")
         grid = grid.to(device=q.device, dtype=v.dtype)
         _check_cuda(q, k, v, grid)
     return _split(_FusedCorrelationWarp.apply(q, k, v, grid.detach()), v.shape[-1])

@@ -77,16 +77,27 @@
 //   to K3 as an index, so K3 needs no bit-equal score.
 //
 // "fma" (first half): float32 inputs, where exact float32 arithmetic is the
-// point, and bf16 shapes the other design does not take. Scalar fused
-// multiply-adds on float32 tiles staged transposed in shared memory: 256
-// threads as 16 x 16, each owning a 4 x 4 patch of the 64 x 64 score tile.
+// point, and bf16 shapes the other design does not take, at any Cq >= 1 and
+// Cv >= 0. Scalar fused multiply-adds on float32 tiles staged transposed in
+// shared memory: 256 threads as 16 x 16, each owning a 4 x 4 patch of the
+// 64 x 64 score tile.
+// - Every product over channels (q . k over Cq, dmain . [v | grid] over
+//   Cv + 2) is summed over chunks of at most QC = 128 channels staged in turn
+//   (resident when one chunk holds them all), so shared memory does not grow
+//   with the width (171 KB at most, K3).
+// - The grid's third dimension tiles the accumulator columns, at most 128 a
+//   block: K2's dq columns, K3's dk and dv columns (tile z takes columns
+//   128 z.. of both). Every column tile recomputes the same scores in the same
+//   order, so the row statistics and the first argmax agree bit for bit
+//   across tiles; only tile 0 writes them (K2).
 // - K2 sweeps the key tiles twice. Sweep 1 keeps, per row, the running
 //   max, the denominator and the first argmax (each of the 16 lanes that share
 //   a row keeps its own state; they are merged once at the end, the smallest
 //   index winning among equal maxima). Sweep 2 rebuilds P tile by tile, forms
 //   dS and accumulates dq in registers.
 // - K3 reads the per-row statistics K2 wrote: the row max (log2 domain), the
-//   reciprocal denominator, c, and the argmax as an int32.
+//   reciprocal denominator, c, and the argmax as an int32. It keeps a fixed
+//   order with no atomics.
 // - Scores are recomputed with the same fused multiply-adds in the same order
 //   in K2's two sweeps and in K3 (a*b commutes), so here P_ij <= 1 holds bit
 //   for bit.
@@ -104,49 +115,50 @@ namespace {
 constexpr int TM = 64;      // tile edge: query rows and key columns per tile
 constexpr int NT = 256;     // threads: 16 groups of 4 rows x 16 lanes of 4 columns
 constexpr int LD = TM + 4;  // padded stride (floats) of every transposed tile
-constexpr int MAX_CPT = 8;  // accumulator columns per lane: channels <= 128
+constexpr int MAX_CPT = 8;  // accumulator columns per lane: 128 per column tile
+constexpr int QC = 128;     // channels per chunk of a product over channels
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-// dst[c * LD + r] = src[(row0 + r) * ld_src + c] for r < TM, c < C; rows past
-// HW are zero.
+__host__ __device__ __forceinline__ int chunk_of(int C) { return C < QC ? C : QC; }
+__host__ __device__ __forceinline__ int n_chunks(int C) { return (C + QC - 1) / QC; }
+
+// dst[c * LD + r] = src[(row0 + r) * ld_src + c0 + c] for r < TM, c < C; rows
+// past HW are zero.
 template <typename T>
 __device__ __forceinline__ void load_tile_t(float* dst, const T* src, int row0, int HW,
-                                            int C, int ld_src, int tid) {
+                                            int c0, int C, int ld_src, int tid) {
   for (int e = tid; e < TM * C; e += NT) {
     const int r = e / C, c = e - r * C;
     const int row = row0 + r;
-    dst[c * LD + r] = row < HW ? to_f(src[static_cast<size_t>(row) * ld_src + c]) : 0.f;
+    dst[c * LD + r] = row < HW ? to_f(src[static_cast<size_t>(row) * ld_src + c0 + c]) : 0.f;
   }
 }
 
-// dst[c * LD + r] = [v | grid][(row0 + r), c], transposed, zero past HW.
+// dst[c * LD + r] = [v | grid][(row0 + r), c0 + c] for c < C, transposed,
+// zero past HW.
 template <typename T>
 __device__ __forceinline__ void load_vg_tile_t(float* dst, const T* vb, const T* grid,
-                                               int row0, int HW, int Cv, int tid) {
-  const int CvP = Cv + 2;
-  for (int e = tid; e < TM * CvP; e += NT) {
-    const int r = e / CvP, c = e - r * CvP;
+                                               int row0, int HW, int Cv, int c0, int C,
+                                               int tid) {
+  for (int e = tid; e < TM * C; e += NT) {
+    const int r = e / C, c = c0 + e - r * C;
     const int row = row0 + r;
     float x = 0.f;
     if (row < HW) {
       x = c < Cv ? to_f(vb[static_cast<size_t>(row) * Cv + c])
                  : to_f(grid[static_cast<size_t>(row) * 2 + (c - Cv)]);
     }
-    dst[c * LD + r] = x;
+    dst[(c - c0) * LD + r] = x;
   }
 }
 
-// s[i][jj] = sum_c a[c][4 ty + i] * b[c][4 tx + jj], c ascending, one fma each
+// s[i][jj] += sum_c a[c][4 ty + i] * b[c][4 tx + jj], c ascending, one fma each
 __device__ __forceinline__ void tile_product(const float* a, const float* b, int C,
                                              int ty, int tx, float s[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.f;
   for (int c = 0; c < C; ++c) {
     const float4 x = *reinterpret_cast<const float4*>(&a[c * LD + 4 * ty]);
     const float4 y = *reinterpret_cast<const float4*>(&b[c * LD + 4 * tx]);
@@ -159,8 +171,50 @@ __device__ __forceinline__ void tile_product(const float* a, const float* b, int
   }
 }
 
+__device__ __forceinline__ void zero44(float s[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.f;
+}
+
+// The two products of a 64 x 64 tile over channels, chunk by chunk:
+//   s  = A_rows . B_cols over Ca channels   (q . k, or k . q in K3)
+//   dp = D_rows . V_cols over Cd channels   (dmain . [v | grid], or the swap)
+// given loaders that stage chunk (c0, width) of each operand transposed. A
+// and D are resident (loaded by the caller) when one chunk holds them. Ends
+// with every thread past the last product, so the caller may reuse the
+// buffers after one more __syncthreads.
+template <typename LA, typename LB, typename LD_, typename LV>
+__device__ __forceinline__ void chunked_products(
+    float* aT, float* bT, float* dT, float* vT, int Ca, int Cd, bool with_dp, int ty, int tx,
+    float s[4][4], float dp[4][4], LA load_a, LB load_b, LD_ load_d, LV load_v) {
+  zero44(s);
+  zero44(dp);
+  const int na = n_chunks(Ca), nd = with_dp ? n_chunks(Cd) : 0;
+  const int n = na > nd ? na : nd;
+  for (int ch = 0; ch < n; ++ch) {
+    const int c0 = ch * QC;
+    __syncthreads();  // the previous chunk (or tile) is consumed
+    if (ch < na) {
+      const int w = Ca - c0 < QC ? Ca - c0 : QC;
+      if (na > 1) load_a(aT, c0, w);
+      load_b(bT, c0, w);
+    }
+    if (ch < nd) {
+      const int w = Cd - c0 < QC ? Cd - c0 : QC;
+      if (nd > 1) load_d(dT, c0, w);
+      load_v(vT, c0, w);
+    }
+    __syncthreads();
+    if (ch < na) tile_product(aT, bT, Ca - c0 < QC ? Ca - c0 : QC, ty, tx, s);
+    if (ch < nd) tile_product(dT, vT, Cd - c0 < QC ? Cd - c0 : QC, ty, tx, dp);
+  }
+}
+
 // ---------------------------------------------------------------------- K2 --
 
+// grid (x: 64-row tile, y: batch, z: tile of 16 CPT dq columns)
 template <typename T, int CPT>
 __global__ void __launch_bounds__(NT)
 correlation_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -170,15 +224,17 @@ correlation_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             int* __restrict__ amax_out, int HW, int Cq, int Cv) {
   extern __shared__ __align__(16) float smem[];
   const int CvP = Cv + 2;
-  const int CO = Cv + 3;         // columns of out and dout
-  float* qT = smem;              // [Cq][LD]   query tile (resident)
-  float* dmT = qT + Cq * LD;     // [CvP][LD]  dmain tile (resident)
-  float* kT = dmT + CvP * LD;    // [Cq][LD]   key tile
-  float* vgT = kT + Cq * LD;     // [CvP][LD]  [v | grid] tile
-  float* ps = vgT + CvP * LD;    // [TM][LD]   dS of this key tile
+  const int CO = Cv + 3;                    // columns of out and dout
+  const int CQC = chunk_of(Cq), CVC = chunk_of(CvP);
+  float* qT = smem;                 // [CQC][LD]  query chunk (resident if one)
+  float* dmT = qT + CQC * LD;       // [CVC][LD]  dmain chunk (resident if one)
+  float* kT = dmT + CVC * LD;       // [CQC][LD]  key chunk
+  float* vgT = kT + CQC * LD;       // [CVC][LD]  [v | grid] chunk
+  float* ps = vgT + CVC * LD;       // [TM][LD]   dS of this key tile
 
   const int b = blockIdx.y;
   const int row0 = blockIdx.x * TM;
+  const int z = blockIdx.z;
   const int tid = threadIdx.x;
   const int ty = tid >> 4;  // rows 4*ty .. 4*ty+3
   const int tx = tid & 15;  // lane within the half-warp that shares those rows
@@ -190,8 +246,17 @@ correlation_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* ob = out + boff * CO;
   const float* dob = dout + boff * CO;
 
-  load_tile_t(qT, qb, row0, HW, Cq, Cq, tid);
-  load_tile_t(dmT, dob, row0, HW, CvP, CO, tid);
+  auto load_q = [&](float* dst, int c0, int w) { load_tile_t(dst, qb, row0, HW, c0, w, Cq, tid); };
+  auto load_dm = [&](float* dst, int c0, int w) {
+    load_tile_t(dst, dob, row0, HW, c0, w, CO, tid);
+  };
+  int key0 = 0;
+  auto load_k = [&](float* dst, int c0, int w) { load_tile_t(dst, kb, key0, HW, c0, w, Cq, tid); };
+  auto load_vg = [&](float* dst, int c0, int w) {
+    load_vg_tile_t(dst, vb, grid, key0, HW, Cv, c0, w, tid);
+  };
+  if (n_chunks(Cq) == 1) load_q(qT, 0, Cq);
+  if (n_chunks(CvP) == 1) load_dm(dmT, 0, CvP);
 
   // c_i = dout_i . out_i, and the max-score cotangent of each row
   float cval[4], dms[4];
@@ -222,12 +287,10 @@ correlation_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
     best[i] = -INFINITY;
     bidx[i] = 0x7fffffff;
   }
-  for (int key0 = 0; key0 < HW; key0 += TM) {
-    __syncthreads();  // the previous key tile is consumed (and qT, dmT are written)
-    load_tile_t(kT, kb, key0, HW, Cq, Cq, tid);
-    __syncthreads();
-    float s[4][4];
-    tile_product(qT, kT, Cq, ty, tx, s);
+  for (key0 = 0; key0 < HW; key0 += TM) {
+    float s[4][4], unused[4][4];
+    chunked_products(qT, kT, dmT, vgT, Cq, CvP, false, ty, tx, s, unused, load_q, load_k,
+                     load_dm, load_vg);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float s2[4];
@@ -272,7 +335,7 @@ correlation_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     const int row = row0 + 4 * ty + i;
-    if (tx == 0 && row < HW) {
+    if (tx == 0 && z == 0 && row < HW) {
       float* st = stats + (boff + row) * 3;
       st[0] = m[i];
       st[1] = inv_l[i];
@@ -281,21 +344,19 @@ correlation_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  // sweep 2: dS tile by tile, dq in registers
+  // sweep 2: dS tile by tile, this block's dq columns in registers
+  const int colz = z * 16 * CPT;
+  const int CW = Cq - colz < 16 * CPT ? Cq - colz : 16 * CPT;
   float acc[4][CPT];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int cc = 0; cc < CPT; ++cc) acc[i][cc] = 0.f;
 
-  for (int key0 = 0; key0 < HW; key0 += TM) {
-    __syncthreads();  // the previous tile's kT and ps are consumed
-    load_tile_t(kT, kb, key0, HW, Cq, Cq, tid);
-    load_vg_tile_t(vgT, vb, grid, key0, HW, Cv, tid);
-    __syncthreads();
+  for (key0 = 0; key0 < HW; key0 += TM) {
     float s[4][4], dp[4][4];
-    tile_product(qT, kT, Cq, ty, tx, s);
-    tile_product(dmT, vgT, CvP, ty, tx, dp);
+    chunked_products(qT, kT, dmT, vgT, Cq, CvP, true, ty, tx, s, dp, load_q, load_k, load_dm,
+                     load_vg);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float ds[4];
@@ -309,9 +370,13 @@ correlation_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
       *reinterpret_cast<float4*>(&ps[(4 * ty + i) * LD + 4 * tx]) =
           make_float4(ds[0], ds[1], ds[2], ds[3]);
     }
-    __syncthreads();
+    __syncthreads();  // dS is written; every product has read kT
+    if (n_chunks(Cq) > 1) {  // kT holds the last chunk: bring this block's columns
+      load_k(kT, colz, CW);
+      __syncthreads();
+    }
 
-    // acc[rows, cols tx + 16 cc] += dS[rows, tile] . k[tile, cols]
+    // acc[rows, cols tx + 16 cc] += dS[rows, tile] . k[tile, colz + cols]
     for (int j = 0; j < TM; j += 4) {
       float pr[4][4];
 #pragma unroll
@@ -325,7 +390,7 @@ correlation_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int cc = 0; cc < CPT; ++cc) {
         const int col = tx + 16 * cc;
-        if (col < Cq) {
+        if (col < CW) {
           const float4 t = *reinterpret_cast<const float4*>(&kT[col * LD + j]);
           const float kv[4] = {t.x, t.y, t.z, t.w};
 #pragma unroll
@@ -341,11 +406,11 @@ correlation_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = row0 + 4 * ty + i;
     if (row < HW) {
-      float* o = dq + (boff + row) * Cq;
+      float* o = dq + (boff + row) * Cq + colz;
 #pragma unroll
       for (int cc = 0; cc < CPT; ++cc) {
         const int col = tx + 16 * cc;
-        if (col < Cq) o[col] = acc[i][cc];
+        if (col < CW) o[col] = acc[i][cc];
       }
     }
   }
@@ -353,6 +418,7 @@ correlation_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ---------------------------------------------------------------------- K3 --
 
+// grid (x: 64-column tile, y: batch, z: tile of 16 CPT columns of dk and of dv)
 template <typename T, int CPT>
 __global__ void __launch_bounds__(NT)
 correlation_bwd_cols_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -363,13 +429,14 @@ correlation_bwd_cols_kernel(const T* __restrict__ q, const T* __restrict__ k,
   extern __shared__ __align__(16) float smem[];
   const int CvP = Cv + 2;
   const int CO = Cv + 3;
-  float* kT = smem;              // [Cq][LD]   key tile of this block (resident)
-  float* vgT = kT + Cq * LD;     // [CvP][LD]  [v | grid] tile (resident)
-  float* qT = vgT + CvP * LD;    // [Cq][LD]   query tile of this row chunk
-  float* dmT = qT + Cq * LD;     // [CvP][LD]  dmain tile of this row chunk
-  float* ps = dmT + CvP * LD;    // [TM][LD]   P^T  [column j][row i]
-  float* dss = ps + TM * LD;     // [TM][LD]   dS^T [column j][row i]
-  float* r_m = dss + TM * LD;    // [TM] per-row statistics of this row chunk
+  const int CQC = chunk_of(Cq), CVC = chunk_of(CvP);
+  float* kT = smem;                 // [CQC][LD]  key chunk of this block (resident if one)
+  float* vgT = kT + CQC * LD;       // [CVC][LD]  [v | grid] chunk (resident if one)
+  float* qT = vgT + CVC * LD;       // [CQC][LD]  query chunk of this row chunk
+  float* dmT = qT + CQC * LD;       // [CVC][LD]  dmain chunk of this row chunk
+  float* ps = dmT + CVC * LD;       // [TM][LD]   P^T  [column j][row i]
+  float* dss = ps + TM * LD;        // [TM][LD]   dS^T [column j][row i]
+  float* r_m = dss + TM * LD;       // [TM] per-row statistics of this row chunk
   float* r_il = r_m + TM;
   float* r_c = r_il + TM;
   float* r_dms = r_c + TM;
@@ -377,6 +444,7 @@ correlation_bwd_cols_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int b = blockIdx.y;
   const int col0 = blockIdx.x * TM;
+  const int z = blockIdx.z;
   const int tid = threadIdx.x;
   const int ty = tid >> 4;  // columns j = col0 + 4*ty .. + 3 (rows of the tile)
   const int tx = tid & 15;  // rows i = row0 + 4*tx .. + 3 (columns of the tile)
@@ -387,9 +455,22 @@ correlation_bwd_cols_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + boff * Cv;
   const float* dob = dout + boff * CO;
 
-  load_tile_t(kT, kb, col0, HW, Cq, Cq, tid);
-  load_vg_tile_t(vgT, vb, grid, col0, HW, Cv, tid);
+  auto load_k = [&](float* dst, int c0, int w) { load_tile_t(dst, kb, col0, HW, c0, w, Cq, tid); };
+  auto load_vg = [&](float* dst, int c0, int w) {
+    load_vg_tile_t(dst, vb, grid, col0, HW, Cv, c0, w, tid);
+  };
+  int row0 = 0;
+  auto load_q = [&](float* dst, int c0, int w) { load_tile_t(dst, qb, row0, HW, c0, w, Cq, tid); };
+  auto load_dm = [&](float* dst, int c0, int w) {
+    load_tile_t(dst, dob, row0, HW, c0, w, CO, tid);
+  };
+  if (n_chunks(Cq) == 1) load_k(kT, 0, Cq);
+  if (n_chunks(CvP) == 1) load_vg(vgT, 0, CvP);
 
+  // this block's columns of dk (z < tiles of Cq) and of dv (z < tiles of Cv)
+  const int colz = z * 16 * CPT;
+  const int CWK = Cq - colz < 16 * CPT ? Cq - colz : 16 * CPT;  // <= 0: none
+  const int CWV = Cv - colz < 16 * CPT ? Cv - colz : 16 * CPT;
   float acc_k[4][CPT], acc_v[4][CPT];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
@@ -399,10 +480,9 @@ correlation_bwd_cols_kernel(const T* __restrict__ q, const T* __restrict__ k,
       acc_v[a][cc] = 0.f;
     }
 
-  for (int row0 = 0; row0 < HW; row0 += TM) {
-    __syncthreads();  // the previous row chunk is consumed (and kT, vgT are written)
-    load_tile_t(qT, qb, row0, HW, Cq, Cq, tid);
-    load_tile_t(dmT, dob, row0, HW, CvP, CO, tid);
+  for (row0 = 0; row0 < HW; row0 += TM) {
+    // the previous row chunk's statistics were last read before the
+    // __syncthreads that follows its P and dS
     if (tid < TM) {
       const int row = row0 + tid;
       const bool valid = row < HW;
@@ -413,11 +493,10 @@ correlation_bwd_cols_kernel(const T* __restrict__ q, const T* __restrict__ k,
       r_dms[tid] = valid ? dob[static_cast<size_t>(row) * CO + CvP] : 0.f;
       r_amax[tid] = valid ? amax[boff + row] : -1;
     }
-    __syncthreads();
-
     float s[4][4], dp[4][4];
-    tile_product(kT, qT, Cq, ty, tx, s);       // s[a][bb] = k_j . q_i
-    tile_product(vgT, dmT, CvP, ty, tx, dp);   // dp[a][bb] = [v|grid]_j . dmain_i
+    // s[a][bb] = k_j . q_i; dp[a][bb] = [v|grid]_j . dmain_i
+    chunked_products(kT, qT, vgT, dmT, Cq, CvP, true, ty, tx, s, dp, load_k, load_q, load_vg,
+                     load_dm);
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
       const int jg = col0 + 4 * ty + a;
@@ -435,10 +514,17 @@ correlation_bwd_cols_kernel(const T* __restrict__ q, const T* __restrict__ k,
       *reinterpret_cast<float4*>(&dss[(4 * ty + a) * LD + 4 * tx]) =
           make_float4(ds[0], ds[1], ds[2], ds[3]);
     }
-    __syncthreads();
+    __syncthreads();  // P and dS are written; every product has read qT and dmT
+    const bool reload_q = n_chunks(Cq) > 1 && CWK > 0;
+    const bool reload_dm = n_chunks(CvP) > 1 && CWV > 0;
+    if (reload_q || reload_dm) {  // the last chunks are staged: bring this block's columns
+      if (reload_q) load_q(qT, colz, CWK);
+      if (reload_dm) load_dm(dmT, colz, CWV);
+      __syncthreads();
+    }
 
-    // acc_k[cols j, ch] += dS^T[j, chunk] . q[chunk, ch]
-    // acc_v[cols j, ch] += P^T[j, chunk] . dmain[chunk, ch]
+    // acc_k[cols j, ch] += dS^T[j, chunk] . q[chunk, colz + ch]
+    // acc_v[cols j, ch] += P^T[j, chunk] . dmain[chunk, colz + ch]
     for (int i = 0; i < TM; i += 4) {
       float pr[4][4], dr[4][4];
 #pragma unroll
@@ -457,7 +543,7 @@ correlation_bwd_cols_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int cc = 0; cc < CPT; ++cc) {
         const int col = tx + 16 * cc;
-        if (col < Cq) {
+        if (col < CWK) {
           const float4 t = *reinterpret_cast<const float4*>(&qT[col * LD + i]);
           const float qv[4] = {t.x, t.y, t.z, t.w};
 #pragma unroll
@@ -465,7 +551,7 @@ correlation_bwd_cols_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
             for (int a = 0; a < 4; ++a) acc_k[a][cc] = fmaf(dr[a][ii], qv[ii], acc_k[a][cc]);
         }
-        if (col < Cv) {
+        if (col < CWV) {
           const float4 t = *reinterpret_cast<const float4*>(&dmT[col * LD + i]);
           const float dm[4] = {t.x, t.y, t.z, t.w};
 #pragma unroll
@@ -481,13 +567,13 @@ correlation_bwd_cols_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int a = 0; a < 4; ++a) {
     const int jg = col0 + 4 * ty + a;
     if (jg < HW) {
-      float* ok = dk + (boff + jg) * Cq;
-      float* ov = dv + (boff + jg) * Cv;
+      float* ok = dk + (boff + jg) * Cq + colz;
+      float* ov = dv + (boff + jg) * Cv + colz;
 #pragma unroll
       for (int cc = 0; cc < CPT; ++cc) {
         const int col = tx + 16 * cc;
-        if (col < Cq) ok[col] = acc_k[a][cc];
-        if (col < Cv) ov[col] = acc_v[a][cc];
+        if (col < CWK) ok[col] = acc_k[a][cc];
+        if (col < CWV) ov[col] = acc_v[a][cc];
       }
     }
   }
@@ -997,11 +1083,13 @@ struct Args {
 };
 
 size_t rows_smem(int Cq, int Cv) {
-  return sizeof(float) * static_cast<size_t>(LD) * (2 * Cq + 2 * (Cv + 2) + TM);
+  return sizeof(float) * static_cast<size_t>(LD) *
+         (2 * chunk_of(Cq) + 2 * chunk_of(Cv + 2) + TM);
 }
 
 size_t cols_smem(int Cq, int Cv) {
-  return sizeof(float) * (static_cast<size_t>(LD) * (2 * Cq + 2 * (Cv + 2) + 2 * TM) +
+  return sizeof(float) * (static_cast<size_t>(LD) *
+                              (2 * chunk_of(Cq) + 2 * chunk_of(Cv + 2) + 2 * TM) +
                           5 * TM);
 }
 
@@ -1012,12 +1100,14 @@ cudaError_t allow_smem(K kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
+int col_tiles(int channels, int cpt) { return (channels + 16 * cpt - 1) / (16 * cpt); }
+
 template <typename T, int CPT>
 cudaError_t launch_rows(const Args& a) {
   const size_t smem = rows_smem(a.Cq, a.Cv);
   const cudaError_t e = allow_smem(correlation_bwd_rows_kernel<T, CPT>, smem);
   if (e != cudaSuccess) return e;
-  const dim3 blocks((a.HW + TM - 1) / TM, a.B);
+  const dim3 blocks((a.HW + TM - 1) / TM, a.B, col_tiles(a.Cq, CPT));
   correlation_bwd_rows_kernel<T, CPT><<<blocks, NT, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.grid), a.out, a.dout, a.dq, a.stats, a.amax, a.HW, a.Cq,
@@ -1030,7 +1120,8 @@ cudaError_t launch_cols(const Args& a) {
   const size_t smem = cols_smem(a.Cq, a.Cv);
   const cudaError_t e = allow_smem(correlation_bwd_cols_kernel<T, CPT>, smem);
   if (e != cudaSuccess) return e;
-  const dim3 blocks((a.HW + TM - 1) / TM, a.B);
+  const int tk = col_tiles(a.Cq, CPT), tv = col_tiles(a.Cv, CPT);
+  const dim3 blocks((a.HW + TM - 1) / TM, a.B, tk > tv ? tk : tv);
   correlation_bwd_cols_kernel<T, CPT><<<blocks, NT, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.grid), a.dout, a.stats, a.amax, a.dk, a.dv, a.HW, a.Cq,
@@ -1038,12 +1129,13 @@ cudaError_t launch_cols(const Args& a) {
   return cudaGetLastError();
 }
 
-// accumulator columns per lane, rounded up to 1, 2, 4 or 8 (0 if too wide)
+// accumulator columns per lane, rounded up to 1, 2, 4 or 8; wider inputs take
+// 8 and more column tiles
 int cpt_for(int channels) {
   const int need = (channels + 15) / 16;
-  for (int cpt = 1; cpt <= MAX_CPT; cpt *= 2)
+  for (int cpt = 1; cpt < MAX_CPT; cpt *= 2)
     if (need <= cpt) return cpt;
-  return 0;
+  return MAX_CPT;
 }
 
 template <typename T>
@@ -1069,7 +1161,7 @@ cudaError_t dispatch_cols(int cpt, const Args& a) {
 }
 
 bool bad_shape(int B, int HW, int Cq, int Cv) {
-  return B < 0 || HW < 0 || Cq <= 0 || Cv <= 0;
+  return B < 0 || HW < 0 || Cq <= 0 || Cv < 0;
 }
 
 // ------------------------------------------------- launches, "mma" design --
@@ -1136,7 +1228,7 @@ cudaError_t dispatch_cols_mma(const MmaArgs& a) {
 
 bool mma_takes(int B, int HW, int Cq, int Cv, int dtype) {
   return !bad_shape(B, HW, Cq, Cv) && dtype == 1 && Cq % 8 == 0 && Cv % 8 == 0 &&
-         Cq <= 128 && Cv <= 128;
+         Cv >= 8 && Cq <= 128 && Cv <= 128;
 }
 
 int dmain_width(int Cv) { return (Cv + 2 + 15) / 16 * 16; }
@@ -1146,7 +1238,7 @@ int dmain_width(int Cv) { return (Cv + 2 + 15) / 16 * 16; }
 // Every function returns a cudaError_t (0 on success). dtype: 0 = float32,
 // 1 = bfloat16.
 
-// The "fma" design.
+// The "fma" design, at any Cq >= 1 and Cv >= 0.
 
 // K2: dq [B, HW, Cq], stats [B, HW, 3] = (row max in the log2 domain,
 // 1 / denominator, c) and amax [B, HW] int32, from q, k, v, grid, the
@@ -1158,7 +1250,6 @@ extern "C" int correlation_bwd_rows(const void* q, const void* k, const void* v,
   if (bad_shape(B, HW, Cq, Cv)) return cudaErrorInvalidValue;
   if (B == 0 || HW == 0) return cudaSuccess;
   const int cpt = cpt_for(Cq);
-  if (cpt == 0 || rows_smem(Cq, Cv) > 227 * 1024) return cudaErrorInvalidValue;
   Args a{q, k, v, grid, static_cast<const float*>(out), static_cast<const float*>(dout),
          static_cast<float*>(dq), nullptr, nullptr, static_cast<float*>(stats),
          static_cast<int*>(amax), B, HW, Cq, Cv, static_cast<cudaStream_t>(stream)};
@@ -1176,7 +1267,6 @@ extern "C" int correlation_bwd_cols(const void* q, const void* k, const void* v,
   if (bad_shape(B, HW, Cq, Cv)) return cudaErrorInvalidValue;
   if (B == 0 || HW == 0) return cudaSuccess;
   const int cpt = cpt_for(Cq > Cv ? Cq : Cv);
-  if (cpt == 0 || cols_smem(Cq, Cv) > 227 * 1024) return cudaErrorInvalidValue;
   Args a{q, k, v, grid, nullptr, static_cast<const float*>(dout), nullptr,
          static_cast<float*>(dk), static_cast<float*>(dv),
          const_cast<float*>(static_cast<const float*>(stats)),

@@ -60,18 +60,28 @@
 //   float32 output layout and leave in one contiguous, coalesced stream.
 //
 // "fma" (first half): float32 inputs, where exact float32 arithmetic is the
-// point (no TF32), and the bf16 shapes the other design does not take. One
-// block of 256 threads per (batch,
-// 64-row query tile). The block loops over all key tiles of 64 keys itself
-// (the TPU's sequential key-chunk grid axis only existed to fit VMEM). Each
-// tile of k (transposed) and [v | grid] is staged in shared memory as
-// float32; thread (ty, tx) owns rows 4ty..4ty+3 and, for the scores,
-// columns 4tx..4tx+3 of the tile. Row maxima reduce over the 16 lanes of a
-// half-warp with shuffles; the running max, the denominator (per-lane
-// partial sums, reduced once at the end) and the [rows, Cv+2] accumulator
-// stay in float32 registers. The exponentials are exp2 of log2(e)-scaled
-// scores. Arithmetic is scalar FMA on float32 tiles. Masking: keys past HW score -1e30 (the ragged last key tile); rows past
-// HW are computed on zero queries and not stored (the ragged row tile).
+// point (no TF32), and the bf16 shapes the other design does not take, at any
+// Cq >= 1 and Cv >= 0. One block of 256 threads per (64-row query tile,
+// batch, tile of at most 128 accumulator columns of [v | grid]). The block
+// loops over all key tiles of 64 keys itself (the TPU's sequential key-chunk
+// grid axis only existed to fit VMEM). Each key tile's scores are summed over
+// channel chunks of at most QC = 128: the chunk of q (transposed; resident
+// when Cq <= QC) and of k (transposed) are staged in shared memory as
+// float32, so shared memory does not grow with the width (119 KB at most).
+// The block's columns of the [v | grid] tile are staged beside them. Thread
+// (ty, tx) owns rows 4ty..4ty+3 and, for the scores, columns 4tx..4tx+3 of the
+// tile. Row maxima reduce over the 16 lanes of a half-warp with shuffles; the
+// running max, the denominator (per-lane partial sums, reduced once at the
+// end) and the [rows, 16 CPT] accumulator stay in float32 registers. The
+// exponentials are exp2 of log2(e)-scaled scores. Arithmetic is scalar FMA on
+// float32 tiles. Every column tile sums the same scores in the same order
+// (channel 0 upwards, whatever the chunking), so the row max and the
+// denominator agree bit for bit across column tiles; only column tile 0
+// writes the max-score channel. Wider inputs cost one more recomputation of
+// the scores per 128 columns: simple and right first (ROADMAP item 13 keeps
+// its speed). Masking: keys past HW score -1e30 (the ragged last key tile);
+// rows past HW are computed on zero queries and not stored (the ragged row
+// tile).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,13 +97,27 @@ constexpr int TM = 64;        // query rows per block
 constexpr int TK = 64;        // keys per tile: ops/correlation.py::FWD_KEY_TILE
 constexpr int NT = 256;       // threads: 16 row groups x 16 column lanes
 constexpr int LD = TM + 4;    // padded row stride (floats) of qT, kT and P
-constexpr int MAX_CPT = 8;    // accumulator columns per lane: Cv + 2 <= 128
+constexpr int MAX_CPT = 8;    // accumulator columns per lane: 128 per column tile
+constexpr int QC = 128;       // channels per chunk of the score product
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
+// dst[c * LD + r] = src[(row0 + r) * ld + c0 + c] for r < TM, c < C; rows past
+// HW are zero.
+template <typename T>
+__device__ __forceinline__ void load_chunk_t(float* dst, const T* src, int row0, int HW,
+                                             int c0, int C, int ld, int tid) {
+  for (int e = tid; e < TM * C; e += NT) {
+    const int r = e / C, c = e - r * C;
+    const int row = row0 + r;
+    dst[c * LD + r] = row < HW ? to_f(src[static_cast<size_t>(row) * ld + c0 + c]) : 0.f;
+  }
+}
+
+// grid (x: 64-row query tile, y: batch, z: tile of 16 CPT columns of [v | grid])
 template <typename T, int CPT>
 __global__ void __launch_bounds__(NT)
 correlation_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -101,10 +125,14 @@ correlation_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        float* __restrict__ out, int HW, int Cq, int Cv) {
   extern __shared__ __align__(16) float smem[];
   const int CvP = Cv + 2;
-  float* qT = smem;             // [Cq][LD]  query tile, transposed
-  float* kT = qT + Cq * LD;     // [Cq][LD]  key tile, transposed
-  float* vs = kT + Cq * LD;     // [TK][CvP] [v | grid] tile
-  float* ps = vs + TK * CvP;    // [TM][LD]  probabilities of this key tile
+  const int CQC = Cq < QC ? Cq : QC;         // channels of a chunk
+  const int n_chunks = (Cq + QC - 1) / QC;
+  const int col0 = blockIdx.z * 16 * CPT;    // this block's columns of [v | grid]
+  const int CW = CvP - col0 < 16 * CPT ? CvP - col0 : 16 * CPT;
+  float* qT = smem;             // [CQC][LD]  query chunk, transposed
+  float* kT = qT + CQC * LD;    // [CQC][LD]  key chunk, transposed
+  float* vs = kT + CQC * LD;    // [TK][CW]   this block's columns of the [v | grid] tile
+  float* ps = vs + TK * 16 * CPT;  // [TM][LD]  probabilities of this key tile
 
   const int b = blockIdx.y;
   const int row0 = blockIdx.x * TM;
@@ -116,11 +144,7 @@ correlation_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + static_cast<size_t>(b) * HW * Cq;
   const T* vb = v + static_cast<size_t>(b) * HW * Cv;
 
-  for (int e = tid; e < TM * Cq; e += NT) {
-    const int r = e / Cq, c = e - r * Cq;
-    const int row = row0 + r;
-    qT[c * LD + r] = row < HW ? to_f(qb[static_cast<size_t>(row) * Cq + c]) : 0.f;
-  }
+  if (n_chunks == 1) load_chunk_t(qT, qb, row0, HW, 0, Cq, Cq, tid);  // resident
 
   float m[4], l[4], acc[4][CPT];
 #pragma unroll
@@ -132,39 +156,41 @@ correlation_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   for (int key0 = 0; key0 < HW; key0 += TK) {
-    __syncthreads();  // the previous tile's kT, vs and ps are consumed
-    for (int e = tid; e < TK * Cq; e += NT) {
-      const int j = e / Cq, c = e - j * Cq;
-      const int key = key0 + j;
-      kT[c * LD + j] = key < HW ? to_f(kb[static_cast<size_t>(key) * Cq + c]) : 0.f;
-    }
-    for (int e = tid; e < TK * CvP; e += NT) {
-      const int j = e / CvP, c = e - j * CvP;
-      const int key = key0 + j;
-      float x = 0.f;
-      if (key < HW) {
-        x = c < Cv ? to_f(vb[static_cast<size_t>(key) * Cv + c])
-                   : to_f(grid[static_cast<size_t>(key) * 2 + (c - Cv)]);
-      }
-      vs[j * CvP + c] = x;
-    }
-    __syncthreads();
-
-    // scores of rows 4ty.. against keys 4tx.. of this tile
+    // scores of rows 4ty.. against keys 4tx.. of this tile, chunk by chunk
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.f;
-    for (int c = 0; c < Cq; ++c) {
-      const float4 a = *reinterpret_cast<const float4*>(&qT[c * LD + 4 * ty]);
-      const float4 bk = *reinterpret_cast<const float4*>(&kT[c * LD + 4 * tx]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {bk.x, bk.y, bk.z, bk.w};
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      const int c0 = ch * QC;
+      const int nc = Cq - c0 < QC ? Cq - c0 : QC;
+      __syncthreads();  // the previous chunk (and tile's vs and ps) are consumed
+      if (n_chunks > 1) load_chunk_t(qT, qb, row0, HW, c0, nc, Cq, tid);
+      load_chunk_t(kT, kb, key0, HW, c0, nc, Cq, tid);
+      if (ch == 0) {
+        for (int e = tid; e < TK * CW; e += NT) {
+          const int j = e / CW, c = col0 + e - j * CW;
+          const int key = key0 + j;
+          float x = 0.f;
+          if (key < HW) {
+            x = c < Cv ? to_f(vb[static_cast<size_t>(key) * Cv + c])
+                       : to_f(grid[static_cast<size_t>(key) * 2 + (c - Cv)]);
+          }
+          vs[e] = x;
+        }
+      }
+      __syncthreads();
+      for (int c = 0; c < nc; ++c) {
+        const float4 a = *reinterpret_cast<const float4*>(&qT[c * LD + 4 * ty]);
+        const float4 bk = *reinterpret_cast<const float4*>(&kT[c * LD + 4 * tx]);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        const float bv[4] = {bk.x, bk.y, bk.z, bk.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) s[i][jj] = fmaf(av[i], bv[jj], s[i][jj]);
+          for (int jj = 0; jj < 4; ++jj) s[i][jj] = fmaf(av[i], bv[jj], s[i][jj]);
+      }
     }
 
     // online softmax in the log2 domain; masked keys score NEG
@@ -195,7 +221,7 @@ correlation_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    // acc[rows, cols tx + 16 cc] += P[rows, tile] . [v | grid][tile, cols]
+    // acc[rows, cols tx + 16 cc] += P[rows, tile] . [v | grid][tile, col0 + cols]
     for (int j = 0; j < TK; j += 4) {
       float pr[4][4];
 #pragma unroll
@@ -211,7 +237,7 @@ correlation_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int cc = 0; cc < CPT; ++cc) {
           const int col = tx + 16 * cc;
-          const float vv = col < CvP ? vs[(j + jj) * CvP + col] : 0.f;
+          const float vv = col < CW ? vs[(j + jj) * CW + col] : 0.f;
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[i][cc] = fmaf(pr[i][jj], vv, acc[i][cc]);
         }
@@ -231,24 +257,33 @@ correlation_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int cc = 0; cc < CPT; ++cc) {
         const int col = tx + 16 * cc;
-        if (col < CvP) o[col] = acc[i][cc] * inv;
+        if (col < CW) o[col0 + col] = acc[i][cc] * inv;
       }
-      if (tx == 0) o[CvP] = inv;
+      if (tx == 0 && blockIdx.z == 0) o[CvP] = inv;
     }
   }
 }
 
+// shared memory of the "fma" design: the q and k chunks, the block's columns
+// of the [v | grid] tile, P
+size_t fma_smem(int Cq, int cpt) {
+  const size_t cqc = Cq < QC ? Cq : QC;
+  return sizeof(float) * (2 * cqc * LD + static_cast<size_t>(TK) * 16 * cpt +
+                          static_cast<size_t>(TM) * LD);
+}
+
 template <typename T, int CPT>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* grid,
-                   float* out, int B, int HW, int Cq, int Cv, size_t smem,
-                   cudaStream_t stream) {
+                   float* out, int B, int HW, int Cq, int Cv, cudaStream_t stream) {
+  const size_t smem = fma_smem(Cq, CPT);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         correlation_fwd_kernel<T, CPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  const dim3 blocks((HW + TM - 1) / TM, B);
+  const int n_col_tiles = (Cv + 2 + 16 * CPT - 1) / (16 * CPT);
+  const dim3 blocks((HW + TM - 1) / TM, B, n_col_tiles);
   correlation_fwd_kernel<T, CPT><<<blocks, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(grid), out, HW, Cq, Cv);
@@ -258,16 +293,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* grid
 template <typename T>
 cudaError_t dispatch(int cpt, const void* q, const void* k, const void* v,
                      const void* grid, float* out, int B, int HW, int Cq, int Cv,
-                     size_t smem, cudaStream_t stream) {
+                     cudaStream_t stream) {
   switch (cpt) {
-    case 1: return launch<T, 1>(q, k, v, grid, out, B, HW, Cq, Cv, smem, stream);
-    case 2: return launch<T, 2>(q, k, v, grid, out, B, HW, Cq, Cv, smem, stream);
-    case 3: return launch<T, 3>(q, k, v, grid, out, B, HW, Cq, Cv, smem, stream);
-    case 4: return launch<T, 4>(q, k, v, grid, out, B, HW, Cq, Cv, smem, stream);
-    case 5: return launch<T, 5>(q, k, v, grid, out, B, HW, Cq, Cv, smem, stream);
-    case 6: return launch<T, 6>(q, k, v, grid, out, B, HW, Cq, Cv, smem, stream);
-    case 7: return launch<T, 7>(q, k, v, grid, out, B, HW, Cq, Cv, smem, stream);
-    case 8: return launch<T, 8>(q, k, v, grid, out, B, HW, Cq, Cv, smem, stream);
+    case 1: return launch<T, 1>(q, k, v, grid, out, B, HW, Cq, Cv, stream);
+    case 2: return launch<T, 2>(q, k, v, grid, out, B, HW, Cq, Cv, stream);
+    case 3: return launch<T, 3>(q, k, v, grid, out, B, HW, Cq, Cv, stream);
+    case 4: return launch<T, 4>(q, k, v, grid, out, B, HW, Cq, Cv, stream);
+    case 5: return launch<T, 5>(q, k, v, grid, out, B, HW, Cq, Cv, stream);
+    case 6: return launch<T, 6>(q, k, v, grid, out, B, HW, Cq, Cv, stream);
+    case 7: return launch<T, 7>(q, k, v, grid, out, B, HW, Cq, Cv, stream);
+    case 8: return launch<T, 8>(q, k, v, grid, out, B, HW, Cq, Cv, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -568,23 +603,20 @@ extern "C" int correlation_fwd_mma(const void* q, const void* k, const void* v,
   return dispatch_mma(a);
 }
 
-// The "fma" design. dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t
-// (0 on success).
+// The "fma" design, at any Cq >= 1 and Cv >= 0. dtype: 0 = float32,
+// 1 = bfloat16. Returns a cudaError_t (0 on success).
 extern "C" int correlation_fwd(const void* q, const void* k, const void* v,
                                const void* grid, void* out, int B, int HW, int Cq,
                                int Cv, int dtype, void* stream) {
   if (B <= 0 || HW <= 0) return cudaSuccess;
   if (Cq <= 0 || Cv < 0) return cudaErrorInvalidValue;
-  const int cpt = (Cv + 2 + 15) / 16;
-  if (cpt > MAX_CPT) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (2 * static_cast<size_t>(Cq) * LD +
-                                       static_cast<size_t>(TK) * (Cv + 2) +
-                                       static_cast<size_t>(TM) * LD);
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  // columns per lane: as many as Cv + 2 needs, at most MAX_CPT (then the
+  // grid's third dimension takes the rest, 128 columns a tile)
+  const int need = (Cv + 2 + 15) / 16;
+  const int cpt = need < MAX_CPT ? need : MAX_CPT;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
-  if (dtype == 0) return dispatch<float>(cpt, q, k, v, grid, o, B, HW, Cq, Cv, smem, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(cpt, q, k, v, grid, o, B, HW, Cq, Cv, smem, s);
+  if (dtype == 0) return dispatch<float>(cpt, q, k, v, grid, o, B, HW, Cq, Cv, s);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(cpt, q, k, v, grid, o, B, HW, Cq, Cv, s);
   return cudaErrorInvalidValue;
 }

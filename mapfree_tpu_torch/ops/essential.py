@@ -27,10 +27,10 @@ import torch.autograd.forward_ad as fwAD
 
 from mapfree_tpu_torch.geom.rotation import inv_rodrigues, rodrigues
 from mapfree_tpu_torch.geom.smallblas import (det3, nullspace_qr, qr_solve,
-                                              smallest_eigvec, svd3)
-from mapfree_tpu_torch.models.builder import fetch_later, tf32_off
+                                              smallest_eigvec, svd3, tf32_off)
 from mapfree_tpu_torch.ops.ransac import (PrefixedSampler, inlier_mask, magsac_score,
                                           msac_score, pick, take_points)
+from mapfree_tpu_torch.utils.data import fetch_later
 
 
 @contextlib.contextmanager

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from mapfree_tpu_torch.models.builder import tf32_off
+from mapfree_tpu_torch.geom.smallblas import tf32_off
 
 BIG = 1e12  # the squared distance of a masked descriptor of view 1
 

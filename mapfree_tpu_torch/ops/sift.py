@@ -41,7 +41,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from mapfree_tpu_torch.models.builder import tf32_off
+from mapfree_tpu_torch.geom.smallblas import tf32_off
 
 _CONTRAST_THR = 0.015
 _EDGE_RATIO = 10.0

@@ -18,6 +18,8 @@ from __future__ import annotations
 from pathlib import Path
 from zipfile import ZipFile
 
+from mapfree_tpu_torch.parallel.mesh import world_and_rank as _world
+
 
 def shard_scenes(scenes, n_hosts: int, host_id: int) -> list:
     """Deterministic balanced split of the sorted scene list.
@@ -52,16 +54,6 @@ def merge_submissions(part_paths, out_path: Path) -> None:
     with ZipFile(out_path, "w") as z:
         for name in sorted(entries):
             z.writestr(name, entries[name])
-
-
-def _world():
-    """(world size, rank) of torch.distributed's process group, or (1, 0)
-    where none is initialized."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size(), dist.get_rank()
-    return 1, 0
 
 
 def host_topology(n_hosts=None, host_id=None):

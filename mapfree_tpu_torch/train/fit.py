@@ -13,8 +13,16 @@ any re-iterable (with ``len``) of collated numpy batches holding ``image0``,
 ``image1`` and ``T_0to1`` (and, for the fusion net, ``abs_q_1_w2c_device``
 and ``abs_c_1_c2w_device``). :func:`fit` keeps the JAX package's signature,
 plus the device: it builds the ``DataModule`` from the config, whose loaders
-decode on that device, and hands its loaders to :func:`fit_loaders`. One
-device, no mesh.
+decode on that device, and hands its loaders to :func:`fit_loaders`.
+
+Inside a ``torch.distributed`` process group of more than one rank (the
+train CLI starts one rank per card, or joins ``torchrun``'s) the run is
+data-parallel over the ranks' mesh (``parallel/mesh.py``), as the JAX fit
+is over its device mesh: the batch size is rounded up to a multiple of the
+rank count, every rank draws the same sampler order and decodes only its
+own block of each batch, the steps reduce over the group
+(``train/state.py``), and rank 0 alone prints, logs and writes checkpoints;
+a resume loads on every rank.
 """
 
 from __future__ import annotations
@@ -28,6 +36,8 @@ import torch
 from mapfree_tpu_torch.data import DataModule
 from mapfree_tpu_torch.models.builder import resolve_device
 from mapfree_tpu_torch.models.regression import build_regression_net
+from mapfree_tpu_torch.parallel.mesh import (make_mesh, pad_to_multiple, rank_devices,
+                                             world_and_rank)
 from mapfree_tpu_torch.train.loop import (
     CheckpointManager,
     ScalarLogger,
@@ -72,6 +82,11 @@ def _device_batch(batch, device, pad_to: int, keys=_TRAIN_KEYS, stream=None):
     return data_to_device(out, device, stream=stream)
 
 
+class _NullLogger:
+    def log(self, step, scalars):
+        pass
+
+
 def _start_profiler():
     from torch.profiler import ProfilerActivity, profile
 
@@ -85,24 +100,33 @@ def _start_profiler():
 
 def fit_loaders(cfg, train_loader, val_loader, experiment: str = "default",
                 resume: str | None = None, weights_dir: str = "weights",
-                max_steps: int | None = None, device="cuda"):
+                max_steps: int | None = None, device="cuda", mesh=None):
     """Train ``cfg``'s model on ``train_loader``, validating on
-    ``val_loader``; returns the final train state."""
+    ``val_loader``; returns the final train state. With a ``mesh`` of
+    several ranks both loaders have ``rows`` set and yield this rank's block
+    of each global batch."""
     device = resolve_device(device)
     batch_size = int(cfg.TRAINING.BATCH_SIZE)
+    ranks = mesh is not None and mesh.size > 1
+    main = not ranks or mesh.rank == 0
+    say = print if main else (lambda *a, **k: None)
+    if ranks and any(getattr(loader, "rows", None) is None
+                     for loader in (train_loader, val_loader)):
+        raise ValueError("over several ranks each loader yields its rank's rows: set loader.rows")
+    pad_to = batch_size // mesh.size if ranks else batch_size
 
     net = build_regression_net(cfg)
     generator = torch.Generator().manual_seed(int(cfg.TPU.SEED))
     state = init_state(net, cfg, generator, device=device)
 
     ckpts = CheckpointManager(Path(weights_dir) / experiment, top_k=5)
-    logger = ScalarLogger(weights_dir, experiment)
+    logger = ScalarLogger(weights_dir, experiment) if main else _NullLogger()
     if resume:
         state = ckpts.restore(state, tag=resume)
-        print(f"[fit] resumed from {resume} at step {int(state.step)}")
+        say(f"[fit] resumed from {resume} at step {int(state.step)}")
 
-    train_step = make_train_step(net, cfg)
-    val_step = make_val_step(net, cfg)
+    train_step = make_train_step(net, cfg, mesh=mesh)
+    val_step = make_val_step(net, cfg, mesh=mesh)
     train_keys = _train_keys(net)
 
     steps_per_epoch = len(train_loader)
@@ -115,13 +139,13 @@ def fit_loaders(cfg, train_loader, val_loader, experiment: str = "default",
             for i, vb in enumerate(val_loader):
                 if val_batches is not None and i >= val_batches:
                     break
-                yield _device_batch(vb, device, batch_size, train_keys)
+                yield _device_batch(vb, device, pad_to, train_keys)
         return run_validation(val_step, state, batches())
 
     # optional torch.profiler trace of the first few steps
     profile_dir = cfg.TPU.PROFILE_DIR
     profiler, profile_until = None, None
-    if profile_dir:
+    if profile_dir and main:
         profiler = _start_profiler()
         profile_until = int(state.step) + PROFILE_STEPS
 
@@ -132,12 +156,12 @@ def fit_loaders(cfg, train_loader, val_loader, experiment: str = "default",
             Path(profile_dir).mkdir(parents=True, exist_ok=True)
             profiler.export_chrome_trace(str(Path(profile_dir) / "trace.json"))
             profiler = None
-            print(f"[fit] profiler trace written to {profile_dir}")
+            say(f"[fit] profiler trace written to {profile_dir}")
 
     copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
     def _transfer(batch):
-        return _device_batch(batch, device, batch_size, train_keys, stream=copy_stream)
+        return _device_batch(batch, device, pad_to, train_keys, stream=copy_stream)
 
     step = int(state.step)
     first_step = step
@@ -159,21 +183,24 @@ def fit_loaders(cfg, train_loader, val_loader, experiment: str = "default",
                     rate = (step - first_step) * batch_size / (time.time() - t_start)
                     host_logs["train/samples_per_sec"] = rate
                     logger.log(step, host_logs)
-                    print(f"[e{epoch} s{step}] loss={host_logs['train/loss']:.4f} "
-                          f"({rate:.1f} samples/s)")
+                    say(f"[e{epoch} s{step}] loss={host_logs['train/loss']:.4f} "
+                        f"({rate:.1f} samples/s)")
 
                 if step % val_every == 0:
                     vlogs = validate()
                     if vlogs:
                         logger.log(step, vlogs)
-                        ckpts.save(state, step, val_loss=vlogs["val_loss/loss"])
-                        print(f"[e{epoch} s{step}] val_loss={vlogs['val_loss/loss']:.4f}")
+                        if main:
+                            ckpts.save(state, step, val_loss=vlogs["val_loss/loss"])
+                        say(f"[e{epoch} s{step}] val_loss={vlogs['val_loss/loss']:.4f}")
 
                 if max_steps is not None and step >= max_steps:
-                    ckpts.save(state, step)
+                    if main:
+                        ckpts.save(state, step)
                     return state
 
-            ckpts.save(state, step)  # epoch-end 'last'
+            if main:
+                ckpts.save(state, step)  # epoch-end 'last'
     finally:
         stop_profiler()
     return state
@@ -190,8 +217,30 @@ def fit(cfg, experiment: str = "default", resume: str | None = None,
     scene-balance sampler, so its first epoch trains on the sampler's third
     draw. A torch module needs no shapes and the port's loader counts
     without drawing, so here the first epoch trains on the sampler's first
-    draw: the batch the JAX fit initialises from."""
+    draw: the batch the JAX fit initialises from.
+
+    Inside a process group of more than one rank ``device`` is this rank's
+    (a bare "cuda" is the current CUDA device) and the run is data-parallel
+    over the ranks (see the module's docstring)."""
+    world, rank = world_and_rank()
+    device = resolve_device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(cfg, devices=rank_devices(device) if world > 1 else [device])
+    n_dev = mesh.size
+    batch_size = int(cfg.TRAINING.BATCH_SIZE)
+    if batch_size % n_dev != 0:
+        batch_size = pad_to_multiple(batch_size, n_dev)
+        if rank == 0:
+            print(f"[fit] rounding batch size up to {batch_size} for {n_dev} devices")
+        cfg.TRAINING.BATCH_SIZE = batch_size
+
     datamodule = DataModule(cfg, device=device)
-    return fit_loaders(cfg, datamodule.train_dataloader(), datamodule.val_dataloader(),
+    train_loader, val_loader = datamodule.train_dataloader(), datamodule.val_dataloader()
+    if n_dev > 1:  # every rank draws the sampler's order, decodes its own rows
+        per = batch_size // n_dev
+        for loader in (train_loader, val_loader):
+            loader.rows = (mesh.rank * per, (mesh.rank + 1) * per)
+    return fit_loaders(cfg, train_loader, val_loader,
                        experiment=experiment, resume=resume, weights_dir=weights_dir,
-                       max_steps=max_steps, device=device)
+                       max_steps=max_steps, device=device, mesh=mesh if n_dev > 1 else None)

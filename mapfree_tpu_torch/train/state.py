@@ -11,7 +11,15 @@ argument order (``step(state, batch)``) and log keys.
   ``optax.clip_by_global_norm`` (reference model.py:180-187, train.py:61);
 - bfloat16 mode: parameters stay float32 and the forward runs under
   autocast (inside the net); float32 mode runs with TF32 off on the card;
-- logs stay tensors on the device: nothing in a step waits for the device.
+- logs stay tensors on the device: nothing in a step waits for the device;
+- with a ``mesh`` of more than one rank (one process per device, a
+  ``torch.distributed`` group) each rank takes its block of the global
+  batch: BatchNorm normalises over the whole batch
+  (:func:`~mapfree_tpu_torch.models.blocks.sync_batchnorm`), the gradients
+  are averaged over the ranks in one all-reduce before clipping and Adam,
+  and the logged losses and validation outputs are those of the whole
+  batch, so a step equals the single-process step on the global batch (the
+  JAX step's SPMD program over its sharded batch).
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ from torch import nn
 from mapfree_tpu_torch.data.augment import augment_generator, make_device_augment
 from mapfree_tpu_torch.losses import combined_loss
 from mapfree_tpu_torch.metrics import pose_error
-from mapfree_tpu_torch.models.blocks import init_weights
+from mapfree_tpu_torch.models.blocks import init_weights, sync_batchnorm
 from mapfree_tpu_torch.models.builder import resolve_device, tf32_off
 
 
@@ -139,22 +147,76 @@ def _forward_loss(net, cfg, batch):
     return loss, (R_loss, t_loss, R, t, preds)
 
 
-def make_train_step(net, cfg):
+def _mesh_group(mesh):
+    """The process group a step reduces over: None without a mesh or on a
+    mesh of one device. A mesh that one process drives over several devices
+    is the predictor's layout, not a step's."""
+    if mesh is None or mesh.size == 1:
+        return None
+    if mesh.group is None:
+        raise ValueError(f"{mesh}: a train, validation or predict step over several devices "
+                         "runs one process per device in a torch.distributed process group "
+                         "(python -m mapfree_tpu_torch.train starts one rank per card)")
+    return mesh.group
+
+
+def _all_reduce_(t, group):
+    import torch.distributed as dist
+
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return t
+
+
+def _gather_rows(t, group, world):
+    """The ranks' blocks of ``t`` concatenated in rank order: the whole
+    batch's rows."""
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(t) for _ in range(world)]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts)
+
+
+def average_gradients_(params, group, world: int) -> None:
+    """Replace each gradient by its mean over the ranks: one all-reduce of
+    the gradients packed into one buffer. Every rank holds the same set of
+    gradients (the same net on the same code path)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = _all_reduce_(torch.cat([g.reshape(-1) for g in grads]), group)
+    flat.div_(world)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
+def make_train_step(net, cfg, mesh=None):
     """``train_step(state, batch) -> (state, logs)``: one optimizer step on a
     batch of tensors on the net's device (``image0``, ``image1``, ``T_0to1``,
     and the device-tracking poses for the fusion net).
-    ``logs`` are 0-d tensors on the device."""
+    ``logs`` are 0-d tensors on the device. With a ``mesh`` of several ranks
+    ``batch`` is this rank's block of the global batch (``shard_batch``) and
+    the step is the global batch's (see the module's docstring)."""
     augment = make_device_augment(cfg)
     aug_seed = int(cfg.TPU.SEED)
     max_norm = float(cfg.TRAINING.GRAD_CLIP or 0.0)
     kendall = float(cfg.TRAINING.LAMBDA) == 0.0
+    group = _mesh_group(mesh)
+    if group is not None:
+        sync_batchnorm(net, group)
+        world, rank = mesh.size, mesh.rank
 
     def train_step(state: TrainState, batch):
         net = state.net
         net.train()
         if augment is not None:
             device = batch["image0"].device
-            batch = augment(augment_generator(aug_seed, state.step, device), batch)
+            generator = augment_generator(aug_seed, state.step, device)
+            if group is None:
+                batch = augment(generator, batch)
+            else:  # the global batch's draw, this rank's rows of it
+                b = batch["image0"].shape[0]
+                batch = augment(generator, batch, rows=(rank * b, (rank + 1) * b, world * b))
         logs = {}
         if kendall:  # the weights the step was taken with, as the JAX step logs
             logs["train/s_R"] = net.s_r.detach()[0].clone()
@@ -163,28 +225,41 @@ def make_train_step(net, cfg):
             state.optimizer.zero_grad(set_to_none=True)
             loss, (R_loss, t_loss, _, _, _) = _forward_loss(net, cfg, batch)
             loss.backward()
+            if group is not None:
+                average_gradients_(list(net.parameters()), group, world)
             if max_norm > 0:
                 clip_by_global_norm_(list(net.parameters()), max_norm)
             state.optimizer.step()
             if state.scheduler is not None:
                 state.scheduler.step()
         state.step += 1
-        logs = {"train/R_loss": R_loss.detach(), "train/t_loss": t_loss.detach(),
-                "train/loss": loss.detach(), **logs}
+        losses = (R_loss.detach(), t_loss.detach(), loss.detach())
+        if group is not None:  # the blocks' means: the global batch's
+            losses = _all_reduce_(torch.stack(losses), group) / world
+        logs = {"train/R_loss": losses[0], "train/t_loss": losses[1],
+                "train/loss": losses[2], **logs}
         return state, logs
 
     return train_step
 
 
-def make_val_step(net, cfg):
+def make_val_step(net, cfg, mesh=None):
     """Per-batch validation: losses + per-sample pose errors, as tensors on
-    the device (reference model.py:99-112)."""
+    the device (reference model.py:99-112). With a ``mesh`` of several ranks
+    ``batch`` is this rank's block, and every rank gets the whole batch's
+    outputs: the per-sample errors gathered in rank order, the losses
+    averaged."""
+    group = _mesh_group(mesh)
 
     def val_step(state: TrainState, batch):
         state.net.eval()
         with torch.no_grad(), _precision_context(state.net, cfg):
             loss, (R_loss, t_loss, R, t, _) = _forward_loss(state.net, cfg, batch)
             outputs = pose_error(R, t, batch["T_0to1"])
+            if group is not None:
+                outputs = {k: _gather_rows(v, group, mesh.size) for k, v in outputs.items()}
+                R_loss, t_loss, loss = _all_reduce_(
+                    torch.stack([R_loss, t_loss, loss]), group) / mesh.size
         outputs["R_loss"] = R_loss
         outputs["t_loss"] = t_loss
         outputs["loss"] = loss
@@ -193,14 +268,19 @@ def make_val_step(net, cfg):
     return val_step
 
 
-def make_predict_step(net, cfg):
-    """Batched inference returning (R, t)."""
+def make_predict_step(net, cfg, mesh=None):
+    """Batched inference returning (R, t); with a ``mesh`` of several ranks
+    ``batch`` is this rank's block and (R, t) are the whole batch's,
+    gathered in rank order."""
+    group = _mesh_group(mesh)
 
     def predict(state: TrainState, batch):
         state.net.eval()
         with torch.no_grad(), _precision_context(state.net, cfg):
             R, t, _ = state.net(batch["image0"], batch["image1"],
                                 **_net_kwargs(state.net, batch))
+            if group is not None:
+                R, t = (_gather_rows(x, group, mesh.size) for x in (R, t))
         return R, t
 
     return predict

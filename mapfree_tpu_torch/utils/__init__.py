@@ -1,0 +1,1 @@
+from mapfree_tpu_torch.utils.submission import Pose, predict, save_submission

@@ -37,7 +37,7 @@ def prefetch_to_device(batches, transfer, lookahead: int = 2, pool_workers: int 
                 yield q.popleft().result()
 
 
-def data_to_device(batch: dict, device="cuda", stream=None) -> dict:
+def data_to_device(batch: dict, device="cuda", stream=None, mesh=None):
     """Move numeric batch entries to ``device``; metadata (strings, lists of
     names) stays on the host.
 
@@ -46,7 +46,21 @@ def data_to_device(batch: dict, device="cuda", stream=None) -> dict:
     it and waited for before returning, so the caller may be a worker thread
     and the consumer another stream; the consumer should then call
     ``record_stream`` on what it uses (:func:`record_on_current_stream`).
+
+    With a ``mesh`` (``parallel/mesh.py``) the numeric entries are sharded
+    over its data axis instead: the result is a list with one dict per
+    device this process drives, each holding that device's block of rows
+    on it (``device`` is not read).
     """
+    if mesh is not None:
+        from mapfree_tpu_torch.parallel.mesh import batch_sharding
+
+        sharding = batch_sharding(mesh)
+        numeric = [k for k, v in batch.items() if isinstance(v, (torch.Tensor,) + _NUMERIC)]
+        n = len(batch[numeric[0]]) if numeric else 0
+        return [data_to_device({k: (v[start:stop] if k in numeric else v)
+                                for k, v in batch.items()}, dev, stream=stream)
+                for dev, start, stop in sharding.local_blocks(n)]
     device = torch.device(device)
     cuda = device.type == "cuda"
 
@@ -80,3 +94,15 @@ def record_on_current_stream(batch: dict) -> dict:
         if isinstance(v, torch.Tensor) and v.is_cuda:
             v.record_stream(torch.cuda.current_stream(v.device))
     return batch
+
+
+def fetch_later(t):
+    """Start copying ``t`` to pinned host memory behind the current
+    stream's work: (host tensor, event to wait on, or None on the CPU)."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(t.device))
+    return host, done

@@ -25,8 +25,22 @@ class StageTimes:
             self.seconds[name] += time.perf_counter() - t0
             self.calls[name] += 1
 
+    def add(self, name: str, seconds: float):
+        self.seconds[name] += seconds
+        self.calls[name] += 1
+
+    def reset(self):
+        """Zero the counters (after a warm-up window, so that the summary
+        covers only the measured region)."""
+        self.seconds.clear()
+        self.calls.clear()
+
     def summary(self) -> dict:
         return {k: round(v, 4) for k, v in sorted(self.seconds.items())}
+
+    def __repr__(self):
+        parts = [f"{k}={self.seconds[k]:.3f}s/{self.calls[k]}" for k in sorted(self.seconds)]
+        return "StageTimes(" + ", ".join(parts) + ")"
 
 
 class _NullTimes:
@@ -35,6 +49,9 @@ class _NullTimes:
     @contextmanager
     def stage(self, name: str):
         yield
+
+    def add(self, name: str, seconds: float):
+        pass
 
     def summary(self) -> dict:
         return {}

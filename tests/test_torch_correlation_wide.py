@@ -1,0 +1,66 @@
+"""PyTorch port: the correlation warp at the channel widths the ResNet
+encoder and a 128-channel ResUNet give (``ops/correlation.py``), on CPU
+tensors, against the JAX package's ``fused_correlation_warp`` with its
+Pallas kernels interpreted, as tests/test_correlation.py runs them.
+
+On the CPU the port computes its plain versions (the forward and the
+written-out backward behind the same autograd Function that launches K1-K3
+on the card); the card holds the kernels to those at every width
+(chip_smoke.py phase 3). Cq = Cv in {128, 256} and Cq != Cv (256 / 96), at
+HW = 20 (the ResNet bottleneck's 5 x 4 grid at 360x270) and 70, float32:
+
+- warped, pos and the max score within 1e-5 of the JAX forward;
+- dq, dk and dv of a loss with fixed random weights on the three outputs
+  within 1e-4 of each gradient's largest entry, against the JAX vjp.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from mapfree_tpu.models.aggregators import _uv_grid as jax_uv_grid
+from mapfree_tpu.ops.correlation import fused_correlation_warp as jax_fcw
+
+from mapfree_tpu_torch.ops import correlation as pt_corr
+
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
+# (Cq, Cv, H, W)
+CASES = [(128, 128, 4, 5), (128, 128, 7, 10), (256, 256, 4, 5), (256, 256, 7, 10),
+         (256, 96, 4, 5), (256, 96, 7, 10)]
+
+
+def _inputs(cq, cv, H, W, seed):
+    rng = np.random.default_rng(seed)
+    HW = H * W
+    q, k = (rng.normal(size=(2, HW, cq)).astype(np.float32) for _ in range(2))
+    v = rng.normal(size=(2, HW, cv)).astype(np.float32)
+    w = [rng.normal(size=(2, HW, n)).astype(np.float32) for n in (cv, 2, 1)]
+    return q, k, v, np.array(jax_uv_grid(H, W, jnp.float32)), w
+
+
+@pytest.mark.parametrize("cq,cv,H,W", CASES, ids=[f"q{c[0]}_v{c[1]}_hw{c[2] * c[3]}"
+                                                   for c in CASES])
+def test_wide_warp_and_gradients_match_jax(cq, cv, H, W):
+    q, k, v, grid, w = _inputs(cq, cv, H, W, seed=cq + cv + H * W)
+    jq, jk, jv, jgrid = (jnp.asarray(a) for a in (q, k, v, grid))
+    ref = jax_fcw(jq, jk, jv, jgrid, interpret=True)
+
+    def jloss(q, k, v):
+        out = jax_fcw(q, k, v, jgrid, interpret=True)
+        return sum(jnp.sum(o * ww) for o, ww in zip(out, w))
+
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    out = pt_corr.fused_correlation_warp(tq, tk, tv, torch.from_numpy(grid))
+    for o, r in zip(out, ref):
+        assert tuple(o.shape) == tuple(r.shape)
+        np.testing.assert_allclose(o.detach().numpy(), np.asarray(r), rtol=0, atol=1e-5)
+    sum((o * torch.from_numpy(ww)).sum() for o, ww in zip(out, w)).backward()
+    for g, r in zip((tq.grad, tk.grad, tv.grad), jgrads):
+        r = np.asarray(r)
+        np.testing.assert_allclose(g.numpy(), r, rtol=0, atol=1e-4 * np.abs(r).max())

@@ -54,6 +54,9 @@ def test_port_entry_points_load_no_jax_modules():
         "import mapfree_tpu_torch.benchmark.mapfree, mapfree_tpu_torch.benchmark.scannet\n"
         "import mapfree_tpu_torch.benchmark.sevenscenes, mapfree_tpu_torch.benchmark.localize\n"
         "import mapfree_tpu_torch.tools.precompute_correspondences\n"
+        "import mapfree_tpu_torch.parallel.mesh, mapfree_tpu_torch.train.__main__\n"
+        "import mapfree_tpu_torch.geom, mapfree_tpu_torch.ops, mapfree_tpu_torch.models\n"
+        "import mapfree_tpu_torch.utils, mapfree_tpu_torch.parallel\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")

@@ -5,8 +5,9 @@ frames, since its output is 1/64 of the frame) and the ResUNet with
 ``BLOCK_TYPE`` 2 (the grouped-convolution bottleneck)."""
 
 import pytest
+import torch
 
-from mapfree_tpu_torch.ops.correlation import kernels_take
+from mapfree_tpu_torch.ops.correlation import DESIGN_FMA, backward_design, forward_design
 
 from torch_configs import check_variant
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -26,7 +27,9 @@ def test_encoder_override_matches_jax(name):
     net = check_variant(BASE, seed=len(name), H=192 if resnet else 96,
                         W=144 if resnet else 72, **OVERRIDES[name])
     if resnet:
-        # 256 or 1,024 channels: wider than the correlation kernels take on
-        # the card, where the fused route raises instead
+        # 256 or 1,024 channels: the correlation kernels' FMA design takes
+        # them on the card, in float32 and in bf16
         width = 256 * net.encoder.layer3[0].expansion
-        assert not kernels_take(width, width)
+        for dtype in (torch.float32, torch.bfloat16):
+            assert forward_design(dtype, width, width) == DESIGN_FMA
+            assert backward_design(dtype, width, width) == DESIGN_FMA

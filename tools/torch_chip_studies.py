@@ -8,6 +8,8 @@ does not repeat on every run. From the root of a checkout:
     python3 tools/torch_chip_studies.py upsample-ab
     python3 tools/torch_chip_studies.py sweep-determinism
     python3 tools/torch_chip_studies.py decode-under-load [CHECKOUT ...]
+    python3 tools/torch_chip_studies.py mesh-faults
+    python3 tools/torch_chip_studies.py wide-unscaled
 
 decode-threads: wall time of data/jpeg.py::decode_resize_batch for 64 frames
 of the 540x720 fixtures (tests/data/torch_port/) to 270x360 planar YUV420,
@@ -49,6 +51,17 @@ three times, against the same batch decoded on an idle card: the frames
 that differ. For this checkout and for each other CHECKOUT given (a
 directory holding a mapfree_tpu_torch/, e.g. a parent commit unpacked with
 git archive), each in a process of its own.
+
+mesh-faults: chip_smoke.py phase 16 (c), two gloo ranks sharing the card on
+one float32 3d3d step at full width against one process, with faults
+planted in the ranks (:data:`MESH_FAULTS`), beside the sound mesh: each
+held to the phase's limits (MESH_NOISE_FACTOR times the step on the batch
+in reverse order), naming the limits it fails.
+
+wide-unscaled: float32 K1, K2 and K3 at Cq = Cv = 1,024 with q and k not
+scaled (scores reach some 100) against their plain versions, six seeds at
+HW 20, 70 and 1,000 (phase 3's three unscaled cases are among them), then
+K1 with its last 128-channel chunk skipped and with q and k in bf16.
 
 Each line carries the card's name and power limit. Imports nothing of JAX.
 """
@@ -255,6 +268,134 @@ def bf16_faults() -> None:
               f"loss rel {min(rels):.2e}-{max(rels):.2e}", flush=True)
 
 
+def _rank_bn_backward_local(*args):
+    """chip_smoke._mesh_rank with the synced BatchNorm's backward taking its
+    two per-channel sums from this rank's rows alone."""
+    import chip_smoke as cs
+    from mapfree_tpu_torch.models import blocks
+
+    reduce = blocks._all_reduce
+    blocks._all_reduce = lambda t, group: t if t.dim() == 2 else reduce(t, group)
+    cs._mesh_rank(*args)
+
+
+def _rank_bn_forward_local(*args):
+    """chip_smoke._mesh_rank with each rank's BatchNorm statistics its own
+    rows' (the forward's sums not all-reduced)."""
+    import chip_smoke as cs
+    from mapfree_tpu_torch.models import blocks
+
+    reduce = blocks._all_reduce
+    blocks._all_reduce = lambda t, group: t if t.dim() == 1 else reduce(t, group)
+    cs._mesh_rank(*args)
+
+
+def _rank_grads_not_averaged(*args):
+    """chip_smoke._mesh_rank with each rank stepping on its own rows'
+    gradients."""
+    import chip_smoke as cs
+    from mapfree_tpu_torch.train import state
+
+    state.average_gradients_ = lambda params, group, world: None
+    cs._mesh_rank(*args)
+
+
+def _rank_grads_summed(*args):
+    """chip_smoke._mesh_rank with the gradients summed over the ranks, not
+    averaged."""
+    import chip_smoke as cs
+    from mapfree_tpu_torch.train import state
+
+    average = state.average_gradients_
+    state.average_gradients_ = lambda params, group, world: average(params, group, 1)
+    cs._mesh_rank(*args)
+
+
+# faults planted in phase 16 (c)'s ranks for mesh-faults
+MESH_FAULTS = {
+    "BatchNorm backward sums not all-reduced": _rank_bn_backward_local,
+    "BatchNorm statistics each rank's own": _rank_bn_forward_local,
+    "gradients not averaged over the ranks": _rank_grads_not_averaged,
+    "gradients summed over the ranks": _rank_grads_summed,
+}
+
+
+def mesh_faults() -> None:
+    import chip_smoke as cs
+    from mapfree_tpu_torch.ops import _build
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    _build.load_libraries(corr.LIBRARIES)
+    cfg, batch = cs.mesh_step_inputs()
+    single = cs.single_mesh_step(cfg, batch)[:3]
+    control = cs.mesh_control(cfg, batch, single)
+    for name, rank_fn in [("sound mesh", None)] + list(MESH_FAULTS.items()):
+        ranks = cs.spawn_mesh_ranks(cfg, batch, n_timed=0, rank_fn=rank_fn)
+        verdict = cs.mesh_verdict(ranks[0], single, control, what=name)
+        caught = [k for k in verdict["limits"] if verdict["got"][k] > verdict["limits"][k]]
+        print(f"[{card()}] phase 16 (c), {name}: "
+              + ", ".join(f"{k} {verdict['got'][k]:.3e} (limit {verdict['limits'][k]:.3e})"
+                          for k in verdict["limits"])
+              + f": {'FAILS on ' + ', '.join(caught) if caught else 'passes'}", flush=True)
+
+
+def _faulty_k1(fault):
+    """K1 on inputs that one fault of the wide FMA design would see in its
+    products: the last chunk of 128 channels skipped, or q and k staged in
+    bf16."""
+    import torch
+
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    sound = corr._forward_cuda
+
+    def forward(q, k, v, grid):
+        if fault == "last channel chunk skipped":
+            q = q.clone()
+            q[..., -128:] = 0
+        else:
+            q, k = (x.to(torch.bfloat16).to(x.dtype) for x in (q, k))
+        return sound(q, k, v, grid)
+
+    return forward
+
+
+def wide_unscaled() -> None:
+    import chip_smoke as cs
+    from mapfree_tpu_torch.ops import _build
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    _build.load_libraries(corr.LIBRARIES)
+    shapes = {20: (4, 5), 70: (7, 10), 1000: (25, 40)}
+    readings: dict = {}
+    for seed in range(6):
+        for HW, (H, W) in shapes.items():
+            q, k, v, grid = cs._kernel_inputs(2, H, W, 1024, 1024, "float32", seed=300 + seed)
+            fwd = cs.forward_case(q, k, v, grid)
+            bwd = cs.backward_case(q, k, v, grid, cs._cotangent(2, HW, 1024, seed=800 + seed))
+            for key, val in (("K1", fwd["err"]), ("K2", bwd["k2_err"]), ("K3", bwd["k3_err"])):
+                readings.setdefault((key, HW), []).append(val)
+            print(f"[{card()}] unscaled float32, Cq = Cv = 1,024, HW={HW}, seed {seed}: K1 "
+                  f"max |kernel - plain| {fwd['err']:.3e}; K2 {bwd['k2_err']:.3e}, K3 "
+                  f"{bwd['k3_err']:.3e} of each gradient's largest entry; argmax near ties "
+                  f"{bwd['argmax_near_ties']}", flush=True)
+            del q, k, v, bwd
+    for (key, HW), vals in sorted(readings.items()):
+        print(f"[{card()}] sound {key}, HW={HW}, over {len(vals)} seeds: "
+              f"{min(vals):.3e}-{max(vals):.3e}", flush=True)
+    saved = corr._forward_cuda
+    for fault in ("last channel chunk skipped", "q and k staged in bf16"):
+        corr._forward_cuda = _faulty_k1(fault)
+        try:
+            for HW, (H, W) in shapes.items():
+                q, k, v, grid = cs._kernel_inputs(2, H, W, 1024, 1024, "float32", seed=300)
+                fwd = cs.forward_case(q, k, v, grid)
+                print(f"[{card()}] K1 with {fault}, unscaled float32, Cq = Cv = 1,024, "
+                      f"HW={HW}: max |kernel - plain| {fwd['err']:.3e}", flush=True)
+        finally:
+            corr._forward_cuda = saved
+
+
 def upsample_ab() -> None:
     import torch
     import torch.nn.functional as F
@@ -384,7 +525,8 @@ def main() -> None:
         sys.exit("no CUDA device: torch.cuda.is_available() is False")
     studies = {"decode-threads": decode_threads, "bf16-seeds": bf16_seeds,
                "bf16-faults": bf16_faults, "upsample-ab": upsample_ab,
-               "sweep-determinism": sweep_determinism}
+               "sweep-determinism": sweep_determinism, "mesh-faults": mesh_faults,
+               "wide-unscaled": wide_unscaled}
     if sys.argv[1:2] == ["decode-under-load"]:
         decode_under_load(*sys.argv[2:])
         return
