@@ -28,11 +28,18 @@ Phases, in order; any failure raises and the script exits nonzero:
    (B = 64 x 9 = 576) and K2, K3 at the fusion train step's (B = 10 x 9 =
    90), held to the plain versions on their first and last two batch rows
    (the plain versions' [B, HW, HW] volumes would not fit the card); then
-   the FMA designs at every width (Cq = Cv of 126, 128, 256 and 1,024, and
-   256 / 96, at HW 20, 70 and 1,000, float32 and bf16: the channels in
-   chunks and the accumulator columns in tiles of 128), and K1, K2, K3 timed
-   at the ResNet bottleneck's 1,024 channels on its 5x4 grid and at 128
-   channels on the 3d3d grid;
+   every width (Cq = Cv of 126, 128, 256 and 1,024, and 256 / 96, at HW 20,
+   70 and 1,000, float32 and bf16): the tensor-core K1 at every bf16 width
+   that is a multiple of 8 (q streamed in channel chunks beyond 128, the
+   accumulator in column tiles of 128; and at 64 pairs of widths from 8 to
+   1,024 that reach every instantiation, a zero-filled last chunk and a
+   narrow last column tile), the FMA designs elsewhere (the
+   channels in chunks and the accumulator columns in tiles of 128), and K1,
+   K2, K3 timed at the ResNet bottleneck's 1,024 channels on its 5x4 grid,
+   at 128 channels on the 3d3d grid (K1 at B=10 and 64) and K1 at 256 / 96,
+   the earlier FMA K1 beside the new one; then float32 K1, K2, K3 (the FMA
+   designs) at the 3d3d shapes and at 1,024 channels beside float32
+   attention with TF32 off, its backend named;
 4. inference path: the 3d3d model (configs/regression/mapfree/3d3d.yaml over
    configs/mapfree.yaml: ResUNet 3-3-3 bottleneck, 360x270, bf16, batch 64,
    unique refs, planar YUV420 input) with random weights from a seed, driven
@@ -90,12 +97,13 @@ Phases, in order; any failure raises and the script exits nonzero:
 11. every config under configs/regression/ (and BLOCK_TYPE 2): one float32
    forward at one block per stage and 96x72 on the card and on the CPU,
    poses within 2e-4, K1 once for each config that takes the fused route;
-   then the models wider than the tensor-core K1 takes, at full width
-   (360x270, bf16): the ResNet bottleneck (1,024 channels) and a ResUNet
-   with NUM_OUT_LAYERS 128, each a sweep through build_model -> predict with
-   K1 (FMA) once per batch and a float32 forward at one block per stage on
-   the card and the CPU, and one float32 train step of the ResNet model with
-   the kernels against the plain versions on the card;
+   then the models wider than every config, at full width (360x270, bf16):
+   the ResNet bottleneck (1,024 channels) and a ResUNet with NUM_OUT_LAYERS
+   128, each a sweep through build_model -> predict with K1 (tensor cores)
+   once per batch and a float32 forward at one block per stage on the card
+   and the CPU, one float32 train step of the ResNet model with the kernels
+   against the plain versions on the card, and phase 6's bf16 step on the
+   128-channel ResUNet with K1-K3 all on the tensor cores;
 12. the fusion model's CLIs from JPEG files: a MapFree tree of fixture
    copies with poses_device.txt, the submission CLI over 160 windows, the
    train CLI for 8 steps at batch 10 with one validation, and the submission
@@ -434,7 +442,8 @@ def forward_case(q, k, v, grid) -> dict:
         matched = corr.fused_correlation_warp_plain(q, k, v, grid, bf16_roundings=True)
         torch.cuda.synchronize()
         res.update(err=_scaled_err(out[:2], ref[:2]), tol=corr.MMA_FWD_VS_EXACT_TOL,
-                   l2=_rel_l2(out[:2], matched[:2]), l2_tol=corr.MMA_FWD_VS_MATCHED_L2_TOL,
+                   l2=_rel_l2(out[:2], matched[:2]),
+                   l2_tol=corr.mma_forward_matched_l2_tol(q.shape[-1], v.shape[-1]),
                    ms_err=_max_err(out[2:], ref[2:]), ms_tol=ATOL["float32"])
     else:
         res.update(err=res["max_abs_err"], tol=ATOL[str(q.dtype).split(".")[-1]])
@@ -628,7 +637,7 @@ def phase_kernel_cases() -> dict:
         "bf16_q16_v32": (2, 10, 13, 16, 32, "bfloat16"),
         "bf16_hw576_b1_c8": (1, 24, 24, 8, 8, "bfloat16"),
         "bf16_hw130_c64": (2, 10, 13, 64, 64, "bfloat16"),
-        # K1's tensor-core design takes Cv + 2 <= 128: 120 is the widest v both serve
+        # the widest v of K1's tensor-core instantiation of 120 v columns
         "bf16_hw130_q128_v120": (1, 10, 13, 128, 120, "bfloat16"),
         "bf16_hw130_c12_fma": (2, 10, 13, 12, 12, "bfloat16"),
         # HW below one row of 8: the key and the row tile both ragged
@@ -679,10 +688,13 @@ def phase_kernel_cases() -> dict:
     # every channel width the Pallas kernel takes: the FMA designs tile the
     # channels and the accumulator columns by 128, so these cross one, two
     # and eight tile edges (the ResNet encoder's 256 and 1,024 channels, a
-    # ResUNet's 128 with Cv + 2 = 130); the tensor-core K2, K3 take bf16 at
-    # 128, K1 does not (Cv + 2 > 128)
-    # at the same tolerances; the last three cases take float32 q and k
-    # unscaled at 1,024 channels, where the scores reach some 100
+    # ResUNet's 128 with Cv + 2 = 130); the tensor-core K1 takes every bf16
+    # width that is a multiple of 8 (q resident up to 128 channels, streamed
+    # in chunks beyond; the accumulator in column tiles of 128 beyond 128),
+    # the tensor-core K2, K3 bf16 up to 128; (126, 126) and float32 stay on
+    # the FMA designs, at the same tolerances; the last three cases take
+    # float32 q and k unscaled at 1,024 channels, where the scores reach some
+    # 100
     hw_shapes = {20: (4, 5), 70: (7, 10), 1000: (25, 40)}
     wide = [(cq, cv, HW, dtype, True, 200 + 10 * i + 2 * j + (dtype == "bfloat16"))
             for i, (cq, cv) in enumerate(WIDE_CHANNELS) for j, HW in enumerate(hw_shapes)
@@ -695,16 +707,37 @@ def phase_kernel_cases() -> dict:
                                        spread32=spread32)
         fwd = forward_case(q, k, v, grid)
         res = backward_case(q, k, v, grid, _cotangent(2, HW, cv, seed=seed + 500))
+        fwd_expected = corr.DESIGN_MMA if (dtype == "bfloat16" and cq % 8 == 0
+                                           and cv % 8 == 0) else corr.DESIGN_FMA
         bwd_expected = corr.DESIGN_MMA if (dtype == "bfloat16" and cq == cv == 128) \
             else corr.DESIGN_FMA
-        if fwd["design"] != corr.DESIGN_FMA or res["design"] != bwd_expected:
+        if fwd["design"] != fwd_expected or res["design"] != bwd_expected:
             raise AssertionError(f"case {name} was served by the {fwd['design']} (K1) and "
                                  f"{res['design']} (K2, K3) designs, not "
-                                 f"{corr.DESIGN_FMA} and {bwd_expected}")
+                                 f"{fwd_expected} and {bwd_expected}")
         log(f"[kernel] {name}: {_forward_line(fwd)}; {_case_line(res)}")
         record_forward(name, fwd)
         record_backward(name, res)
         del q, k, v, res
+
+    # K1's tensor-core design at every kind of width it takes: each
+    # instantiation, q resident and streamed with a last chunk that is whole
+    # or partly zero-filled, one column tile or several with a narrow last
+    # one (HW = 70: a ragged second key tile)
+    widths = (8, 24, 120, 128, 136, 264, 1016, 1024)
+    worst = {"err": 0.0, "l2": 0.0, "ms_err": 0.0}
+    for i, (cq, cv) in enumerate((cq, cv) for cq in widths for cv in widths):
+        q, k, v, grid = _kernel_inputs(2, 7, 10, cq, cv, "bfloat16", seed=400 + i,
+                                       spread32=True)
+        fwd = forward_case(q, k, v, grid)
+        if fwd["design"] != corr.DESIGN_MMA:
+            raise AssertionError(f"K1 at Cq={cq}, Cv={cv} bf16 took the {fwd['design']} design")
+        record_forward(f"widths_bf16_hw70_q{cq}_v{cv}", fwd)
+        worst = {key: max(val, fwd[key]) for key, val in worst.items()}
+    log(f"[kernel] K1 design mma at Cq, Cv in {widths} (64 pairs, HW=70, bf16): worst "
+        f"{worst['err']:.3g} of the largest entry vs the exact plain forward, relative L2 "
+        f"{worst['l2']:.3g} vs the plain forward with the kernel's rounding, max score "
+        f"{worst['ms_err']:.3g}")
     return cases
 
 
@@ -734,21 +767,58 @@ def k3_bound(B, HW, cq, cv, dtype, nbytes) -> tuple:
     return op_bound(2.0 * B * HW * HW * (2 * cq + 2 * cv + 2), B * HW * HW, nbytes, dtype)
 
 
-def time_k1(B, H, W, C, dtype, seed, fma_too=False, spread32=False) -> dict:
-    """K1 at one shape: agreement, then its time beside the plain version's,
-    one library call's and its bound. With ``fma_too`` the FMA design is
-    checked and timed on the same inputs as well, beside the design that
-    serves them."""
+def sdpa_ms(qh, kh, vh, iters: int, do=None) -> tuple:
+    """Milliseconds of one scaled_dot_product_attention call (its backward
+    with the cotangent ``do``) and the backend that ran it: in bf16 as
+    PyTorch dispatches it (backend not named); in float32 with TF32 off,
+    under the first of flash, efficient, cuDNN and math attention that takes
+    the inputs. Timed here only: the port never calls it."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def call():
+        o = F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
+        if do is None:
+            return lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
+        return lambda: torch.autograd.grad(o, (qh, kh, vh), do, retain_graph=True)
+
+    if qh.dtype != torch.float32:
+        return cuda_time_ms(call(), iters=iters), None
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                        SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+            with sdpa_kernel([backend]), warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)  # why the others refused
+                try:
+                    fn = call()
+                    fn()
+                except RuntimeError:
+                    continue
+                return cuda_time_ms(fn, iters=iters), backend.name.lower()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    raise AssertionError("no attention backend takes the float32 inputs")
+
+
+def time_k1(B, H, W, C, dtype, seed, fma_too=False, spread32=False, cv=None) -> dict:
+    """K1 at one shape (Cq = C, Cv = ``cv`` or C): agreement, then its time
+    beside the plain version's, one library call's and its bound. With
+    ``fma_too`` the FMA design is checked and timed on the same inputs as
+    well, beside the design that serves them."""
+    import torch
 
     from mapfree_tpu_torch.ops import correlation as corr
 
     HW = H * W
-    q, k, v, grid = _kernel_inputs(B, H, W, C, C, dtype, seed=seed, spread32=spread32)
+    cv = cv or C
+    width = f"C={C}" if cv == C else f"Cq={C} Cv={cv}"
+    q, k, v, grid = _kernel_inputs(B, H, W, C, cv, dtype, seed=seed, spread32=spread32)
     res = forward_case(q, k, v, grid)
-    check_forward(res, f"B={B} HW={HW}")
-    log(f"[kernel] K1 B={B} HW={HW} C={C} {dtype}: {_forward_line(res)}")
+    check_forward(res, f"B={B} HW={HW} {width}")
+    log(f"[kernel] K1 B={B} HW={HW} {width} {dtype}: {_forward_line(res)}")
     torch.cuda.empty_cache()
 
     ms = cuda_time_ms(lambda: corr.fused_correlation_warp(q, k, v, grid), iters=20, warmup=2)
@@ -759,14 +829,14 @@ def time_k1(B, H, W, C, dtype, seed, fma_too=False, spread32=False) -> dict:
     if fma_too and res["design"] != corr.DESIGN_FMA:
         # the FMA design's C function on the same inputs, as _forward_cuda
         # would launch it for a shape the tensor-core design does not take
-        out = torch.empty((B, HW, C + 3), dtype=torch.float32, device=q.device)
+        out = torch.empty((B, HW, cv + 3), dtype=torch.float32, device=q.device)
 
         def fma_launch():
             corr._launch(corr.KERNEL, corr.KERNEL, (q, k, v, grid, out), q, v)
 
         fma_launch()
         ref = corr.fused_correlation_warp_plain(q, k, v, grid)
-        fma["fma_max_abs_err"] = _max_err(corr._split(out, C), ref)
+        fma["fma_max_abs_err"] = _max_err(corr._split(out, cv), ref)
         del ref
         if fma["fma_max_abs_err"] > ATOL[dtype]:
             raise AssertionError(f"K1's FMA design disagrees with the plain forward at B={B}")
@@ -776,21 +846,21 @@ def time_k1(B, H, W, C, dtype, seed, fma_too=False, spread32=False) -> dict:
     # one library call computing P [v | grid] (padded to 40 columns for the
     # fused attention backends); timed here only, the port never calls it
     vg = torch.cat([v, grid.expand(B, HW, 2), v.new_zeros(B, HW, 6)], dim=-1)[:, None]
-    qh, kh = q[:, None], k[:, None]
-    library_ms = cuda_time_ms(
-        lambda: F.scaled_dot_product_attention(qh, kh, vg, scale=1.0), iters=10)
+    library_ms, backend = sdpa_ms(q[:, None], k[:, None], vg, iters=10)
 
-    nbytes = _nbytes(q, k, v, grid) + B * HW * (C + 3) * 4
-    bound_ms, bound_by = k1_bound(B, HW, C, C, dtype, nbytes)
+    nbytes = _nbytes(q, k, v, grid) + B * HW * (cv + 3) * 4
+    bound_ms, bound_by = k1_bound(B, HW, C, cv, dtype, nbytes)
     fma_line = (f"; the FMA design {fma['fma_ms']:.3f} ms ({fma['fma_ms'] / ms:.1f}x, max "
                 f"|kernel - plain| = {fma['fma_max_abs_err']:.3g})" if fma else "")
-    log(f"[kernel] K1 B={B} HW={HW} C={C} {dtype}, design {res['design']}: "
-        f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms={library_ms:.3f} "
+    library = f" ({backend}, TF32 off)" if backend else ""
+    log(f"[kernel] K1 B={B} HW={HW} {width} {dtype}, design {res['design']}: "
+        f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms={library_ms:.3f}{library} "
         f"bound_ms={bound_ms:.4f} ({bound_by}); kernel at {100 * bound_ms / ms:.1f}% "
         f"of its bound{fma_line}")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": res["max_abs_err"],
-            "shape": f"B={B} HW={HW} C={C} {dtype}", "design": res["design"],
+            "shape": f"B={B} HW={HW} {width} {dtype}", "design": res["design"],
+            **({"library_backend": backend} if backend else {}),
             **({"matched_rel_l2": res["l2"]} if "l2" in res else {}), **fma}
 
 
@@ -800,7 +870,6 @@ def time_backward(B, H, W, C, dtype, seed, spread32=False) -> tuple:
     [v | grid], without the max-score route) stands for the pair. A bf16
     shape the tensor-core design takes must be served by it."""
     import torch
-    import torch.nn.functional as F
 
     from mapfree_tpu_torch.ops import correlation as corr
 
@@ -826,10 +895,8 @@ def time_backward(B, H, W, C, dtype, seed, spread32=False) -> tuple:
 
     vg = torch.cat([v, grid.expand(B, HW, 2), v.new_zeros(B, HW, 6)], dim=-1)[:, None]
     qh, kh, vh = (t.detach().requires_grad_(True) for t in (q[:, None], k[:, None], vg))
-    o = F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
-    do = torch.cat([dout[..., :C + 2], dout.new_zeros(B, HW, 6)], dim=-1)[:, None].to(o.dtype)
-    library_ms = cuda_time_ms(
-        lambda: torch.autograd.grad(o, (qh, kh, vh), do, retain_graph=True), iters=10)
+    do = torch.cat([dout[..., :C + 2], dout.new_zeros(B, HW, 6)], dim=-1)[:, None].to(q.dtype)
+    library_ms, backend = sdpa_ms(qh, kh, vh, iters=10, do=do)
 
     common = _nbytes(q, k, v, grid, dout, rows.stats, rows.amax)
     k2_bound_ms, k2_by = k2_bound(B, HW, C, C, dtype, common + _nbytes(out) + B * HW * C * 4)
@@ -841,14 +908,16 @@ def time_backward(B, H, W, C, dtype, seed, spread32=False) -> tuple:
     log(f"[kernel] K3 {shape}: err {k3_err:.3g}; kernel_ms={k3_ms:.3f} "
         f"plain_ms={k3_plain:.3f} bound_ms={k3_bound_ms:.4f} ({k3_by}), "
         f"{100 * k3_bound_ms / k3_ms:.1f}% of its bound")
+    library = f" ({backend}, TF32 off)" if backend else ""
     log(f"[kernel] K2+K3 {k2_ms + k3_ms:.3f} ms; library (attention backward) "
-        f"{library_ms:.3f} ms")
+        f"{library_ms:.3f} ms{library}")
+    named = {"library_backend": backend} if backend else {}
     k2 = {"ms": k2_ms, "plain_ms": k2_plain, "library_ms": library_ms,
           "library_covers": "K2+K3", "bound_ms": k2_bound_ms, "bound_by": k2_by,
-          "max_abs_err": k2_err, "shape": shape, "design": design}
+          "max_abs_err": k2_err, "shape": shape, "design": design, **named}
     k3 = {"ms": k3_ms, "plain_ms": k3_plain, "library_ms": library_ms,
           "library_covers": "K2+K3", "bound_ms": k3_bound_ms, "bound_by": k3_by,
-          "max_abs_err": k3_err, "shape": shape, "design": design}
+          "max_abs_err": k3_err, "shape": shape, "design": design, **named}
     return k2, k3
 
 
@@ -866,7 +935,6 @@ def time_k1_batch(B, H, W, C, dtype, seed) -> dict:
     tolerances, as :func:`forward_case`), and its time beside its bound, the
     library call's at the whole batch, and the plain version's on two rows."""
     import torch
-    import torch.nn.functional as F
 
     from mapfree_tpu_torch.ops import correlation as corr
 
@@ -900,8 +968,7 @@ def time_k1_batch(B, H, W, C, dtype, seed) -> dict:
     plain_ms = cuda_time_ms(lambda: corr.fused_correlation_warp_plain(q[sl], k[sl], v[sl], grid),
                             iters=3)
     vg = torch.cat([v, grid.expand(B, HW, 2), v.new_zeros(B, HW, 6)], dim=-1)[:, None]
-    library_ms = cuda_time_ms(
-        lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], vg, scale=1.0), iters=5)
+    library_ms, _ = sdpa_ms(q[:, None], k[:, None], vg, iters=5)
     bound_ms, bound_by = k1_bound(B, HW, C, C, dtype, _nbytes(q, k, v, grid) + B * HW * (C + 3) * 4)
     log(f"[kernel] K1 B={B} HW={HW} C={C} {dtype}, design {design}: kernel_ms={ms:.3f} "
         f"library_ms={library_ms:.3f} bound_ms={bound_ms:.4f} ({bound_by}); kernel at "
@@ -920,7 +987,6 @@ def time_backward_batch(B, H, W, C, dtype, seed) -> tuple:
     their bounds, the library backward's at the whole batch, and the plain
     versions' on two rows."""
     import torch
-    import torch.nn.functional as F
 
     from mapfree_tpu_torch.ops import correlation as corr
 
@@ -972,10 +1038,8 @@ def time_backward_batch(B, H, W, C, dtype, seed) -> tuple:
     torch.cuda.empty_cache()
     vg = torch.cat([v, grid.expand(B, HW, 2), v.new_zeros(B, HW, 6)], dim=-1)[:, None]
     qh, kh, vh = (t.detach().requires_grad_(True) for t in (q[:, None], k[:, None], vg))
-    o = F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
-    do = torch.cat([dout[..., :C + 2], dout.new_zeros(B, HW, 6)], dim=-1)[:, None].to(o.dtype)
-    library_ms = cuda_time_ms(
-        lambda: torch.autograd.grad(o, (qh, kh, vh), do, retain_graph=True), iters=5)
+    do = torch.cat([dout[..., :C + 2], dout.new_zeros(B, HW, 6)], dim=-1)[:, None].to(q.dtype)
+    library_ms, _ = sdpa_ms(qh, kh, vh, iters=5, do=do)
     common = _nbytes(q, k, v, grid, dout, rows.stats, rows.amax)
     k2_bound_ms, k2_by = k2_bound(B, HW, C, C, dtype, common + _nbytes(out) + B * HW * C * 4)
     k3_bound_ms, k3_by = k3_bound(B, HW, C, C, dtype, common + 2 * B * HW * C * 4)
@@ -998,31 +1062,47 @@ def time_backward_batch(B, H, W, C, dtype, seed) -> tuple:
 def phase_kernel_timing() -> dict:
     """K1 at the inference shape (batch 64) and K1, K2, K3 at the training
     shape of 3d3d.yaml (batch 10); then K1 at the fusion sweep's batch of
-    64 x 9 = 576 pairs and K2, K3 at the fusion train step's 10 x 9 = 90."""
+    64 x 9 = 576 pairs and K2, K3 at the fusion train step's 10 x 9 = 90;
+    then the wide shapes and float32 (the FMA designs)."""
     from mapfree_tpu_torch.ops import correlation as corr
 
     k1 = time_k1(64, 92, 68, 32, "bfloat16", seed=100, fma_too=True)
     k1["train_shape"] = time_k1(10, 92, 68, 32, "bfloat16", seed=101)
-    for t in (k1, k1["train_shape"]):
-        if t["design"] != corr.DESIGN_MMA:
-            raise AssertionError(f"K1 at {t['shape']} is served by the {t['design']} design")
     k2, k3 = time_backward(10, 92, 68, 32, "bfloat16", seed=102)
     k1["fusion_shape"] = time_k1_batch(576, 92, 68, 32, "bfloat16", seed=103)
     k2["fusion_shape"], k3["fusion_shape"] = time_backward_batch(90, 92, 68, 32, "bfloat16",
                                                                  seed=104)
-    # the wide FMA designs: the ResNet bottleneck's 1,024 channels at the 5x4
-    # grid of its 360x270 frames (K1 at the sweep's batch, K2 and K3 at the
-    # train batch), and a ResUNet's 128 channels (NUM_OUT_LAYERS 128) at the
-    # 3d3d grid and the train batch, where K1 takes the FMA design and K2,
-    # K3 the tensor cores
+    # the wide shapes: the ResNet bottleneck's 1,024 channels at the 5x4 grid
+    # of its 360x270 frames (K1 at the sweep's batch, K2 and K3 at the train
+    # batch: those on the FMA design beyond 128 channels), a ResUNet's 128
+    # channels (NUM_OUT_LAYERS 128) at the 3d3d grid (K1 at the train batch
+    # and the sweep's, K2 and K3 on the tensor cores), and Cq != Cv beyond
+    # 128 (256 / 96) at the 3d3d grid; K1 beside the FMA design it took
+    # before, where that is quick
     H, W = RESNET_GRID
-    k1["resnet_shape"] = time_k1(64, H, W, 1024, "bfloat16", seed=105, spread32=True)
+    k1["resnet_shape"] = time_k1(64, H, W, 1024, "bfloat16", seed=105, fma_too=True,
+                                 spread32=True)
     k2["resnet_shape"], k3["resnet_shape"] = time_backward(10, H, W, 1024, "bfloat16", seed=106,
                                                            spread32=True)
-    k1["c128_shape"] = time_k1(10, 92, 68, 128, "bfloat16", seed=107, spread32=True)
+    k1["c128_shape"] = time_k1(10, 92, 68, 128, "bfloat16", seed=107, fma_too=True,
+                               spread32=True)
+    k1["c128_b64_shape"] = time_k1(64, 92, 68, 128, "bfloat16", seed=113, spread32=True)
     k2["c128_shape"], k3["c128_shape"] = time_backward(10, 92, 68, 128, "bfloat16", seed=108,
                                                        spread32=True)
-    for t in (k1["resnet_shape"], k1["c128_shape"], k2["resnet_shape"]):
+    k1["q256_v96_shape"] = time_k1(10, 92, 68, 256, "bfloat16", seed=114, spread32=True, cv=96)
+    # float32 (the FMA designs, exact: no TF32) beside the library's float32
+    # attention with TF32 off: the 3d3d shapes and the ResNet bottleneck's
+    k1["f32_shape"] = time_k1(64, 92, 68, 32, "float32", seed=109)
+    k2["f32_shape"], k3["f32_shape"] = time_backward(10, 92, 68, 32, "float32", seed=110)
+    k1["resnet_f32_shape"] = time_k1(64, H, W, 1024, "float32", seed=111, spread32=True)
+    k2["resnet_f32_shape"], k3["resnet_f32_shape"] = time_backward(
+        10, H, W, 1024, "float32", seed=112, spread32=True)
+    for t in [k1] + [k1[key] for key in ("train_shape", "resnet_shape", "c128_shape",
+                                         "c128_b64_shape", "q256_v96_shape")]:
+        if t["design"] != corr.DESIGN_MMA:
+            raise AssertionError(f"K1 at {t['shape']} is served by the {t['design']} design")
+    for t in (k2["resnet_shape"], k1["f32_shape"], k2["f32_shape"], k1["resnet_f32_shape"],
+              k2["resnet_f32_shape"]):
         if t["design"] != corr.DESIGN_FMA:
             raise AssertionError(f"{t['shape']} is served by the {t['design']} design")
     return {corr.KERNEL: k1, corr.KERNEL_BWD_ROWS: k2, corr.KERNEL_BWD_COLS: k3}
@@ -1588,11 +1668,13 @@ def phase_train_parity() -> None:
         raise AssertionError("8 steps on one batch did not lower the loss")
 
 
-def phase_train_parity_bf16() -> None:
-    """One bf16 train step of the small model on the card with K1, K2 and K3
+def bf16_step_kernels_vs_plain(cfg, batch: dict, what: str) -> dict:
+    """One bf16 train step of ``cfg``'s model on the card with K1, K2 and K3
     in their tensor-core designs, against the same step with the plain
-    versions on the card: the loss and the whole gradient in the L2 norm. A
-    second run of the kernels' step gives the floor."""
+    backward after the same K1 forward and with the plain versions forward
+    too: the loss and the whole gradient in the L2 norm, at phase 6's limits.
+    A second run of the kernels' step gives the floor. Returns the launches
+    of the two kernels' steps."""
     import torch
 
     from mapfree_tpu_torch.models.regression import build_regression_net
@@ -1600,17 +1682,13 @@ def phase_train_parity_bf16() -> None:
     from mapfree_tpu_torch.train import init_state, make_train_step
     from mapfree_tpu_torch.train.fit import _device_batch
 
-    cfg = load_cfg({"ENCODER.NUM_BLOCKS": "1-1-1", "DATASET.HEIGHT": 96,
-                    "DATASET.WIDTH": 72, "TRAINING.BATCH_SIZE": 4, "TRAINING.LR": 1e-3,
-                    "TRAINING.GRAD_CLIP": 1.0, "TPU.COMPUTE_DTYPE": "bfloat16",
-                    "TPU.SEED": SEED})
-    batch = train_batches(1, 4, 96, 72, seed=SEED + 21)[0]
+    bs = int(cfg.TRAINING.BATCH_SIZE)
     loss, grads = {}, {}
 
     def one_step(name):
         net = build_regression_net(cfg)
         state = init_state(net, cfg, torch.Generator().manual_seed(SEED), device="cuda")
-        _, logs = make_train_step(net, cfg)(state, _device_batch(batch, torch.device("cuda"), 4))
+        _, logs = make_train_step(net, cfg)(state, _device_batch(batch, torch.device("cuda"), bs))
         loss[name] = float(logs["train/loss"])
         grads[name] = {k: p.grad.detach().float().cpu() for k, p in net.named_parameters()}
 
@@ -1618,10 +1696,11 @@ def phase_train_parity_bf16() -> None:
     with designs_served() as seen:
         one_step("kernels")
     one_step("again")
+    launches = dict(corr.launches)
     _expect_launches(corr, {corr.KERNEL: 2, corr.KERNEL_BWD_ROWS: 2, corr.KERNEL_BWD_COLS: 2},
-                     "two bf16 train steps on the card")
+                     f"{what}: two bf16 train steps on the card")
     _expect_designs(seen, {"forward": [corr.DESIGN_MMA], "backward": [corr.DESIGN_MMA]},
-                    "the bf16 train step")
+                    f"{what}: the bf16 train step")
     with plain_versions_on_the_card(forward=False):
         one_step("plain_backward")
     with plain_versions_on_the_card():
@@ -1631,24 +1710,34 @@ def phase_train_parity_bf16() -> None:
     per_b, l2_b = _grad_errors(grads["kernels"], grads["plain_backward"])
     per, l2 = _grad_errors(grads["kernels"], grads["plain"])
     rel = abs(loss["kernels"] - loss["plain"]) / abs(loss["plain"])
-    log(f"[parity] bf16 train step, tensor-core K2 and K3 vs the plain backward after the same "
-        f"K1 forward: loss {loss['kernels']:.6f} vs {loss['plain_backward']:.6f}; whole "
+    log(f"[{what}] bf16 train step, tensor-core K2 and K3 vs the plain backward after the "
+        f"same K1 forward: loss {loss['kernels']:.6f} vs {loss['plain_backward']:.6f}; whole "
         f"gradient {l2_b:.2e} in L2 (tol {STEP_BF16_BWD_L2_TOL:g}); worst tensor "
         f"{per_b[0][0]:.2e} of its largest entry at {per_b[0][1]}, median tensor "
         f"{per_b[len(per_b) // 2][0]:.2e}; a second run of the kernels' step differs by "
         f"{floor:.2e} in L2")
-    log(f"[parity] bf16 train step, kernels vs plain versions on the card, forward too (with "
+    log(f"[{what}] bf16 train step, kernels vs plain versions on the card, forward too (with "
         f"K1's bf16 rounding of P): loss "
         f"{loss['kernels']:.6f} vs {loss['plain']:.6f} (rel {rel:.2e}, tol "
         f"{STEP_BF16_LOSS_RTOL:g}); whole gradient {l2:.2e} in L2 (tol {STEP_BF16_L2_TOL:g}); "
         f"worst tensor {per[0][0]:.2e} at {per[0][1]}, median tensor "
         f"{per[len(per) // 2][0]:.2e}")
     if loss["kernels"] != loss["plain_backward"]:
-        raise AssertionError("two bf16 steps with the same K1 forward differ in the loss")
+        raise AssertionError(f"{what}: two bf16 steps with the same K1 forward differ in the loss")
     if not (np.isfinite(loss["kernels"]) and rel <= STEP_BF16_LOSS_RTOL
             and l2_b <= STEP_BF16_BWD_L2_TOL and l2 <= STEP_BF16_L2_TOL):
-        raise AssertionError("the bf16 train step with the kernels disagrees with the plain "
-                             "versions")
+        raise AssertionError(f"{what}: the bf16 train step with the kernels disagrees with the "
+                             "plain versions")
+    return launches
+
+
+def phase_train_parity_bf16() -> None:
+    """One bf16 train step of the small model (:func:`bf16_step_kernels_vs_plain`)."""
+    cfg = load_cfg({"ENCODER.NUM_BLOCKS": "1-1-1", "DATASET.HEIGHT": 96,
+                    "DATASET.WIDTH": 72, "TRAINING.BATCH_SIZE": 4, "TRAINING.LR": 1e-3,
+                    "TRAINING.GRAD_CLIP": 1.0, "TPU.COMPUTE_DTYPE": "bfloat16",
+                    "TPU.SEED": SEED})
+    bf16_step_kernels_vs_plain(cfg, train_batches(1, 4, 96, 72, seed=SEED + 21)[0], "parity")
 
 
 # -- phase 7 -----------------------------------------------------------------
@@ -2268,7 +2357,7 @@ def phase_configs() -> dict:
     """One float32 forward of every config under configs/regression/ (and
     of ENCODER.BLOCK_TYPE 2 on the 3d3d model) on the card and on the CPU,
     same weights and batch, at one block per stage and 96x72: poses within
-    PARITY_ATOL. Then the models wider than the tensor-core K1 takes
+    PARITY_ATOL. Then the models wider than every config
     (:func:`wide_models`). Returns K1's launches per path."""
     import torch
 
@@ -2308,9 +2397,10 @@ def phase_configs() -> dict:
     return {"launches": {"configs_on_card": launches, **wide.pop("launches")}, "numbers": wide}
 
 
-# the two models whose correlation is wider than the tensor-core K1 takes:
-# the ResNet encoder with the bottleneck block (1,024 channels) and a ResUNet
-# with 128 output channels (Cv + 2 = 130)
+# the two models whose correlation is wider than every config under
+# configs/regression/: the ResNet encoder with the bottleneck block (1,024
+# channels; K1 streams q and k in chunks) and a ResUNet with 128 output
+# channels (Cv + 2 = 130; K1 in one column tile of 136 columns)
 WIDE_MODELS = {"resnet": {"ENCODER.TYPE": "ResNet", "ENCODER.BLOCK_TYPE": 1},
                "resunet128": {"ENCODER.NUM_OUT_LAYERS": 128}}
 
@@ -2318,12 +2408,15 @@ WIDE_MODELS = {"resnet": {"ENCODER.TYPE": "ResNet", "ENCODER.BLOCK_TYPE": 1},
 def wide_models(small: dict) -> dict:
     """The two models of WIDE_MODELS on 3d3d.yaml at full width (360x270,
     bf16, INFER_BATCH 64): the sweep through build_model -> predict with K1
-    in its FMA design once per batch; each at one block per stage in float32
-    on the card and on the CPU (the ResNet at 192x144, its output being
-    1/64 of the frame), poses within PARITY_ATOL; and one float32 train step
-    of the ResNet model at full width with the kernels against the plain
-    versions on the card, per tensor at phase 6's limits. Returns the
-    sweeps' launches and numbers."""
+    in its tensor-core design once per batch; each at one block per stage in
+    float32 on the card and on the CPU (the ResNet at 192x144, its output
+    being 1/64 of the frame), poses within PARITY_ATOL; one float32 train
+    step of the ResNet model at full width with the kernels against the
+    plain versions on the card, per tensor at phase 6's limits; and one bf16
+    train step of the 128-channel ResUNet at phase 6's size (one block per
+    stage, 96x72, batch 4) with K1-K3 on the tensor cores against the plain
+    backward and the plain versions (:func:`bf16_step_kernels_vs_plain`).
+    Returns the launches and the sweeps' numbers."""
     import torch
 
     from mapfree_tpu_torch.models.builder import build_model
@@ -2340,7 +2433,7 @@ def wide_models(small: dict) -> dict:
             f"{h}x{w} grid, {H}x{W}, {cfg.TPU.COMPUTE_DTYPE}, batch {bs}")
         sweep = drive_sweep(cfg, synthetic_batches(2 * bs + 23, bs, H, W, seed=SEED + 91 + i),
                             synthetic_batches(bs, bs, H, W, seed=SEED + 93 + i),
-                            f"configs, {name}", design=corr.DESIGN_FMA)
+                            f"configs, {name}", design=corr.DESIGN_MMA)
         del sweep["model"], sweep["transferred"]
         torch.cuda.empty_cache()
         launches[f"{name}_sweep"] = {corr.KERNEL: sweep["launches"]}
@@ -2366,6 +2459,15 @@ def wide_models(small: dict) -> dict:
     _expect_designs(seen, {"forward": [corr.DESIGN_FMA], "backward": [corr.DESIGN_FMA]},
                     "the ResNet float32 train step")
     log(f"[configs] the ResNet float32 comparison step at {H}x{W} launched {step}")
+    torch.cuda.empty_cache()
+    # a bf16 step of the 128-channel ResUNet with K1-K3 all on the tensor
+    # cores, at phase 6's size and limits
+    bcfg = load_cfg({**WIDE_MODELS["resunet128"], "ENCODER.NUM_BLOCKS": "1-1-1",
+                     "DATASET.HEIGHT": 96, "DATASET.WIDTH": 72, "TRAINING.BATCH_SIZE": 4,
+                     "TRAINING.LR": 1e-3, "TRAINING.GRAD_CLIP": 1.0,
+                     "TPU.COMPUTE_DTYPE": "bfloat16", "TPU.SEED": SEED})
+    launches["resunet128_bf16_steps"] = bf16_step_kernels_vs_plain(
+        bcfg, train_batches(1, 4, 96, 72, seed=SEED + 98)[0], "configs, resunet128")
     torch.cuda.empty_cache()
     return {"launches": launches, **numbers}
 

@@ -31,18 +31,26 @@
 // the kernel's roundings takes as its tile) and keep the running max, the
 // denominator and the accumulator in float32.
 //
-// "mma" (second half of this file): bf16 inputs, Cq and Cv multiples of 8,
-// Cq <= 128, Cv + 2 <= 128. What it does about the bound:
+// "mma" (second half of this file): bf16 inputs, Cq and Cv multiples of 8, at
+// any width. What it does about the bound:
 // - Both products run on the tensor cores: mma.sync m16n8k16, bf16 operands,
 //   float32 accumulators. A warp owns MT m-tiles of 16 query rows, which share
-//   every B fragment they multiply with, and holds its Q fragments in
-//   registers for the whole key loop.
+//   every B fragment they multiply with.
 // - The 64-key tiles of k and of [v | grid | zeros] arrive bf16 in padded
-//   shared-memory tiles (mma_tile.cuh) through a ring of three cp.async
-//   stages: one __syncthreads per tile, the next tiles in flight while this
-//   one is multiplied, each thread's share of a copy fixed at compile time.
-//   The grid's two values per key come by a 4-byte copy into columns Cv and
-//   Cv + 1 of the [v | grid] tile; the columns up to Cv + 8 are zero.
+//   shared-memory tiles (mma_tile.cuh) through a ring of cp.async stages: one
+//   __syncthreads per stage, the next stages in flight while this one is
+//   multiplied, each thread's share of a copy fixed at compile time. The
+//   grid's two values per key come by a 4-byte copy into the two columns after
+//   v's; the columns up to the next whole n-tile are zero.
+// - Up to 128 q channels the block's q tile stays in shared memory and its A
+//   fragments in registers for the whole key loop. Wider, q and k stream
+//   through the ring in channel chunks of KC, the A fragments come from the
+//   stage, and a key tile's [v | grid] arrives with its last chunk. Either
+//   way a score sums its channels from 0 upwards, 16 at a time.
+// - Beyond one column tile of v channels (120 up to 128 q channels, else
+//   128) the accumulator is cut into column tiles, a grid dimension: every
+//   column tile sums the same scores in the same order, so the row max and
+//   the denominator agree to the bit, and tile 0 alone writes the max score.
 // - Online softmax on the accumulator fragments: the row max over the 4 lanes
 //   that share a row (two shfl_xor), P = ex2(s log2e - m) with the scale
 //   folded into one FMA, the accumulator rescaled by ex2(m_old - m_new) only
@@ -53,16 +61,18 @@
 //   pack into one bf16 A fragment of P.[v | grid], whose B fragments come by
 //   ldmatrix.trans. P is rounded to bf16 there (2^-9 relative), relative to the
 //   row's running max after this tile; that is the design's one rounding.
-// - Ragged edges: copies zero-fill rows and keys past HW; only the last key
-//   tile masks scores to -inf; rows past HW are computed on zeros and not
-//   stored.
-// - Epilogue: the block's rows go through shared memory as the [rows, Cv + 3]
-//   float32 output layout and leave in one contiguous, coalesced stream.
+// - Ragged edges: copies zero-fill rows and keys past HW (and, streamed,
+//   channels past Cq); only the last key tile masks scores to -inf; rows past
+//   HW are computed on zeros and not stored.
+// - Epilogue: the block's rows go through shared memory as float32 rows of
+//   its columns and 1/d, and leave as whole output rows in one contiguous,
+//   coalesced stream where the block has every column, else row by row.
 //
 // "fma" (first half): float32 inputs, where exact float32 arithmetic is the
-// point (no TF32), and the bf16 shapes the other design does not take, at any
-// Cq >= 1 and Cv >= 0. One block of 256 threads per (64-row query tile,
-// batch, tile of at most 128 accumulator columns of [v | grid]). The block
+// point (no TF32), and the bf16 widths the other design does not take (not
+// multiples of 8), at any Cq >= 1 and Cv >= 0. One block of 256 threads per
+// (64-row query tile, batch, tile of at most 128 accumulator columns of
+// [v | grid]). The block
 // loops over all key tiles of 64 keys itself (the TPU's sequential key-chunk
 // grid axis only existed to fit VMEM). Each key tile's scores are summed over
 // channel chunks of at most QC = 128: the chunk of q (transposed; resident
@@ -78,10 +88,9 @@
 // (channel 0 upwards, whatever the chunking), so the row max and the
 // denominator agree bit for bit across column tiles; only column tile 0
 // writes the max-score channel. Wider inputs cost one more recomputation of
-// the scores per 128 columns: simple and right first (ROADMAP item 13 keeps
-// its speed). Masking: keys past HW score -1e30 (the ragged last key tile);
-// rows past HW are computed on zero queries and not stored (the ragged row
-// tile).
+// the scores per 128 columns: simple and right first. Masking: keys past HW
+// score -1e30 (the ragged last key tile); rows past HW are computed on zero
+// queries and not stored (the ragged row tile).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -312,38 +321,47 @@ cudaError_t dispatch(int cpt, const void* q, const void* k, const void* v,
 namespace mt = mma_tile;
 using bf16 = __nv_bfloat16;
 
-constexpr int STAGES = 3;  // ring of 64-key tiles in flight
-
-// Sizes for q channels padded to CQ (a multiple of 16) and v channels padded
-// to CV (a multiple of 8). Tiles are bf16, row-major, with a pitch of an odd
-// number of 16-byte slots, so that ldmatrix reads them without bank conflicts.
-template <int CQ, int CV>
+// Sizes for q and k tiles of KC channels (a multiple of 16: all of Cq padded
+// where q stays resident, a chunk of Cq where q and k stream) and a column
+// tile of CT v channels (a multiple of 8). Tiles are bf16, row-major, with a
+// pitch of an odd number of 16-byte slots, so that ldmatrix reads them
+// without bank conflicts.
+template <int KC, int CT>
 struct FwdGeo {
-  static constexpr int VG = CV + 8;          // [v | grid | zeros]: whole 8-column n-tiles
-  static constexpr int PQ = CQ + mt::PAD;    // pitch of the q and k tiles
+  static constexpr int VG = CT + 8;          // [v | grid | zeros]: whole 8-column n-tiles
+  static constexpr int PQ = KC + mt::PAD;    // pitch of the q and k tiles
   static constexpr int PV = (VG / 8) % 2 ? VG : VG + mt::PAD;  // pitch of the [v | grid] tile
-  static constexpr int KQ = CQ / 16;         // depth-16 steps of the score product
+  static constexpr int KQ = KC / 16;         // depth-16 steps of the score product
   static constexpr int NV = VG / 8;          // n-tiles of P . [v | grid]
-  static constexpr int STAGE = TK * (PQ + PV);  // bf16 elements of one ring stage
 };
 
-// One block per (batch, BR query rows); warp w owns rows WR w .. WR w + WR - 1
-// as MT m-tiles of 16, and within a fragment a thread owns rows g and g + 8
-// (g = lane / 4) and, per 8-column n-tile, columns 2t and 2t + 1 (t = lane % 4).
-template <int CQ, int CV, int MT, int NW, int MINB>
+// One block per (BR query rows, batch, column tile of CT v channels); warp w
+// owns rows WR w .. WR w + WR - 1 as MT m-tiles of 16, and within a fragment
+// a thread owns rows g and g + 8 (g = lane / 4) and, per 8-column n-tile,
+// columns 2t and 2t + 1 (t = lane % 4). Without STREAM the block's q tile
+// (Cq <= KC) stays in shared memory and its A fragments in registers, and a
+// ring stage holds a key tile of k and of [v | grid]; with STREAM a stage
+// holds one channel chunk of KC of the key tile's k and of the block's q,
+// and the key tile's [v | grid] comes with its last chunk. ST stages.
+template <int KC, int CT, bool STREAM, int MT, int NW, int MINB, int ST>
 __global__ void __launch_bounds__(32 * NW, MINB)
 correlation_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v, const bf16* __restrict__ grid,
                            float* __restrict__ out, int HW, int Cq, int Cv) {
-  using G = FwdGeo<CQ, CV>;
+  using G = FwdGeo<KC, CT>;
   constexpr int NTM = 32 * NW, WR = 16 * MT, BR = WR * NW;
+  constexpr int STAGE = TK * (G::PQ + G::PV) + (STREAM ? BR * G::PQ : 0);
   static_assert(NTM >= TK, "one thread per key copies the grid");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [BR][PQ]  query tile (resident)
-  bf16* ring = qs + BR * G::PQ;                  // STAGES x ([TK][PQ] keys, [TK][PV] v|grid)
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [BR][PQ]  resident query tile
+  bf16* ring = qs + (STREAM ? 0 : BR * G::PQ);   // ST x ([TK][PQ] k, [TK][PV] v|grid, [BR][PQ] q)
 
   const int b = blockIdx.y;
   const int row0 = blockIdx.x * BR;
+  const int col0 = blockIdx.z * CT;               // this block's v channels
+  const int w = Cv - col0 < CT ? Cv - col0 : CT;  // how many
+  const bool has_grid = col0 + w == Cv;           // the last tile: the grid at w, w + 1
+  const int wo = w + (has_grid ? 2 : 0);          // its columns of the output
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -352,39 +370,54 @@ correlation_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   const size_t boff = static_cast<size_t>(b) * HW;
   const bf16* qb = q + boff * Cq;
   const bf16* kb = k + boff * Cq;
-  const bf16* vb = v + boff * Cv;
+  const bf16* vb = v + boff * Cv + col0;
 
-  // the padding columns are written once: no copy ever touches them
-  mt::tile_zero_cols<BR, NTM>(qs, G::PQ, Cq, CQ, tid);
-  for (int st = 0; st < STAGES; ++st) {
-    bf16* kt = ring + st * G::STAGE;
-    mt::tile_zero_cols<TK, NTM>(kt, G::PQ, Cq, CQ, tid);
-    mt::tile_zero_cols<TK, NTM>(kt + TK * G::PQ, G::PV, Cv + 2, G::VG, tid);
+  // the padding columns are written once: no copy ever touches them (the
+  // streamed chunks fill their own with zeros)
+  if constexpr (!STREAM) mt::tile_zero_cols<BR, NTM>(qs, G::PQ, Cq, KC, tid);
+  for (int st = 0; st < ST; ++st) {
+    bf16* kt = ring + st * STAGE;
+    if constexpr (!STREAM) mt::tile_zero_cols<TK, NTM>(kt, G::PQ, Cq, KC, tid);
+    mt::tile_zero_cols<TK, NTM>(kt + TK * G::PQ, G::PV, wo, G::VG, tid);
   }
 
   const int nT = (HW + TK - 1) / TK;
-  auto load_tile = [&](int u) {
-    if (u < nT) {
-      bf16* kt = ring + (u % STAGES) * G::STAGE;
+  const int nC = STREAM ? (Cq + KC - 1) / KC : 1;  // channel chunks a key tile
+  auto load_step = [&](int step) {
+    if (step < nT * nC) {
+      const int u = step / nC, c = step - u * nC;
+      bf16* kt = ring + (step % ST) * STAGE;
       bf16* vt = kt + TK * G::PQ;
       const int key0 = u * TK;
-      mt::tile_copy_async<TK, NTM, CQ / 8>(kt, G::PQ * 2, kb, Cq * 2, key0, HW, tid);
-      mt::tile_copy_async<TK, NTM, CV / 8>(vt, G::PV * 2, vb, Cv * 2, key0, HW, tid);
-      if (tid < TK) {  // the grid's two values per key: columns Cv and Cv + 1
-        const int key = key0 + tid;
-        const bool ok = key < HW;
-        mt::cp_async_4(vt + tid * G::PV + Cv, grid + 2 * (ok ? key : 0), ok);
+      if constexpr (STREAM) {
+        const int c0 = c * KC;
+        mt::tile_copy_async_cols<TK, NTM, KC / 8, true>(kt, G::PQ * 2, kb + c0, Cq * 2,
+                                                        (Cq - c0) * 2, key0, HW, tid);
+        mt::tile_copy_async_cols<BR, NTM, KC / 8, true>(vt + TK * G::PV, G::PQ * 2, qb + c0,
+                                                        Cq * 2, (Cq - c0) * 2, row0, HW, tid);
+      } else {
+        mt::tile_copy_async<TK, NTM, KC / 8>(kt, G::PQ * 2, kb, Cq * 2, key0, HW, tid);
+      }
+      if (c == nC - 1) {
+        mt::tile_copy_async_cols<TK, NTM, CT / 8>(vt, G::PV * 2, vb, Cv * 2, w * 2, key0, HW,
+                                                  tid);
+        if (has_grid && tid < TK) {  // the grid's two values per key: columns w and w + 1
+          const int key = key0 + tid;
+          const bool ok = key < HW;
+          mt::cp_async_4(vt + tid * G::PV + w, grid + 2 * (ok ? key : 0), ok);
+        }
       }
     }
     mt::cp_async_commit();  // always: the wait below counts groups
   };
 
-  // the query tile travels in the first group, with key tile 0
-  mt::tile_copy_async<BR, NTM, CQ / 8>(qs, G::PQ * 2, qb, Cq * 2, row0, HW, tid);
-  for (int u = 0; u < STAGES - 1; ++u) load_tile(u);
+  // a resident query tile travels in the first group, with key tile 0
+  if constexpr (!STREAM)
+    mt::tile_copy_async<BR, NTM, KC / 8>(qs, G::PQ * 2, qb, Cq * 2, row0, HW, tid);
+  for (int step = 0; step < ST - 1; ++step) load_step(step);
 
   // this thread's rows: m-tile m, half h -> row warp * WR + 16 m + 8 h + g
-  uint32_t qa[MT][G::KQ][4];
+  uint32_t qa[MT][STREAM ? 1 : G::KQ][4];
   float acc[MT][G::NV][4] = {};
   float m_run[MT][2], l_run[MT][2];  // running max of s log2e; this lane's share of d
 #pragma unroll
@@ -395,35 +428,60 @@ correlation_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
       l_run[m][h] = 0.f;
     }
 
+  int step = 0;
   for (int u = 0; u < nT; ++u) {
-    mt::cp_async_wait<STAGES - 2>();
-    __syncthreads();  // tile u has landed for everyone; tile u - 1's stage is free
-    load_tile(u + STAGES - 1);
-    if (u == 0) {
+    // S = Q K^T over the tile's 64 keys, channel 0 upwards in every column
+    // tile; each B fragment serves every m-tile
+    float s[MT][TK / 8][4] = {};
+    const bf16* kt = ring;
+    for (int c = 0; c < nC; ++c, ++step) {
+      mt::cp_async_wait<ST - 2>();
+      __syncthreads();  // this step's tiles have landed for everyone; the last step's stage is free
+      load_step(step + ST - 1);
+      kt = ring + (step % ST) * STAGE;
+      if constexpr (STREAM) {
+        const bf16* qt = kt + TK * (G::PQ + G::PV);
 #pragma unroll
-      for (int m = 0; m < MT; ++m)
+        for (int ks = 0; ks < G::KQ; ++ks) {
+          uint32_t a[MT][4];
 #pragma unroll
-        for (int ks = 0; ks < G::KQ; ++ks)
-          mt::load_a(qa[m][ks], qs, G::PQ, warp * WR + 16 * m, ks * 16, lo);
+          for (int m = 0; m < MT; ++m) mt::load_a(a[m], qt, G::PQ, warp * WR + 16 * m, ks * 16, lo);
+#pragma unroll
+          for (int kg = 0; kg < TK / 16; ++kg) {
+            uint32_t bk[4];
+            mt::load_b(bk, kt, G::PQ, kg * 16, ks * 16, lo);
+#pragma unroll
+            for (int m = 0; m < MT; ++m) {
+              mt::mma_bf16(s[m][2 * kg], a[m], bk[0], bk[1]);
+              mt::mma_bf16(s[m][2 * kg + 1], a[m], bk[2], bk[3]);
+            }
+          }
+        }
+      } else {
+        if (u == 0) {
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int ks = 0; ks < G::KQ; ++ks)
+              mt::load_a(qa[m][ks], qs, G::PQ, warp * WR + 16 * m, ks * 16, lo);
+        }
+#pragma unroll
+        for (int kg = 0; kg < TK / 16; ++kg)
+#pragma unroll
+          for (int ks = 0; ks < G::KQ; ++ks) {
+            uint32_t bk[4];
+            mt::load_b(bk, kt, G::PQ, kg * 16, ks * 16, lo);
+#pragma unroll
+            for (int m = 0; m < MT; ++m) {
+              mt::mma_bf16(s[m][2 * kg], qa[m][ks], bk[0], bk[1]);
+              mt::mma_bf16(s[m][2 * kg + 1], qa[m][ks], bk[2], bk[3]);
+            }
+          }
+      }
     }
-    const bf16* kt = ring + (u % STAGES) * G::STAGE;
-    const bf16* vt = kt + TK * G::PQ;
+    const bf16* vt = kt + TK * G::PQ;  // came with the tile's last chunk
     const int key0 = u * TK;
 
-    // S = Q K^T over the tile's 64 keys; each B fragment serves every m-tile
-    float s[MT][TK / 8][4] = {};
-#pragma unroll
-    for (int kg = 0; kg < TK / 16; ++kg)
-#pragma unroll
-      for (int ks = 0; ks < G::KQ; ++ks) {
-        uint32_t bk[4];
-        mt::load_b(bk, kt, G::PQ, kg * 16, ks * 16, lo);
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          mt::mma_bf16(s[m][2 * kg], qa[m][ks], bk[0], bk[1]);
-          mt::mma_bf16(s[m][2 * kg + 1], qa[m][ks], bk[2], bk[3]);
-        }
-      }
     // only the last tile has keys past HW (zero rows, whose score 0 must not count)
     if (key0 + TK > HW) {
       const int n_keys = HW - key0;
@@ -505,12 +563,14 @@ correlation_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     }
   }
 
-  // epilogue: the ring becomes the block's [BR, Cv + 3] float32 output tile,
-  // which leaves in one contiguous stream
+  // epilogue: the ring becomes the block's [BR, wo + 1] float32 output tile
+  // (its columns, then 1 / d), which leaves as whole rows of the output where
+  // the block has them all, else row by row; only column tile 0 writes the
+  // max score
   mt::cp_async_wait<0>();
   __syncthreads();
   float* ot = reinterpret_cast<float*>(ring);
-  const int CO = Cv + 3;
+  const int E = wo + 1;
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
@@ -519,21 +579,32 @@ correlation_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
       d += __shfl_xor_sync(0xffffffffu, d, 1);
       d += __shfl_xor_sync(0xffffffffu, d, 2);
       const float inv = 1.f / d;
-      float* o = ot + (warp * WR + 16 * m + 8 * h + g) * CO;
+      float* o = ot + (warp * WR + 16 * m + 8 * h + g) * E;
 #pragma unroll
       for (int n = 0; n < G::NV; ++n) {
         const int col = n * 8 + 2 * t;
-        if (col < Cv + 2) {  // Cv is even: both columns or neither
+        if (col < wo) {  // wo is even: both columns or neither
           o[col] = acc[m][n][2 * h] * inv;
           o[col + 1] = acc[m][n][2 * h + 1] * inv;
         }
       }
-      if (t == 0) o[Cv + 2] = inv;  // the max score: max_j P_ij = 1 / d
+      if (t == 0) o[wo] = inv;  // the max score: max_j P_ij = 1 / d
     }
   __syncthreads();
-  const int n_out = (HW - row0 < BR ? HW - row0 : BR) * CO;
+  const int CO = Cv + 3;
+  const int rows = HW - row0 < BR ? HW - row0 : BR;
   float* dst = out + (boff + row0) * CO;
-  for (int i = tid; i < n_out; i += NTM) dst[i] = ot[i];
+  if (E == CO) {
+    for (int i = tid; i < rows * CO; i += NTM) dst[i] = ot[i];
+  } else {
+    for (int i = tid; i < rows * E; i += NTM) {
+      const int r = i / E, c = i - r * E;
+      if (c < wo)
+        dst[r * CO + col0 + c] = ot[i];
+      else if (blockIdx.z == 0)
+        dst[r * CO + Cv + 2] = ot[i];
+    }
+  }
 }
 
 template <typename K>
@@ -550,46 +621,80 @@ struct MmaArgs {
   cudaStream_t stream;
 };
 
-template <int CQ, int CV, int MT, int NW, int MINB>
+template <int KC, int CT, bool STREAM, int MT, int NW, int MINB, int ST>
 cudaError_t launch_mma(const MmaArgs& a) {
-  using G = FwdGeo<CQ, CV>;
+  using G = FwdGeo<KC, CT>;
   constexpr int BR = 16 * MT * NW;
-  auto kernel = correlation_fwd_mma_kernel<CQ, CV, MT, NW, MINB>;
-  const size_t ring = sizeof(bf16) * STAGES * G::STAGE;
-  const size_t tile = sizeof(float) * BR * (CV + 3);  // the epilogue's, in the ring's place
-  const size_t smem = sizeof(bf16) * BR * G::PQ + (ring > tile ? ring : tile);
+  auto kernel = correlation_fwd_mma_kernel<KC, CT, STREAM, MT, NW, MINB, ST>;
+  const size_t stage = TK * (G::PQ + G::PV) + (STREAM ? BR * G::PQ : 0);
+  const size_t ring = sizeof(bf16) * ST * stage;
+  const size_t tile = sizeof(float) * BR * (CT + 3);  // the epilogue's, in the ring's place
+  const size_t smem = sizeof(bf16) * (STREAM ? 0 : BR * G::PQ) + (ring > tile ? ring : tile);
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  const dim3 blocks((a.HW + BR - 1) / BR, a.B);
+  const dim3 blocks((a.HW + BR - 1) / BR, a.B, (a.Cv + CT - 1) / CT);
   kernel<<<blocks, 32 * NW, smem, a.stream>>>(a.q, a.k, a.v, a.grid, a.out, a.HW, a.Cq, a.Cv);
   return cudaGetLastError();
 }
 
-// The instantiations: channels padded up to (CQ, CV); then m-tiles a warp,
-// warps a block, and the least blocks a SM should hold (which caps the
-// registers a thread may take). Up to 32 channels a block owns 128 rows as 4
-// warps of two m-tiles that share every B fragment, with registers for 3
-// blocks a SM: at B=10, HW=6,256 that is 490 blocks on 396 slots, at B=64
-// 3,136 blocks. Timed on an H100 against this choice, a cap for 4 blocks a
-// SM (128 registers, spilling), 2 blocks, one m-tile a warp with 4 or 8
-// warps, two m-tiles with 8 warps, and a ring of two stages were all slower.
+// The instantiations: q channels a tile (all of Cq, or a chunk where q
+// streams), v channels a column tile, whether q streams; then m-tiles a
+// warp, warps a block, the least blocks a SM should hold (which caps the
+// registers a thread may take) and the ring's stages.
+//
+// Up to 32 channels a block owns 128 rows as 4 warps of two m-tiles that
+// share every B fragment, with registers for 3 blocks a SM: at B=10,
+// HW=6,256 that is 490 blocks on 396 slots, at B=64 3,136 blocks. Timed on
+// an H100 against this choice, a cap for 4 blocks a SM (128 registers,
+// spilling), 2 blocks, one m-tile a warp with 4 or 8 warps, two m-tiles with
+// 8 warps, and a ring of two stages were all slower.
+//
+// At 128 q channels and 121 to 128 v channels (a 128-channel ResUNet: Cv + 2
+// = 130, 17 n-tiles) a block owns 64 rows as 4 warps of one m-tile, q
+// resident, with a ring of two stages: 87 KB of shared memory, so 2 blocks a
+// SM, 8 warps. On an H100 80GB HBM3 at 700 W (tools/torch_chip_studies.py
+// k1-variants) it took 0.802 ms at B=10 and 4.73 ms at B=64 on the 3d3d
+// grid, against 0.835 and 4.84 for 128 rows as 8 warps with three stages
+// (139 KB, 1 block a SM), 0.832 for those with two stages, 1.209 for 64
+// rows with three stages (1 block a SM, 4 warps), and 1.020 and 1.234 for q
+// streamed in chunks of 64 (4 and 8 warps). No instantiation spills.
+//
+// Wider than 128 q channels, q and k stream through the ring in chunks of
+// KC, and the accumulator is cut into column tiles of 128 v channels, a grid
+// dimension: every column tile sums the same scores in the same order, so
+// the row max and the denominator agree to the bit and tile 0 alone writes
+// the max score. The other way to hold a wide accumulator, every column of a
+// few rows in one block with the warps splitting the columns, needs P and
+// the row statistics passed between the warps through shared memory with a
+// barrier at every key tile; recomputing the scores costs Cq / (Cq + 128)
+// of a column tile's products instead, and nothing at the ResNet
+// bottleneck's HW = 20, which is bound by bytes. So the column tiles won
+// without that design being built. On the same card: at 1,024 channels on
+// the 5x4 grid (B=64) 32 rows as 2 warps with chunks of 64 and three
+// stages took 0.0310 ms a launch, 64 rows as 4 warps 0.0333, chunks of 128
+// 0.0529, chunks of 32 (4 stages) 0.0365, four stages 0.0549; at Cq = 256,
+// Cv = 96 on the 3d3d grid (B=10) 64 rows as 4 warps 1.603 ms, 128 rows as
+// 8 warps 1.888, chunks of 128 2.218, chunks of 32 1.852.
 cudaError_t dispatch_mma(const MmaArgs& a) {
-  if (a.Cq <= 16 && a.Cv <= 16) return launch_mma<16, 16, 2, 4, 3>(a);
-  if (a.Cq <= 16 && a.Cv <= 32) return launch_mma<16, 32, 2, 4, 3>(a);
-  if (a.Cq <= 32 && a.Cv <= 32) return launch_mma<32, 32, 2, 4, 3>(a);
-  if (a.Cq <= 64 && a.Cv <= 64) return launch_mma<64, 64, 1, 8, 2>(a);
-  return launch_mma<128, 120, 1, 8, 1>(a);
+  if (a.Cq <= 16 && a.Cv <= 16) return launch_mma<16, 16, false, 2, 4, 3, 3>(a);
+  if (a.Cq <= 16 && a.Cv <= 32) return launch_mma<16, 32, false, 2, 4, 3, 3>(a);
+  if (a.Cq <= 32 && a.Cv <= 32) return launch_mma<32, 32, false, 2, 4, 3, 3>(a);
+  if (a.Cq <= 64 && a.Cv <= 64) return launch_mma<64, 64, false, 1, 8, 2, 3>(a);
+  if (a.Cq <= 128 && a.Cv <= 120) return launch_mma<128, 120, false, 1, 8, 1, 3>(a);
+  if (a.Cq <= 128) return launch_mma<128, 128, false, 1, 4, 2, 2>(a);
+  if (a.HW <= 32) return launch_mma<64, 128, true, 1, 2, 2, 3>(a);
+  return launch_mma<64, 128, true, 1, 4, 2, 3>(a);
 }
 
 bool mma_takes(int B, int HW, int Cq, int Cv, int dtype) {
-  return B >= 0 && HW >= 0 && dtype == 1 && Cq % 8 == 0 && Cv % 8 == 0 && Cq >= 8 &&
-         Cq <= 128 && Cv >= 8 && Cv + 2 <= 128;
+  return B >= 0 && B <= 65535 && HW >= 0 && dtype == 1 && Cq % 8 == 0 && Cv % 8 == 0 &&
+         Cq >= 8 && Cv >= 8;
 }
 
 }  // namespace
 
-// The "mma" design: bf16 (dtype 1), Cq and Cv multiples of 8, Cq <= 128,
-// Cv + 2 <= 128; q, k, v aligned to 16 bytes. Same arguments and output as
+// The "mma" design: bf16 (dtype 1), Cq and Cv multiples of 8, at any width;
+// q, k, v aligned to 16 bytes, the grid to 4. Same arguments and output as
 // correlation_fwd. Returns a cudaError_t (0 on success), cudaErrorInvalidValue
 // for inputs the design does not take.
 extern "C" int correlation_fwd_mma(const void* q, const void* k, const void* v,

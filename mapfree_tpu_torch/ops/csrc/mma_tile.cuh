@@ -66,28 +66,41 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Rows [row0, row0 + ROWS) of a row-major global array, row_bytes each (a
-// multiple of 16 up to 16 CHUNKS, the base aligned to 16), into a shared tile
-// of pitch_bytes; rows at or past n_rows arrive as zeros. All NT threads of
-// the block call it. CHUNKS is a compile-time bound so that the loop unrolls
-// and a thread's row and chunk cost a shift, not a division.
-template <int ROWS, int NT, int CHUNKS>
-__device__ __forceinline__ void tile_copy_async(void* dst, int pitch_bytes, const void* src,
-                                                int row_bytes, int row0, int n_rows,
-                                                int tid) {
+// The first width_bytes of rows [row0, row0 + ROWS) of a row-major global
+// array whose rows lie stride_bytes apart (both multiples of 16, the base
+// aligned to 16), into a shared tile of pitch_bytes, CHUNKS 16-byte pieces a
+// row; rows at or past n_rows arrive as zeros. The pieces at or past
+// width_bytes arrive as zeros with ZFILL and are not written without it. All
+// NT threads of the block call it. CHUNKS is a compile-time bound so that the
+// loop unrolls and a thread's row and chunk cost a shift, not a division.
+template <int ROWS, int NT, int CHUNKS, bool ZFILL = false>
+__device__ __forceinline__ void tile_copy_async_cols(void* dst, int pitch_bytes,
+                                                     const void* src, int stride_bytes,
+                                                     int width_bytes, int row0, int n_rows,
+                                                     int tid) {
 #pragma unroll
   for (int e0 = 0; e0 < ROWS * CHUNKS; e0 += NT) {
     const int e = e0 + tid;
     const int r = e / CHUNKS, ch = e % CHUNKS;
-    if ((ROWS * CHUNKS % NT == 0 || e < ROWS * CHUNKS) && ch * 16 < row_bytes) {
+    const bool in = ch * 16 < width_bytes;
+    if ((ROWS * CHUNKS % NT == 0 || e < ROWS * CHUNKS) && (ZFILL || in)) {
       const int row = row0 + r;
-      const bool ok = row < n_rows;
+      const bool ok = in && row < n_rows;
       cp_async_16(static_cast<char*>(dst) + r * pitch_bytes + ch * 16,
                   static_cast<const char*>(src) +
-                      static_cast<size_t>(ok ? row : 0) * row_bytes + ch * 16,
+                      (ok ? static_cast<size_t>(row) * stride_bytes + ch * 16 : 0),
                   ok);
     }
   }
+}
+
+// Whole rows of row_bytes each (at most 16 CHUNKS), as above without ZFILL.
+template <int ROWS, int NT, int CHUNKS>
+__device__ __forceinline__ void tile_copy_async(void* dst, int pitch_bytes, const void* src,
+                                                int row_bytes, int row0, int n_rows,
+                                                int tid) {
+  tile_copy_async_cols<ROWS, NT, CHUNKS>(dst, pitch_bytes, src, row_bytes, row_bytes, row0,
+                                         n_rows, tid);
 }
 
 // Zero columns [c0, c1) (both even) of a ROWS-row bf16 tile with plain stores.

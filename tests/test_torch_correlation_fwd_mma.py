@@ -127,6 +127,67 @@ def test_score_noise_flips_few_bf16_roundings(name, B, H, W):
     assert float((noisy[2] - ref[2]).abs().max()) < 5e-5
 
 
+def _wide_inputs(cq, cv, H, W, seed, scaled):
+    """bf16 inputs at B = 2 (phase 3's wide cases in chip_smoke.py), q and k
+    scaled by (32 / Cq)^(1/4) before their rounding to bf16, so that the
+    scores spread as at 32 channels, or unscaled (a score's spread grows as
+    sqrt(Cq))."""
+    rng = np.random.default_rng(seed)
+    HW = H * W
+    scale = (32.0 / cq) ** 0.25 if scaled else 1.0
+    q, k = (torch.from_numpy(scale * rng.standard_normal((2, HW, cq), np.float32)).bfloat16()
+            for _ in range(2))
+    v = torch.from_numpy(rng.standard_normal((2, HW, cv), np.float32)).bfloat16()
+    return q, k, v, _uv_grid(H, W).bfloat16()
+
+
+# (Cq, Cv, H, W): the widths the tensor-core forward takes from 128 channels
+# on, at HW = 20 (the ResNet bottleneck's 5 x 4 grid) and 70
+WIDE_CASES = [(cq, cv, H, W) for cq, cv in ((128, 128), (256, 256), (1024, 1024), (256, 96))
+              for H, W in ((4, 5), (7, 10))]
+WIDE_IDS = [f"q{c[0]}_v{c[1]}_hw{c[2] * c[3]}" for c in WIDE_CASES]
+
+
+@pytest.mark.parametrize("cq,cv,H,W", WIDE_CASES, ids=WIDE_IDS)
+@pytest.mark.parametrize("scaled", [True, False], ids=["scaled", "unscaled"])
+def test_wide_rounding_stays_within_the_exact_tolerance(cq, cv, H, W, scaled):
+    """At 128 to 1,024 channels, scaled and unscaled, the rounding of P costs
+    at most half of MMA_FWD_VS_EXACT_TOL (the C = 32 constant covers these
+    widths with its margin: no wide constant), and the max score moves by
+    float32 round-off well inside the card's 5e-5."""
+    q, k, v, grid = _wide_inputs(cq, cv, H, W, cq + cv + H * W, scaled)
+    exact = corr.fused_correlation_warp_plain(q, k, v, grid)
+    rounded = corr.fused_correlation_warp_plain(q, k, v, grid, bf16_roundings=True)
+    for got, ref in zip(rounded[:2], exact[:2]):
+        assert _scaled_err(got, ref) <= corr.MMA_FWD_VS_EXACT_TOL / 2
+    assert _scaled_err(rounded[2], exact[2]) < 5e-5 / 2
+
+
+def _wide_noise_reading(cq, cv, H, W, scaled, seed):
+    q, k, v, grid = _wide_inputs(cq, cv, H, W, seed, scaled)
+    gen = torch.Generator().manual_seed(0)
+    ref = corr.fused_correlation_warp_plain(q, k, v, grid, bf16_roundings=True)
+    noisy = _rounded_forward_with_score_noise(q, k, v, grid, 1e-6, gen)
+    return max(_rel_l2(a, r) for a, r in zip(noisy[:2], ref[:2]))
+
+
+def test_wide_score_noise_derives_the_wide_l2_tolerance():
+    """The same score noise as at C = 32 (1e-6 of the largest score) over the
+    wide cases at B = 2, two seeds each: unscaled inputs give peaked rows, in which one flip
+    of a bf16 rounding moves warped further, up to some 3e-4 in L2 over 40
+    rows, beyond half of MMA_FWD_VS_MATCHED_L2_TOL. So the wide shapes take
+    MMA_FWD_VS_MATCHED_L2_TOL_WIDE, pinned as the C = 32 one is: between 2x
+    and 20x of the largest reading. (The max score is not read here: 1e-6 of
+    an unscaled 1,024-channel score of some 150 is far more than float32
+    sums in another order move it; the test above bounds it.)"""
+    readings = [_wide_noise_reading(cq, cv, H, W, scaled, seed)
+                for cq, cv, H, W in WIDE_CASES for scaled in (True, False) for seed in (0, 1)]
+    worst = max(readings)
+    assert corr.MMA_FWD_VS_MATCHED_L2_TOL / 2 < worst
+    tol = corr.MMA_FWD_VS_MATCHED_L2_TOL_WIDE
+    assert tol / 20 <= worst <= tol / 2, worst
+
+
 def test_rounded_version_defaults_and_the_cpu_route():
     """bf16_roundings takes FWD_KEY_TILE unless told otherwise; the default
     is the exact dense softmax, which is also what the Function computes on
@@ -171,10 +232,13 @@ DESIGN_CASES = [
     (torch.bfloat16, 32, 32, corr.DESIGN_MMA),   # the 3d3d main path
     (torch.bfloat16, 16, 32, corr.DESIGN_MMA),   # CV_HALF_CHANNELS
     (torch.bfloat16, 8, 8, corr.DESIGN_MMA),
-    (torch.bfloat16, 128, 120, corr.DESIGN_MMA),  # the widest: Cv + 2 <= 128
+    (torch.bfloat16, 128, 120, corr.DESIGN_MMA),
     (torch.bfloat16, 64, 24, corr.DESIGN_MMA),
-    (torch.bfloat16, 128, 128, corr.DESIGN_FMA),  # Cv + 2 > 128
-    (torch.bfloat16, 136, 32, corr.DESIGN_FMA),  # wider than the tensor-core tiles
+    (torch.bfloat16, 128, 128, corr.DESIGN_MMA),  # a 128-channel ResUNet: Cv + 2 = 130
+    (torch.bfloat16, 136, 32, corr.DESIGN_MMA),  # q and k streamed in channel chunks
+    (torch.bfloat16, 256, 256, corr.DESIGN_MMA),  # the ResNet encoder's basic block
+    (torch.bfloat16, 1024, 1024, corr.DESIGN_MMA),  # the ResNet bottleneck
+    (torch.bfloat16, 256, 96, corr.DESIGN_MMA),  # Cq != Cv, both beyond one tile's reach
     (torch.bfloat16, 12, 12, corr.DESIGN_FMA),   # not a multiple of 8
     (torch.bfloat16, 32, 4, corr.DESIGN_FMA),
     (torch.float32, 32, 32, corr.DESIGN_FMA),    # float32 stays exact: no TF32
@@ -185,6 +249,26 @@ DESIGN_CASES = [
                          ids=[f"{str(d).split('.')[-1]}_q{a}_v{b}" for d, a, b, _ in DESIGN_CASES])
 def test_forward_design_dispatch(dtype, cq, cv, design):
     assert corr.forward_design(dtype, cq, cv) == design
+
+
+def test_tensor_core_forward_takes_every_bf16_multiple_of_8():
+    """Every Cq and Cv that are multiples of 8 from 8 to 1,024 go to the
+    tensor cores in bf16; other bf16 widths and float32 keep the FMA design."""
+    widths = range(8, 1025, 8)
+    assert all(corr.forward_design(torch.bfloat16, cq, cv) == corr.DESIGN_MMA
+               for cq in widths for cv in widths)
+    for cq, cv in ((8, 12), (12, 8), (1020, 1024), (1024, 1020), (1, 8)):
+        assert corr.forward_design(torch.bfloat16, cq, cv) == corr.DESIGN_FMA
+    assert all(corr.forward_design(torch.float32, c, c) == corr.DESIGN_FMA for c in widths)
+
+
+def test_matched_l2_tolerance_by_width():
+    """The C = 32 constant holds where the design reached before (Cq up to
+    128, Cv up to 120); the wide constant beyond."""
+    for cq, cv in ((32, 32), (16, 32), (128, 120), (64, 64)):
+        assert corr.mma_forward_matched_l2_tol(cq, cv) == corr.MMA_FWD_VS_MATCHED_L2_TOL
+    for cq, cv in ((128, 128), (136, 32), (1024, 1024), (256, 96)):
+        assert corr.mma_forward_matched_l2_tol(cq, cv) == corr.MMA_FWD_VS_MATCHED_L2_TOL_WIDE
 
 
 def test_kernel_key_tile_is_the_plain_versions_tile():

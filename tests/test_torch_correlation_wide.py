@@ -12,6 +12,15 @@ HW = 20 (the ResNet bottleneck's 5 x 4 grid at 360x270) and 70, float32:
 - warped, pos and the max score within 1e-5 of the JAX forward;
 - dq, dk and dv of a loss with fixed random weights on the three outputs
   within 1e-4 of each gradient's largest entry, against the JAX vjp.
+
+In bf16 the card runs K1's tensor-core design at these widths, which rounds
+P to bf16; its plain version (``bf16_roundings=True``) is held against the
+JAX forward on the same bf16 inputs (the Pallas kernel keeps P in float32)
+at (128, 128) and (256, 96), HW 20 and 70: warped and pos within
+``MMA_FWD_VS_EXACT_TOL`` of their largest entry (or of 1), the tolerance
+``tests/test_torch_correlation_fwd_mma.py`` derives for what that rounding
+costs and shows to cover these widths; the max score, which the design sums
+from the float32 P, within the card's float32 tolerance 5e-5.
 """
 
 import numpy as np
@@ -64,3 +73,26 @@ def test_wide_warp_and_gradients_match_jax(cq, cv, H, W):
     for g, r in zip((tq.grad, tk.grad, tv.grad), jgrads):
         r = np.asarray(r)
         np.testing.assert_allclose(g.numpy(), r, rtol=0, atol=1e-4 * np.abs(r).max())
+
+
+BF16_CASES = [(cq, cv, H, W) for cq, cv in ((128, 128), (256, 96)) for H, W in ((4, 5), (7, 10))]
+
+
+@pytest.mark.parametrize("cq,cv,H,W", BF16_CASES, ids=[f"q{c[0]}_v{c[1]}_hw{c[2] * c[3]}"
+                                                       for c in BF16_CASES])
+def test_wide_bf16_rounded_forward_matches_jax(cq, cv, H, W):
+    assert pt_corr.forward_design(torch.bfloat16, cq, cv) == pt_corr.DESIGN_MMA
+    q, k, v, grid, _ = _inputs(cq, cv, H, W, seed=cq + cv + H * W + 1)
+    scale = (32.0 / cq) ** 0.25  # the scores spread as at 32 channels
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (scale * q, scale * k, v))
+    ref = jax_fcw(jq, jk, jv, jnp.asarray(grid), interpret=True)
+    tq, tk, tv = (torch.from_numpy(np.array(a.astype(jnp.float32))).bfloat16()
+                  for a in (jq, jk, jv))
+    out = pt_corr.fused_correlation_warp_plain(tq, tk, tv, torch.from_numpy(grid),
+                                               bf16_roundings=True)
+    for o, r in zip(out[:2], ref[:2]):
+        r = np.asarray(r)
+        assert tuple(o.shape) == r.shape
+        tol = pt_corr.MMA_FWD_VS_EXACT_TOL * max(1.0, float(np.abs(r).max()))
+        np.testing.assert_allclose(o.numpy(), r, rtol=0, atol=tol)
+    np.testing.assert_allclose(out[2].numpy(), np.asarray(ref[2]), rtol=0, atol=5e-5)

@@ -5,7 +5,8 @@ On the CPU the port decodes as the JAX package's cv2 branch does, so every
 output is bit-equal. The card's path (nvJPEG, then a resize and a pack in
 torch) runs only on a CUDA device; its torch arithmetic is held here on CPU
 tensors, and the decode itself against the committed fixtures by the
-``cuda`` test (and by chip_smoke.py phase 7)."""
+``cuda`` test of tests/test_torch_cuda_decode.py (and by chip_smoke.py phase
+7)."""
 
 import json
 from pathlib import Path
@@ -30,17 +31,8 @@ PATHS = [str(FIXTURES / f"frame_{i}.jpg") for i in range(4)]
 # the largest |diff| between the JAX package's two decode paths on the
 # fixtures, native/decoder.cpp (built against libjpeg-turbo) against its cv2
 # branch, in levels (make_fixtures.py wrote it to decode_gap.json): the
-# limit of the card's decode
+# limit of the card's decode in tests/test_torch_cuda_decode.py
 NATIVE_VS_CV2_MAX = {"yuv420": 13, "uint8": 54}
-
-
-@pytest.fixture
-def cuda_device():
-    """The first CUDA device; skips where there is none (decided at run
-    time, never at import, so every test process collects the same tests)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: nvJPEG decodes on the card only")
-    return torch.device("cuda", 0)
 
 
 @pytest.fixture
@@ -236,15 +228,3 @@ def test_host_helpers_match_jax():
     np.testing.assert_array_equal(
         pt_io.color_jitter(np.random.default_rng(3))(image),
         jax_io.color_jitter(np.random.default_rng(3))(image))
-
-
-@pytest.mark.cuda
-def test_nvjpeg_decode_matches_jax_fixtures(cuda_device):
-    """On the card: nvJPEG against the JAX package's decode of the fixtures,
-    mean |diff| at most 1 level, the largest no larger than the gap between
-    the JAX package's own two decode paths (decode_gap.json)."""
-    ref = np.load(FIXTURES / "jax_decode_270x360.npz")
-    for key, limit in NATIVE_VS_CV2_MAX.items():
-        got = jpeg.decode_resize_batch(PATHS, 270, 360, device=cuda_device, **{key: True})
-        diff = np.abs(got.astype(np.int32) - ref[key].astype(np.int32))
-        assert diff.mean() <= 1.0 and diff.max() <= limit, key

@@ -4,8 +4,8 @@ the JAX package on the same numpy inputs.
 
 K1's JAX side runs as tests/test_correlation.py runs it on the CPU: the
 Pallas kernel under the interpreter. The port's CPU route is the kernel's
-plain version; the CUDA kernel itself is held against it on the card
-(``cuda`` marker; skipped without a card).
+plain version; the CUDA kernel itself is held against it on the card by
+tests/test_torch_cuda_kernels.py.
 """
 
 import numpy as np
@@ -32,15 +32,6 @@ from mapfree_tpu_torch.ops import image as pt_image
 from mapfree_tpu_torch.utils.packing import pack_arrays, spec_of, unpack
 
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
-
-
-@pytest.fixture
-def cuda_device():
-    """The first CUDA device; skips where there is none (decided at run
-    time, never at import, so every test process collects the same tests)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    return torch.device("cuda", 0)
 
 
 def _qkv(B=2, H=10, W=13, C=32, seed=0):
@@ -116,33 +107,6 @@ def test_k1_rejects_bad_shapes():
         pt_corr.fused_correlation_warp(q, k, v, grid[:-1])
     with pytest.raises(TypeError):
         pt_corr.fused_correlation_warp(q, k.double(), v, grid)
-
-
-@pytest.mark.cuda
-def test_k1_cuda_kernel_matches_plain(cuda_device):
-    """The CUDA kernel against its plain version on the card: f32 with a
-    ragged HW and Cq != Cv (the FMA design; tolerance 5e-5 for exp2 of
-    scaled scores and another summation order), and bf16 inputs (the
-    tensor-core design, which rounds P to bf16: MMA_FWD_VS_EXACT_TOL of each
-    output's largest entry against the exact plain forward, the max score at
-    the float32 tolerance)."""
-    for cq, td, atol in ((32, torch.float32, 5e-5), (16, torch.float32, 5e-5),
-                         (32, torch.bfloat16, pt_corr.MMA_FWD_VS_EXACT_TOL)):
-        q, k, v, grid = _qkv()
-        args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device, td)
-                for a in (q[..., :cq], k[..., :cq], v)]
-        g = torch.from_numpy(grid).to(cuda_device)
-        before = pt_corr.launches[pt_corr.KERNEL]
-        out = pt_corr.fused_correlation_warp(*args, g)
-        torch.cuda.synchronize()
-        assert pt_corr.launches[pt_corr.KERNEL] == before + 1
-        ref = pt_corr.fused_correlation_warp_plain(*args, g)
-        for i, (o, r) in enumerate(zip(out, ref)):
-            if td == torch.bfloat16:
-                tol = atol * max(1.0, float(r.abs().max())) if i < 2 else 5e-5
-            else:
-                tol = atol
-            torch.testing.assert_close(o, r, atol=tol, rtol=0)
 
 
 def test_uv_grid_matches_jax():

@@ -7,7 +7,8 @@ frames, since its output is 1/64 of the frame) and the ResUNet with
 import pytest
 import torch
 
-from mapfree_tpu_torch.ops.correlation import DESIGN_FMA, backward_design, forward_design
+from mapfree_tpu_torch.ops.correlation import (DESIGN_FMA, DESIGN_MMA, backward_design,
+                                                forward_design)
 
 from torch_configs import check_variant
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -27,9 +28,10 @@ def test_encoder_override_matches_jax(name):
     net = check_variant(BASE, seed=len(name), H=192 if resnet else 96,
                         W=144 if resnet else 72, **OVERRIDES[name])
     if resnet:
-        # 256 or 1,024 channels: the correlation kernels' FMA design takes
-        # them on the card, in float32 and in bf16
+        # 256 or 1,024 channels: on the card K1 takes them on the tensor
+        # cores in bf16, K2 and K3 on the FMA design; float32 stays FMA
         width = 256 * net.encoder.layer3[0].expansion
+        assert forward_design(torch.bfloat16, width, width) == DESIGN_MMA
+        assert forward_design(torch.float32, width, width) == DESIGN_FMA
         for dtype in (torch.float32, torch.bfloat16):
-            assert forward_design(dtype, width, width) == DESIGN_FMA
             assert backward_design(dtype, width, width) == DESIGN_FMA

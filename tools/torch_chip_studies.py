@@ -10,6 +10,7 @@ does not repeat on every run. From the root of a checkout:
     python3 tools/torch_chip_studies.py decode-under-load [CHECKOUT ...]
     python3 tools/torch_chip_studies.py mesh-faults
     python3 tools/torch_chip_studies.py wide-unscaled
+    python3 tools/torch_chip_studies.py k1-variants
 
 decode-threads: wall time of data/jpeg.py::decode_resize_batch for 64 frames
 of the 540x720 fixtures (tests/data/torch_port/) to 270x360 planar YUV420,
@@ -62,6 +63,15 @@ wide-unscaled: float32 K1, K2 and K3 at Cq = Cv = 1,024 with q and k not
 scaled (scores reach some 100) against their plain versions, six seeds at
 HW 20, 70 and 1,000 (phase 3's three unscaled cases are among them), then
 K1 with its last 128-channel chunk skipped and with q and k in bf16.
+
+k1-variants: instantiations of K1's tensor-core kernel that its dispatch
+(ops/csrc/correlation_fwd.cu::dispatch_mma) could take at the wide shapes
+(:data:`K1_VARIANTS`: channels a q tile, v channels a column tile, q
+streamed or resident, m-tiles a warp, warps a block, blocks a SM, ring
+stages), built into a temporary directory from a file that includes the
+checkout's correlation_fwd.cu, each with ptxas's registers and spills, held
+to the package's K1 on the same inputs (equal bits: every variant sums in
+the same order) and timed by CUDA events, the package's own launch first.
 
 Each line carries the card's name and power limit. Imports nothing of JAX.
 """
@@ -396,6 +406,87 @@ def wide_unscaled() -> None:
             corr._forward_cuda = saved
 
 
+# (name, B, H, W, Cq, Cv) -> candidate template arguments of launch_mma
+K1_VARIANTS = {
+    ("C=128, 3d3d grid, B=10", 10, 92, 68, 128, 128): [
+        "128, 128, false, 1, 8, 1, 3", "128, 128, false, 1, 8, 1, 2",
+        "128, 128, false, 1, 4, 2, 2", "128, 128, false, 1, 4, 1, 3",
+        "64, 128, true, 1, 4, 2, 3", "64, 128, true, 1, 8, 1, 3"],
+    ("C=128, 3d3d grid, B=64", 64, 92, 68, 128, 128): [
+        "128, 128, false, 1, 8, 1, 3", "128, 128, false, 1, 4, 2, 2"],
+    ("C=1,024, ResNet grid 5x4, B=64", 64, 5, 4, 1024, 1024): [
+        "64, 128, true, 1, 2, 2, 3", "64, 128, true, 1, 4, 2, 3",
+        "128, 128, true, 1, 2, 1, 3", "64, 128, true, 1, 2, 2, 4",
+        "32, 128, true, 1, 2, 3, 4"],
+    ("Cq=256 Cv=96, 3d3d grid, B=10", 10, 92, 68, 256, 96): [
+        "64, 128, true, 1, 4, 2, 3", "64, 128, true, 1, 8, 1, 3",
+        "128, 128, true, 1, 4, 1, 3", "32, 128, true, 1, 4, 2, 4"],
+}
+
+
+def k1_variants() -> None:
+    import ctypes
+    import tempfile
+
+    import torch
+
+    import chip_smoke as cs
+    from mapfree_tpu_torch.ops import _build
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    _build.load_libraries([corr.KERNEL])
+    args = sorted({a for variants in K1_VARIANTS.values() for a in variants})
+    src = [f'#include "{_build.CSRC_DIR / "correlation_fwd.cu"}"']
+    for i, a in enumerate(args):
+        src.append(f"""extern "C" int variant_{i}(const void* q, const void* k, const void* v,
+    const void* grid, void* out, int B, int HW, int Cq, int Cv, int dtype, void* stream) {{
+  const MmaArgs a{{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<const bf16*>(grid),
+                  static_cast<float*>(out), B, HW, Cq, Cv, static_cast<cudaStream_t>(stream)}};
+  return launch_mma<{a}>(a);
+}}""")
+    with tempfile.TemporaryDirectory() as tmp:
+        cu, so = Path(tmp) / "variants.cu", Path(tmp) / "libvariants.so"
+        cu.write_text("\n".join(src) + "\n")
+        t0 = time.perf_counter()
+        proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+                              capture_output=True, text=True)
+        if proc.returncode:
+            sys.exit(proc.stdout + proc.stderr)
+        print(f"[{card()}] {len(args)} variants built in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        for kernel, regs, spill in cs.ptxas_report(proc.stdout + proc.stderr):
+            if "mma" in kernel:
+                print(f"  {kernel}: {regs} registers, {spill} bytes spilled", flush=True)
+        lib = ctypes.CDLL(str(so))
+        for (name, B, H, W, cq, cv), variants in K1_VARIANTS.items():
+            q, k, v, grid = cs._kernel_inputs(B, H, W, cq, cv, "bfloat16", seed=7, spread32=True)
+            ref = torch.cat(corr.fused_correlation_warp(q, k, v, grid), dim=-1)
+            ms = cs.cuda_time_ms(lambda: corr.fused_correlation_warp(q, k, v, grid), iters=20,
+                                 warmup=2)
+            print(f"[{card()}] K1 {name}: the package's dispatch {ms:.4f} ms", flush=True)
+            for a in variants:
+                fn = getattr(lib, f"variant_{args.index(a)}")
+                fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+                out = torch.empty_like(ref)
+
+                def launch():
+                    err = fn(*(t.data_ptr() for t in (q, k, v, grid, out)), B, H * W, cq, cv,
+                             1, torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"variant <{a}> failed to launch: {err}")
+
+                launch()
+                torch.cuda.synchronize()
+                same = torch.equal(out, ref)
+                vms = cs.cuda_time_ms(launch, iters=20, warmup=2)
+                print(f"[{card()}] K1 {name}: <{a}> {vms:.4f} ms, equal bits to the "
+                      f"package's: {same}", flush=True)
+            del q, k, v, ref
+            torch.cuda.empty_cache()
+
+
 def upsample_ab() -> None:
     import torch
     import torch.nn.functional as F
@@ -526,7 +617,7 @@ def main() -> None:
     studies = {"decode-threads": decode_threads, "bf16-seeds": bf16_seeds,
                "bf16-faults": bf16_faults, "upsample-ab": upsample_ab,
                "sweep-determinism": sweep_determinism, "mesh-faults": mesh_faults,
-               "wide-unscaled": wide_unscaled}
+               "wide-unscaled": wide_unscaled, "k1-variants": k1_variants}
     if sys.argv[1:2] == ["decode-under-load"]:
         decode_under_load(*sys.argv[2:])
         return
