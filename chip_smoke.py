@@ -38,8 +38,14 @@ Phases, in order; any failure raises and the script exits nonzero:
    K2, K3 timed at the ResNet bottleneck's 1,024 channels on its 5x4 grid,
    at 128 channels on the 3d3d grid (K1 at B=10 and 64) and K1 at 256 / 96,
    the earlier FMA K1 beside the new one; then float32 K1, K2, K3 (the FMA
-   designs) at the 3d3d shapes and at 1,024 channels beside float32
-   attention with TF32 off, its backend named;
+   designs) at the 3d3d shapes (K1 at B=64 and B=10) and at 1,024 channels
+   beside float32 attention with TF32 off, its backend named. K1's FMA
+   design is also held at the edges of its two kernels (HW 100 below the
+   long-rows kernel's row tile, HW 63, 64 and 65 about the few-rows
+   kernel's limit, Cq != Cv and a bf16 width that is not a multiple of 8 on
+   the few-rows kernel, 1,024 unscaled channels), and two runs of it give
+   equal bits; at HW <= 64, where the host's time to issue a call paces it,
+   K1 and the library call are also timed on the device alone (CUDA graphs);
 4. inference path: the 3d3d model (configs/regression/mapfree/3d3d.yaml over
    configs/mapfree.yaml: ResUNet 3-3-3 bottleneck, 360x270, bf16, batch 64,
    unique refs, planar YUV420 input) with random weights from a seed, driven
@@ -170,7 +176,14 @@ Phases, in order; any failure raises and the script exits nonzero:
    rows each of a batch of 10, against one process on the 10: the loss at
    phase 6's limit, the BatchNorm statistics within 1e-5, the gradients (in
    L2 and the median tensor) within three times what the same step on the
-   rows in reverse order moves them; the ms per step of (b) and (c).
+   rows in reverse order moves them; the ms per step of (b) and (c);
+17. the float32 sweeps (run right after phase 4): 3d3d.yaml with
+   TPU.COMPUTE_DTYPE float32 at full width (360x270, batch 64, 3 batches
+   after the usual warm-up) and the ResNet-bottleneck model of phase 11
+   (1,024 channels on the 5x4 grid) the same way, through predict: K1 once
+   per batch in its FMA design, the forward by CUDA events, K1's ms within
+   it (a profiler window), pairs/s, and R and t of one batch against the
+   same batch through the plain forward on the card within 2e-4.
 
 The last line of standard output is {"ok": true, "device": {...}}; a
 "kernels" JSON line and the card's name and power limit precede it. With no
@@ -306,6 +319,33 @@ def cuda_time_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int) -> float:
+    """Mean milliseconds per call of ``fn`` on the device alone: ``iters``
+    calls captured in one CUDA graph, replayed between CUDA events. A call
+    that takes the device less time than the host takes to issue it is paced
+    by the host in :func:`cuda_time_ms`; here it is not."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the capture, as capture requires
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 # -- phase 1 -----------------------------------------------------------------
 
 def phase_device() -> str:
@@ -354,11 +394,12 @@ def ptxas_report(build_log: str) -> list:
         if "Compiling entry function" in line:
             # the mangled name: <length><name>[I<template arguments>E]
             m = re.search(
-                r"\d+(correlation_\w+?_kernel)(?:I((?:f|13__nv_bfloat16|Li\d+E)+)E)?", line)
+                r"\d+(correlation_\w+?_kernel)(?:I((?:f|13__nv_bfloat16|Li\d+E|Lb[01]E)+)E)?",
+                line)
             if m:
-                tokens = re.findall(r"f|13__nv_bfloat16|Li\d+E", m.group(2) or "")
-                names = [{"f": "f32", "13__nv_bfloat16": "bf16"}.get(tok, tok[2:-1])
-                         for tok in tokens]
+                tokens = re.findall(r"f|13__nv_bfloat16|Li\d+E|Lb[01]E", m.group(2) or "")
+                names = [{"f": "f32", "13__nv_bfloat16": "bf16", "Lb0E": "false",
+                          "Lb1E": "true"}.get(tok, tok[2:-1]) for tok in tokens]
                 kernel = m.group(1) + (f"<{', '.join(names)}>" if names else "")
             else:
                 kernel = line.split("'")[1][:70]
@@ -644,6 +685,16 @@ def phase_kernel_cases() -> dict:
         "bf16_hw15": (1, 3, 5, 32, 32, "bfloat16"),
         # Cq and Cv not multiples of 16: zero-padded tensor-core tiles
         "bf16_q24_v40": (2, 10, 13, 24, 40, "bfloat16"),
+        # the float32 K1's two kernels (correlation_fwd.cu::dispatch_fma):
+        # HW below the long-rows kernel's row tile of 128, the few-rows
+        # kernel's largest HW (64), one below and one above it, Cq != Cv and
+        # a bf16 width that is not a multiple of 8 on the few-rows kernel
+        "f32_hw100": (2, 10, 10, 32, 32, "float32"),
+        "f32_hw63": (2, 7, 9, 32, 32, "float32"),
+        "f32_hw64": (2, 8, 8, 32, 32, "float32"),
+        "f32_hw65": (2, 5, 13, 32, 32, "float32"),
+        "f32_hw20_q24_v40": (2, 4, 5, 24, 40, "float32"),
+        "bf16_hw20_c12_fma": (2, 4, 5, 12, 12, "bfloat16"),
     }.items()):
         q, k, v, grid = _kernel_inputs(B, H, W, cq, cv, dtype, seed=i)
         fwd = forward_case(q, k, v, grid)
@@ -661,6 +712,13 @@ def phase_kernel_cases() -> dict:
             only = backward_case(q, k, v, grid, _cotangent(B, H * W, cv, 70, ms_only=True))
             log(f"[kernel] {name}, max-score cotangent only: {_case_line(only)}")
             record_backward(name + "_ms_only", only)
+        if name in ("f32_hw6256_b2", "f32_hw20_q24_v40"):
+            # K1 sums in fixed orders: a second run gives the same bits
+            runs = [corr.fused_correlation_warp(q, k, v, grid) for _ in range(2)]
+            same = all(torch.equal(a, b) for a, b in zip(*runs))
+            log(f"[kernel] {name}: two runs of K1 give equal bits: {same}")
+            if not same:
+                raise AssertionError(f"two runs of K1 differ in case {name}")
         if name == "bf16_hw6256_b2":
             # K3 sums in a fixed order: a second run gives the same bits
             dout = _cotangent(B, H * W, cv, seed=50 + i)
@@ -720,6 +778,22 @@ def phase_kernel_cases() -> dict:
         record_backward(name, res)
         del q, k, v, res
 
+    # scores near 3,300, as positive features give at 1,024 channels (q = k
+    # = 1 + |N(0, 1)|): each row's own key wins by hundreds, so every sum
+    # order gives a one-hot P and a max score of 1; a max score taken against
+    # a rounded max log2e rather than the row's own P would be off by up to
+    # 2^(ulp / 2) - 1, some 1.7e-4 (the few-rows kernel at HW 20, the
+    # long-rows one at 70)
+    for i, (H, W) in enumerate(((4, 5), (7, 10))):
+        q, _, v, grid = _kernel_inputs(2, H, W, 1024, 32, "float32", seed=350 + i)
+        q = 1.0 + q.abs()
+        fwd = forward_case(q, q, v, grid)
+        if fwd["design"] != corr.DESIGN_FMA:
+            raise AssertionError(f"float32 K1 at HW={H * W} took the {fwd['design']} design")
+        log(f"[kernel] f32_large_scores_hw{H * W}_c1024: {_forward_line(fwd)}")
+        record_forward(f"f32_large_scores_hw{H * W}_c1024", fwd)
+        del q, v
+
     # K1's tensor-core design at every kind of width it takes: each
     # instantiation, q resident and streamed with a last chunk that is whole
     # or partly zero-filled, one column tile or several with a narrow last
@@ -767,7 +841,7 @@ def k3_bound(B, HW, cq, cv, dtype, nbytes) -> tuple:
     return op_bound(2.0 * B * HW * HW * (2 * cq + 2 * cv + 2), B * HW * HW, nbytes, dtype)
 
 
-def sdpa_ms(qh, kh, vh, iters: int, do=None) -> tuple:
+def sdpa_ms(qh, kh, vh, iters: int, do=None, timer=None) -> tuple:
     """Milliseconds of one scaled_dot_product_attention call (its backward
     with the cotangent ``do``) and the backend that ran it: in bf16 as
     PyTorch dispatches it (backend not named); in float32 with TF32 off,
@@ -783,8 +857,9 @@ def sdpa_ms(qh, kh, vh, iters: int, do=None) -> tuple:
             return lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
         return lambda: torch.autograd.grad(o, (qh, kh, vh), do, retain_graph=True)
 
+    timer = timer or cuda_time_ms
     if qh.dtype != torch.float32:
-        return cuda_time_ms(call(), iters=iters), None
+        return timer(call(), iters=iters), None
     saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
@@ -797,7 +872,7 @@ def sdpa_ms(qh, kh, vh, iters: int, do=None) -> tuple:
                     fn()
                 except RuntimeError:
                     continue
-                return cuda_time_ms(fn, iters=iters), backend.name.lower()
+                return timer(fn, iters=iters), backend.name.lower()
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
     raise AssertionError("no attention backend takes the float32 inputs")
@@ -848,16 +923,26 @@ def time_k1(B, H, W, C, dtype, seed, fma_too=False, spread32=False, cv=None) -> 
     vg = torch.cat([v, grid.expand(B, HW, 2), v.new_zeros(B, HW, 6)], dim=-1)[:, None]
     library_ms, backend = sdpa_ms(q[:, None], k[:, None], vg, iters=10)
 
+    device = {}
+    if HW <= 64:
+        # a call this small is paced by the host's time to issue it: the
+        # device's own times, of the kernel and of the library call, from
+        # CUDA graphs
+        device["device_ms"] = graph_ms(lambda: corr.fused_correlation_warp(q, k, v, grid), 20)
+        device["library_device_ms"] = sdpa_ms(q[:, None], k[:, None], vg, iters=20,
+                                              timer=graph_ms)[0]
     nbytes = _nbytes(q, k, v, grid) + B * HW * (cv + 3) * 4
     bound_ms, bound_by = k1_bound(B, HW, C, cv, dtype, nbytes)
     fma_line = (f"; the FMA design {fma['fma_ms']:.3f} ms ({fma['fma_ms'] / ms:.1f}x, max "
                 f"|kernel - plain| = {fma['fma_max_abs_err']:.3g})" if fma else "")
+    device_line = (f"; on the device alone (CUDA graphs) kernel {device['device_ms']:.4f} ms, "
+                   f"library {device['library_device_ms']:.4f} ms" if device else "")
     library = f" ({backend}, TF32 off)" if backend else ""
     log(f"[kernel] K1 B={B} HW={HW} {width} {dtype}, design {res['design']}: "
         f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms={library_ms:.3f}{library} "
         f"bound_ms={bound_ms:.4f} ({bound_by}); kernel at {100 * bound_ms / ms:.1f}% "
-        f"of its bound{fma_line}")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        f"of its bound{fma_line}{device_line}")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **device,
             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": res["max_abs_err"],
             "shape": f"B={B} HW={HW} {width} {dtype}", "design": res["design"],
             **({"library_backend": backend} if backend else {}),
@@ -1093,6 +1178,7 @@ def phase_kernel_timing() -> dict:
     # float32 (the FMA designs, exact: no TF32) beside the library's float32
     # attention with TF32 off: the 3d3d shapes and the ResNet bottleneck's
     k1["f32_shape"] = time_k1(64, 92, 68, 32, "float32", seed=109)
+    k1["f32_train_shape"] = time_k1(10, 92, 68, 32, "float32", seed=115)
     k2["f32_shape"], k3["f32_shape"] = time_backward(10, 92, 68, 32, "float32", seed=110)
     k1["resnet_f32_shape"] = time_k1(64, H, W, 1024, "float32", seed=111, spread32=True)
     k2["resnet_f32_shape"], k3["resnet_f32_shape"] = time_backward(
@@ -1101,8 +1187,8 @@ def phase_kernel_timing() -> dict:
                                          "c128_b64_shape", "q256_v96_shape")]:
         if t["design"] != corr.DESIGN_MMA:
             raise AssertionError(f"K1 at {t['shape']} is served by the {t['design']} design")
-    for t in (k2["resnet_shape"], k1["f32_shape"], k2["f32_shape"], k1["resnet_f32_shape"],
-              k2["resnet_f32_shape"]):
+    for t in (k2["resnet_shape"], k1["f32_shape"], k1["f32_train_shape"], k2["f32_shape"],
+              k1["resnet_f32_shape"], k2["resnet_f32_shape"]):
         if t["design"] != corr.DESIGN_FMA:
             raise AssertionError(f"{t['shape']} is served by the {t['design']} design")
     return {corr.KERNEL: k1, corr.KERNEL_BWD_ROWS: k2, corr.KERNEL_BWD_COLS: k3}
@@ -1361,7 +1447,8 @@ def profile_window(fn, what: str, n: int = 3) -> dict:
         if rank < 15 or "correlation_" in key:  # this package's kernels wherever they rank
             log(f"[profile] {us / 1e3 / n:9.3f} ms/{what} {100 * us / busy:5.1f}%  "
                 f"x{count // n:<4d} {key[:90]}")
-    return {"launches": launches, "busy_share": busy / wall_us}
+    return {"launches": launches, "busy_share": busy / wall_us,
+            "ms_by_kernel": {key: us / 1e3 / n for us, _, key in rows}}
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -2196,6 +2283,59 @@ def f32_step_kernels_vs_plain(cfg, batch: dict, what: str) -> dict:
         raise AssertionError(f"{what}: the train step with the kernels disagrees with the "
                              "plain versions")
     return launches["kernels"]
+
+
+# batches of the float32 sweeps (phase 17) after the warm-up
+F32_SWEEP_BATCHES = 3
+
+
+def f32_sweep(name: str, extra: dict, seed: int) -> dict:
+    """3d3d.yaml with ``extra`` in float32 (TPU.COMPUTE_DTYPE: float32, TF32
+    off around the forward) at full width, 360x270, batch 64: the sweep
+    through predict after the usual warm-up, K1 once per batch in its FMA
+    design (:func:`drive_sweep`); the forward by CUDA events and K1's ms
+    within it (a profiler window); R and t of one batch against the same
+    batch through the plain forward on the card, within PARITY_ATOL."""
+    from mapfree_tpu_torch.ops import correlation as corr
+    from mapfree_tpu_torch.utils import submission
+
+    cfg = load_cfg({**extra, "TPU.COMPUTE_DTYPE": "float32", "TPU.SEED": SEED})
+    H, W, bs = cfg.DATASET.HEIGHT, cfg.DATASET.WIDTH, int(cfg.TPU.INFER_BATCH)
+    n_warm = submission.MAX_TRANSFERS + submission.DEPTH
+    batches = synthetic_batches(F32_SWEEP_BATCHES * bs, bs, H, W, seed=seed)
+    what = f"float32 {name}"
+    sweep = drive_sweep(cfg, batches, synthetic_batches(n_warm * bs, bs, H, W, seed=seed + 1),
+                        what, design=corr.DESIGN_FMA)
+    model, transferred = sweep.pop("model"), sweep.pop("transferred")
+    prof = profile_window(lambda: model.dispatch_device(transferred)(), f"{name} forward")
+    k1_ms = sum(ms for key, ms in prof["ms_by_kernel"].items() if "correlation_fwd" in key)
+    R, t, _ = model.predict_batch(batches[0])
+    with plain_versions_on_the_card():
+        R_p, t_p, _ = model.predict_batch(batches[0])
+    err = max(float(np.abs(R - R_p).max()), float(np.abs(t - t_p).max()))
+    log(f"[{what}] forward {sweep['forward_ms']:.2f} ms per batch of {bs} (CUDA events), K1 "
+        f"{k1_ms:.3f} ms of it (profiler), {sweep['pairs_per_s']:.1f} pairs/s from memory, "
+        f"device busy {100 * prof['busy_share']:.1f}%; R, t against the plain forward on the "
+        f"card: max |diff| {err:.3g} (atol {PARITY_ATOL:g})")
+    if err > PARITY_ATOL:
+        raise AssertionError(f"{what}: K1 and the plain forward give other poses")
+    del model, transferred
+    return {**sweep, "k1_ms": k1_ms, "busy_share": prof["busy_share"], "plain_pose_err": err}
+
+
+def phase_f32_sweeps() -> dict:
+    """Phase 17: the float32 3d3d sweep and the float32 ResNet-bottleneck
+    sweep (1,024 channels on the 5x4 grid), K1 in its FMA design."""
+    import torch
+
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    launches, numbers = {}, {}
+    for i, (name, extra) in enumerate((("3d3d", {}), ("resnet", WIDE_MODELS["resnet"]))):
+        numbers[name] = f32_sweep(name, extra, seed=SEED + 170 + 2 * i)
+        launches[f"f32_{name}_sweep"] = {corr.KERNEL: numbers[name].pop("launches")}
+        torch.cuda.empty_cache()
+    return {"launches": launches, "numbers": numbers}
 
 
 def phase_qkv_path() -> dict:
@@ -4279,6 +4419,7 @@ def main() -> None:
         return
     timing = timed("kernel timing", phase_kernel_timing)
     sweep_launches = timed("inference path", phase_main_path)
+    f32_sweeps = timed("float32 sweeps", phase_f32_sweeps)
     train_launches = timed("training path", phase_train_path)
     timed("device parity", phase_device_parity)
     timed("train parity", phase_train_parity)
@@ -4288,7 +4429,8 @@ def main() -> None:
     # the QKV, fusion and other RPR paths, the matching track, the
     # evaluation path, the tools and the mesh: each phase resets the counts
     # just before each path it drives and reads them just after
-    later = {"qkv": timed("QKV path", phase_qkv_path),
+    later = {"f32_sweeps": f32_sweeps,
+             "qkv": timed("QKV path", phase_qkv_path),
              "fusion": timed("fusion path", phase_fusion_path),
              "configs": timed("configs", phase_configs),
              "fusion_clis": timed("fusion CLIs", phase_fusion_clis)}

@@ -40,10 +40,16 @@ one serves a (dtype, Cq, Cv):
   scores in the same order. ``fused_correlation_warp_plain(...,
   bf16_roundings=True)`` rounds at the same place at every width.
 - ``"fma"``: float32 inputs (exact float32 arithmetic, no TF32) and bf16
-  widths that are not multiples of 8, at any Cq >= 1 and Cv >= 0: scalar
-  fused multiply-adds on float32 tiles in shared memory, the channels in
-  chunks of at most 128 and the accumulator columns in tiles of at most 128
-  (a grid dimension).
+  widths that are not multiples of 8 (widened to float32), at any Cq >= 1
+  and Cv >= 0: fused multiply-adds on float32 register tiles. The C function
+  picks one of two kernels by shape. Beyond 64 rows (the 3d3d grid) a block
+  of 128 query rows walks the keys in tiles of 128, 8 x 8 scores a thread
+  from float4 reads of k and q tiles that asynchronous copies bring in
+  transposed, P through shared memory once, and P . [v | grid] 8 x 4 a
+  thread; v columns beyond 32 (64) in column tiles that each recompute the
+  scores in the same order. Up to 64 rows (the ResNet encoder's 5 x 4 grid)
+  a block takes one batch element at its real HW and a tile of [v | grid]
+  columns, and sums all scores once.
 
 K2 and K3 exist in two hand-written designs too, and :func:`backward_design`
 says which one serves a (dtype, Cq, Cv):

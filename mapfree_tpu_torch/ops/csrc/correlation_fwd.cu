@@ -14,7 +14,79 @@
 // [B, HW, Cq], v is [B, HW, Cv], grid is [HW, 2] in v's type; float32 or
 // bfloat16.
 //
-// Bound at the 3d3d main path (B=64, HW=6,256, Cq=Cv=32, bf16):
+// Two designs live here, chosen by the caller (ops/correlation.py::
+// forward_design), each complete for its inputs. Both keep the running max,
+// the denominator and the accumulator in float32, use no atomics and sum in
+// fixed orders, so two runs give the same bits.
+//
+// "fma" (first half): float32 inputs, where exact float32 arithmetic is the
+// point (no TF32), and the bf16 widths the other design does not take (not
+// multiples of 8; loaded and widened to float32), at any Cq >= 1 and Cv >= 0.
+// Its bound is the FP32 FMA rate, 67 TFLOP/s (132 SMs x 128 lanes x 2 FLOP
+// x 1.98 GHz): a score costs Cq + Cv + 2 FMAs and one exponential, so at the
+// 3d3d grid (HW = 6,256, Cq = Cv = 32) the 3.3e11 FLOP take 4.935 ms at B=64
+// and about 0.77 ms at B=10. The exponentials run on the special-function
+// units at 1/8 of the FMA rate, beside the FMAs; every other instruction
+// (shared-memory loads, shuffles) takes an FMA's issue slot. At the ResNet
+// bottleneck (HW = 20, Cq = Cv = 1,024, B = 64) the bound is bytes: some
+// 21 MB read and written, 0.0063 ms at 3.35 TB/s. dispatch_fma picks one of
+// two kernels by shape:
+//
+// - Long rows (HW > SHORT_HW), correlation_fwd_rows_kernel: a block of 256
+//   threads owns BM = 64 RH query rows and walks the keys in tiles of BN =
+//   64 KH. Thread (ty, tx) = (tid / 16, tid % 16) owns rows 64 h + 4 ty + r
+//   and keys 64 h + 4 tx + k (r, k < 4): a register tile of 4 RH x 4 KH
+//   scores (8 x 8), whose operands are float4 reads of q^T and k^T tiles in
+//   shared memory, 2 (RH + KH) reads for 16 RH KH FMAs a channel, each read
+//   by a phase of eight lanes either one broadcast or eight consecutive
+//   16-byte pieces (no bank conflict).
+//   k^T arrives in chunks of KC channels (and q^T with it beyond KC
+//   channels; up to KC q^T stays resident), a key tile's v columns and grid
+//   with its last chunk, through a ring of ST stages of 4-byte cp.async
+//   copies issued a stage ahead: the copies transpose as they go (a warp
+//   copies 8 channels of 4 rows, 32-byte pieces of global memory into 32
+//   distinct banks, the pitches being 4 mod 32 floats), with no division in
+//   the loop; a tile takes two barriers, the ring's and P's.
+//   Online softmax in registers, P = 2^(s log2e - m) with the scale folded
+//   into one FMA, each lane's share of the denominator and of the grid's
+//   two columns (the soft-argmax position) summed over its own keys. The
+//   rows' reference m moves lazily: each lane keeps its largest score, and
+//   only a tile where some lane's score passes m by more than LAZY_GAP (P up
+//   to 2^8) takes the max over the 16 lanes that share the rows (four
+//   shuffles) and rescales the sums by 2^(m_old - m_new); after the first
+//   tiles one vote a tile stands for the shuffles. The max score is
+//   2^(s_max log2e - m) / d, s_max taken over the lanes at the end.
+//   P goes once through a [BM][BN + 4] tile (float4 stores, conflict-free),
+//   and P . v is a second register tile: the 16 lanes of a row group split
+//   the CT = 4 CX v columns into CX groups of 4 and the keys into 16 / CX
+//   slices, 4 RH rows x 4 columns a lane (12 float4 reads for 128 FMAs at
+//   RH = 2), the slices added in a fixed butterfly order at the end; no
+//   column is padded beyond a whole 4. Beyond CT v columns the accumulator
+//   is cut into column tiles of CT, a grid dimension: every column tile sums
+//   the same scores in the same order, so the row max and the denominator
+//   agree to the bit, and tile 0 alone writes the position and the max
+//   score.
+// - Few rows (HW <= SHORT_HW), correlation_fwd_short_kernel: a block owns
+//   one batch element and a tile of [v | grid] columns, one a thread, at its
+//   real HW (a 5x4 grid is not padded to 64 rows), and dispatch_fma cuts the
+//   columns into enough tiles to fill the card. q and k arrive in chunks of
+//   SKC channels (16-byte copies where the rows allow, else 4-byte ones)
+//   through a ring of ST stages, and the block's [v | grid] columns into the
+//   stage the last chunk frees, so they land while the scores are summed.
+//   The HW x HW scores are summed once, TS x TS a thread, each in one chain
+//   of FMAs from channel 0 upwards (the order of the long-rows kernel and of
+//   a float32 matrix product: at 1,024 unscaled channels another order, a
+//   sum split over groups of channels, changes a score's round-off by some
+//   sqrt(1,024) ulps, about 1e-4 at scores near 100, and a peaked row's
+//   output by as much). One warp a row then takes the max and
+//   the denominator over all keys at once by shuffles and writes P
+//   key-major, and each thread sums P . [v | grid] for its column over every
+//   row.
+// Both: rows past HW are computed on zeros and not stored; keys past HW
+// score -inf (the copies fill zeros past HW and past Cq).
+//
+// "mma" (second half of this file): bf16 inputs, Cq and Cv multiples of 8, at
+// any width. Bound at the 3d3d main path (B=64, HW=6,256, Cq=Cv=32, bf16):
 //   q.k^T          2*B*HW^2*Cq      = 1.60e11 FLOP
 //   P.[v|grid]     2*B*HW^2*(Cv+2)  = 1.70e11 FLOP
 //   exponentials   B*HW^2           = 2.50e9
@@ -22,17 +94,11 @@
 // At 989 TFLOP/s (bf16 tensor cores) the products take 0.33 ms; at 16
 // exponentials per SM per clock (132 SMs, 1.98 GHz) the exponentials take
 // 0.60 ms; the bytes take 0.04 ms at 3.35 TB/s. The work is bound by
-// operations, not memory: both designs keep the [HW, HW] scores on chip
-// (registers) and read each key/value tile once per block of query rows.
-//
-// Two designs live here, chosen by the caller (ops/correlation.py::
-// forward_design), each complete for its inputs. Both walk the keys in tiles
-// of TK = 64 (ops/correlation.py::FWD_KEY_TILE, which the plain version with
-// the kernel's roundings takes as its tile) and keep the running max, the
-// denominator and the accumulator in float32.
-//
-// "mma" (second half of this file): bf16 inputs, Cq and Cv multiples of 8, at
-// any width. What it does about the bound:
+// operations, not memory: the [HW, HW] scores stay on chip (registers) and
+// each key/value tile is read once per block of query rows. It walks the
+// keys in tiles of TK = 64 (ops/correlation.py::FWD_KEY_TILE, which the
+// plain version with the kernel's roundings takes as its tile). What it does
+// about the bound:
 // - Both products run on the tensor cores: mma.sync m16n8k16, bf16 operands,
 //   float32 accumulators. A warp owns MT m-tiles of 16 query rows, which share
 //   every B fragment they multiply with.
@@ -67,259 +133,649 @@
 // - Epilogue: the block's rows go through shared memory as float32 rows of
 //   its columns and 1/d, and leave as whole output rows in one contiguous,
 //   coalesced stream where the block has every column, else row by row.
-//
-// "fma" (first half): float32 inputs, where exact float32 arithmetic is the
-// point (no TF32), and the bf16 widths the other design does not take (not
-// multiples of 8), at any Cq >= 1 and Cv >= 0. One block of 256 threads per
-// (64-row query tile, batch, tile of at most 128 accumulator columns of
-// [v | grid]). The block
-// loops over all key tiles of 64 keys itself (the TPU's sequential key-chunk
-// grid axis only existed to fit VMEM). Each key tile's scores are summed over
-// channel chunks of at most QC = 128: the chunk of q (transposed; resident
-// when Cq <= QC) and of k (transposed) are staged in shared memory as
-// float32, so shared memory does not grow with the width (119 KB at most).
-// The block's columns of the [v | grid] tile are staged beside them. Thread
-// (ty, tx) owns rows 4ty..4ty+3 and, for the scores, columns 4tx..4tx+3 of the
-// tile. Row maxima reduce over the 16 lanes of a half-warp with shuffles; the
-// running max, the denominator (per-lane partial sums, reduced once at the
-// end) and the [rows, 16 CPT] accumulator stay in float32 registers. The
-// exponentials are exp2 of log2(e)-scaled scores. Arithmetic is scalar FMA on
-// float32 tiles. Every column tile sums the same scores in the same order
-// (channel 0 upwards, whatever the chunking), so the row max and the
-// denominator agree bit for bit across column tiles; only column tile 0
-// writes the max-score channel. Wider inputs cost one more recomputation of
-// the scores per 128 columns: simple and right first. Masking: keys past HW
-// score -1e30 (the ragged last key tile); rows past HW are computed on zero
-// queries and not stored (the ragged row tile).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
+#include <type_traits>
 
 #include "mma_tile.cuh"
 
 namespace {
 
-constexpr int TM = 64;        // query rows per block
-constexpr int TK = 64;        // keys per tile: ops/correlation.py::FWD_KEY_TILE
-constexpr int NT = 256;       // threads: 16 row groups x 16 column lanes
-constexpr int LD = TM + 4;    // padded row stride (floats) of qT, kT and P
-constexpr int MAX_CPT = 8;    // accumulator columns per lane: 128 per column tile
-constexpr int QC = 128;       // channels per chunk of the score product
-constexpr float NEG = -1e30f;
+namespace mt = mma_tile;
+using bf16 = __nv_bfloat16;
+
+constexpr int TK = 64;        // keys per tile of the "mma" design: ops/correlation.py::FWD_KEY_TILE
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr unsigned FULL = 0xffffffffu;
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// ============================================================ "fma" design ==
+
+constexpr int NT = 256;        // threads a block, both kernels
+constexpr int SHORT_HW = 64;   // the few-rows kernel takes HW up to this
+constexpr int SKC = 128;       // its channels a chunk
+constexpr int SPQ = SKC + 4;   // the pitch of its q and k chunks (floats)
+constexpr float LAZY_GAP = 8.f;  // log2 of how far P may exceed 1 before a row's reference moves
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 
-// dst[c * LD + r] = src[(row0 + r) * ld + c0 + c] for r < TM, c < C; rows past
-// HW are zero.
-template <typename T>
-__device__ __forceinline__ void load_chunk_t(float* dst, const T* src, int row0, int HW,
-                                             int c0, int C, int ld, int tid) {
-  for (int e = tid; e < TM * C; e += NT) {
-    const int r = e / C, c = e - r * C;
-    const int row = row0 + r;
-    dst[c * LD + r] = row < HW ? to_f(src[static_cast<size_t>(row) * ld + c0 + c]) : 0.f;
+// One element into shared memory as float32, zero where !valid (src must
+// then still be a mapped address): a 4-byte cp.async for float32, a load and
+// a store for bf16.
+__device__ __forceinline__ void put(float* dst, const float* src, bool valid) {
+  mt::cp_async_4(dst, src, valid);
+}
+__device__ __forceinline__ void put(float* dst, const bf16* src, bool valid) {
+  *dst = valid ? __bfloat162float(*src) : 0.f;
+}
+
+// dst[c][r] (pitch P floats, P = 4 mod 32) = src[(row0 + r) * ld + c0 + c]
+// for r < R, c < KC; zeros for rows at or past n_rows and channels at or
+// past n_cols. A warp copies 8 channels of 4 rows at a time: 32-byte pieces
+// of 4 rows of global memory, 32 distinct banks of shared memory.
+template <int R, int KC, typename T>
+__device__ __forceinline__ void copy_t(float* dst, int P, const T* src, int ld, int row0,
+                                       int n_rows, int c0, int n_cols, int tid) {
+  static_assert(R % 4 == 0 && KC % 8 == 0 && R * KC % NT == 0, "whole warps of 8 x 4");
+#pragma unroll
+  for (int e0 = 0; e0 < R * KC; e0 += NT) {
+    const int e = e0 + tid;
+    const int grp = e >> 5;
+    const int c = (grp % (KC / 8)) * 8 + (e & 7);
+    const int r = (grp / (KC / 8)) * 4 + ((e >> 3) & 3);
+    const bool ok = row0 + r < n_rows && c0 + c < n_cols;
+    put(dst + c * P + r, ok ? src + static_cast<size_t>(row0 + r) * ld + c0 + c : src, ok);
   }
 }
 
-// grid (x: 64-row query tile, y: batch, z: tile of 16 CPT columns of [v | grid])
-template <typename T, int CPT>
-__global__ void __launch_bounds__(NT)
-correlation_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const T* __restrict__ grid,
-                       float* __restrict__ out, int HW, int Cq, int Cv) {
+// dst[j][c] (pitch CT) = vb[(key0 + j) * Cv + col0 + c] for j < BN, c < CT;
+// zeros past HW and past Cv (read from the always-mapped grid).
+template <int BN, int CT, typename T>
+__device__ __forceinline__ void copy_v(float* dst, const T* vb, const T* grid, int Cv, int col0,
+                                       int key0, int HW, int tid) {
+  static_assert(BN * CT % NT == 0 && (CT & (CT - 1)) == 0, "whole rounds, CT a power of 2");
+#pragma unroll
+  for (int e0 = 0; e0 < BN * CT; e0 += NT) {
+    const int e = e0 + tid;
+    const int j = e / CT, c = e % CT;
+    const bool ok = key0 + j < HW && col0 + c < Cv;
+    put(dst + e, ok ? vb + static_cast<size_t>(key0 + j) * Cv + col0 + c : grid, ok);
+  }
+}
+
+// dst[d][j] = grid[(key0 + j) * 2 + d] for j < BN, d < 2; zeros past HW.
+template <int BN, typename T>
+__device__ __forceinline__ void copy_grid(float* dst, const T* grid, int key0, int HW, int tid) {
+#pragma unroll
+  for (int e0 = 0; e0 < 2 * BN; e0 += NT) {
+    const int e = e0 + tid;
+    const int j = e >> 1, d = e & 1;
+    if (e < 2 * BN) {
+      const bool ok = key0 + j < HW;
+      put(dst + d * BN + j, ok ? grid + static_cast<size_t>(key0 + j) * 2 + d : grid, ok);
+    }
+  }
+}
+
+template <int RH, int KH, int CX>
+struct RowsGeo {
+  static constexpr int RG = 64;                   // rows a half: 16 row groups of 4
+  static constexpr int BM = RG * RH;              // query rows a block
+  static constexpr int BN = 64 * KH;              // keys a tile
+  static constexpr int PQ = BM + 4;               // pitch of q^T (4 mod 32)
+  static constexpr int PK = BN + 4;               // pitch of k^T and of P (4 mod 32)
+  static constexpr int CT = 4 * CX;               // v columns a column tile
+  static constexpr int KX = 16 / CX;              // key slices of P . v
+  static constexpr int KS = BN / KX;              // keys a slice
+  static constexpr int RT = 4 * RH, KT = 4 * KH;  // rows and keys a thread
+  static_assert(16 % CX == 0 && KS % 4 == 0, "the 16 lanes of a row group split evenly");
+  static_assert(PQ % 32 == 4 && PK % 32 == 4, "conflict-free transposing copies");
+};
+
+// One block per (BM query rows, batch, column tile of CT v columns). KC:
+// channels a k^T chunk; STREAM: q^T comes through the ring with each chunk
+// (else it stays resident, Cq <= KC); ST ring stages; MINB blocks a SM.
+template <typename T, int KC, bool STREAM, int CX, int RH, int KH, int ST, int MINB>
+__global__ void __launch_bounds__(NT, MINB)
+correlation_fwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, const T* __restrict__ grid,
+                            float* __restrict__ out, int HW, int Cq, int Cv) {
+  using G = RowsGeo<RH, KH, CX>;
+  constexpr int KQ = STREAM ? KC * G::PQ : 0;  // a stage's q^T chunk
+  constexpr int STAGE = KC * G::PK + KQ + G::BN * G::CT + 2 * G::BN;
   extern __shared__ __align__(16) float smem[];
-  const int CvP = Cv + 2;
-  const int CQC = Cq < QC ? Cq : QC;         // channels of a chunk
-  const int n_chunks = (Cq + QC - 1) / QC;
-  const int col0 = blockIdx.z * 16 * CPT;    // this block's columns of [v | grid]
-  const int CW = CvP - col0 < 16 * CPT ? CvP - col0 : 16 * CPT;
-  float* qT = smem;             // [CQC][LD]  query chunk, transposed
-  float* kT = qT + CQC * LD;    // [CQC][LD]  key chunk, transposed
-  float* vs = kT + CQC * LD;    // [TK][CW]   this block's columns of the [v | grid] tile
-  float* ps = vs + TK * 16 * CPT;  // [TM][LD]  probabilities of this key tile
+  float* ps = smem;                                // [BM][PK]  P of this key tile
+  float* qres = ps + G::BM * G::PK;                // [KC][PQ]  resident q^T
+  float* ring = qres + (STREAM ? 0 : KC * G::PQ);  // ST x (k^T, q^T, v, grid)
 
   const int b = blockIdx.y;
-  const int row0 = blockIdx.x * TM;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;  // rows 4*ty .. 4*ty+3
-  const int tx = tid & 15;  // lane within the half-warp that shares those rows
+  const int row0 = blockIdx.x * G::BM;
+  const int col0 = blockIdx.z * G::CT;  // this block's v columns
+  const bool tile0 = blockIdx.z == 0;   // it writes the position and the max score
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int kx = tx / CX, cx = tx % CX;  // P . v: key slice, group of 4 columns
 
-  const T* qb = q + static_cast<size_t>(b) * HW * Cq;
-  const T* kb = k + static_cast<size_t>(b) * HW * Cq;
-  const T* vb = v + static_cast<size_t>(b) * HW * Cv;
+  const size_t boff = static_cast<size_t>(b) * HW;
+  const T* qb = q + boff * Cq;
+  const T* kb = k + boff * Cq;
+  const T* vb = v + boff * Cv;
 
-  if (n_chunks == 1) load_chunk_t(qT, qb, row0, HW, 0, Cq, Cq, tid);  // resident
+  const int nT = (HW + G::BN - 1) / G::BN;
+  const int nC = STREAM ? (Cq + KC - 1) / KC : 1;  // chunks a key tile
+  auto load_step = [&](int step) {
+    if (step < nT * nC) {
+      const int u = step / nC, c = step - u * nC;
+      float* kt = ring + (step % ST) * STAGE;
+      float* vt = kt + KC * G::PK + KQ;
+      copy_t<G::BN, KC>(kt, G::PK, kb, Cq, u * G::BN, HW, c * KC, Cq, tid);
+      if constexpr (STREAM)
+        copy_t<G::BM, KC>(kt + KC * G::PK, G::PQ, qb, Cq, row0, HW, c * KC, Cq, tid);
+      if (c == nC - 1) {
+        copy_v<G::BN, G::CT>(vt, vb, grid, Cv, col0, u * G::BN, HW, tid);
+        if (tile0) copy_grid<G::BN>(vt + G::BN * G::CT, grid, u * G::BN, HW, tid);
+      }
+    }
+    mt::cp_async_commit();  // always: the wait below counts groups
+  };
+  // a resident q^T travels in the first group, with key tile 0
+  if constexpr (!STREAM) copy_t<G::BM, KC>(qres, G::PQ, qb, Cq, row0, HW, 0, Cq, tid);
+  for (int step = 0; step < ST - 1; ++step) load_step(step);
 
-  float m[4], l[4], acc[4][CPT];
+  // row i of this thread: RG (i / 4) + 4 ty + i % 4; running max of s log2e,
+  // this lane's shares of the denominator and the position, and of P . v
+  float m[G::RT], top[G::RT], l[G::RT], px[G::RT], py[G::RT], acc[G::RT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG;
-    l[i] = 0.f;
+  for (int i = 0; i < G::RT; ++i) {
+    m[i] = top[i] = -INFINITY;
+    l[i] = px[i] = py[i] = 0.f;
 #pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) acc[i][cc] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
   }
 
-  for (int key0 = 0; key0 < HW; key0 += TK) {
-    // scores of rows 4ty.. against keys 4tx.. of this tile, chunk by chunk
-    float s[4][4];
+  int step = 0;
+  for (int u = 0; u < nT; ++u) {
+    // S = Q K^T over the tile's keys, channel 0 upwards in every column tile
+    float s[G::RT][G::KT];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < G::RT; ++i)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.f;
-    for (int ch = 0; ch < n_chunks; ++ch) {
-      const int c0 = ch * QC;
-      const int nc = Cq - c0 < QC ? Cq - c0 : QC;
-      __syncthreads();  // the previous chunk (and tile's vs and ps) are consumed
-      if (n_chunks > 1) load_chunk_t(qT, qb, row0, HW, c0, nc, Cq, tid);
-      load_chunk_t(kT, kb, key0, HW, c0, nc, Cq, tid);
-      if (ch == 0) {
-        for (int e = tid; e < TK * CW; e += NT) {
-          const int j = e / CW, c = col0 + e - j * CW;
-          const int key = key0 + j;
-          float x = 0.f;
-          if (key < HW) {
-            x = c < Cv ? to_f(vb[static_cast<size_t>(key) * Cv + c])
-                       : to_f(grid[static_cast<size_t>(key) * 2 + (c - Cv)]);
-          }
-          vs[e] = x;
+      for (int j = 0; j < G::KT; ++j) s[i][j] = 0.f;
+    const float* st = ring;
+    for (int c = 0; c < nC; ++c, ++step) {
+      mt::cp_async_wait<ST - 2>();
+      __syncthreads();  // this step's stage has landed for all; the last step's is free
+      load_step(step + ST - 1);
+      st = ring + (step % ST) * STAGE;
+      const float* kt = st;
+      const float* qt = STREAM ? st + KC * G::PK : qres;
+#pragma unroll 8
+      for (int cc = 0; cc < KC; ++cc) {
+        float a[G::RT], bk[G::KT];
+#pragma unroll
+        for (int h = 0; h < RH; ++h) {
+          const float4 t = *reinterpret_cast<const float4*>(qt + cc * G::PQ + G::RG * h + 4 * ty);
+          a[4 * h] = t.x;
+          a[4 * h + 1] = t.y;
+          a[4 * h + 2] = t.z;
+          a[4 * h + 3] = t.w;
+        }
+#pragma unroll
+        for (int h = 0; h < KH; ++h) {
+          const float4 t = *reinterpret_cast<const float4*>(kt + cc * G::PK + 64 * h + 4 * tx);
+          bk[4 * h] = t.x;
+          bk[4 * h + 1] = t.y;
+          bk[4 * h + 2] = t.z;
+          bk[4 * h + 3] = t.w;
+        }
+#pragma unroll
+        for (int i = 0; i < G::RT; ++i)
+#pragma unroll
+          for (int j = 0; j < G::KT; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
+      }
+    }
+    const float* vt = st + KC * G::PK + KQ;  // came with the tile's last chunk
+    const float* gt = vt + G::BN * G::CT;
+    const int key0 = u * G::BN;
+
+    // only the last tile has keys past HW (zero rows, whose score 0 must not count)
+    if (key0 + G::BN > HW) {
+#pragma unroll
+      for (int j = 0; j < G::KT; ++j)
+        if (key0 + 64 * (j / 4) + 4 * tx + j % 4 >= HW)
+#pragma unroll
+          for (int i = 0; i < G::RT; ++i) s[i][j] = -INFINITY;
+    }
+    float gx[G::KT], gy[G::KT];
+#pragma unroll
+    for (int h = 0; h < KH; ++h) {
+      const float4 x = tile0 ? *reinterpret_cast<const float4*>(gt + 64 * h + 4 * tx)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 y = tile0 ? *reinterpret_cast<const float4*>(gt + G::BN + 64 * h + 4 * tx)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+      gx[4 * h] = x.x;
+      gx[4 * h + 1] = x.y;
+      gx[4 * h + 2] = x.z;
+      gx[4 * h + 3] = x.w;
+      gy[4 * h] = y.x;
+      gy[4 * h + 1] = y.y;
+      gy[4 * h + 2] = y.z;
+      gy[4 * h + 3] = y.w;
+    }
+
+    // online softmax in the log2 domain, row by row; P into the shared tile.
+    // Each lane keeps the largest score it has seen; the rows' common
+    // reference m moves only where a lane's max passes it by more than
+    // LAZY_GAP (2^8 in P): one vote a tile, the shuffles only then
+    float tile_mx[G::RT];
+    bool renew = false;
+#pragma unroll
+    for (int i = 0; i < G::RT; ++i) {
+      float mx = s[i][0];
+#pragma unroll
+      for (int j = 1; j < G::KT; ++j) mx = fmaxf(mx, s[i][j]);
+      tile_mx[i] = mx;
+      top[i] = fmaxf(top[i], mx);
+      renew |= mx * LOG2E > m[i] + LAZY_GAP;
+    }
+    if (__any_sync(FULL, renew)) {
+#pragma unroll
+      for (int i = 0; i < G::RT; ++i) {
+        float mx = tile_mx[i];
+#pragma unroll
+        for (int off = 1; off < 16; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+        const float m_new = fmaxf(m[i], mx * LOG2E);
+        const float alpha = mt::ex2(m[i] - m_new);  // 0 on the first tile
+        m[i] = m_new;
+        if (alpha != 1.f) {  // the row's reference moved
+          l[i] *= alpha;
+          px[i] *= alpha;
+          py[i] *= alpha;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][e] *= alpha;
         }
       }
-      __syncthreads();
-      for (int c = 0; c < nc; ++c) {
-        const float4 a = *reinterpret_cast<const float4*>(&qT[c * LD + 4 * ty]);
-        const float4 bk = *reinterpret_cast<const float4*>(&kT[c * LD + 4 * tx]);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[4] = {bk.x, bk.y, bk.z, bk.w};
+    }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < G::RT; ++i) {
+      float p[G::KT], sum = 0.f;
 #pragma unroll
-          for (int jj = 0; jj < 4; ++jj) s[i][jj] = fmaf(av[i], bv[jj], s[i][jj]);
+      for (int j = 0; j < G::KT; ++j) {
+        p[j] = mt::ex2(fmaf(s[i][j], LOG2E, -m[i]));
+        sum += p[j];
       }
-    }
-
-    // online softmax in the log2 domain; masked keys score NEG
+      l[i] += sum;
+      if (tile0) {
+        float sx = 0.f, sy = 0.f;
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const bool valid = key0 + 4 * tx + jj < HW;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[i][jj] = valid ? s[i][jj] * LOG2E : NEG;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = exp2f(m[i] - m_new);
-      m[i] = m_new;
-      float4 p;
-      p.x = exp2f(s[i][0] - m_new);
-      p.y = exp2f(s[i][1] - m_new);
-      p.z = exp2f(s[i][2] - m_new);
-      p.w = exp2f(s[i][3] - m_new);
-      l[i] = l[i] * alpha + ((p.x + p.y) + (p.z + p.w));
-#pragma unroll
-      for (int cc = 0; cc < CPT; ++cc) acc[i][cc] *= alpha;
-      *reinterpret_cast<float4*>(&ps[(4 * ty + i) * LD + 4 * tx]) = p;
-    }
-    __syncthreads();
-
-    // acc[rows, cols tx + 16 cc] += P[rows, tile] . [v | grid][tile, col0 + cols]
-    for (int j = 0; j < TK; j += 4) {
-      float pr[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 t = *reinterpret_cast<const float4*>(&ps[(4 * ty + i) * LD + j]);
-        pr[i][0] = t.x;
-        pr[i][1] = t.y;
-        pr[i][2] = t.z;
-        pr[i][3] = t.w;
+        for (int j = 0; j < G::KT; ++j) {
+          sx = fmaf(p[j], gx[j], sx);
+          sy = fmaf(p[j], gy[j], sy);
+        }
+        px[i] += sx;
+        py[i] += sy;
       }
+      float* prow = ps + (G::RG * (i / 4) + 4 * ty + i % 4) * G::PK + 4 * tx;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int h = 0; h < KH; ++h)
+        *reinterpret_cast<float4*>(prow + 64 * h) =
+            make_float4(p[4 * h], p[4 * h + 1], p[4 * h + 2], p[4 * h + 3]);
+    }
+    __syncthreads();  // the tile's P is whole
+
+    // acc[rows][4 columns] += P[rows][slice kx] . v[slice kx][4 cx .. 4 cx + 3]
+    const float* pk = ps + 4 * ty * G::PK + kx * G::KS;
+    const float* vk = vt + kx * G::KS * G::CT + 4 * cx;
+#pragma unroll 4
+    for (int j = 0; j < G::KS; j += 4) {
+      float4 pr[G::RT];
 #pragma unroll
-        for (int cc = 0; cc < CPT; ++cc) {
-          const int col = tx + 16 * cc;
-          const float vv = col < CW ? vs[(j + jj) * CW + col] : 0.f;
+      for (int i = 0; i < G::RT; ++i)
+        pr[i] = *reinterpret_cast<const float4*>(pk + (G::RG * (i / 4) + i % 4) * G::PK + j);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][cc] = fmaf(pr[i][jj], vv, acc[i][cc]);
+      for (int e = 0; e < 4; ++e) {
+        const float4 vv = *reinterpret_cast<const float4*>(vk + (j + e) * G::CT);
+#pragma unroll
+        for (int i = 0; i < G::RT; ++i) {
+          const float pe = e == 0 ? pr[i].x : e == 1 ? pr[i].y : e == 2 ? pr[i].z : pr[i].w;
+          acc[i][0] = fmaf(pe, vv.x, acc[i][0]);
+          acc[i][1] = fmaf(pe, vv.y, acc[i][1]);
+          acc[i][2] = fmaf(pe, vv.z, acc[i][2]);
+          acc[i][3] = fmaf(pe, vv.w, acc[i][3]);
         }
       }
     }
   }
 
+  // the 16 lanes of a row group add their shares (a fixed butterfly), then
+  // the key slices of P . v; only column tile 0 writes the position and 1/d
+  const int CO = Cv + 3;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float li = l[i];
+  for (int i = 0; i < G::RT; ++i) {
+    float d = l[i], sx = px[i], sy = py[i], mx = top[i];
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1) li += __shfl_xor_sync(0xffffffffu, li, off);
-    const int row = row0 + 4 * ty + i;
+    for (int off = 1; off < 16; off <<= 1) {
+      d += __shfl_xor_sync(FULL, d, off);
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+    }
+    if (tile0) {
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) {
+        sx += __shfl_xor_sync(FULL, sx, off);
+        sy += __shfl_xor_sync(FULL, sy, off);
+      }
+    }
+#pragma unroll
+    for (int off = CX; off < 16; off <<= 1)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] += __shfl_xor_sync(FULL, acc[i][e], off);
+    const float inv = 1.f / d;
+    const int row = row0 + G::RG * (i / 4) + 4 * ty + i % 4;
     if (row < HW) {
-      const float inv = 1.f / li;
-      float* o = out + (static_cast<size_t>(b) * HW + row) * (CvP + 1);
+      float* o = out + (boff + row) * CO;
+      if (kx == 0) {
 #pragma unroll
-      for (int cc = 0; cc < CPT; ++cc) {
-        const int col = tx + 16 * cc;
-        if (col < CW) o[col0 + col] = acc[i][cc] * inv;
+        for (int e = 0; e < 4; ++e) {
+          const int col = col0 + 4 * cx + e;
+          if (col < Cv) o[col] = acc[i][e] * inv;
+        }
       }
-      if (tx == 0 && blockIdx.z == 0) o[CvP] = inv;
+      if (tile0 && tx == 0) {
+        o[Cv] = sx * inv;
+        o[Cv + 1] = sy * inv;
+        o[Cv + 2] = mt::ex2(fmaf(mx, LOG2E, -m[i])) * inv;  // the max score, max_j P_ij
+      }
     }
   }
 }
 
-// shared memory of the "fma" design: the q and k chunks, the block's columns
-// of the [v | grid] tile, P
-size_t fma_smem(int Cq, int cpt) {
-  const size_t cqc = Cq < QC ? Cq : QC;
-  return sizeof(float) * (2 * cqc * LD + static_cast<size_t>(TK) * 16 * cpt +
-                          static_cast<size_t>(TM) * LD);
+// The few-rows kernel's shared memory in floats for HW rows (HWP = HW
+// rounded up to 4) and ST stages: the ring of q and k chunks (one stage takes
+// the [v | grid] tile after the last chunk), the scores, P, 1 / d.
+__host__ __device__ inline size_t short_floats(int HW, int ST) {
+  const size_t HWP = (HW + 3) / 4 * 4;
+  return 2 * ST * HWP * SPQ + 2 * HWP * HWP + HWP;
 }
 
-template <typename T, int CPT>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* grid,
-                   float* out, int B, int HW, int Cq, int Cv, cudaStream_t stream) {
-  const size_t smem = fma_smem(Cq, CPT);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        correlation_fwd_kernel<T, CPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
+// Rows [0, HWP) x channels [c0, c0 + SKC) of a [HW, Cq] array into a [HWP][SPQ]
+// chunk; zeros past HW and past Cq. 16-byte copies where vec (float32, every
+// row 16-byte aligned).
+template <typename T>
+__device__ __forceinline__ void copy_rows(float* dst, const T* src, int HW, int HWP, int Cq,
+                                          int c0, bool vec, int tid) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (vec) {
+      for (int e = tid; e < HWP * (SKC / 4); e += NT) {
+        const int r = e / (SKC / 4), c = 4 * (e % (SKC / 4));
+        const bool ok = r < HW && c0 + c < Cq;
+        mt::cp_async_16(dst + r * SPQ + c, ok ? src + static_cast<size_t>(r) * Cq + c0 + c : src,
+                        ok);
+      }
+      return;
+    }
   }
-  const int n_col_tiles = (Cv + 2 + 16 * CPT - 1) / (16 * CPT);
-  const dim3 blocks((HW + TM - 1) / TM, B, n_col_tiles);
-  correlation_fwd_kernel<T, CPT><<<blocks, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(grid), out, HW, Cq, Cv);
+  for (int e = tid; e < HWP * SKC; e += NT) {
+    const int r = e / SKC, c = e % SKC;
+    const bool ok = r < HW && c0 + c < Cq;
+    put(dst + r * SPQ + c, ok ? src + static_cast<size_t>(r) * Cq + c0 + c : src, ok);
+  }
+}
+
+// One block per (column tile of CT columns of [v | grid], batch), one column a
+// thread. The scores are TS x TS a thread (ceil(HW / TS)^2 <= NT threads);
+// RQ row quads of P . [v | grid] accumulators (4 RQ >= HW); a ring of ST
+// stages of q and k chunks, the block's [v | grid] columns arriving after the
+// last chunk.
+template <typename T, int TS, int RQ, int ST>
+__global__ void __launch_bounds__(NT)
+correlation_fwd_short_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, const T* __restrict__ grid,
+                             float* __restrict__ out, int HW, int Cq, int Cv, int CT) {
+  extern __shared__ __align__(16) float smem[];
+  const int HWP = (HW + 3) / 4 * 4;
+  const int STAGE = 2 * HWP * SPQ;   // q then k chunk; or [HW][CT] of [v | grid]
+  float* ss = smem + ST * STAGE;     // [HWP rows][HWP keys] scores
+  float* pt = ss + HWP * HWP;        // [HWP keys][HWP rows] P
+  float* inv_s = pt + HWP * HWP;     // [HWP] 1 / d
+
+  const int b = blockIdx.y, tid = threadIdx.x;
+  const int col0 = blockIdx.x * CT;
+  const size_t boff = static_cast<size_t>(b) * HW;
+  const T* qb = q + boff * Cq;
+  const T* kb = k + boff * Cq;
+  const bool vec = std::is_same<T, float>::value && Cq % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(k) % 16 == 0;
+  const int nCh = (Cq + SKC - 1) / SKC;
+  auto load_step = [&](int step) {
+    float* st = smem + (step % ST) * STAGE;
+    if (step < nCh) {
+      copy_rows(st, qb, HW, HWP, Cq, step * SKC, vec, tid);
+      copy_rows(st + HWP * SPQ, kb, HW, HWP, Cq, step * SKC, vec, tid);
+    } else if (step == nCh) {  // the block's columns of [v | grid], [HW][CT]
+      for (int e = tid; e < HW * CT; e += NT) {
+        const int j = e / CT, col = col0 + e - j * CT;
+        const bool ok = col < Cv + 2;
+        put(st + e,
+            !ok ? grid : col < Cv ? v + (boff + j) * Cv + col : grid + 2 * j + (col - Cv), ok);
+      }
+    }
+    mt::cp_async_commit();  // always: the wait below counts groups
+  };
+  for (int step = 0; step < ST - 1; ++step) load_step(step);
+
+  // the scores: thread (pi, pj) sums rows TS pi .. +TS-1 against keys
+  // TS pj .. +TS-1, each from channel 0 upwards in one chain of FMAs, as
+  // the long-rows kernel (and a float32 matrix product) sums them
+  const int GT = (HW + TS - 1) / TS;
+  const bool active = tid < GT * GT;
+  const int pi = active ? tid / GT : 0, pj = active ? tid % GT : 0;
+  float acc[TS][TS] = {};
+  for (int ch = 0; ch < nCh; ++ch) {
+    mt::cp_async_wait<ST - 2>();
+    __syncthreads();  // chunk ch has landed for all; the last chunk's stage is free
+    load_step(ch + ST - 1);
+    if (active) {
+      const float* qs = smem + (ch % ST) * STAGE + TS * pi * SPQ;
+      const float* ks = smem + (ch % ST) * STAGE + HWP * SPQ + TS * pj * SPQ;
+      const int width = min(SKC, (Cq - ch * SKC + 3) & ~3);  // channels holding data
+#pragma unroll 4
+      for (int c = 0; c < width; c += 4) {
+        float4 a[TS], bb[TS];
+#pragma unroll
+        for (int r = 0; r < TS; ++r) a[r] = *reinterpret_cast<const float4*>(qs + r * SPQ + c);
+#pragma unroll
+        for (int j = 0; j < TS; ++j) bb[j] = *reinterpret_cast<const float4*>(ks + j * SPQ + c);
+#pragma unroll
+        for (int r = 0; r < TS; ++r)
+#pragma unroll
+          for (int j = 0; j < TS; ++j) {
+            acc[r][j] = fmaf(a[r].x, bb[j].x, acc[r][j]);
+            acc[r][j] = fmaf(a[r].y, bb[j].y, acc[r][j]);
+            acc[r][j] = fmaf(a[r].z, bb[j].z, acc[r][j]);
+            acc[r][j] = fmaf(a[r].w, bb[j].w, acc[r][j]);
+          }
+      }
+    }
+  }
+  if (active) {
+#pragma unroll
+    for (int r = 0; r < TS; ++r)
+#pragma unroll
+      for (int j = 0; j < TS; ++j)
+        if (TS * pi + r < HW && TS * pj + j < HW) ss[(TS * pi + r) * HWP + TS * pj + j] = acc[r][j];
+  }
+  mt::cp_async_wait<0>();  // the [v | grid] tile too
+  __syncthreads();
+
+  // one warp a row: the max and the denominator over all keys by shuffles,
+  // P key-major
+  const int warp = tid >> 5, lane = tid & 31;
+  for (int i = warp; i < HW; i += NT / 32) {
+    float sv[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = lane + 32 * e;
+      sv[e] = j < HW ? ss[i * HWP + j] : -INFINITY;
+    }
+    float mx = fmaxf(sv[0], sv[1]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+    float d = 0.f;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = lane + 32 * e;
+      // against the row's own max, so that its P is exactly 1 and 1 / d is
+      // the max score (a rounded mx log2e would scale the whole row by up to
+      // 2^(ulp / 2): 4e-5 at scores near 1,000)
+      const float p = mt::ex2((sv[e] - mx) * LOG2E);
+      if (j < HW) pt[j * HWP + i] = p;
+      d += p;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(FULL, d, off);
+    if (lane == 0) inv_s[i] = 1.f / d;
+  }
+  __syncthreads();
+
+  // P . [v | grid] for this thread's column, over every row
+  const int col = col0 + tid;
+  if (tid < CT && col < Cv + 2) {
+    const float* vs = smem + (nCh % ST) * STAGE + tid;
+    float o[4 * RQ];
+#pragma unroll
+    for (int i = 0; i < 4 * RQ; ++i) o[i] = 0.f;
+    for (int j = 0; j < HW; ++j) {
+      const float x = vs[j * CT];
+      const float* pj_row = pt + j * HWP;
+#pragma unroll
+      for (int rq = 0; rq < RQ; ++rq) {
+        if (4 * rq < HW) {
+          const float4 p4 = *reinterpret_cast<const float4*>(pj_row + 4 * rq);
+          o[4 * rq] = fmaf(p4.x, x, o[4 * rq]);
+          o[4 * rq + 1] = fmaf(p4.y, x, o[4 * rq + 1]);
+          o[4 * rq + 2] = fmaf(p4.z, x, o[4 * rq + 2]);
+          o[4 * rq + 3] = fmaf(p4.w, x, o[4 * rq + 3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4 * RQ; ++i)
+      if (i < HW) out[(boff + i) * (Cv + 3) + col] = o[i] * inv_s[i];
+  }
+  if (blockIdx.x == 0 && tid < HW) out[(boff + tid) * (Cv + 3) + Cv + 2] = inv_s[tid];
+}
+
+struct FmaArgs {
+  const void *q, *k, *v, *grid;
+  float* out;
+  int B, HW, Cq, Cv;
+  cudaStream_t stream;
+};
+
+template <typename T, int KC, bool STREAM, int CX, int RH, int KH, int ST, int MINB>
+cudaError_t launch_rows(const FmaArgs& a) {
+  using G = RowsGeo<RH, KH, CX>;
+  auto kernel = correlation_fwd_rows_kernel<T, KC, STREAM, CX, RH, KH, ST, MINB>;
+  const size_t stage = KC * G::PK + (STREAM ? KC * G::PQ : 0) + G::BN * G::CT + 2 * G::BN;
+  const size_t smem = sizeof(float) * (G::BM * G::PK + (STREAM ? 0 : KC * G::PQ) + ST * stage);
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const int n_ct = a.Cv > G::CT ? (a.Cv + G::CT - 1) / G::CT : 1;
+  const dim3 blocks((a.HW + G::BM - 1) / G::BM, a.B, n_ct);
+  kernel<<<blocks, NT, smem, a.stream>>>(static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+                                         static_cast<const T*>(a.v),
+                                         static_cast<const T*>(a.grid), a.out, a.HW, a.Cq, a.Cv);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int cpt, const void* q, const void* k, const void* v,
-                     const void* grid, float* out, int B, int HW, int Cq, int Cv,
-                     cudaStream_t stream) {
-  switch (cpt) {
-    case 1: return launch<T, 1>(q, k, v, grid, out, B, HW, Cq, Cv, stream);
-    case 2: return launch<T, 2>(q, k, v, grid, out, B, HW, Cq, Cv, stream);
-    case 3: return launch<T, 3>(q, k, v, grid, out, B, HW, Cq, Cv, stream);
-    case 4: return launch<T, 4>(q, k, v, grid, out, B, HW, Cq, Cv, stream);
-    case 5: return launch<T, 5>(q, k, v, grid, out, B, HW, Cq, Cv, stream);
-    case 6: return launch<T, 6>(q, k, v, grid, out, B, HW, Cq, Cv, stream);
-    case 7: return launch<T, 7>(q, k, v, grid, out, B, HW, Cq, Cv, stream);
-    case 8: return launch<T, 8>(q, k, v, grid, out, B, HW, Cq, Cv, stream);
-    default: return cudaErrorInvalidValue;
+// n_ct column tiles of [v | grid], each of at most NT columns.
+template <typename T, int TS, int RQ, int ST>
+cudaError_t launch_short(const FmaArgs& a, int n_ct) {
+  auto kernel = correlation_fwd_short_kernel<T, TS, RQ, ST>;
+  const size_t smem = sizeof(float) * short_floats(a.HW, ST);
+  const int CT = (a.Cv + 2 + n_ct - 1) / n_ct;
+  const int GT = (a.HW + TS - 1) / TS;
+  if (4 * RQ < a.HW || GT * GT > NT || CT > NT) return cudaErrorInvalidValue;
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 blocks(n_ct, a.B);
+  kernel<<<blocks, NT, smem, a.stream>>>(static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+                                         static_cast<const T*>(a.v),
+                                         static_cast<const T*>(a.grid), a.out, a.HW, a.Cq, a.Cv,
+                                         CT);
+  return cudaGetLastError();
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0, got = 0;
+    if (cudaGetDevice(&dev) == cudaSuccess &&
+        cudaDeviceGetAttribute(&got, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess)
+      n = got;
+    else
+      n = 132;
   }
+  return n;
+}
+
+// Column tiles of the few-rows kernel: as few as NT columns a tile allow,
+// doubled while the blocks would not give every SM two and a tile keeps at
+// least 32 columns. Each tile sums the scores again, so at the ResNet
+// bottleneck (1,024 channels, HW = 20, B = 64: 5 tiles) more tiles were
+// slower on an H100 (tools/torch_chip_studies.py k1-fma-variants, the device
+// alone): 0.045 ms for 5, 0.072 for 8, 0.079 for 10, 0.116 for 16, 0.143
+// for 20, 0.259 for 40; two ring stages 0.046, 4 x 4 scores a thread 0.081.
+int short_col_tiles(int B, int Cv) {
+  const int cvp = Cv + 2;
+  int n = (cvp + NT - 1) / NT;
+  while (n * B < 2 * sm_count() && (cvp + 2 * n - 1) / (2 * n) >= 32) n *= 2;
+  return n;
+}
+
+// The long-rows instantiations: a thread's 8 x 8 scores and 8 x 4 outputs,
+// BM = BN = 128, two ring stages, one block a SM (255 registers); 32 v
+// columns a column tile (8 groups of 4, two key slices) up to Cv = 32, else
+// 64. On an H100 80GB HBM3 at 700 W at the 3d3d grid in float32
+// (tools/torch_chip_studies.py k1-fma-variants, k1-fma-edits), with the score
+// loop unrolled fully, it took 10.37-10.76 ms at B=64 and 1.72-1.80 at B=10,
+// against 10.90 and 1.82 with the row max reduced on every tile, 10.94-11.02
+// for key tiles of 64, 11.00-11.02 for three stages (spilling), 12.16-12.26
+// for 64-row blocks two a SM, 11.31-11.32 with the copy loops not unrolled
+// and 10.67-11.07 for other unrolling of P . v; unrolled by 8 (16 bytes
+// spilled) it took 10.565 and 1.768 against 10.647-10.652 and 1.779-1.780.
+template <typename T, int KC, bool STREAM>
+cudaError_t dispatch_rows(const FmaArgs& a) {
+  if (a.Cv <= 32) return launch_rows<T, KC, STREAM, 8, 2, 2, 2, 1>(a);
+  return launch_rows<T, KC, STREAM, 16, 2, 2, 2, 1>(a);
+}
+
+template <typename T>
+cudaError_t dispatch_fma(const FmaArgs& a) {
+  if (a.HW <= SHORT_HW) {
+    const int n_ct = short_col_tiles(a.B, a.Cv);
+    if (a.HW <= 16) return launch_short<T, 1, 4, 3>(a, n_ct);
+    if (a.HW <= 32) return launch_short<T, 2, 8, 3>(a, n_ct);
+    return launch_short<T, 4, 16, 2>(a, n_ct);
+  }
+  if (a.Cq <= 16) return dispatch_rows<T, 16, false>(a);
+  if (a.Cq <= 32) return dispatch_rows<T, 32, false>(a);
+  return dispatch_rows<T, 32, true>(a);
 }
 
 // ============================================================ "mma" design ==
-
-namespace mt = mma_tile;
-using bf16 = __nv_bfloat16;
 
 // Sizes for q and k tiles of KC channels (a multiple of 16: all of Cq padded
 // where q stays resident, a chunk of Cq where q and k stream) and a column
@@ -607,13 +1063,6 @@ correlation_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   }
 }
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
 struct MmaArgs {
   const bf16 *q, *k, *v, *grid;
   float* out;
@@ -714,14 +1163,10 @@ extern "C" int correlation_fwd(const void* q, const void* k, const void* v,
                                const void* grid, void* out, int B, int HW, int Cq,
                                int Cv, int dtype, void* stream) {
   if (B <= 0 || HW <= 0) return cudaSuccess;
-  if (Cq <= 0 || Cv < 0) return cudaErrorInvalidValue;
-  // columns per lane: as many as Cv + 2 needs, at most MAX_CPT (then the
-  // grid's third dimension takes the rest, 128 columns a tile)
-  const int need = (Cv + 2 + 15) / 16;
-  const int cpt = need < MAX_CPT ? need : MAX_CPT;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* o = static_cast<float*>(out);
-  if (dtype == 0) return dispatch<float>(cpt, q, k, v, grid, o, B, HW, Cq, Cv, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(cpt, q, k, v, grid, o, B, HW, Cq, Cv, s);
+  if (Cq <= 0 || Cv < 0 || B > 65535) return cudaErrorInvalidValue;
+  const FmaArgs a{q, k, v, grid, static_cast<float*>(out), B, HW, Cq, Cv,
+                  static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return dispatch_fma<float>(a);
+  if (dtype == 1) return dispatch_fma<bf16>(a);
   return cudaErrorInvalidValue;
 }

@@ -107,6 +107,76 @@ def test_k1_cuda_wide_tensor_cores_match_plain(cuda_device, cq, cv, H, W, B):
     torch.testing.assert_close(out[2], exact[2], atol=5e-5, rtol=0)
 
 
+# (name, B, H, W, Cq, Cv, dtype, scale of q and k, atol): K1's FMA design at
+# the edges of its two kernels (ops/csrc/correlation_fwd.cu::dispatch_fma):
+# the 3d3d grid (ragged last row and key tiles), HW below the long-rows
+# kernel's row tile of 128, the few-rows kernel's largest HW (64) with one
+# below and one above, Cq != Cv on each kernel, the ResNet bottleneck's 1,024
+# channels on its 5x4 grid scaled by (32 / C)^(1/4) and unscaled (scores up
+# to some 150), and a bf16 width that is not a multiple of 8 on each kernel.
+# tests/test_torch_correlation_f32.py holds the plain forward to the JAX
+# kernel at the same shapes.
+FMA_EDGES = [
+    ("3d3d_hw6256", 2, 92, 68, 32, 32, torch.float32, 1.0, 5e-5),
+    ("hw100_below_row_tile", 2, 10, 10, 32, 32, torch.float32, 1.0, 5e-5),
+    ("hw63", 2, 7, 9, 32, 32, torch.float32, 1.0, 5e-5),
+    ("hw64", 2, 8, 8, 32, 32, torch.float32, 1.0, 5e-5),
+    ("hw65", 2, 5, 13, 32, 32, torch.float32, 1.0, 5e-5),
+    ("hw130_q16_v32", 2, 10, 13, 16, 32, torch.float32, 1.0, 5e-5),
+    ("hw20_q24_v40", 2, 4, 5, 24, 40, torch.float32, 1.0, 5e-5),
+    ("hw20_c1024_scaled", 2, 4, 5, 1024, 1024, torch.float32, (32 / 1024) ** 0.25, 5e-5),
+    ("hw20_c1024_unscaled", 2, 4, 5, 1024, 1024, torch.float32, 1.0, 5e-5),
+    ("hw20_c12_bf16", 2, 4, 5, 12, 12, torch.bfloat16, 1.0, 1e-3),
+    ("hw130_c12_bf16", 2, 10, 13, 12, 12, torch.bfloat16, 1.0, 1e-3),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,B,H,W,cq,cv,td,scale,atol", FMA_EDGES,
+                         ids=[c[0] for c in FMA_EDGES])
+def test_k1_cuda_fma_edges_match_plain(cuda_device, name, B, H, W, cq, cv, td, scale, atol):
+    """K1's FMA design in one launch against the exact plain forward on the
+    same inputs (float32: 5e-5 for exp2 of log2e-scaled scores and another
+    summation order; bf16 inputs, widened to float32 on both sides: 1e-3);
+    a second run gives the same bits (fixed summation orders, no atomics)."""
+    assert pt_corr.forward_design(td, cq, cv) == pt_corr.DESIGN_FMA
+    q, k, v, grid = _qkv(B, H, W, cq, seed=len(name) + H * W + cq, cv=cv)
+    args = _to(cuda_device, td, scale * q, scale * k, v)
+    g = torch.from_numpy(grid).to(cuda_device)
+    before = pt_corr.launches[pt_corr.KERNEL]
+    out = pt_corr.fused_correlation_warp(*args, g)
+    torch.cuda.synchronize()
+    assert pt_corr.launches[pt_corr.KERNEL] == before + 1
+    ref = pt_corr.fused_correlation_warp_plain(*args, g)
+    for o, r in zip(out, ref):
+        assert torch.isfinite(o).all()
+        torch.testing.assert_close(o, r, atol=atol, rtol=0)
+    again = pt_corr.fused_correlation_warp(*args, g)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W", [(4, 5), (7, 10)], ids=["hw20", "hw70"])
+def test_k1_cuda_fma_max_score_at_large_scores(cuda_device, H, W):
+    """K1's FMA design where the scores are near 3,300 (1,024 channels,
+    q = k = 1 + |N(0, 1)|, as positive features give): each row's own key
+    wins by hundreds, so P is one-hot, warped is that key's v and the max
+    score 1. A max score taken against a rounded max log2e instead of the
+    row's own P is off by up to 2^(ulp / 2) - 1, some 1.7e-4 here, which the
+    5e-5 of the other cases would not see at scores near 100."""
+    rng = np.random.default_rng(H * W)
+    q = 1.0 + np.abs(rng.normal(size=(2, H * W, 1024))).astype(np.float32)
+    v = rng.normal(size=(2, H * W, 32)).astype(np.float32)
+    args = _to(cuda_device, torch.float32, q, q, v)
+    g = torch.from_numpy(_uv_grid(H, W).numpy()).to(cuda_device)
+    assert pt_corr.forward_design(torch.float32, 1024, 32) == pt_corr.DESIGN_FMA
+    out = pt_corr.fused_correlation_warp(*args, g)
+    ref = pt_corr.fused_correlation_warp_plain(*args, g)
+    for o, r in zip(out, ref):
+        torch.testing.assert_close(o, r, atol=5e-5, rtol=0)
+    torch.testing.assert_close(out[2], torch.ones_like(out[2]), atol=5e-5, rtol=0)
+
+
 def _torch_grads(fn, q, k, v, grid, w, dtype, device):
     q, k, v = (torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype).requires_grad_(True)
                for a in (q, k, v))

@@ -11,6 +11,9 @@ does not repeat on every run. From the root of a checkout:
     python3 tools/torch_chip_studies.py mesh-faults
     python3 tools/torch_chip_studies.py wide-unscaled
     python3 tools/torch_chip_studies.py k1-variants
+    python3 tools/torch_chip_studies.py k1-fma-variants
+    python3 tools/torch_chip_studies.py k1-fma-edits
+    python3 tools/torch_chip_studies.py f32-checkouts [CHECKOUT ...]
 
 decode-threads: wall time of data/jpeg.py::decode_resize_batch for 64 frames
 of the 540x720 fixtures (tests/data/torch_port/) to 270x360 planar YUV420,
@@ -72,6 +75,33 @@ stages), built into a temporary directory from a file that includes the
 checkout's correlation_fwd.cu, each with ptxas's registers and spills, held
 to the package's K1 on the same inputs (equal bits: every variant sums in
 the same order) and timed by CUDA events, the package's own launch first.
+
+k1-fma-variants: the same for K1's FMA design (float32, and bf16 widths that
+are not multiples of 8; ops/csrc/correlation_fwd.cu::dispatch_fma): long-rows
+instantiations (:data:`K1_FMA_ROWS`: channels a k^T chunk, q^T streamed or
+resident, 4-column groups a column tile, row and key halves a block, ring
+stages, blocks a SM) at the 3d3d grid in float32 at B=64 and B=10, and the
+few-rows kernel's column tiles (:data:`K1_FMA_SHORT`) at the ResNet
+bottleneck's 1,024 channels on its 5x4 grid at B=64, each held to the exact
+plain forward (max |kernel - plain| at most 5e-5) and timed by CUDA events
+and from a CUDA graph (the device's time alone, which the host's time to
+issue a call hides at the small shapes), beside the package's dispatch and
+float32 attention (TF32 off).
+
+k1-fma-edits: the FMA design's long-rows kernel against edits of its own
+source that no template argument reaches (:data:`K1_FMA_EDITS`: the row max
+reduced on every tile instead of lazily, loops unrolled otherwise), each a
+copy of ops/csrc/ that a text edit changes, all built at once, held to the
+exact plain forward and timed at the 3d3d grid in float32 (B=64, B=10) beside
+the unedited source, in two rounds of opposite order.
+
+f32-checkouts: chip_smoke.py phase 17 (the float32 3d3d and ResNet sweeps:
+forward ms, K1's ms in it, pairs/s) and phase 11's float32 ResNet train step
+with the kernels against the plain versions at three batch seeds (worst
+gradient as a share of its tensor's largest entry, loss), by this checkout's
+chip_smoke.py over the package of each checkout: this one and each CHECKOUT
+given (e.g. a parent unpacked with git archive), in the order given, then
+again in reverse, each in a process of its own.
 
 Each line carries the card's name and power limit. Imports nothing of JAX.
 """
@@ -406,6 +436,28 @@ def wide_unscaled() -> None:
             corr._forward_cuda = saved
 
 
+def _variant_lib(tmp: Path, body: list):
+    """Build a library of the extern "C" functions ``body`` from a file that
+    includes the checkout's correlation_fwd.cu; print ptxas's registers."""
+    import ctypes
+
+    import chip_smoke as cs
+    from mapfree_tpu_torch.ops import _build
+
+    cu, so = tmp / "variants.cu", tmp / "libvariants.so"
+    cu.write_text("\n".join([f'#include "{_build.CSRC_DIR / "correlation_fwd.cu"}"'] + body)
+                  + "\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        sys.exit(proc.stdout + proc.stderr)
+    print(f"[{card()}] {len(body)} variants built in {time.perf_counter() - t0:.1f} s", flush=True)
+    for kernel, regs, spill in cs.ptxas_report(proc.stdout + proc.stderr):
+        print(f"  {kernel}: {regs} registers, {spill} bytes spilled", flush=True)
+    return ctypes.CDLL(str(so))
+
+
 # (name, B, H, W, Cq, Cv) -> candidate template arguments of launch_mma
 K1_VARIANTS = {
     ("C=128, 3d3d grid, B=10", 10, 92, 68, 128, 128): [
@@ -436,29 +488,15 @@ def k1_variants() -> None:
 
     _build.load_libraries([corr.KERNEL])
     args = sorted({a for variants in K1_VARIANTS.values() for a in variants})
-    src = [f'#include "{_build.CSRC_DIR / "correlation_fwd.cu"}"']
-    for i, a in enumerate(args):
-        src.append(f"""extern "C" int variant_{i}(const void* q, const void* k, const void* v,
+    body = [f"""extern "C" int variant_{i}(const void* q, const void* k, const void* v,
     const void* grid, void* out, int B, int HW, int Cq, int Cv, int dtype, void* stream) {{
   const MmaArgs a{{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                   static_cast<const bf16*>(v), static_cast<const bf16*>(grid),
                   static_cast<float*>(out), B, HW, Cq, Cv, static_cast<cudaStream_t>(stream)}};
   return launch_mma<{a}>(a);
-}}""")
+}}""" for i, a in enumerate(args)]
     with tempfile.TemporaryDirectory() as tmp:
-        cu, so = Path(tmp) / "variants.cu", Path(tmp) / "libvariants.so"
-        cu.write_text("\n".join(src) + "\n")
-        t0 = time.perf_counter()
-        proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
-                              capture_output=True, text=True)
-        if proc.returncode:
-            sys.exit(proc.stdout + proc.stderr)
-        print(f"[{card()}] {len(args)} variants built in {time.perf_counter() - t0:.1f} s",
-              flush=True)
-        for kernel, regs, spill in cs.ptxas_report(proc.stdout + proc.stderr):
-            if "mma" in kernel:
-                print(f"  {kernel}: {regs} registers, {spill} bytes spilled", flush=True)
-        lib = ctypes.CDLL(str(so))
+        lib = _variant_lib(Path(tmp), body)
         for (name, B, H, W, cq, cv), variants in K1_VARIANTS.items():
             q, k, v, grid = cs._kernel_inputs(B, H, W, cq, cv, "bfloat16", seed=7, spread32=True)
             ref = torch.cat(corr.fused_correlation_warp(q, k, v, grid), dim=-1)
@@ -483,6 +521,192 @@ def k1_variants() -> None:
                 vms = cs.cuda_time_ms(launch, iters=20, warmup=2)
                 print(f"[{card()}] K1 {name}: <{a}> {vms:.4f} ms, equal bits to the "
                       f"package's: {same}", flush=True)
+            del q, k, v, ref
+            torch.cuda.empty_cache()
+
+
+# (name, B, H, W, Cq, Cv) -> candidate template arguments of launch_rows (after
+# the type); the package's choice first
+K1_FMA_ROWS = {
+    ("float32, 3d3d grid, B=64", 64, 92, 68, 32, 32): [
+        "32, false, 8, 2, 2, 2, 1", "32, false, 8, 2, 2, 3, 1", "32, false, 8, 2, 1, 2, 1",
+        "32, false, 8, 1, 2, 2, 2"],
+    ("float32, 3d3d grid, B=10", 10, 92, 68, 32, 32): [
+        "32, false, 8, 2, 2, 2, 1", "32, false, 8, 2, 1, 2, 1"],
+}
+# (name, B, H, W, Cq, Cv) -> (template arguments of launch_short after the
+# type, column tiles); the package's choice first
+K1_FMA_SHORT = {("float32, C=1,024, ResNet grid 5x4, B=64", 64, 5, 4, 1024, 1024):
+                [("2, 8, 3", 5), ("2, 8, 2", 5), ("2, 8, 3", 8), ("2, 8, 3", 10),
+                 ("2, 8, 3", 16), ("2, 8, 3", 20), ("2, 8, 3", 40), ("4, 16, 2", 5)]}
+
+
+def k1_fma_variants() -> None:
+    import ctypes
+    import tempfile
+
+    import torch
+
+    import chip_smoke as cs
+    from mapfree_tpu_torch.ops import _build
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    _build.load_libraries([corr.KERNEL])
+    rows = sorted({a for variants in K1_FMA_ROWS.values() for a in variants})
+    args = ("const void* q, const void* k, const void* v, const void* grid, void* out, int B, "
+            "int HW, int Cq, int Cv, int dtype, void* stream")
+    fma = ("const FmaArgs a{q, k, v, grid, static_cast<float*>(out), B, HW, Cq, Cv, "
+           "static_cast<cudaStream_t>(stream)};")
+    body = [f'extern "C" int rows_{i}({args}) {{ {fma} return launch_rows<float, {a}>(a); }}'
+            for i, a in enumerate(rows)]
+    shorts = sorted({a for variants in K1_FMA_SHORT.values() for a, _ in variants})
+    body += [f'extern "C" int short_{i}({args}, int n) {{ {fma} '
+             f'return launch_short<float, {a}>(a, n); }}' for i, a in enumerate(shorts)]
+    with tempfile.TemporaryDirectory() as tmp:
+        lib = _variant_lib(Path(tmp), body)
+        cases = [(key, f"rows_{rows.index(a)}", a, ()) for key, vs in K1_FMA_ROWS.items()
+                 for a in vs]
+        cases += [(key, f"short_{shorts.index(a)}", f"<float, {a}>, {n} column tiles", (n,))
+                  for key, variants in K1_FMA_SHORT.items() for a, n in variants]
+        shape = None
+        for key, fname, label, extra in cases:
+            name, B, H, W, cq, cv = key
+            if key != shape:
+                shape = key
+                q, k, v, grid = cs._kernel_inputs(B, H, W, cq, cv, "float32", seed=7,
+                                                  spread32=cq > 32)
+                ref = torch.cat(corr.fused_correlation_warp_plain(q, k, v, grid), dim=-1)
+                # the SM clock and power while the package's K1 runs: the FMA
+                # bound assumes the 1.98 GHz boost clock
+                smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                                        "--format=csv,noheader,nounits", "-lms", "100"],
+                                       stdout=subprocess.PIPE, text=True)
+                ms = cs.cuda_time_ms(lambda: corr.fused_correlation_warp(q, k, v, grid),
+                                     iters=30 if cq <= 32 else 200, warmup=2)
+                smi.terminate()
+                samples = [tuple(float(x) for x in ln.split(",")) for ln in
+                           smi.communicate()[0].splitlines() if ln.count(",") == 1]
+                if samples:
+                    busy = samples[len(samples) // 4:] or samples
+                    print(f"[{card()}] K1 {name}: SM clock {min(x[0] for x in busy):.0f}-"
+                          f"{max(x[0] for x in busy):.0f} MHz, power {min(x[1] for x in busy):.0f}-"
+                          f"{max(x[1] for x in busy):.0f} W over {len(busy)} samples while it "
+                          "ran", flush=True)
+                gms = cs.graph_ms(lambda: corr.fused_correlation_warp(q, k, v, grid), 10)
+                vg = torch.cat([v, grid.expand(B, H * W, 2), v.new_zeros(B, H * W, 6)],
+                               dim=-1)[:, None]
+                lib_ms, backend = cs.sdpa_ms(q[:, None], k[:, None], vg, iters=10)
+                lib_gms, _ = cs.sdpa_ms(q[:, None], k[:, None], vg, iters=10, timer=cs.graph_ms)
+                print(f"[{card()}] K1 {name}: the package's dispatch {ms:.4f} ms ({gms:.4f} on "
+                      f"the device alone); float32 attention ({backend}, TF32 off) {lib_ms:.4f} "
+                      f"ms ({lib_gms:.4f})", flush=True)
+            fn = getattr(lib, fname)
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                           + [ctypes.c_int] * len(extra))
+            fn.restype = ctypes.c_int
+            out = torch.full_like(ref, float("nan"))
+
+            def launch():
+                err = fn(*(t.data_ptr() for t in (q, k, v, grid, out)), B, H * W, cq, cv, 0,
+                         torch.cuda.current_stream().cuda_stream, *extra)
+                if err:
+                    raise RuntimeError(f"variant {label} failed to launch: {err}")
+
+            launch()
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            vms = cs.cuda_time_ms(launch, iters=10, warmup=2)
+            gms = cs.graph_ms(launch, 10)
+            print(f"[{card()}] K1 {name}: {label}: {vms:.4f} ms ({gms:.4f} on the device "
+                  f"alone, CUDA graph), max |kernel - plain| "
+                  f"{err:.3g} (limit {cs.ATOL['float32']:g})", flush=True)
+            if not err <= cs.ATOL["float32"]:
+                raise AssertionError(f"variant {label} disagrees with the plain forward")
+
+
+# name -> (old, new) text edits of correlation_fwd.cu, each a candidate the
+# long-rows kernel was measured against
+_COPY_T = "#pragma unroll\n  for (int e0 = 0; e0 < R * KC; e0 += NT) {"
+_COPY_V = "#pragma unroll\n  for (int e0 = 0; e0 < BN * CT; e0 += NT) {"
+_PV = "#pragma unroll 4\n    for (int j = 0; j < G::KS; j += 4) {"
+_S = "#pragma unroll 8\n      for (int cc = 0; cc < KC; ++cc) {"
+K1_FMA_EDITS = {
+    "row max reduced on every tile": [("    bool renew = false;", "    bool renew = true;")],
+    "copy loops not unrolled": [(_COPY_T, _COPY_T.replace("unroll", "unroll 1")),
+                                (_COPY_V, _COPY_V.replace("unroll", "unroll 1"))],
+    "P . v loop unrolled 2": [(_PV, _PV.replace("unroll 4", "unroll 2"))],
+    "P . v loop unrolled fully": [(_PV, _PV.replace("unroll 4", "unroll"))],
+    "P . v loop not unrolled": [(_PV, _PV.replace("unroll 4", "unroll 1"))],
+    "score loop unrolled fully": [(_S, _S.replace("unroll 8", "unroll"))],
+}
+
+
+def k1_fma_edits() -> None:
+    import ctypes
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    import chip_smoke as cs
+    from mapfree_tpu_torch.ops import _build
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    src = (_build.CSRC_DIR / "correlation_fwd.cu").read_text()
+    variants = {"the package's source": src}
+    for name, edits in K1_FMA_EDITS.items():
+        edited = src
+        for old, new in edits:
+            if old not in edited:
+                sys.exit(f"{name}: {old!r} is not in correlation_fwd.cu")
+            edited = edited.replace(old, new)
+        variants[name] = edited
+    with tempfile.TemporaryDirectory() as tmp:
+        def build(item):
+            i, (name, text) = item
+            d = Path(tmp) / str(i)
+            shutil.copytree(_build.CSRC_DIR, d)
+            (d / "correlation_fwd.cu").write_text(text)
+            so = d / "libvariant.so"
+            proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                                   str(d / "correlation_fwd.cu")], capture_output=True, text=True)
+            if proc.returncode:
+                raise RuntimeError(f"{name}:\n{proc.stdout}{proc.stderr}")
+            regs = [r for r in cs.ptxas_report(proc.stdout + proc.stderr)
+                    if r[0].startswith("correlation_fwd_rows_kernel<f32, 32, false, 8")]
+            return name, so, regs
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(variants)) as ex:
+            built = list(ex.map(build, enumerate(variants.items())))
+        print(f"[{card()}] {len(built)} builds in {time.perf_counter() - t0:.1f} s", flush=True)
+        for name, _, regs in built:
+            print(f"  {name}: " + ", ".join(f"{k}: {r} registers, {sp} bytes spilled"
+                                           for k, r, sp in regs), flush=True)
+        for B in (64, 10):
+            q, k, v, grid = cs._kernel_inputs(B, 92, 68, 32, 32, "float32", seed=7)
+            ref = torch.cat(corr.fused_correlation_warp_plain(q, k, v, grid), dim=-1)
+            for rnd in range(2):
+                for name, so, _ in built if rnd == 0 else built[::-1]:
+                    fn = ctypes.CDLL(str(so)).correlation_fwd
+                    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                    fn.restype = ctypes.c_int
+                    out = torch.full_like(ref, float("nan"))
+
+                    def launch():
+                        if fn(*(t.data_ptr() for t in (q, k, v, grid, out)), B, 92 * 68, 32, 32,
+                              0, torch.cuda.current_stream().cuda_stream):
+                            raise RuntimeError(f"{name} failed to launch")
+
+                    launch()
+                    torch.cuda.synchronize()
+                    err = float((out - ref).abs().max())
+                    if not err <= cs.ATOL["float32"]:
+                        raise AssertionError(f"{name} disagrees with the plain forward: {err:.3g}")
+                    ms = cs.cuda_time_ms(launch, iters=10, warmup=1)
+                    print(f"[{card()}] K1 float32, 3d3d grid, B={B}, round {rnd}, {name}: "
+                          f"{ms:.4f} ms, max |kernel - plain| {err:.3g}", flush=True)
             del q, k, v, ref
             torch.cuda.empty_cache()
 
@@ -609,6 +833,45 @@ def decode_under_load(*checkouts) -> None:
               f"from the idle decode, three trials: {got.stdout.strip()}", flush=True)
 
 
+F32_CHECKOUT = """
+import importlib.util
+import sys
+from pathlib import Path
+root, smoke = Path(sys.argv[1]).resolve(), sys.argv[2]
+sys.path.insert(0, str(root))
+spec = importlib.util.spec_from_file_location("chip_smoke_here", smoke)
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+import mapfree_tpu_torch
+assert Path(mapfree_tpu_torch.__file__).resolve().is_relative_to(root)
+cs.phase_build()
+print(cs.phase_f32_sweeps()["numbers"])
+cfg = cs.load_cfg({**cs.WIDE_MODELS["resnet"], "TRAINING.BATCH_SIZE": 4, "TRAINING.LR": 1e-3,
+                   "TRAINING.GRAD_CLIP": 1.0, "TPU.COMPUTE_DTYPE": "float32", "TPU.SEED": cs.SEED})
+for seed in (97, 98, 99):
+    batch = cs.train_batches(1, 4, cfg.DATASET.HEIGHT, cfg.DATASET.WIDTH, seed=cs.SEED + seed)[0]
+    try:
+        cs.f32_step_kernels_vs_plain(cfg, batch, f"resnet step, batch seed {seed}")
+    except AssertionError as e:
+        print(e)
+"""
+
+
+def f32_checkouts(*checkouts) -> None:
+    roots = [REPO, *[Path(c) for c in checkouts]]
+    for root in roots + roots[::-1]:
+        got = subprocess.run([sys.executable, "-c", F32_CHECKOUT, str(root),
+                              str(REPO / "chip_smoke.py")],
+                             capture_output=True, text=True, timeout=900)
+        lines = [ln for ln in (got.stdout + got.stderr).splitlines()
+                 if ln.startswith(("[float32", "[resnet step", "resnet step", "{"))
+                 or "Error" in ln]
+        for ln in lines:
+            print(f"[{card()}] {root}: {ln}", flush=True)
+        if got.returncode:
+            sys.exit(f"{root}: exit {got.returncode}")
+
+
 def main() -> None:
     import torch
 
@@ -617,14 +880,19 @@ def main() -> None:
     studies = {"decode-threads": decode_threads, "bf16-seeds": bf16_seeds,
                "bf16-faults": bf16_faults, "upsample-ab": upsample_ab,
                "sweep-determinism": sweep_determinism, "mesh-faults": mesh_faults,
-               "wide-unscaled": wide_unscaled, "k1-variants": k1_variants}
+               "wide-unscaled": wide_unscaled, "k1-variants": k1_variants,
+               "k1-fma-variants": k1_fma_variants, "k1-fma-edits": k1_fma_edits}
     if sys.argv[1:2] == ["decode-under-load"]:
         decode_under_load(*sys.argv[2:])
+        return
+    if sys.argv[1:2] == ["f32-checkouts"]:
+        f32_checkouts(*sys.argv[2:])
         return
     names = sys.argv[1:] or list(studies)
     for name in names:
         if name not in studies:
-            sys.exit(f"unknown study {name!r}; choose from {sorted(studies) + ['decode-under-load']}")
+            sys.exit(f"unknown study {name!r}; choose from "
+                     f"{sorted(studies) + ['decode-under-load', 'f32-checkouts']}")
     for name in names:
         studies[name]()
 
