@@ -44,8 +44,16 @@ Phases, in order; any failure raises and the script exits nonzero:
    long-rows kernel's row tile, HW 63, 64 and 65 about the few-rows
    kernel's limit, Cq != Cv and a bf16 width that is not a multiple of 8 on
    the few-rows kernel, 1,024 unscaled channels), and two runs of it give
-   equal bits; at HW <= 64, where the host's time to issue a call paces it,
-   K1 and the library call are also timed on the device alone (CUDA graphs);
+   equal bits; K2 and K3's FMA design at the same edges of its two kernel
+   pairs and at HW 20 (Cq = Cv and 16 / 32), at scores near 3,300, at an
+   exact tie for a row's maximum (the cotangent on the first index) and at
+   a NaN row (no fault, the argmax in range, the NaN in the gradients),
+   every FMA case with K2's row statistics checked (the row max against the
+   scores, 1 / d against the forward's max score) and two runs giving equal
+   bits; the FMA pair also timed beyond 128 channels (Cq 256 / Cv 96 bf16 at
+   the 3d3d grid); at HW <= 64, where the host's time to issue a call paces
+   it, K1, K2, K3 and the library calls are also timed on the device alone
+   (CUDA graphs);
 4. inference path: the 3d3d model (configs/regression/mapfree/3d3d.yaml over
    configs/mapfree.yaml: ResUNet 3-3-3 bottleneck, 360x270, bf16, batch 64,
    unique refs, planar YUV420 input) with random weights from a seed, driven
@@ -183,7 +191,21 @@ Phases, in order; any failure raises and the script exits nonzero:
    (1,024 channels on the 5x4 grid) the same way, through predict: K1 once
    per batch in its FMA design, the forward by CUDA events, K1's ms within
    it (a profiler window), pairs/s, and R and t of one batch against the
-   same batch through the plain forward on the card within 2e-4.
+   same batch through the plain forward on the card within 2e-4;
+18. the train steps K2 and K3's FMA design serves, at full width (360x270,
+   batch 10, 2 warm-up and 5 timed steps through init_state ->
+   make_train_step): 3d3d.yaml in float32 (K1-K3 all FMA) and the ResNet
+   bottleneck in bf16 (K1 on the tensor cores, K2 and K3 FMA at 1,024
+   channels): ms per step, samples/s, peak memory, K1-K3's ms in a profiler
+   window, each launched once a step in those designs; one step of each
+   against the same step with the plain backward after the same K1 forward
+   on the card, at phase 6's float32 and bf16 limits, and with the plain
+   forward too (float32: the loss, and the whole gradient and the median
+   tensor within three times what the plain versions move by over the keys
+   in reverse order, with the BatchNorm outputs that change sign counted;
+   bf16: phase 6's limits, and what one float32 ulp in the plain backward's
+   dq, dk and dv moves the gradient by printed); and K2, K3 (and the float32
+   K1) on the correlation's own inputs in each step at phase 3's limits.
 
 The last line of standard output is {"ok": true, "device": {...}}; a
 "kernels" JSON line and the card's name and power limit precede it. With no
@@ -195,6 +217,7 @@ result line (a quick check while working on a kernel).
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import subprocess
@@ -262,6 +285,12 @@ STEP_GRAD_FLOOR = 1e-6
 STEP_LOSS_RTOL = 1e-4
 STEP_CPU_L2_TOL = 2e-2
 STEP_CPU_MEDIAN_TOL = 1e-3
+# phase 18's full-width float32 step with the kernels against the plain
+# versions forward too: at most this many times what the plain versions move
+# by when they sum over the keys in reverse order, in the whole gradient's L2
+# norm and the median tensor (as phase 16 (c) holds the mesh to reversing
+# the batch's order)
+STEP_ORDER_FACTOR = 3.0
 # one bf16 train step with K1 and the tensor-core K2 and K3 against the same
 # step with the plain backward after the same K1 forward: the two share their
 # forward to the bit, so the loss is equal and the gradients differ by what
@@ -319,20 +348,21 @@ def cuda_time_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters: int) -> float:
+def graph_ms(fn, iters: int, stream=None) -> float:
     """Mean milliseconds per call of ``fn`` on the device alone: ``iters``
-    calls captured in one CUDA graph, replayed between CUDA events. A call
-    that takes the device less time than the host takes to issue it is paced
-    by the host in :func:`cuda_time_ms`; here it is not."""
+    calls captured in one CUDA graph (on ``stream`` where given), replayed
+    between CUDA events. A call that takes the device less time than the
+    host takes to issue it is paced by the host in :func:`cuda_time_ms`;
+    here it is not."""
     import torch
 
-    side = torch.cuda.Stream()
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()  # warm-up off the capture, as capture requires
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -554,6 +584,20 @@ def backward_case(q, k, v, grid, dout) -> dict:
     res = {"design": design, "k2_err": _scaled_err([dq], [dq_p]),
            "k3_err": _scaled_err([dk, dv], [dk_p, dv_p]), "argmax_near_ties": moved,
            "dk": dk, "dv": dv, "rows": rows, "tol": BWD_TOL}
+    if design == corr.DESIGN_FMA:
+        # the statistics K2 hands to K3: the row max (a score as it is) and
+        # 1 / d relative to it, against the scores and the forward's max score
+        s = torch.bmm(q.float(), k.float().transpose(1, 2)).amax(dim=-1)
+        res["stats_err"] = max(float((rows.stats[..., 0] - s).abs().max()) / tie_tol,
+                               float((rows.stats[..., 1] / out[..., -1] - 1).abs().max()) / 1e-5)
+        del s
+        # fixed summation orders, no atomics: a second run gives the same bits
+        dq2, rows2 = corr.correlation_bwd_rows(q, k, v, grid, out, dout)
+        dk2, dv2 = corr.correlation_bwd_cols(q, k, v, grid, dout, rows2)
+        torch.cuda.synchronize()
+        res["same_bits"] = all(torch.equal(a, b) for a, b in (
+            (dq, dq2), (dk, dk2), (dv, dv2), (rows.stats, rows2.stats), (rows.amax, rows2.amax)))
+        del dq2, rows2, dk2, dv2
     if design == corr.DESIGN_MMA:
         del dq_p, dk_p, dv_p
         dq_m, dk_m, dv_m, _ = corr.fused_correlation_warp_bwd_plain(
@@ -574,6 +618,31 @@ def backward_case(q, k, v, grid, dout) -> dict:
         if res["prologue_c_err"] > PROLOGUE_TOL:
             raise AssertionError(f"the prologue's c is off by {res['prologue_c_err']:.3g}")
     return res
+
+
+def nan_row_case(q, k, v, grid, dout) -> dict:
+    """K2 and K3 where batch element 0 holds a NaN row: they must not fault,
+    K2's argmax stays in [0, HW), the NaN reaches element 0's dq row and its
+    dk and dv, and element 1 is held to the exact plain backward."""
+    import torch
+
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    out = corr._plain_buffer(q, k, v, grid)
+    dq, rows = corr.correlation_bwd_rows(q, k, v, grid, out, dout)
+    dk, dv = corr.correlation_bwd_cols(q, k, v, grid, dout, rows)
+    torch.cuda.synchronize()  # a read out of bounds faults here
+    amax = rows.amax.long()
+    if int(amax.min()) < 0 or int(amax.max()) >= q.shape[1]:
+        raise AssertionError("K2 wrote an argmax outside [0, HW) for a NaN row")
+    ref = corr.fused_correlation_warp_bwd_plain(q[1:], k[1:], v[1:], grid, dout[1:],
+                                                amax[1:])[:3]
+    torch.cuda.synchronize()
+    return {"design": corr.backward_design(q.dtype, q.shape[-1], v.shape[-1]),
+            "k2_err": _scaled_err([dq[1:]], ref[:1]),
+            "k3_err": _scaled_err([dk[1:], dv[1:]], ref[1:]), "amax": int(amax[0, 0]),
+            "dq_finite": bool(torch.isfinite(dq[0, 0]).any()),
+            "dkv_finite": bool(torch.isfinite(dk[0]).any() or torch.isfinite(dv[0]).any())}
 
 
 def handoff_case(q, k, v, grid, dout) -> dict:
@@ -608,7 +677,15 @@ def handoff_case(q, k, v, grid, dout) -> dict:
 
 
 def check_backward(res: dict, what: str) -> None:
-    """Raise if K2 or K3 of a :func:`backward_case` is out of tolerance."""
+    """Raise if K2 or K3 of a :func:`backward_case` is out of tolerance, or,
+    in the FMA design, if K2's statistics are off (the row max beyond the
+    scores' summation noise, 1 / d beyond 1e-5 relative) or a second run
+    gives other bits."""
+    if "stats_err" in res and not res["stats_err"] <= 1.0:
+        raise AssertionError(f"K2's row statistics are off in {what} ({res['stats_err']:.3g} "
+                             "of their limits)")
+    if res.get("same_bits") is False:
+        raise AssertionError(f"two runs of K2 and K3 give other bits in {what}")
     for kernel in ("k2", "k3"):
         if not res[kernel + "_err"] <= res["tol"]:
             raise AssertionError(
@@ -631,6 +708,9 @@ def _case_line(res: dict) -> str:
                  f"{res['k2_l2']:.3g}, K3 {res['k3_l2']:.3g} (tol {res['l2_tol']:g}), largest "
                  f"entry K2 {res['k2_matched']:.3g}, K3 {res['k3_matched']:.3g}; prologue c "
                  f"{res['prologue_c_err']:.3g} (tol {PROLOGUE_TOL:g})")
+    if "same_bits" in res:
+        line += (f"; row statistics at {res['stats_err']:.3g} of their limits; two runs give "
+                 f"equal bits: {res['same_bits']}")
     return line + f"; argmax near-ties {res['argmax_near_ties']}"
 
 
@@ -695,6 +775,11 @@ def phase_kernel_cases() -> dict:
         "f32_hw65": (2, 5, 13, 32, 32, "float32"),
         "f32_hw20_q24_v40": (2, 4, 5, 24, 40, "float32"),
         "bf16_hw20_c12_fma": (2, 4, 5, 12, 12, "bfloat16"),
+        # and K2, K3's FMA pairs (correlation_bwd.cu::dispatch_rows,
+        # dispatch_cols): the ResNet encoder's grid and Cq != Cv on the
+        # few-rows pair
+        "f32_hw20": (2, 4, 5, 32, 32, "float32"),
+        "f32_hw20_q16_v32": (2, 4, 5, 16, 32, "float32"),
     }.items()):
         q, k, v, grid = _kernel_inputs(B, H, W, cq, cv, dtype, seed=i)
         fwd = forward_case(q, k, v, grid)
@@ -784,15 +869,57 @@ def phase_kernel_cases() -> dict:
     # a rounded max log2e rather than the row's own P would be off by up to
     # 2^(ulp / 2) - 1, some 1.7e-4 (the few-rows kernel at HW 20, the
     # long-rows one at 70)
+    # (and K2, K3 there: P is one-hot and 1 / d is 1, to the bit only
+    # where P is taken against the row's own max score)
     for i, (H, W) in enumerate(((4, 5), (7, 10))):
         q, _, v, grid = _kernel_inputs(2, H, W, 1024, 32, "float32", seed=350 + i)
         q = 1.0 + q.abs()
         fwd = forward_case(q, q, v, grid)
-        if fwd["design"] != corr.DESIGN_FMA:
-            raise AssertionError(f"float32 K1 at HW={H * W} took the {fwd['design']} design")
-        log(f"[kernel] f32_large_scores_hw{H * W}_c1024: {_forward_line(fwd)}")
+        res = backward_case(q, q, v, grid, _cotangent(2, H * W, 32, seed=360 + i))
+        if fwd["design"] != corr.DESIGN_FMA or res["design"] != corr.DESIGN_FMA:
+            raise AssertionError(f"float32 K1-K3 at HW={H * W} took the {fwd['design']} and "
+                                 f"{res['design']} designs")
+        log(f"[kernel] f32_large_scores_hw{H * W}_c1024: {_forward_line(fwd)}; "
+            f"{_case_line(res)}")
         record_forward(f"f32_large_scores_hw{H * W}_c1024", fwd)
-        del q, v
+        record_backward(f"f32_large_scores_hw{H * W}_c1024", res)
+        del q, v, res
+
+    # an exact tie for row 0's maximum (keys 3 and 5 equal) on each FMA pair
+    # of K2 and K3: the max-score cotangent goes to the first index
+    for i, (H, W) in enumerate(((4, 5), (10, 10))):
+        q, k, v, grid = _kernel_inputs(1, H, W, 32, 32, "float32", seed=370 + i)
+        k[:, 5] = k[:, 3]
+        q[:, 0] = 3.0 * k[:, 3]
+        res = backward_case(q, k, v, grid, _cotangent(1, H * W, 32, seed=380 + i))
+        first = int(res["rows"].amax[0, 0])
+        log(f"[kernel] f32_tie_hw{H * W}: {_case_line(res)}; row 0's argmax {first} (keys 3 "
+            "and 5 tie)")
+        if res["design"] != corr.DESIGN_FMA or first != 3:
+            raise AssertionError(f"the tie at HW={H * W}: design {res['design']}, argmax {first}")
+        record_backward(f"f32_tie_hw{H * W}", res)
+        del q, k, v, res
+
+    # a NaN row (q's row 0 of batch element 0), as a float32 step that
+    # diverges gives, on each FMA pair: K2 keeps its argmax in [0, HW) (the
+    # long-rows K2 reads k at it), the NaN reaches that element's gradients,
+    # and the other batch element is held as any case
+    for i, (H, W) in enumerate(((4, 5), (10, 10))):
+        HW = H * W
+        q, k, v, grid = _kernel_inputs(2, H, W, 32, 32, "float32", seed=390 + i)
+        q[0, 0] = float("nan")
+        dout = _cotangent(2, HW, 32, seed=395 + i)
+        res = nan_row_case(q, k, v, grid, dout)
+        log(f"[kernel] f32_nan_row_hw{HW}: design {res['design']}; batch element 1: K2 "
+            f"{res['k2_err']:.3g}, K3 {res['k3_err']:.3g} of the largest gradient vs the exact "
+            f"plain backward (tol {BWD_TOL:g}); row 0's argmax {res['amax']}, its dq finite: "
+            f"{res['dq_finite']}, element 0's dk, dv finite: {res['dkv_finite']}")
+        if res["design"] != corr.DESIGN_FMA or res["dq_finite"] or res["dkv_finite"]:
+            raise AssertionError(f"the NaN row at HW={HW} did not reach the gradients")
+        for kernel, key in ((corr.KERNEL_BWD_ROWS, "k2"), (corr.KERNEL_BWD_COLS, "k3")):
+            record(kernel, f"f32_nan_row_hw{HW}", res[key + "_err"], BWD_TOL,
+                   design=res["design"])
+        del q, k, v, dout, res
 
     # K1's tensor-core design at every kind of width it takes: each
     # instantiation, q resident and streamed with a last chunk that is whole
@@ -858,6 +985,18 @@ def sdpa_ms(qh, kh, vh, iters: int, do=None, timer=None) -> tuple:
         return lambda: torch.autograd.grad(o, (qh, kh, vh), do, retain_graph=True)
 
     timer = timer or cuda_time_ms
+    if do is not None and timer is graph_ms:
+        # autograd runs each backward op on its forward op's stream: the
+        # forward goes on the stream the graph captures on
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        inner = call
+
+        def call():
+            with torch.cuda.stream(stream):
+                return inner()
+
+        timer = functools.partial(graph_ms, stream=stream)
     if qh.dtype != torch.float32:
         return timer(call(), iters=iters), None
     saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
@@ -949,22 +1088,28 @@ def time_k1(B, H, W, C, dtype, seed, fma_too=False, spread32=False, cv=None) -> 
             **({"matched_rel_l2": res["l2"]} if "l2" in res else {}), **fma}
 
 
-def time_backward(B, H, W, C, dtype, seed, spread32=False) -> tuple:
-    """K2 and K3 at one shape, each beside its plain version and its bound;
-    the library call (the backward of scaled_dot_product_attention over
-    [v | grid], without the max-score route) stands for the pair. A bf16
-    shape the tensor-core design takes must be served by it."""
+def time_backward(B, H, W, C, dtype, seed, spread32=False, cv=None) -> tuple:
+    """K2 and K3 at one shape (Cq = C, Cv = ``cv`` or C), each beside its
+    plain version and its bound; the library call (the backward of
+    scaled_dot_product_attention over [v | grid], without the max-score
+    route) stands for the pair. A bf16 shape the tensor-core design takes
+    must be served by it. At HW <= 64, where the host's time to issue a call
+    paces it, K2, K3 and the library call are also timed on the device
+    alone (CUDA graphs)."""
     import torch
 
     from mapfree_tpu_torch.ops import correlation as corr
 
     HW = H * W
-    q, k, v, grid = _kernel_inputs(B, H, W, C, C, dtype, seed=seed, spread32=spread32)
-    dout = _cotangent(B, HW, C, seed=seed + 1)
+    cv = cv or C
+    width = f"C={C}" if cv == C else f"Cq={C} Cv={cv}"
+    q, k, v, grid = _kernel_inputs(B, H, W, C, cv, dtype, seed=seed, spread32=spread32)
+    dout = _cotangent(B, HW, cv, seed=seed + 1)
     res = backward_case(q, k, v, grid, dout)
-    log(f"[kernel] K2, K3 B={B} HW={HW} C={C} {dtype}: {_case_line(res)}")
-    if dtype == "bfloat16" and C % 8 == 0 and C <= 128 and res["design"] != corr.DESIGN_MMA:
-        raise AssertionError(f"B={B} HW={HW} C={C} {dtype} is not served by the tensor-core "
+    log(f"[kernel] K2, K3 B={B} HW={HW} {width} {dtype}: {_case_line(res)}")
+    if (dtype == "bfloat16" and C % 8 == 0 and cv % 8 == 0 and C <= 128 and cv <= 128
+            and res["design"] != corr.DESIGN_MMA):
+        raise AssertionError(f"B={B} HW={HW} {width} {dtype} is not served by the tensor-core "
                              f"design but by {res['design']}")
     check_backward(res, f"B={B} HW={HW}")
     rows, design = res["rows"], res["design"]
@@ -972,37 +1117,54 @@ def time_backward(B, H, W, C, dtype, seed, spread32=False) -> tuple:
     del res
     out = torch.cat(corr.fused_correlation_warp(q, k, v, grid), dim=-1)
 
-    k2_ms = cuda_time_ms(lambda: corr.correlation_bwd_rows(q, k, v, grid, out, dout), iters=10)
-    k3_ms = cuda_time_ms(lambda: corr.correlation_bwd_cols(q, k, v, grid, dout, rows), iters=10)
+    def k2_call():
+        corr.correlation_bwd_rows(q, k, v, grid, out, dout)
+
+    def k3_call():
+        corr.correlation_bwd_cols(q, k, v, grid, dout, rows)
+
+    k2_ms = cuda_time_ms(k2_call, iters=10)
+    k3_ms = cuda_time_ms(k3_call, iters=10)
     k2_plain = cuda_time_ms(lambda: corr.correlation_bwd_rows_plain(q, k, v, grid, dout), iters=3)
     k3_plain = cuda_time_ms(lambda: corr.correlation_bwd_cols_plain(q, k, v, grid, dout), iters=3)
     torch.cuda.empty_cache()
 
     vg = torch.cat([v, grid.expand(B, HW, 2), v.new_zeros(B, HW, 6)], dim=-1)[:, None]
     qh, kh, vh = (t.detach().requires_grad_(True) for t in (q[:, None], k[:, None], vg))
-    do = torch.cat([dout[..., :C + 2], dout.new_zeros(B, HW, 6)], dim=-1)[:, None].to(q.dtype)
+    do = torch.cat([dout[..., :cv + 2], dout.new_zeros(B, HW, 6)], dim=-1)[:, None].to(q.dtype)
     library_ms, backend = sdpa_ms(qh, kh, vh, iters=10, do=do)
+    device = {}
+    if HW <= 64:
+        device = {"k2_device_ms": graph_ms(k2_call, 20), "k3_device_ms": graph_ms(k3_call, 20),
+                  "library_device_ms": sdpa_ms(qh, kh, vh, iters=20, do=do, timer=graph_ms)[0]}
 
     common = _nbytes(q, k, v, grid, dout, rows.stats, rows.amax)
-    k2_bound_ms, k2_by = k2_bound(B, HW, C, C, dtype, common + _nbytes(out) + B * HW * C * 4)
-    k3_bound_ms, k3_by = k3_bound(B, HW, C, C, dtype, common + 2 * B * HW * C * 4)
-    shape = f"B={B} HW={HW} C={C} {dtype}, design {design}"
-    log(f"[kernel] K2 {shape}: err {k2_err:.3g}; kernel_ms={k2_ms:.3f} "
-        f"plain_ms={k2_plain:.3f} bound_ms={k2_bound_ms:.4f} ({k2_by}), "
-        f"{100 * k2_bound_ms / k2_ms:.1f}% of its bound")
-    log(f"[kernel] K3 {shape}: err {k3_err:.3g}; kernel_ms={k3_ms:.3f} "
-        f"plain_ms={k3_plain:.3f} bound_ms={k3_bound_ms:.4f} ({k3_by}), "
-        f"{100 * k3_bound_ms / k3_ms:.1f}% of its bound")
+    k2_bound_ms, k2_by = k2_bound(B, HW, C, cv, dtype, common + _nbytes(out) + B * HW * C * 4)
+    k3_bound_ms, k3_by = k3_bound(B, HW, C, cv, dtype, common + B * HW * (C + cv) * 4)
+    shape = f"B={B} HW={HW} {width} {dtype}, design {design}"
+    for name, ms, plain, bound, by, err, key in (
+            ("K2", k2_ms, k2_plain, k2_bound_ms, k2_by, k2_err, "k2_device_ms"),
+            ("K3", k3_ms, k3_plain, k3_bound_ms, k3_by, k3_err, "k3_device_ms")):
+        alone = (f"; on the device alone (CUDA graphs) {device[key]:.4f} ms, "
+                 f"{100 * bound / device[key]:.1f}% of its bound" if device else "")
+        log(f"[kernel] {name} {shape}: err {err:.3g}; kernel_ms={ms:.3f} plain_ms={plain:.3f} "
+            f"bound_ms={bound:.4f} ({by}), {100 * bound / ms:.1f}% of its bound{alone}")
     library = f" ({backend}, TF32 off)" if backend else ""
+    alone = (f"; on the device alone {device['k2_device_ms'] + device['k3_device_ms']:.4f} ms, "
+             f"library {device['library_device_ms']:.4f} ms" if device else "")
     log(f"[kernel] K2+K3 {k2_ms + k3_ms:.3f} ms; library (attention backward) "
-        f"{library_ms:.3f} ms{library}")
+        f"{library_ms:.3f} ms{library}{alone}")
     named = {"library_backend": backend} if backend else {}
-    k2 = {"ms": k2_ms, "plain_ms": k2_plain, "library_ms": library_ms,
-          "library_covers": "K2+K3", "bound_ms": k2_bound_ms, "bound_by": k2_by,
-          "max_abs_err": k2_err, "shape": shape, "design": design, **named}
-    k3 = {"ms": k3_ms, "plain_ms": k3_plain, "library_ms": library_ms,
-          "library_covers": "K2+K3", "bound_ms": k3_bound_ms, "bound_by": k3_by,
-          "max_abs_err": k3_err, "shape": shape, "design": design, **named}
+    both = {"library_ms": library_ms, "library_covers": "K2+K3", "shape": shape,
+            "design": design, **named}
+    if device:
+        both["library_device_ms"] = device["library_device_ms"]
+    k2 = {"ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound_ms, "bound_by": k2_by,
+          "max_abs_err": k2_err, **both,
+          **({"device_ms": device["k2_device_ms"]} if device else {})}
+    k3 = {"ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound_ms, "bound_by": k3_by,
+          "max_abs_err": k3_err, **both,
+          **({"device_ms": device["k3_device_ms"]} if device else {})}
     return k2, k3
 
 
@@ -1183,12 +1345,16 @@ def phase_kernel_timing() -> dict:
     k1["resnet_f32_shape"] = time_k1(64, H, W, 1024, "float32", seed=111, spread32=True)
     k2["resnet_f32_shape"], k3["resnet_f32_shape"] = time_backward(
         10, H, W, 1024, "float32", seed=112, spread32=True)
+    # K2 and K3's FMA design beyond 128 channels at the 3d3d grid (bf16, Cq
+    # 256 / Cv 96: channel chunks streamed, two column tiles of 64)
+    k2["q256_v96_shape"], k3["q256_v96_shape"] = time_backward(
+        10, 92, 68, 256, "bfloat16", seed=116, spread32=True, cv=96)
     for t in [k1] + [k1[key] for key in ("train_shape", "resnet_shape", "c128_shape",
                                          "c128_b64_shape", "q256_v96_shape")]:
         if t["design"] != corr.DESIGN_MMA:
             raise AssertionError(f"K1 at {t['shape']} is served by the {t['design']} design")
     for t in (k2["resnet_shape"], k1["f32_shape"], k1["f32_train_shape"], k2["f32_shape"],
-              k1["resnet_f32_shape"], k2["resnet_f32_shape"]):
+              k1["resnet_f32_shape"], k2["resnet_f32_shape"], k2["q256_v96_shape"]):
         if t["design"] != corr.DESIGN_FMA:
             raise AssertionError(f"{t['shape']} is served by the {t['design']} design")
     return {corr.KERNEL: k1, corr.KERNEL_BWD_ROWS: k2, corr.KERNEL_BWD_COLS: k3}
@@ -1638,32 +1804,96 @@ def phase_device_parity() -> None:
 
 
 @contextlib.contextmanager
-def plain_versions_on_the_card(forward: bool = True):
+def plain_versions_on_the_card(forward: bool = True, reverse_keys: bool = False):
     """Inside the block the correlation Function computes the plain versions
     on CUDA tensors too (and counts no launch for them): the yardstick for a
     whole train step. The plain forward rounds P to bf16 where K1's
     tensor-core design would serve the inputs. With ``forward=False`` K1
     still runs and only the backward is the plain one, so that the two steps
-    share their forward to the bit. Used here only; the port has no such
-    switch."""
+    share their forward to the bit. With ``reverse_keys`` the plain versions
+    take the keys (k, v and the grid) in reverse order and put dk and dv
+    back: the same function, its sums over keys in another order, which
+    moves it by float32 round-off (a control of how far the model carries
+    such a difference). Used here only; the port has no such switch."""
     import torch
 
     from mapfree_tpu_torch.ops import correlation as corr
+
+    def keys(k, v, grid):
+        return (k.flip(1), v.flip(1), grid.flip(-2)) if reverse_keys else (k, v, grid)
 
     saved = corr._forward_cuda, corr.correlation_bwd_rows, corr.correlation_bwd_cols
     if forward:
         # the plain forward with the rounding of the design the kernel would take
         corr._forward_cuda = lambda q, k, v, grid: torch.cat(corr.fused_correlation_warp_plain(
-            q, k, v, grid, bf16_roundings=corr.forward_design(
+            q, *keys(k, v, grid), bf16_roundings=corr.forward_design(
                 q.dtype, q.shape[-1], v.shape[-1]) == corr.DESIGN_MMA), dim=-1)
     corr.correlation_bwd_rows = lambda q, k, v, grid, out, dout: (
-        corr.correlation_bwd_rows_plain(q, k, v, grid, dout)[0], None)
-    corr.correlation_bwd_cols = lambda q, k, v, grid, dout, rows: (
-        corr.correlation_bwd_cols_plain(q, k, v, grid, dout))
+        corr.correlation_bwd_rows_plain(q, *keys(k, v, grid), dout)[0], None)
+    corr.correlation_bwd_cols = lambda q, k, v, grid, dout, rows: tuple(
+        g.flip(1) if reverse_keys else g
+        for g in corr.correlation_bwd_cols_plain(q, *keys(k, v, grid), dout))
     try:
         yield
     finally:
         corr._forward_cuda, corr.correlation_bwd_rows, corr.correlation_bwd_cols = saved
+
+
+@contextlib.contextmanager
+def correlation_inputs():
+    """Inside the block each backward of the correlation Function on the
+    card records its inputs (q, k, v, grid, dout) into the list it yields,
+    then runs as it would."""
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    got, saved = [], corr.correlation_bwd_rows
+
+    def rows(q, k, v, grid, out, dout):
+        got.append((q, k, v, grid, dout))
+        return saved(q, k, v, grid, out, dout)
+
+    corr.correlation_bwd_rows = rows
+    try:
+        yield got
+    finally:
+        corr.correlation_bwd_rows = saved
+
+
+def kernels_on_step_inputs(inputs: tuple, what: str) -> dict:
+    """K1, K2 and K3 on the correlation's own inputs in a train step (as
+    :func:`correlation_inputs` recorded them) against their plain versions,
+    each kernel alone, as phase 3 holds them on random inputs: before the
+    model's other layers round or carry on what they differ by. K2 and K3
+    are held at phase 3's limits; K1 where it runs in its FMA design, as a
+    share of each output's largest entry (or of 1) at ATOL's float32 limit,
+    the step's features not being of unit size. The tensor-core K1 is only
+    printed: phase 3 holds its max score at float32 tightness on scores
+    that spread as at 32 channels, and it sums the scores in another order
+    than a float32 matrix product, so on unscaled features (the ResNet
+    encoder's scores reach the hundreds) its max score moves by their
+    round-off."""
+    import torch
+
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    q, k, v, grid, dout = inputs
+    fwd = forward_case(q, k, v, grid)
+    line = _forward_line(fwd)
+    if fwd["design"] == corr.DESIGN_FMA:
+        fwd["err"] = _scaled_err(corr.fused_correlation_warp(q, k, v, grid),
+                                 corr.fused_correlation_warp_plain(q, k, v, grid))
+        line = (f"K1 design {fwd['design']}: {fwd['err']:.3g} of each output's largest entry "
+                f"vs the exact plain forward (tol {fwd['tol']:g})")
+    top = float(torch.bmm(q.float(), k.float().transpose(1, 2)).abs().max())
+    res = backward_case(q, k, v, grid, dout)
+    log(f"[{what}] the kernels on the step's own correlation inputs (q {tuple(q.shape)} "
+        f"{str(q.dtype).split('.')[-1]}, scores up to {top:.4g} in magnitude): {line}"
+        f"{'' if fwd['design'] == corr.DESIGN_FMA else ' (printed only)'}; {_case_line(res)}")
+    if fwd["design"] == corr.DESIGN_FMA:
+        check_forward(fwd, what)
+    check_backward(res, what)
+    return {"k1_err": fwd["err"], "k2_err": res["k2_err"], "k3_err": res["k3_err"],
+            "max_abs_score": top}
 
 
 def _grad_errors(got: dict, ref: dict) -> tuple:
@@ -1755,13 +1985,18 @@ def phase_train_parity() -> None:
         raise AssertionError("8 steps on one batch did not lower the loss")
 
 
-def bf16_step_kernels_vs_plain(cfg, batch: dict, what: str) -> dict:
+def bf16_step_kernels_vs_plain(cfg, batch: dict, what: str,
+                               designs: tuple = ("mma", "mma"), control: bool = False) -> dict:
     """One bf16 train step of ``cfg``'s model on the card with K1, K2 and K3
-    in their tensor-core designs, against the same step with the plain
-    backward after the same K1 forward and with the plain versions forward
-    too: the loss and the whole gradient in the L2 norm, at phase 6's limits.
-    A second run of the kernels' step gives the floor. Returns the launches
-    of the two kernels' steps."""
+    in the designs ``designs`` (K1's, then K2 and K3's; the tensor cores by
+    default), against the same step with the plain backward after the same
+    K1 forward and with the plain versions forward too: the loss and the
+    whole gradient in the L2 norm, at phase 6's limits. A second run of the
+    kernels' step gives the floor. With ``control`` the plain backward after
+    the same K1 forward also runs with its float32 dq, dk and dv each moved
+    one unit in the last place (torch.nextafter), and what that moves the
+    gradient by is printed: how far the bf16 layers below carry a float32
+    round-off in them. Returns the launches of the two kernels' steps."""
     import torch
 
     from mapfree_tpu_torch.models.regression import build_regression_net
@@ -1786,18 +2021,29 @@ def bf16_step_kernels_vs_plain(cfg, batch: dict, what: str) -> dict:
     launches = dict(corr.launches)
     _expect_launches(corr, {corr.KERNEL: 2, corr.KERNEL_BWD_ROWS: 2, corr.KERNEL_BWD_COLS: 2},
                      f"{what}: two bf16 train steps on the card")
-    _expect_designs(seen, {"forward": [corr.DESIGN_MMA], "backward": [corr.DESIGN_MMA]},
+    _expect_designs(seen, {"forward": [designs[0]], "backward": [designs[1]]},
                     f"{what}: the bf16 train step")
     with plain_versions_on_the_card(forward=False):
         one_step("plain_backward")
     with plain_versions_on_the_card():
         one_step("plain")
+    if control:
+        with plain_versions_on_the_card(forward=False):
+            rows, cols = corr.correlation_bwd_rows, corr.correlation_bwd_cols
+            up = functools.partial(torch.nextafter, other=torch.tensor(float("inf"), device="cuda"))
+            corr.correlation_bwd_rows = lambda *a: (up(rows(*a)[0]), None)
+            corr.correlation_bwd_cols = lambda *a: tuple(up(g) for g in cols(*a))
+            one_step("plain_backward_ulp")
+        per_c, l2_c = _grad_errors(grads["plain_backward_ulp"], grads["plain_backward"])
+        log(f"[{what}] control: the plain backward after the same K1 forward, its dq, dk and dv "
+            f"one float32 ulp up, vs as it is: whole gradient {l2_c:.2e} in L2, worst tensor "
+            f"{per_c[0][0]:.2e} at {per_c[0][1]}, median tensor {per_c[len(per_c) // 2][0]:.2e}")
 
     _, floor = _grad_errors(grads["again"], grads["kernels"])
     per_b, l2_b = _grad_errors(grads["kernels"], grads["plain_backward"])
     per, l2 = _grad_errors(grads["kernels"], grads["plain"])
     rel = abs(loss["kernels"] - loss["plain"]) / abs(loss["plain"])
-    log(f"[{what}] bf16 train step, tensor-core K2 and K3 vs the plain backward after the "
+    log(f"[{what}] bf16 train step, K2 and K3 ({designs[1]}) vs the plain backward after the "
         f"same K1 forward: loss {loss['kernels']:.6f} vs {loss['plain_backward']:.6f}; whole "
         f"gradient {l2_b:.2e} in L2 (tol {STEP_BF16_BWD_L2_TOL:g}); worst tensor "
         f"{per_b[0][0]:.2e} of its largest entry at {per_b[0][1]}, median tensor "
@@ -2179,11 +2425,14 @@ def drive_sweep(cfg, batches: list, warm: list, what: str, design: str = "mma") 
             "forward_ms": model_ms, "model": model, "transferred": transferred}
 
 
-def drive_train_steps(cfg, batches: list, n_warm: int, what: str) -> dict:
+def drive_train_steps(cfg, batches: list, n_warm: int, what: str,
+                      designs: tuple = ("mma", "mma")) -> dict:
     """Train steps through init_state -> make_train_step on batches already
     on the device: ``n_warm`` warm-up steps, then the rest timed with the
-    counts reset just before. K1, K2, K3 (tensor cores) once per step, finite
-    losses, moved weights. Returns the numbers and the K1-K3 launches."""
+    counts reset just before. K1, K2, K3 once per step in the designs
+    ``designs`` (K1's, then K2 and K3's; the tensor cores by default), finite
+    losses, moved weights. Returns the numbers, K1's, K2's and K3's ms in a
+    profiler window and the K1-K3 launches."""
     import torch
 
     from mapfree_tpu_torch.models.regression import build_regression_net
@@ -2216,20 +2465,23 @@ def drive_train_steps(cfg, batches: list, n_warm: int, what: str) -> dict:
     launches = dict(corr.launches)
     _expect_launches(corr, {corr.KERNEL: n_steps, corr.KERNEL_BWD_ROWS: n_steps,
                             corr.KERNEL_BWD_COLS: n_steps}, f"{what}: {n_steps} train steps")
-    _expect_designs(seen, {"forward": [corr.DESIGN_MMA], "backward": [corr.DESIGN_MMA]},
+    _expect_designs(seen, {"forward": [designs[0]], "backward": [designs[1]]},
                     f"{what}: the train steps")
     losses = [float(lg["train/loss"]) for lg in logs]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"[{what}] {n_steps} steps at batch {bs} after {n_warm} warm-up: {step_ms:.2f} ms/step, "
         f"{1e3 * bs / step_ms:.1f} samples/s; peak memory {peak_gb:.2f} GB; K1, K2, K3 each "
-        f"launched {n_steps} times, all in the {corr.DESIGN_MMA} design; {cfg.TRAINING.ROT_LOSS} "
+        f"launched {n_steps} times, K1 in the {designs[0]} design, K2 and K3 in the "
+        f"{designs[1]} design; {cfg.TRAINING.ROT_LOSS} "
         f"+ {cfg.TRAINING.LAMBDA} * {cfg.TRAINING.TRANS_LOSS}: loss per step "
         + " ".join(f"{x:.4f}" for x in losses))
     if not np.all(np.isfinite(losses)):
         raise AssertionError(f"{what}: non-finite training loss: {losses}")
     after = net.state_dict()
-    unchanged = [k for k in ("encoder.firstconv.weight", "encoder.firstbn.running_var")
-                 if torch.equal(after[k], before[k])]
+    # the encoder's first weight and first BatchNorm statistics
+    first = [next(k for k in after if k.startswith("encoder.") and k.endswith(end))
+             for end in ("weight", "running_var")]
+    unchanged = [k for k in first if torch.equal(after[k], before[k])]
     if unchanged:
         raise AssertionError(f"{what}: {unchanged} did not change in the train steps")
     batch = dbatches[-1]
@@ -2237,15 +2489,31 @@ def drive_train_steps(cfg, batches: list, n_warm: int, what: str) -> dict:
     def one_step():
         train_step(state, batch)
 
-    profile_window(one_step, "train step")
-    return {"launches": launches, "step_ms": step_ms, "peak_gb": peak_gb}
+    prof = profile_window(one_step, "train step")
+    kernel_ms = {name: sum(ms for key, ms in prof["ms_by_kernel"].items() if f"{name}_" in key)
+                 for name in (corr.KERNEL, corr.KERNEL_BWD_ROWS, corr.KERNEL_BWD_COLS)}
+    return {"launches": launches, "step_ms": step_ms, "peak_gb": peak_gb,
+            "busy_share": prof["busy_share"], "kernel_ms": kernel_ms}
 
 
-def f32_step_kernels_vs_plain(cfg, batch: dict, what: str) -> dict:
+def f32_step_kernels_vs_plain(cfg, batch: dict, what: str, full_width: bool = False) -> dict:
     """One float32 train step of ``cfg``'s model on the card with K1-K3,
     against the same step with the plain versions on the card (same
     weights and batch): the loss, and every gradient per tensor, as phase 6
-    holds the 3d3d step. Returns the K1-K3 launches of the kernels' step."""
+    holds the 3d3d step. Returns the K1-K3 launches of the kernels' step.
+
+    With ``full_width`` (phase 18: the 3d3d model at 360x270, batch 10) the
+    step is held so against the plain backward after the same K1 forward.
+    Against the plain versions forward too it is held in the loss and, in
+    the whole gradient's L2 norm and the median tensor, within
+    STEP_ORDER_FACTOR times what the plain versions move by when they sum
+    over the keys in reverse order (``plain_versions_on_the_card`` with
+    ``reverse_keys``): two correct forwards differ by float32 round-off,
+    and at 10 x 6,256 positions that turns some BatchNorm outputs after the
+    correlation (the ReLU inputs of the pre-activation blocks) to the other
+    sign, which moves a head weight's gradient by per cent of its largest
+    entry. The step counts those sign changes for both pairs of steps. K1
+    itself is held on the step's own inputs (:func:`kernels_on_step_inputs`)."""
     import torch
 
     from mapfree_tpu_torch.models.regression import build_regression_net
@@ -2253,11 +2521,18 @@ def f32_step_kernels_vs_plain(cfg, batch: dict, what: str) -> dict:
     from mapfree_tpu_torch.train import init_state, make_train_step
     from mapfree_tpu_torch.train.fit import _device_batch, _train_keys
 
-    loss, grads, launches = {}, {}, {}
+    loss, grads, launches, signs = {}, {}, {}, {}
     bs = int(cfg.TRAINING.BATCH_SIZE)
 
     def one_step(name):
         net = build_regression_net(cfg)
+        hooks = []
+        if full_width and name != "plain":  # the sign of every BatchNorm output
+            signs[name] = {}
+            for mod_name, mod in net.named_modules():
+                if isinstance(mod, torch.nn.BatchNorm2d):
+                    hooks.append(mod.register_forward_hook(
+                        lambda m, i, o, n=mod_name: signs[name].__setitem__(n, o.detach() > 0)))
         state = init_state(net, cfg, torch.Generator().manual_seed(SEED), device=DEVICE)
         dbatch = _device_batch(batch, torch.device(DEVICE), bs, _train_keys(net))
         corr.reset_launches()
@@ -2265,23 +2540,62 @@ def f32_step_kernels_vs_plain(cfg, batch: dict, what: str) -> dict:
         loss[name] = float(logs["train/loss"])
         launches[name] = dict(corr.launches)
         grads[name] = {k: p.grad.detach().cpu() for k, p in net.named_parameters()}
+        for hook in hooks:
+            hook.remove()
 
     one_step("kernels")
-    with plain_versions_on_the_card():
+    with plain_versions_on_the_card(forward=not full_width):
         one_step("plain")
-    _expect_launches(corr, {corr.KERNEL: 0, corr.KERNEL_BWD_ROWS: 0, corr.KERNEL_BWD_COLS: 0},
-                     f"{what}: the plain step")
-    if launches["kernels"] != {corr.KERNEL: 1, corr.KERNEL_BWD_ROWS: 1, corr.KERNEL_BWD_COLS: 1}:
-        raise AssertionError(f"{what}: the float32 step launched {launches['kernels']}")
+    if full_width:
+        with plain_versions_on_the_card():
+            one_step("plain_forward_too")
+        with plain_versions_on_the_card(reverse_keys=True):
+            one_step("plain_reversed")
+    expected = {"kernels": (1, 1, 1), "plain": (int(full_width), 0, 0),
+                "plain_forward_too": (0, 0, 0), "plain_reversed": (0, 0, 0)}
+    for name, got in launches.items():
+        want = dict(zip((corr.KERNEL, corr.KERNEL_BWD_ROWS, corr.KERNEL_BWD_COLS),
+                        expected[name]))
+        if got != want:
+            raise AssertionError(f"{what}: the float32 step '{name}' launched {got}, not {want}")
     per, l2 = _grad_errors(grads["kernels"], grads["plain"])
     rel = abs(loss["kernels"] - loss["plain"]) / abs(loss["plain"])
-    log(f"[{what}] float32 train step, kernels vs plain versions on the card: loss "
+    versus = "the plain backward after the same K1 forward" if full_width else \
+        "plain versions on the card"
+    log(f"[{what}] float32 train step, kernels vs {versus}: loss "
         f"{loss['kernels']:.6f} vs {loss['plain']:.6f} (rel {rel:.2e}, tol {STEP_LOSS_RTOL:g}); "
         f"worst gradient {per[0][0]:.2e} of its tensor's largest entry at {per[0][1]} "
         f"(tol {STEP_GRAD_TOL:g}); whole gradient {l2:.2e} in L2; {len(per)} tensors")
     if not np.isfinite(loss["kernels"]) or rel > STEP_LOSS_RTOL or per[0][0] > STEP_GRAD_TOL:
         raise AssertionError(f"{what}: the train step with the kernels disagrees with the "
                              "plain versions")
+    if full_width:
+        ref = grads["plain_forward_too"]
+        per, l2 = _grad_errors(grads["kernels"], ref)
+        per_c, l2_c = _grad_errors(grads["plain_reversed"], ref)
+        rel = abs(loss["kernels"] - loss["plain_forward_too"]) / abs(loss["plain_forward_too"])
+        median, median_c = per[len(per) // 2][0], per_c[len(per_c) // 2][0]
+
+        def flips(name):
+            got = {n: int((m != signs["plain_forward_too"][n]).sum())
+                   for n, m in signs[name].items()}
+            return sum(got.values()), [n for n, c in got.items() if c]
+
+        n_flip, where = flips("kernels")
+        n_flip_c, where_c = flips("plain_reversed")
+        total = sum(m.numel() for m in signs["kernels"].values())
+        log(f"[{what}] the same, the plain forward too: loss rel {rel:.2e} (tol "
+            f"{STEP_LOSS_RTOL:g}); whole gradient {l2:.2e} in L2, median tensor {median:.2e} of "
+            f"its largest entry (tol {STEP_ORDER_FACTOR:g} times the control's), worst tensor "
+            f"{per[0][0]:.2e} at {per[0][1]}; BatchNorm outputs of the other sign {n_flip} of "
+            f"{total}, in {where}. Control, the plain versions over the keys in reverse order: "
+            f"whole gradient {l2_c:.2e}, median tensor {median_c:.2e}, worst tensor "
+            f"{per_c[0][0]:.2e} at {per_c[0][1]}; BatchNorm outputs of the other sign "
+            f"{n_flip_c}, in {where_c}")
+        if (rel > STEP_LOSS_RTOL or l2 > STEP_ORDER_FACTOR * l2_c
+                or median > STEP_ORDER_FACTOR * median_c):
+            raise AssertionError(f"{what}: the train step with the kernels disagrees with the "
+                                 "plain versions, forward too, beyond what summation order moves")
     return launches["kernels"]
 
 
@@ -2334,6 +2648,61 @@ def phase_f32_sweeps() -> dict:
     for i, (name, extra) in enumerate((("3d3d", {}), ("resnet", WIDE_MODELS["resnet"]))):
         numbers[name] = f32_sweep(name, extra, seed=SEED + 170 + 2 * i)
         launches[f"f32_{name}_sweep"] = {corr.KERNEL: numbers[name].pop("launches")}
+        torch.cuda.empty_cache()
+    return {"launches": launches, "numbers": numbers}
+
+
+# the train steps of phase 18: warm-up, then timed
+FMA_STEPS_WARM, FMA_STEPS_TIMED = 2, 5
+
+
+def phase_fma_steps() -> dict:
+    """Phase 18: the train steps that K2 and K3's FMA design serves, at full
+    width (360x270, batch 10, random weights from the seed): (a) 3d3d.yaml
+    in float32 (TPU.COMPUTE_DTYPE: float32), K1-K3 all in their FMA design;
+    (b) the ResNet-bottleneck model of phase 11 in bf16, the default (1,024
+    channels on the 5x4 grid), K1 on the tensor cores and K2, K3 in the FMA
+    design. Each through init_state -> make_train_step (:func:`drive_train_steps`:
+    ms per step, samples/s, peak memory, K1-K3's ms in a profiler window,
+    each launched once a step in those designs, finite losses), then one
+    step held to the same step with the plain versions on the card: (a) as
+    :func:`f32_step_kernels_vs_plain` with ``full_width`` holds it (the plain
+    backward's [10, 6,256, 6,256] matrices fit the card), (b) at phase 6's
+    bf16 limits with the one-ulp control printed
+    (:func:`bf16_step_kernels_vs_plain`); and in each, the kernels on the
+    correlation's own inputs in that step at phase 3's limits
+    (:func:`kernels_on_step_inputs`)."""
+    import torch
+
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    launches, numbers = {}, {}
+    for i, (name, extra, designs) in enumerate((
+            ("f32_3d3d", {"TPU.COMPUTE_DTYPE": "float32"}, (corr.DESIGN_FMA, corr.DESIGN_FMA)),
+            ("resnet_bf16", WIDE_MODELS["resnet"], (corr.DESIGN_MMA, corr.DESIGN_FMA)))):
+        cfg = load_cfg({**extra, "TPU.SEED": SEED})
+        H, W, bs = cfg.DATASET.HEIGHT, cfg.DATASET.WIDTH, int(cfg.TRAINING.BATCH_SIZE)
+        batches = train_batches(FMA_STEPS_WARM + FMA_STEPS_TIMED, bs, H, W, seed=SEED + 180 + i)
+        what = f"FMA steps, {name}"
+        got = drive_train_steps(cfg, batches, FMA_STEPS_WARM, what, designs=designs)
+        launches[f"{name}_train"] = got.pop("launches")
+        numbers[name] = got
+        log(f"[{what}] in a profiler window of three steps: K1 "
+            f"{got['kernel_ms'][corr.KERNEL]:.3f} ms, K2 {got['kernel_ms'][corr.KERNEL_BWD_ROWS]:.3f}"
+            f" ms, K3 {got['kernel_ms'][corr.KERNEL_BWD_COLS]:.3f} ms a step of "
+            f"{got['step_ms']:.2f} ms; device busy {100 * got['busy_share']:.1f}%")
+        torch.cuda.empty_cache()
+        with designs_served() as seen, correlation_inputs() as inputs:
+            if designs[0] == corr.DESIGN_FMA:
+                launches[f"{name}_vs_plain"] = f32_step_kernels_vs_plain(
+                    cfg, batches[0], what, full_width=True)
+            else:
+                launches[f"{name}_vs_plain"] = bf16_step_kernels_vs_plain(
+                    cfg, batches[0], what, designs=designs, control=True)
+        _expect_designs(seen, {"forward": [designs[0]], "backward": [designs[1]]},
+                        f"{what}: the step held to the plain versions")
+        numbers[name]["on_step_inputs"] = kernels_on_step_inputs(inputs[0], what)
+        del inputs
         torch.cuda.empty_cache()
     return {"launches": launches, "numbers": numbers}
 
@@ -4442,6 +4811,7 @@ def main() -> None:
         later["tools"] = timed("tools", phase_tools, Path(tmp) / "tools",
                                Path(tmp) / "mapfree")
     later["mesh"] = timed("mesh", phase_mesh)
+    later["fma_steps"] = timed("FMA train steps", phase_fma_steps)
 
     from mapfree_tpu_torch.ops import correlation as corr
 

@@ -65,16 +65,21 @@ says which one serves a (dtype, Cq, Cv):
   rounded to bf16 where the other design keeps float32;
   ``bf16_roundings=True`` makes the plain backward round at the same places.
 - ``"fma"``: float32 inputs (exact float32 arithmetic, no TF32) and any other
-  bf16 shape, at any width, as K1's.
+  bf16 shape, at any width. Beyond 64 rows a block of 128 query rows (K2) or
+  keys (K3) walks the other side in tiles of 64, with two 8 x 4 register
+  tiles a thread (the scores and dP) and channel chunks through a ring of
+  asynchronous copies; K2 takes one sweep with an online row max. Up to 64
+  rows a block takes one batch element at its real HW and a tile of output
+  columns, and sums all scores once.
 
 Every design is a kernel of this package; none gives way to another or to
 the plain version.
 
 The Function saves q, k, v, the grid and the forward's output buffer (8.8 MB
 at the training shape): with it the softmax VJP's row constant is
-c = dout . out and the denominator's reciprocal is the saved max score, so K2
-sweeps the keys twice (the second time without an exponential to spare)
-instead of three times.
+c = dout . out and the denominator's reciprocal is the saved max score, so
+the tensor-core K2 sweeps the keys twice (the second time without an
+exponential to spare) instead of three times, and the FMA K2 once.
 
 For a tensor on the CPU :func:`fused_correlation_warp` computes the plain
 versions (:func:`fused_correlation_warp_plain` forward,
@@ -180,12 +185,12 @@ def dmain_width(Cv: int) -> int:
 
 
 class RowPass(NamedTuple):
-    """What K2 leaves for K3. ``stats`` [B, HW, 3] float32 (row max in the
-    log2 domain, 1 / denominator, c) in the "fma" design; [B, HW, 4] (log2
-    of the row's softmax normaliser, 1 / denominator, c, the max-score
-    cotangent) in the "mma" design, which also hands on ``dmain``
-    [B, HW, dmain_width(Cv)] bf16. ``amax`` [B, HW] int32 is each row's
-    first argmax."""
+    """What K2 leaves for K3. ``stats`` [B, HW, 3] float32 (the row's max
+    score, not scaled, 1 / denominator relative to it, c) in the "fma"
+    design; [B, HW, 4] (log2 of the row's softmax normaliser, 1 /
+    denominator, c, the max-score cotangent) in the "mma" design, which also
+    hands on ``dmain`` [B, HW, dmain_width(Cv)] bf16. ``amax`` [B, HW] int32
+    is each row's first argmax."""
     stats: torch.Tensor
     amax: torch.Tensor
     dmain: Optional[torch.Tensor] = None

@@ -227,3 +227,122 @@ def test_cuda_backward_kernels_match_plain(cuda_device):
             torch.testing.assert_close(g.float(), r, atol=tol, rtol=0)
             rel_l2 = float((g.float() - m).norm() / m.norm())
             assert rel_l2 <= pt_corr.MMA_VS_MATCHED_L2_TOL + 2 ** -8, rel_l2
+
+
+# (name, B, H, W, Cq, Cv, dtype, inputs): K2 and K3's FMA design at the edges
+# of its two kernel pairs (ops/csrc/correlation_bwd.cu::dispatch_rows,
+# dispatch_cols): the 3d3d grid (ragged row and key tiles), HW 20 and the
+# few-rows pair's largest HW (64) with one below and one above, HW below one
+# long-rows tile of 128, Cq != Cv on each pair, 1,024 channels on the ResNet
+# encoder's 5x4 grid scaled by (32 / C)^(1/4) and unscaled, scores near 3,300
+# on each pair, an exact tie for row 0's maximum on each pair, and a bf16
+# width that is not a multiple of 8 on each pair. inputs: ("normal", scale
+# of q and k), ("large", _) for q = k = 1 + |N(0, 1)|, ("tie", _) for keys 3
+# and 5 equal and row 0's maximum. tests/test_torch_correlation_bwd_f32.py
+# holds the plain backward to the JAX package's at the same shapes.
+K23_FMA_EDGES = [
+    ("3d3d_hw6256", 2, 92, 68, 32, 32, torch.float32, ("normal", 1.0)),
+    ("hw20", 2, 4, 5, 32, 32, torch.float32, ("normal", 1.0)),
+    ("hw63", 2, 7, 9, 32, 32, torch.float32, ("normal", 1.0)),
+    ("hw64", 2, 8, 8, 32, 32, torch.float32, ("normal", 1.0)),
+    ("hw65", 2, 5, 13, 32, 32, torch.float32, ("normal", 1.0)),
+    ("hw100_below_row_tile", 2, 10, 10, 32, 32, torch.float32, ("normal", 1.0)),
+    ("hw130_q16_v32", 2, 10, 13, 16, 32, torch.float32, ("normal", 1.0)),
+    ("hw20_q24_v40", 2, 4, 5, 24, 40, torch.float32, ("normal", 1.0)),
+    ("hw20_c1024_scaled", 2, 4, 5, 1024, 1024, torch.float32, ("normal", (32 / 1024) ** 0.25)),
+    ("hw20_c1024_unscaled", 2, 4, 5, 1024, 1024, torch.float32, ("normal", 1.0)),
+    ("hw20_c1024_large_scores", 2, 4, 5, 1024, 32, torch.float32, ("large", 1.0)),
+    ("hw70_c1024_large_scores", 2, 7, 10, 1024, 32, torch.float32, ("large", 1.0)),
+    ("hw20_tie", 1, 4, 5, 32, 32, torch.float32, ("tie", 1.0)),
+    ("hw100_tie", 1, 10, 10, 32, 32, torch.float32, ("tie", 1.0)),
+    ("hw20_c12_bf16", 2, 4, 5, 12, 12, torch.bfloat16, ("normal", 1.0)),
+    ("hw130_c12_bf16", 2, 10, 13, 12, 12, torch.bfloat16, ("normal", 1.0)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,B,H,W,cq,cv,td,inputs", K23_FMA_EDGES,
+                         ids=[c[0] for c in K23_FMA_EDGES])
+def test_k23_cuda_fma_edges_match_plain(cuda_device, name, B, H, W, cq, cv, td, inputs):
+    """K2 and K3's FMA design, one launch each, given the exact forward's
+    buffer, against the exact plain backward on the same inputs with K2's
+    argmax, within 1e-4 of each gradient's largest magnitude (or of 1):
+    float32 sums in another order, exp2 of log2e-scaled scores, the row
+    constant from the forward's buffer. K2's argmax is a maximum of the
+    float32 scores and, on a tie, the first; a second run of each gives the
+    same bits (fixed summation orders, no atomics)."""
+    assert pt_corr.backward_design(td, cq, cv) == pt_corr.DESIGN_FMA
+    HW = H * W
+    rng = np.random.default_rng(len(name) + HW + cq)
+    kind, scale = inputs
+    if kind == "large":
+        q = 1.0 + np.abs(rng.normal(size=(B, HW, cq))).astype(np.float32)
+        k = q.copy()
+    else:
+        q, k = (scale * rng.normal(size=(B, HW, cq)).astype(np.float32) for _ in range(2))
+    if kind == "tie":
+        k[:, 5] = k[:, 3]
+        q[:, 0] = 3.0 * k[:, 3]
+    v = rng.normal(size=(B, HW, cv)).astype(np.float32)
+    dout = torch.from_numpy(rng.normal(size=(B, HW, cv + 3)).astype(np.float32)).to(cuda_device)
+    args = _to(cuda_device, td, q, k, v)
+    g = _uv_grid(H, W).to(cuda_device, td)
+    out = pt_corr._plain_buffer(*args, g)
+    before = dict(pt_corr.launches)
+    runs = []
+    for _ in range(2):
+        dq, rows = pt_corr.correlation_bwd_rows(*args, g, out, dout)
+        dk, dv = pt_corr.correlation_bwd_cols(*args, g, dout, rows)
+        runs.append((dq, dk, dv, rows.stats, rows.amax))
+    torch.cuda.synchronize()
+    assert pt_corr.launches[pt_corr.KERNEL_BWD_ROWS] == before[pt_corr.KERNEL_BWD_ROWS] + 2
+    assert pt_corr.launches[pt_corr.KERNEL_BWD_COLS] == before[pt_corr.KERNEL_BWD_COLS] + 2
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    dq, dk, dv, stats, amax = runs[0]
+    s = torch.bmm(args[0].float(), args[1].float().transpose(1, 2))
+    top = s.amax(dim=-1)
+    amax = amax.long()
+    gap = (top - s.gather(2, amax[..., None])[..., 0]).abs()
+    assert float(gap.max()) <= 4e-6 * float(s.abs().max())
+    if kind == "tie":
+        assert int(amax[0, 0]) == 3
+    # the row max (a score as it is) and 1 / d relative to it
+    torch.testing.assert_close(stats[..., 0], top, atol=4e-6 * float(s.abs().max()), rtol=0)
+    torch.testing.assert_close(stats[..., 1], out[..., cv + 2], atol=0, rtol=1e-5)
+    ref = pt_corr.fused_correlation_warp_bwd_plain(*args, g, dout, amax)[:3]
+    for got, r in zip((dq, dk, dv), ref):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, r, atol=1e-4 * max(1.0, float(r.abs().max())), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W", [(4, 5), (10, 10), (92, 68)],
+                         ids=["few_rows_hw20", "long_rows_hw100", "long_rows_3d3d"])
+def test_k23_cuda_fma_nan_row_stays_in_bounds(cuda_device, H, W):
+    """A NaN row, as a float32 step that diverges gives (q's row 0 of batch
+    element 0): K2 and K3's FMA design run without a device fault, K2's
+    argmax stays in [0, HW) (the long-rows K2 reads k at it), the NaN
+    reaches that element's dq row and its dk and dv, and the other element
+    agrees with the exact plain backward within 1e-4 of its largest
+    gradient."""
+    HW = H * W
+    q, k, v = (np.random.default_rng(HW + i).normal(size=(2, HW, 32)).astype(np.float32)
+               for i in range(3))
+    q[0, 0] = np.nan
+    dout = torch.from_numpy(np.random.default_rng(HW + 3).normal(size=(2, HW, 35))
+                            .astype(np.float32)).to(cuda_device)
+    args = _to(cuda_device, torch.float32, q, k, v)
+    g = _uv_grid(H, W).to(cuda_device)
+    out = pt_corr._plain_buffer(*args, g)
+    dq, rows = pt_corr.correlation_bwd_rows(*args, g, out, dout)
+    dk, dv = pt_corr.correlation_bwd_cols(*args, g, dout, rows)
+    torch.cuda.synchronize()
+    amax = rows.amax.long()
+    assert 0 <= int(amax.min()) and int(amax.max()) < HW
+    assert not torch.isfinite(dq[0, 0]).any()
+    assert not torch.isfinite(dk[0]).any() and not torch.isfinite(dv[0]).any()
+    ref = pt_corr.fused_correlation_warp_bwd_plain(*(a[1:] for a in args), g, dout[1:],
+                                                   amax[1:])[:3]
+    for got, r in zip((dq[1:], dk[1:], dv[1:]), ref):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, r, atol=1e-4 * max(1.0, float(r.abs().max())), rtol=0)

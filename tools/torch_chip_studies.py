@@ -14,6 +14,8 @@ does not repeat on every run. From the root of a checkout:
     python3 tools/torch_chip_studies.py k1-fma-variants
     python3 tools/torch_chip_studies.py k1-fma-edits
     python3 tools/torch_chip_studies.py f32-checkouts [CHECKOUT ...]
+    python3 tools/torch_chip_studies.py k23-fma-variants
+    python3 tools/torch_chip_studies.py bwd-checkouts [CHECKOUT ...]
 
 decode-threads: wall time of data/jpeg.py::decode_resize_batch for 64 frames
 of the 540x720 fixtures (tests/data/torch_port/) to 270x360 planar YUV420,
@@ -102,6 +104,30 @@ gradient as a share of its tensor's largest entry, loss), by this checkout's
 chip_smoke.py over the package of each checkout: this one and each CHECKOUT
 given (e.g. a parent unpacked with git archive), in the order given, then
 again in reverse, each in a process of its own.
+
+k23-fma-variants: K2 and K3's FMA design (ops/csrc/correlation_bwd.cu::
+dispatch_rows, dispatch_cols) against instantiations its dispatch could take:
+long-rows tiles (:data:`K23_FMA_ROWS`, :data:`K23_FMA_COLS`: own and
+streamed halves of the register tile, column tiles, ring stages, blocks a
+SM) at the 3d3d grid in float32 at B=10 and at Cq 256 / Cv 96 in bf16, and
+the few-rows pair's score tiles, its ring, its split of the threads between
+the scores and dP, and its column tiles (:data:`K23_FMA_SHORT`) at the ResNet
+bottleneck's 1,024 channels on its 5x4 grid at B=10 in float32 and bf16.
+Built into a temporary directory from a file that includes the checkout's
+correlation_bwd.cu, each with ptxas's registers and spills; each K2 variant
+given the exact forward's buffer and held to the exact plain backward (1e-4
+of the largest gradient) with the package's row max and argmax to the bit,
+each K3 variant given the package's K2 statistics and held the same way;
+timed by CUDA events and from a CUDA graph (the device's time alone), beside
+the package's dispatch and the backward of float32 attention (TF32 off).
+
+bwd-checkouts: K2 and K3 through the package's wrapper at the shapes phase 5
+times their FMA design (float32 3d3d grid at B=10; 1,024 channels on the
+5x4 grid at B=10 in float32 and bf16, there also from a CUDA graph; Cq 256 /
+Cv 96 bf16 at the 3d3d grid), each held to the exact plain backward, by this
+checkout's chip_smoke.py over the package of each checkout: this one and each
+CHECKOUT given (e.g. a parent unpacked with git archive), in the order given,
+then again in reverse, each in a process of its own.
 
 Each line carries the card's name and power limit. Imports nothing of JAX.
 """
@@ -436,17 +462,16 @@ def wide_unscaled() -> None:
             corr._forward_cuda = saved
 
 
-def _variant_lib(tmp: Path, body: list):
+def _variant_lib(tmp: Path, body: list, source: str = "correlation_fwd.cu"):
     """Build a library of the extern "C" functions ``body`` from a file that
-    includes the checkout's correlation_fwd.cu; print ptxas's registers."""
+    includes the checkout's ``source``; print ptxas's registers."""
     import ctypes
 
     import chip_smoke as cs
     from mapfree_tpu_torch.ops import _build
 
     cu, so = tmp / "variants.cu", tmp / "libvariants.so"
-    cu.write_text("\n".join([f'#include "{_build.CSRC_DIR / "correlation_fwd.cu"}"'] + body)
-                  + "\n")
+    cu.write_text("\n".join([f'#include "{_build.CSRC_DIR / source}"'] + body) + "\n")
     t0 = time.perf_counter()
     proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
                           capture_output=True, text=True)
@@ -872,6 +897,203 @@ def f32_checkouts(*checkouts) -> None:
             sys.exit(f"{root}: exit {got.returncode}")
 
 
+# (name, B, H, W, Cq, Cv, dtype) -> candidate template arguments of
+# correlation_bwd.cu's launch_rows / launch_cols after the type (STREAM, CX,
+# NG, OH, SH, RING, MINB); the package's choice first
+K23_FMA_ROWS = {
+    ("float32, 3d3d grid, B=10", 10, 92, 68, 32, 32, "float32"): [
+        "false, 8, 1, 2, 1, 2, 1", "false, 8, 1, 2, 2, 2, 1", "false, 8, 1, 1, 2, 2, 1",
+        "false, 8, 1, 2, 1, 3, 1", "false, 8, 1, 1, 1, 2, 2"],
+    ("bf16, Cq=256 Cv=96, 3d3d grid, B=10", 10, 92, 68, 256, 96, "bfloat16"): [
+        "true, 16, 2, 1, 1, 2, 1", "true, 16, 1, 1, 1, 2, 1", "true, 16, 1, 2, 1, 2, 1",
+        "true, 16, 2, 1, 1, 2, 2"]}
+K23_FMA_COLS = {
+    ("float32, 3d3d grid, B=10", 10, 92, 68, 32, 32, "float32"): [
+        "false, 8, 1, 2, 1, 2, 1", "false, 8, 1, 2, 1, 3, 1", "false, 8, 1, 1, 1, 2, 1"],
+    ("bf16, Cq=256 Cv=96, 3d3d grid, B=10", 10, 92, 68, 256, 96, "bfloat16"): [
+        "true, 16, 2, 1, 1, 2, 1", "true, 16, 1, 1, 1, 2, 1", "true, 16, 2, 1, 1, 2, 2"]}
+# (name, B, H, W, Cq, Cv, dtype) -> (kernel, "TR, TC, RQ, RING, SPLIT", column
+# tiles); the package's choice first for each kernel
+K23_FMA_SHORT = {
+    (f"{dt}, C=1,024, ResNet grid 5x4, B=10", 10, 5, 4, 1024, 1024, dt): [
+        (kind, a, n) for kind in ("rows", "cols") for a, n in (
+            ("1, 2, 6, 3, false", 13), ("1, 2, 6, 3, false", 8), ("1, 2, 6, 3, false", 26),
+            ("2, 2, 8, 3, false", 13), ("1, 2, 6, 2, false", 13), ("2, 2, 8, 3, true", 13),
+            ("2, 2, 8, 2, true", 13), ("2, 2, 8, 3, true", 26), ("2, 2, 8, 3, true", 8))]
+    for dt in ("float32", "bfloat16")}
+_BWD_ARGS = ("const void* q, const void* k, const void* v, const void* grid, const void* out, "
+             "const void* dout, void* dq, void* dk, void* dv, void* stats, void* amax, int B, "
+             "int HW, int Cq, int Cv, int dtype, void* stream")
+_BWD_STRUCT = ("const Args a{q, k, v, grid, static_cast<const float*>(out), "
+               "static_cast<const float*>(dout), static_cast<float*>(dq), "
+               "static_cast<float*>(dk), static_cast<float*>(dv), static_cast<float*>(stats), "
+               "static_cast<int*>(amax), B, HW, Cq, Cv, static_cast<cudaStream_t>(stream)};")
+
+
+def _k23_case(cs, corr, B, H, W, cq, cv, dtype, seed):
+    """Inputs on the card, the exact forward's buffer, a cotangent, the
+    package's K2 and K3 outputs and the exact plain backward with its
+    argmax."""
+    import torch
+
+    q, k, v, grid = cs._kernel_inputs(B, H, W, cq, cv, dtype, seed=seed, spread32=cq > 32)
+    dout = cs._cotangent(B, H * W, cv, seed=seed + 1)
+    out = corr._plain_buffer(q, k, v, grid)
+    dq, rows = corr.correlation_bwd_rows(q, k, v, grid, out, dout)
+    dk, dv = corr.correlation_bwd_cols(q, k, v, grid, dout, rows)
+    ref = corr.fused_correlation_warp_bwd_plain(q, k, v, grid, dout, rows.amax.long())[:3]
+    torch.cuda.synchronize()
+    return (q, k, v, grid, out, dout), rows, ref
+
+
+def k23_fma_variants() -> None:
+    import ctypes
+    import tempfile
+
+    import torch
+
+    import chip_smoke as cs
+    from mapfree_tpu_torch.ops import _build
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    _build.load_libraries([corr.KERNEL_BWD])
+    longs = sorted({("rows", a) for vs in K23_FMA_ROWS.values() for a in vs}
+                   | {("cols", a) for vs in K23_FMA_COLS.values() for a in vs})
+    body = [f'extern "C" int long_{i}({_BWD_ARGS}) {{ {_BWD_STRUCT} return dtype ? '
+            f'launch_{kind}<bf16, {a}>(a) : launch_{kind}<float, {a}>(a); }}'
+            for i, (kind, a) in enumerate(longs)]
+    shorts = sorted({(kind, a) for vs in K23_FMA_SHORT.values() for kind, a, _ in vs})
+    body += [f'extern "C" int short_{i}({_BWD_ARGS}, int n) {{ {_BWD_STRUCT} return dtype ? '
+             f'launch_{kind}_short<bf16, {a}>(a, n) : launch_{kind}_short<float, {a}>(a, n); }}'
+             for i, (kind, a) in enumerate(shorts)]
+    cases = [(key, kind, f"long_{longs.index((kind, a))}",
+              f"{'K2' if kind == 'rows' else 'K3'} <{a}>", ())
+             for kind, table in (("rows", K23_FMA_ROWS), ("cols", K23_FMA_COLS))
+             for key, vs in table.items() for a in vs]
+    cases.sort(key=lambda c: list(K23_FMA_ROWS).index(c[0]))  # one shape at a time
+    cases += [(key, kind, f"short_{shorts.index((kind, a))}",
+               f"{'K2' if kind == 'rows' else 'K3'} few rows <{a}>, {n} column tiles", (n,))
+              for key, vs in K23_FMA_SHORT.items() for kind, a, n in vs]
+    with tempfile.TemporaryDirectory() as tmp:
+        lib = _variant_lib(Path(tmp), body, "correlation_bwd.cu")
+        shape = None
+        for key, kind, fname, label, extra in cases:
+            name, B, H, W, cq, cv, dtype = key
+            if key != shape:
+                shape = key
+                args, rows, ref = _k23_case(cs, corr, B, H, W, cq, cv, dtype, seed=7)
+                q, k, v, grid, out, dout = args
+
+                def k2():
+                    corr.correlation_bwd_rows(q, k, v, grid, out, dout)
+
+                def k3():
+                    corr.correlation_bwd_cols(q, k, v, grid, dout, rows)
+
+                vg = torch.cat([v, grid.expand(B, H * W, 2), v.new_zeros(B, H * W, 6)],
+                               dim=-1)[:, None]
+                qh, kh, vh = (t.detach().requires_grad_(True) for t in (q[:, None], k[:, None], vg))
+                do = torch.cat([dout[..., :cv + 2], dout.new_zeros(B, H * W, 6)],
+                               dim=-1)[:, None].to(q.dtype)
+                lib_ms, backend = cs.sdpa_ms(qh, kh, vh, iters=10, do=do)
+                lib_gms = cs.sdpa_ms(qh, kh, vh, iters=10, do=do, timer=cs.graph_ms)[0]
+                print(f"[{card()}] {name}: the package's K2 {cs.cuda_time_ms(k2, 10):.4f} ms "
+                      f"({cs.graph_ms(k2, 10):.4f} on the device alone), K3 "
+                      f"{cs.cuda_time_ms(k3, 10):.4f} ms ({cs.graph_ms(k3, 10):.4f}); attention "
+                      f"backward ({backend or 'bf16'}, TF32 off) {lib_ms:.4f} ms ({lib_gms:.4f})",
+                      flush=True)
+            fn = getattr(lib, fname)
+            fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                           + [ctypes.c_int] * len(extra))
+            fn.restype = ctypes.c_int
+            HW = H * W
+            dq = torch.full((B, HW, cq), float("nan"), device="cuda")
+            dk = torch.full((B, HW, cq), float("nan"), device="cuda")
+            dv = torch.full((B, HW, cv), float("nan"), device="cuda")
+            # a K2 variant writes its own statistics; a K3 variant reads the package's
+            stats = torch.empty_like(rows.stats) if kind == "rows" else rows.stats
+            amax = torch.empty_like(rows.amax) if kind == "rows" else rows.amax
+
+            def launch():
+                err = fn(*(t.data_ptr() for t in (q, k, v, grid, out, dout, dq, dk, dv, stats,
+                                                  amax)),
+                         B, HW, cq, cv, int(dtype == "bfloat16"),
+                         torch.cuda.current_stream().cuda_stream, *extra)
+                if err:
+                    raise RuntimeError(f"variant {label} failed to launch: {err}")
+
+            launch()
+            torch.cuda.synchronize()
+            if kind == "rows":
+                err = cs._scaled_err([dq], ref[:1])
+                same = (torch.equal(stats[..., 0], rows.stats[..., 0])
+                        and torch.equal(amax, rows.amax))
+            else:
+                err, same = cs._scaled_err([dk, dv], ref[1:]), True
+            vms = cs.cuda_time_ms(launch, iters=10, warmup=2)
+            gms = cs.graph_ms(launch, 10)
+            print(f"[{card()}] {name}: {label}: {vms:.4f} ms ({gms:.4f} on the device alone, "
+                  f"CUDA graph), {err:.3g} of the largest gradient vs the exact plain backward "
+                  f"(limit {cs.BWD_TOL:g}), the package's row max and argmax: {same}",
+                  flush=True)
+            if not (err <= cs.BWD_TOL and same):
+                raise AssertionError(f"variant {label} disagrees with the plain backward")
+
+
+BWD_CHECKOUT = """
+import importlib.util
+import sys
+from pathlib import Path
+root, smoke = Path(sys.argv[1]).resolve(), sys.argv[2]
+sys.path.insert(0, str(root))
+spec = importlib.util.spec_from_file_location("chip_smoke_here", smoke)
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+import torch
+import mapfree_tpu_torch
+from mapfree_tpu_torch.ops import _build
+from mapfree_tpu_torch.ops import correlation as corr
+assert Path(mapfree_tpu_torch.__file__).resolve().is_relative_to(root)
+_build.load_libraries([corr.KERNEL_BWD])
+for name, B, H, W, cq, cv, dtype in (
+        ("float32, 3d3d grid, B=10", 10, 92, 68, 32, 32, "float32"),
+        ("float32, C=1,024, 5x4, B=10", 10, 5, 4, 1024, 1024, "float32"),
+        ("bf16, C=1,024, 5x4, B=10", 10, 5, 4, 1024, 1024, "bfloat16"),
+        ("bf16, Cq=256 Cv=96, 3d3d grid, B=10", 10, 92, 68, 256, 96, "bfloat16")):
+    q, k, v, grid = cs._kernel_inputs(B, H, W, cq, cv, dtype, seed=5, spread32=cq > 32)
+    dout = cs._cotangent(B, H * W, cv, seed=6)
+    out = corr._plain_buffer(q, k, v, grid)
+    dq, rows = corr.correlation_bwd_rows(q, k, v, grid, out, dout)
+    dk, dv = corr.correlation_bwd_cols(q, k, v, grid, dout, rows)
+    ref = corr.fused_correlation_warp_bwd_plain(q, k, v, grid, dout, rows.amax.long())[:3]
+    errs = cs._scaled_err([dq], ref[:1]), cs._scaled_err([dk, dv], ref[1:])
+    del ref
+    k2 = lambda: corr.correlation_bwd_rows(q, k, v, grid, out, dout)
+    k3 = lambda: corr.correlation_bwd_cols(q, k, v, grid, dout, rows)
+    t = [cs.cuda_time_ms(f, iters=10, warmup=2) for f in (k2, k3)]
+    g = [cs.graph_ms(f, 10) for f in (k2, k3)] if H * W <= 64 else None
+    alone = f" (on the device alone {g[0]:.4f}, {g[1]:.4f})" if g else ""
+    print(f"[bwd] {name}: K2 {t[0]:.4f} ms, K3 {t[1]:.4f} ms{alone}; K2 {errs[0]:.3g}, "
+          f"K3 {errs[1]:.3g} of the largest gradient vs the exact plain backward", flush=True)
+    if max(errs) > cs.BWD_TOL:
+        raise AssertionError(f"{name}: K2, K3 disagree with the exact plain backward")
+    torch.cuda.empty_cache()
+"""
+
+
+def bwd_checkouts(*checkouts) -> None:
+    roots = [REPO, *[Path(c) for c in checkouts]]
+    for root in roots + roots[::-1]:
+        got = subprocess.run([sys.executable, "-c", BWD_CHECKOUT, str(root),
+                              str(REPO / "chip_smoke.py")],
+                             capture_output=True, text=True, timeout=900)
+        for ln in (got.stdout + got.stderr).splitlines():
+            if ln.startswith("[bwd]") or "Error" in ln:
+                print(f"[{card()}] {root}: {ln}", flush=True)
+        if got.returncode:
+            sys.exit(f"{root}: exit {got.returncode}")
+
+
 def main() -> None:
     import torch
 
@@ -881,18 +1103,22 @@ def main() -> None:
                "bf16-faults": bf16_faults, "upsample-ab": upsample_ab,
                "sweep-determinism": sweep_determinism, "mesh-faults": mesh_faults,
                "wide-unscaled": wide_unscaled, "k1-variants": k1_variants,
-               "k1-fma-variants": k1_fma_variants, "k1-fma-edits": k1_fma_edits}
+               "k1-fma-variants": k1_fma_variants, "k1-fma-edits": k1_fma_edits,
+               "k23-fma-variants": k23_fma_variants}
     if sys.argv[1:2] == ["decode-under-load"]:
         decode_under_load(*sys.argv[2:])
         return
     if sys.argv[1:2] == ["f32-checkouts"]:
         f32_checkouts(*sys.argv[2:])
         return
+    if sys.argv[1:2] == ["bwd-checkouts"]:
+        bwd_checkouts(*sys.argv[2:])
+        return
     names = sys.argv[1:] or list(studies)
     for name in names:
         if name not in studies:
-            sys.exit(f"unknown study {name!r}; choose from "
-                     f"{sorted(studies) + ['decode-under-load', 'f32-checkouts']}")
+            others = ["decode-under-load", "f32-checkouts", "bwd-checkouts"]
+            sys.exit(f"unknown study {name!r}; choose from {sorted(studies) + others}")
     for name in names:
         studies[name]()
 
