@@ -6,21 +6,25 @@
 Phases, in order; any failure raises and the script exits nonzero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the CUDA kernels (correlation_fwd: K1; correlation_bwd: K2, K3;
-   each in two designs, tensor cores for bf16 and float32 FMA, and K2's
-   prologue), the nvJPEG decoder and the PNG reader's host unfilter,
+2. build: the CUDA kernels (correlation_fwd: K1; correlation_bwd_mma and
+   correlation_bwd: K2, K3;
+   each in two designs, tensor cores for bf16 and float32 FMA, and the
+   prologue K2 launches where its operands stream), the nvJPEG decoder and
+   the PNG reader's host unfilter,
    compiled at once from this checkout's sources with nvcc, with ptxas's
    registers and spills per kernel instantiation;
 3. kernel: K1 (the fused correlation softmax-warp), K2 and K3 (its backward
    row and column passes) against their plain PyTorch versions on the card
    (ragged HW, HW < 64, Cq != Cv, 8 to 128 channels, bf16 and float32, a bf16
    shape only the FMA designs take, the mid-window HW=576, the 3d3d shape,
-   the max-score cotangent alone, two runs of K3 for equal bits), each case
-   with the design that served it; a tensor-core design is held to the
-   plain version with the same bf16 roundings (tight, relative L2) and to
-   the exact one (the tolerances the CPU tests derive), K1's max score to the
-   exact one at float32 tightness, and K2's prologue's outputs to the plain
-   prologue. Then each is timed beside the plain version, one PyTorch
+   the max-score cotangent alone, two runs of K2 and K3 for equal bits in
+   every case), each case with the design that served it; a tensor-core
+   design is held to the plain version with the same bf16 roundings (tight,
+   relative L2; for K2 its one sweep, with every column tile of dq on its
+   own) and to the exact one (the tolerances the CPU tests derive, wider
+   beyond 128 channels), K1's max score to the exact one at float32
+   tightness, K2's row statistics to the scores and the forward's max score,
+   and K2's dmain and row constant to the plain prologue. Then each is timed beside the plain version, one PyTorch
    library call (scaled_dot_product_attention and its backward, timed here
    only) and its bound: K1 at the inference shape (B=64, HW=6,256, C=32,
    bf16) in both designs, and K1, K2, K3 at the training shape (B=10), which
@@ -28,16 +32,19 @@ Phases, in order; any failure raises and the script exits nonzero:
    (B = 64 x 9 = 576) and K2, K3 at the fusion train step's (B = 10 x 9 =
    90), held to the plain versions on their first and last two batch rows
    (the plain versions' [B, HW, HW] volumes would not fit the card); then
-   every width (Cq = Cv of 126, 128, 256 and 1,024, and 256 / 96, at HW 20,
-   70 and 1,000, float32 and bf16): the tensor-core K1 at every bf16 width
-   that is a multiple of 8 (q streamed in channel chunks beyond 128, the
-   accumulator in column tiles of 128; and at 64 pairs of widths from 8 to
-   1,024 that reach every instantiation, a zero-filled last chunk and a
-   narrow last column tile), the FMA designs elsewhere (the
+   every width (Cq = Cv of 126, 128, 136, 256 and 1,024, and 256 / 96, at HW
+   20, 70 and 1,000, float32 and bf16): K1, K2 and K3 on the tensor cores
+   at every bf16 width that is a multiple of 8 (K2 and K3's own tiles
+   resident up to 128 channels and at 256 / 96; wider, and K1 beyond 128,
+   the operands streamed in channel chunks of 64, the accumulator in column
+   tiles of 128; 136 gives a zero-filled last chunk and a last column tile
+   of 8; K1 also at 64 pairs of widths from 8 to 1,024 that reach every
+   instantiation), the FMA designs elsewhere (the
    channels in chunks and the accumulator columns in tiles of 128), and K1,
    K2, K3 timed at the ResNet bottleneck's 1,024 channels on its 5x4 grid,
-   at 128 channels on the 3d3d grid (K1 at B=10 and 64) and K1 at 256 / 96,
-   the earlier FMA K1 beside the new one; then float32 K1, K2, K3 (the FMA
+   at 128 channels on the 3d3d grid (K1 at B=10 and 64), at 256 / 96 (the
+   FMA designs beside the tensor-core ones there) and at the 256-channel
+   ResUNet's 256 (K2 and K3 streamed); then float32 K1, K2, K3 (the FMA
    designs) at the 3d3d shapes (K1 at B=64 and B=10) and at 1,024 channels
    beside float32 attention with TF32 off, its backend named. K1's FMA
    design is also held at the edges of its two kernels (HW 100 below the
@@ -45,13 +52,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    kernel's limit, Cq != Cv and a bf16 width that is not a multiple of 8 on
    the few-rows kernel, 1,024 unscaled channels), and two runs of it give
    equal bits; K2 and K3's FMA design at the same edges of its two kernel
-   pairs and at HW 20 (Cq = Cv and 16 / 32), at scores near 3,300, at an
-   exact tie for a row's maximum (the cotangent on the first index) and at
-   a NaN row (no fault, the argmax in range, the NaN in the gradients),
-   every FMA case with K2's row statistics checked (the row max against the
-   scores, 1 / d against the forward's max score) and two runs giving equal
-   bits; the FMA pair also timed beyond 128 channels (Cq 256 / Cv 96 bf16 at
-   the 3d3d grid); at HW <= 64, where the host's time to issue a call paces
+   pairs and at HW 20 (Cq = Cv and 16 / 32), at scores near 3,300, and both
+   designs (the tensor-core one resident at 32 channels and at 256 / 96,
+   streamed at 256) at an exact tie for a row's maximum (the cotangent on the first
+   index) and at a NaN row (no fault, the argmax in range, the NaN in the
+   gradients); at HW <= 64, where the host's time to issue a call paces
    it, K1, K2, K3 and the library calls are also timed on the device alone
    (CUDA graphs);
 4. inference path: the 3d3d model (configs/regression/mapfree/3d3d.yaml over
@@ -117,7 +122,14 @@ Phases, in order; any failure raises and the script exits nonzero:
    once per batch and a float32 forward at one block per stage on the card
    and the CPU, one float32 train step of the ResNet model with the kernels
    against the plain versions on the card, and phase 6's bf16 step on the
-   128-channel ResUNet with K1-K3 all on the tensor cores;
+   128-channel ResUNet with K1-K3 all on the tensor cores; then a ResUNet
+   with NUM_OUT_LAYERS 256 at full width (360x270, HW 6,256, Cq = Cv = 256,
+   bf16, batch 10): 5 timed train steps (ms per step, samples/s, peak
+   memory, K1-K3's ms in a profiler window), K1, K2 and K3 once a step on
+   the tensor cores, and one step held to the same step with the plain
+   backward after the same K1 forward and with the plain forward too, at
+   phase 6's bf16 limits, and K1-K3 on that step's own correlation inputs
+   at phase 3's limits;
 12. the fusion model's CLIs from JPEG files: a MapFree tree of fixture
    copies with poses_device.txt, the submission CLI over 160 windows, the
    train CLI for 8 steps at batch 10 with one validation, and the submission
@@ -140,7 +152,7 @@ Phases, in order; any failure raises and the script exits nonzero:
 14. the evaluation path (no kernel of its own but K1): (a) a ScanNet test
    split of 80 copies of the 1296x968 JPEG fixtures (views of a textured
    room, tests/data/torch_port/room.py) with 640x480 .pgm depth written
-   here in numpy, 324 pairs: nvJPEG on the fixtures against the JAX
+   here in numpy, 132 pairs: nvJPEG on the fixtures against the JAX
    package's cv2 decode of them at 320x240 and its ms per 64 frames, then
    configs/regression/scannet/3d3d.yaml through the ScanNet CLI's main(argv)
    (bf16, INFER_BATCH 64): K1 once per batch, pairs/s; (b) K1 at that
@@ -192,11 +204,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    per batch in its FMA design, the forward by CUDA events, K1's ms within
    it (a profiler window), pairs/s, and R and t of one batch against the
    same batch through the plain forward on the card within 2e-4;
-18. the train steps K2 and K3's FMA design serves, at full width (360x270,
-   batch 10, 2 warm-up and 5 timed steps through init_state ->
-   make_train_step): 3d3d.yaml in float32 (K1-K3 all FMA) and the ResNet
-   bottleneck in bf16 (K1 on the tensor cores, K2 and K3 FMA at 1,024
-   channels): ms per step, samples/s, peak memory, K1-K3's ms in a profiler
+18. the train steps of the float32 3d3d model and the bf16 ResNet
+   bottleneck, at full width (360x270, batch 10, 2 warm-up and 5 timed
+   steps through init_state -> make_train_step): 3d3d.yaml in float32
+   (K1-K3 all FMA) and the ResNet bottleneck in bf16 (K1-K3 on the tensor
+   cores at 1,024 channels; K2 and K3 were the FMA pair before): ms per step, samples/s, peak memory, K1-K3's ms in a profiler
    window, each launched once a step in those designs; one step of each
    against the same step with the plain backward after the same K1 forward
    on the card, at phase 6's float32 and bf16 limits, and with the plain
@@ -239,6 +251,7 @@ SEED = 0
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_EXP_PER_S = 132 * 16 * 1.98e9
+LOG2E = 1.4426950408889634
 
 # K1's FMA design against its plain version: f32 outputs differ by exp2 of
 # log2e-scaled scores and summation order; bf16 cases feed both sides the same
@@ -258,8 +271,9 @@ ATOL = {"float32": 5e-5, "bfloat16": 1e-3}
 BWD_TOL = 1e-4
 # (Cq, Cv) of phase 3's wide cases, each at HW 20, 70 and 1,000 in float32
 # and bf16 (q and k scaled by _kernel_inputs' spread32; float32 at 1,024
-# unscaled too)
-WIDE_CHANNELS = ((126, 126), (128, 128), (256, 256), (1024, 1024), (256, 96))
+# unscaled too). In bf16, 136 gives the tensor-core K2 and K3 a last channel
+# chunk of 8 channels and 56 zeros and a last column tile of 8 columns
+WIDE_CHANNELS = ((126, 126), (128, 128), (136, 136), (256, 256), (1024, 1024), (256, 96))
 # the ResNet encoder's output grid for 360x270 frames
 # (models/encoders.py::encoder_out_hw): 5 x 4
 RESNET_GRID = (5, 4)
@@ -584,39 +598,52 @@ def backward_case(q, k, v, grid, dout) -> dict:
     res = {"design": design, "k2_err": _scaled_err([dq], [dq_p]),
            "k3_err": _scaled_err([dk, dv], [dk_p, dv_p]), "argmax_near_ties": moved,
            "dk": dk, "dv": dv, "rows": rows, "tol": BWD_TOL}
+    # the statistics K2 hands to K3, against the scores and the forward's max
+    # score: the row max (a score as it is in the FMA design; in the
+    # tensor-core design recovered from lse = max log2e - log2(1 / d)) and 1 / d
+    s = torch.bmm(q.float(), k.float().transpose(1, 2)).amax(dim=-1)
+    inv_d = rows.stats[..., 1]
     if design == corr.DESIGN_FMA:
-        # the statistics K2 hands to K3: the row max (a score as it is) and
-        # 1 / d relative to it, against the scores and the forward's max score
-        s = torch.bmm(q.float(), k.float().transpose(1, 2)).amax(dim=-1)
-        res["stats_err"] = max(float((rows.stats[..., 0] - s).abs().max()) / tie_tol,
-                               float((rows.stats[..., 1] / out[..., -1] - 1).abs().max()) / 1e-5)
-        del s
-        # fixed summation orders, no atomics: a second run gives the same bits
-        dq2, rows2 = corr.correlation_bwd_rows(q, k, v, grid, out, dout)
-        dk2, dv2 = corr.correlation_bwd_cols(q, k, v, grid, dout, rows2)
-        torch.cuda.synchronize()
-        res["same_bits"] = all(torch.equal(a, b) for a, b in (
-            (dq, dq2), (dk, dk2), (dv, dv2), (rows.stats, rows2.stats), (rows.amax, rows2.amax)))
-        del dq2, rows2, dk2, dv2
+        row_max, max_tol = rows.stats[..., 0], tie_tol
+    else:
+        # lse carries the float32 roundings of max log2e and of the sum
+        row_max = (rows.stats[..., 0] + torch.log2(inv_d)) / LOG2E
+        max_tol = tie_tol + 4e-7 * max(1.0, float(s.abs().max()))
+    res["stats_err"] = max(float((row_max - s).abs().max()) / max_tol,
+                           float((inv_d / out[..., -1] - 1).abs().max()) / 1e-5)
+    del s
+    # fixed summation orders, no atomics: a second run gives the same bits
+    dq2, rows2 = corr.correlation_bwd_rows(q, k, v, grid, out, dout)
+    dk2, dv2 = corr.correlation_bwd_cols(q, k, v, grid, dout, rows2)
+    torch.cuda.synchronize()
+    res["same_bits"] = all(torch.equal(a, b) for a, b in (
+        (dq, dq2), (dk, dk2), (dv, dv2), (rows.stats, rows2.stats), (rows.amax, rows2.amax)))
+    del dq2, rows2, dk2, dv2
     if design == corr.DESIGN_MMA:
         del dq_p, dk_p, dv_p
+        Cq, Cv = q.shape[-1], v.shape[-1]
         dq_m, dk_m, dv_m, _ = corr.fused_correlation_warp_bwd_plain(
             q, k, v, grid, dout, amax, bf16_roundings=True)
         torch.cuda.synchronize()
-        res.update(tol=corr.MMA_VS_EXACT_TOL, l2_tol=corr.MMA_VS_MATCHED_L2_TOL,
+        res.update(tol=corr.mma_backward_exact_tol(Cq, Cv),
+                   l2_tol=corr.mma_backward_matched_l2_tol(Cq, Cv),
                    k2_l2=_rel_l2([dq], [dq_m]), k3_l2=_rel_l2([dk, dv], [dk_m, dv_m]),
                    k2_matched=_scaled_err([dq], [dq_m]),
                    k3_matched=_scaled_err([dk, dv], [dk_m, dv_m]))
-        # the prologue: dmain, 1/d and d_ms to the bit, c to summation order
-        # (K2 has filled the statistics' first column since)
+        # every column tile of dq (128 columns beyond 128 channels) against the
+        # matched plain backward on its own: a tile whose row max or argmax
+        # differed from the others' would be scaled or shifted alone
+        res["k2_tile_l2"] = max(_rel_l2([dq[..., c:c + 128]], [dq_m[..., c:c + 128]])
+                                for c in range(0, Cq, 128))
+        # dmain, 1/d and d_ms to the bit, c to summation order
         dmain_p, stats_p = corr.correlation_bwd_prologue_plain(out, dout)
         if not torch.equal(rows.dmain, dmain_p):
-            raise AssertionError("the prologue's bf16 dmain differs from the plain prologue's")
+            raise AssertionError("K2's bf16 dmain differs from the plain prologue's")
         if not torch.equal(rows.stats[..., [1, 3]], stats_p[..., [1, 3]]):
-            raise AssertionError("the prologue's 1/d or d_ms differs from the plain prologue's")
+            raise AssertionError("K2's 1/d or d_ms differs from the plain prologue's")
         res["prologue_c_err"] = _scaled_err([rows.stats[..., 2]], [stats_p[..., 2]])
         if res["prologue_c_err"] > PROLOGUE_TOL:
-            raise AssertionError(f"the prologue's c is off by {res['prologue_c_err']:.3g}")
+            raise AssertionError(f"K2's c is off by {res['prologue_c_err']:.3g}")
     return res
 
 
@@ -695,6 +722,9 @@ def check_backward(res: dict, what: str) -> None:
             raise AssertionError(
                 f"{kernel.upper()} disagrees with the plain backward of the same roundings "
                 f"in {what}: relative L2 {res[kernel + '_l2']:.3g} > {res['l2_tol']:g}")
+    if "k2_tile_l2" in res and not res["k2_tile_l2"] <= res["l2_tol"]:
+        raise AssertionError(f"a column tile of K2's dq disagrees with the plain backward of "
+                             f"the same roundings in {what}: relative L2 {res['k2_tile_l2']:.3g}")
 
 
 def _case_line(res: dict) -> str:
@@ -706,11 +736,12 @@ def _case_line(res: dict) -> str:
     if res["design"] == corr.DESIGN_MMA:
         line += (f"; vs the plain backward with the kernels' bf16 roundings: relative L2 K2 "
                  f"{res['k2_l2']:.3g}, K3 {res['k3_l2']:.3g} (tol {res['l2_tol']:g}), largest "
-                 f"entry K2 {res['k2_matched']:.3g}, K3 {res['k3_matched']:.3g}; prologue c "
-                 f"{res['prologue_c_err']:.3g} (tol {PROLOGUE_TOL:g})")
+                 f"entry K2 {res['k2_matched']:.3g}, K3 {res['k3_matched']:.3g}, worst column "
+                 f"tile of dq {res['k2_tile_l2']:.3g}; c {res['prologue_c_err']:.3g} (tol "
+                 f"{PROLOGUE_TOL:g})")
     if "same_bits" in res:
-        line += (f"; row statistics at {res['stats_err']:.3g} of their limits; two runs give "
-                 f"equal bits: {res['same_bits']}")
+        line += (f"; row statistics at {res['stats_err']:.3g} of their limits; two runs of K2 "
+                 f"and K3 give equal bits: {res['same_bits']}")
     return line + f"; argmax near-ties {res['argmax_near_ties']}"
 
 
@@ -831,11 +862,11 @@ def phase_kernel_cases() -> dict:
     # every channel width the Pallas kernel takes: the FMA designs tile the
     # channels and the accumulator columns by 128, so these cross one, two
     # and eight tile edges (the ResNet encoder's 256 and 1,024 channels, a
-    # ResUNet's 128 with Cv + 2 = 130); the tensor-core K1 takes every bf16
-    # width that is a multiple of 8 (q resident up to 128 channels, streamed
-    # in chunks beyond; the accumulator in column tiles of 128 beyond 128),
-    # the tensor-core K2, K3 bf16 up to 128; (126, 126) and float32 stay on
-    # the FMA designs, at the same tolerances; the last three cases take
+    # ResUNet's 128 with Cv + 2 = 130); the tensor-core K1, K2 and K3 take
+    # every bf16 width that is a multiple of 8 (own tiles resident up to 128
+    # channels, streamed in chunks of 64 beyond; the accumulator in column
+    # tiles of 128 beyond 128); (126, 126) and float32 stay on the FMA
+    # designs, at the same tolerances; the last three cases take
     # float32 q and k unscaled at 1,024 channels, where the scores reach some
     # 100
     hw_shapes = {20: (4, 5), 70: (7, 10), 1000: (25, 40)}
@@ -852,8 +883,7 @@ def phase_kernel_cases() -> dict:
         res = backward_case(q, k, v, grid, _cotangent(2, HW, cv, seed=seed + 500))
         fwd_expected = corr.DESIGN_MMA if (dtype == "bfloat16" and cq % 8 == 0
                                            and cv % 8 == 0) else corr.DESIGN_FMA
-        bwd_expected = corr.DESIGN_MMA if (dtype == "bfloat16" and cq == cv == 128) \
-            else corr.DESIGN_FMA
+        bwd_expected = fwd_expected
         if fwd["design"] != fwd_expected or res["design"] != bwd_expected:
             raise AssertionError(f"case {name} was served by the {fwd['design']} (K1) and "
                                  f"{res['design']} (K2, K3) designs, not "
@@ -886,39 +916,54 @@ def phase_kernel_cases() -> dict:
         del q, v, res
 
     # an exact tie for row 0's maximum (keys 3 and 5 equal) on each FMA pair
-    # of K2 and K3: the max-score cotangent goes to the first index
-    for i, (H, W) in enumerate(((4, 5), (10, 10))):
-        q, k, v, grid = _kernel_inputs(1, H, W, 32, 32, "float32", seed=370 + i)
+    # of K2 and K3 and on the tensor-core pair, its own tiles resident (C =
+    # 32 and 256 / 96) and streamed (C = 256, where the tie lies in both
+    # column tiles): the max-score cotangent goes to the first index
+    for i, (H, W, cq, cv, dtype) in enumerate(((4, 5, 32, 32, "float32"),
+                                               (10, 10, 32, 32, "float32"),
+                                               (7, 10, 32, 32, "bfloat16"),
+                                               (7, 10, 256, 96, "bfloat16"),
+                                               (7, 10, 256, 256, "bfloat16"))):
+        name = f"{'f32' if dtype == 'float32' else 'bf16'}_tie_hw{H * W}_q{cq}_v{cv}"
+        q, k, v, grid = _kernel_inputs(1, H, W, cq, cv, dtype, seed=370 + i, spread32=True)
         k[:, 5] = k[:, 3]
         q[:, 0] = 3.0 * k[:, 3]
-        res = backward_case(q, k, v, grid, _cotangent(1, H * W, 32, seed=380 + i))
+        res = backward_case(q, k, v, grid, _cotangent(1, H * W, cv, seed=380 + i))
         first = int(res["rows"].amax[0, 0])
-        log(f"[kernel] f32_tie_hw{H * W}: {_case_line(res)}; row 0's argmax {first} (keys 3 "
-            "and 5 tie)")
-        if res["design"] != corr.DESIGN_FMA or first != 3:
-            raise AssertionError(f"the tie at HW={H * W}: design {res['design']}, argmax {first}")
-        record_backward(f"f32_tie_hw{H * W}", res)
+        log(f"[kernel] {name}: {_case_line(res)}; row 0's argmax {first} (keys 3 and 5 tie)")
+        expected = corr.DESIGN_FMA if dtype == "float32" else corr.DESIGN_MMA
+        if res["design"] != expected or first != 3:
+            raise AssertionError(f"the tie in {name}: design {res['design']}, argmax {first}")
+        record_backward(name, res)
         del q, k, v, res
 
-    # a NaN row (q's row 0 of batch element 0), as a float32 step that
-    # diverges gives, on each FMA pair: K2 keeps its argmax in [0, HW) (the
-    # long-rows K2 reads k at it), the NaN reaches that element's gradients,
-    # and the other batch element is held as any case
-    for i, (H, W) in enumerate(((4, 5), (10, 10))):
+    # a NaN row (q's row 0 of batch element 0), as a step that diverges
+    # gives, on each FMA pair and on the tensor-core pair (resident at 32
+    # and 256 / 96, streamed at 256): K2 keeps its argmax in [0, HW) (it reads
+    # k at it), the NaN reaches that element's gradients, and the other batch
+    # element is held to the exact plain backward (the tensor-core pair at
+    # its tolerance)
+    for i, (H, W, cq, cv, dtype) in enumerate(((4, 5, 32, 32, "float32"),
+                                               (10, 10, 32, 32, "float32"),
+                                               (7, 10, 32, 32, "bfloat16"),
+                                               (7, 10, 256, 96, "bfloat16"),
+                                               (7, 10, 256, 256, "bfloat16"))):
         HW = H * W
-        q, k, v, grid = _kernel_inputs(2, H, W, 32, 32, "float32", seed=390 + i)
+        name = f"{'f32' if dtype == 'float32' else 'bf16'}_nan_row_hw{HW}_q{cq}_v{cv}"
+        q, k, v, grid = _kernel_inputs(2, H, W, cq, cv, dtype, seed=390 + i, spread32=True)
         q[0, 0] = float("nan")
-        dout = _cotangent(2, HW, 32, seed=395 + i)
+        dout = _cotangent(2, HW, cv, seed=395 + i)
         res = nan_row_case(q, k, v, grid, dout)
-        log(f"[kernel] f32_nan_row_hw{HW}: design {res['design']}; batch element 1: K2 "
+        tol = BWD_TOL if dtype == "float32" else corr.mma_backward_exact_tol(cq, cv)
+        log(f"[kernel] {name}: design {res['design']}; batch element 1: K2 "
             f"{res['k2_err']:.3g}, K3 {res['k3_err']:.3g} of the largest gradient vs the exact "
-            f"plain backward (tol {BWD_TOL:g}); row 0's argmax {res['amax']}, its dq finite: "
+            f"plain backward (tol {tol:g}); row 0's argmax {res['amax']}, its dq finite: "
             f"{res['dq_finite']}, element 0's dk, dv finite: {res['dkv_finite']}")
-        if res["design"] != corr.DESIGN_FMA or res["dq_finite"] or res["dkv_finite"]:
-            raise AssertionError(f"the NaN row at HW={HW} did not reach the gradients")
+        expected = corr.DESIGN_FMA if dtype == "float32" else corr.DESIGN_MMA
+        if res["design"] != expected or res["dq_finite"] or res["dkv_finite"]:
+            raise AssertionError(f"the NaN row in {name} did not reach the gradients")
         for kernel, key in ((corr.KERNEL_BWD_ROWS, "k2"), (corr.KERNEL_BWD_COLS, "k3")):
-            record(kernel, f"f32_nan_row_hw{HW}", res[key + "_err"], BWD_TOL,
-                   design=res["design"])
+            record(kernel, name, res[key + "_err"], tol, design=res["design"])
         del q, k, v, dout, res
 
     # K1's tensor-core design at every kind of width it takes: each
@@ -1088,14 +1133,15 @@ def time_k1(B, H, W, C, dtype, seed, fma_too=False, spread32=False, cv=None) -> 
             **({"matched_rel_l2": res["l2"]} if "l2" in res else {}), **fma}
 
 
-def time_backward(B, H, W, C, dtype, seed, spread32=False, cv=None) -> tuple:
+def time_backward(B, H, W, C, dtype, seed, spread32=False, cv=None, fma_too=False) -> tuple:
     """K2 and K3 at one shape (Cq = C, Cv = ``cv`` or C), each beside its
     plain version and its bound; the library call (the backward of
     scaled_dot_product_attention over [v | grid], without the max-score
     route) stands for the pair. A bf16 shape the tensor-core design takes
     must be served by it. At HW <= 64, where the host's time to issue a call
     paces it, K2, K3 and the library call are also timed on the device
-    alone (CUDA graphs)."""
+    alone (CUDA graphs). With ``fma_too`` the FMA pair's C functions run on
+    the same inputs too, held to the exact plain backward and timed beside."""
     import torch
 
     from mapfree_tpu_torch.ops import correlation as corr
@@ -1107,7 +1153,7 @@ def time_backward(B, H, W, C, dtype, seed, spread32=False, cv=None) -> tuple:
     dout = _cotangent(B, HW, cv, seed=seed + 1)
     res = backward_case(q, k, v, grid, dout)
     log(f"[kernel] K2, K3 B={B} HW={HW} {width} {dtype}: {_case_line(res)}")
-    if (dtype == "bfloat16" and C % 8 == 0 and cv % 8 == 0 and C <= 128 and cv <= 128
+    if (dtype == "bfloat16" and C % 8 == 0 and cv % 8 == 0
             and res["design"] != corr.DESIGN_MMA):
         raise AssertionError(f"B={B} HW={HW} {width} {dtype} is not served by the tensor-core "
                              f"design but by {res['design']}")
@@ -1128,6 +1174,40 @@ def time_backward(B, H, W, C, dtype, seed, spread32=False, cv=None) -> tuple:
     k2_plain = cuda_time_ms(lambda: corr.correlation_bwd_rows_plain(q, k, v, grid, dout), iters=3)
     k3_plain = cuda_time_ms(lambda: corr.correlation_bwd_cols_plain(q, k, v, grid, dout), iters=3)
     torch.cuda.empty_cache()
+    fma = {}
+    if fma_too and design != corr.DESIGN_FMA:
+        # the FMA pair's C functions on the same inputs, as the wrapper would
+        # launch them for a shape the tensor-core design does not take, given
+        # the exact forward's buffer (as backward_case gives it)
+        exact_out = corr._plain_buffer(q, k, v, grid)
+        dq_f = torch.empty((B, HW, C), dtype=torch.float32, device=q.device)
+        dk_f, dv_f = torch.empty_like(dq_f), torch.empty((B, HW, cv), device=q.device)
+        stats_f = torch.empty((B, HW, 3), dtype=torch.float32, device=q.device)
+        amax_f = torch.empty((B, HW), dtype=torch.int32, device=q.device)
+
+        def fma_rows():
+            corr._launch(corr.KERNEL_BWD, corr.KERNEL_BWD_ROWS,
+                         (q, k, v, grid, exact_out, dout, dq_f, stats_f, amax_f), q, v)
+
+        def fma_cols():
+            corr._launch(corr.KERNEL_BWD, corr.KERNEL_BWD_COLS,
+                         (q, k, v, grid, dout, stats_f, amax_f, dk_f, dv_f), q, v)
+
+        fma_rows()
+        fma_cols()
+        torch.cuda.synchronize()
+        ref = corr.fused_correlation_warp_bwd_plain(q, k, v, grid, dout, amax_f.long())[:3]
+        fma["fma_max_abs_err"] = _scaled_err([dq_f, dk_f, dv_f], ref)
+        del ref
+        if fma["fma_max_abs_err"] > BWD_TOL:
+            raise AssertionError(f"K2, K3's FMA pair disagrees with the plain backward at B={B}")
+        fma["fma_k2_ms"] = cuda_time_ms(fma_rows, iters=3)
+        fma["fma_k3_ms"] = cuda_time_ms(fma_cols, iters=3)
+        if HW <= 64:
+            fma["fma_k2_device_ms"] = graph_ms(fma_rows, 20)
+            fma["fma_k3_device_ms"] = graph_ms(fma_cols, 20)
+        del dq_f, dk_f, dv_f, stats_f, amax_f, exact_out
+        torch.cuda.empty_cache()
 
     vg = torch.cat([v, grid.expand(B, HW, 2), v.new_zeros(B, HW, 6)], dim=-1)[:, None]
     qh, kh, vh = (t.detach().requires_grad_(True) for t in (q[:, None], k[:, None], vg))
@@ -1152,11 +1232,20 @@ def time_backward(B, H, W, C, dtype, seed, spread32=False, cv=None) -> tuple:
     library = f" ({backend}, TF32 off)" if backend else ""
     alone = (f"; on the device alone {device['k2_device_ms'] + device['k3_device_ms']:.4f} ms, "
              f"library {device['library_device_ms']:.4f} ms" if device else "")
+    fma_line = ""
+    if fma:
+        fma_line = (f"; the FMA pair {fma['fma_k2_ms']:.3f} + {fma['fma_k3_ms']:.3f} ms "
+                    f"({(fma['fma_k2_ms'] + fma['fma_k3_ms']) / (k2_ms + k3_ms):.1f}x, "
+                    f"{fma['fma_max_abs_err']:.3g} of the largest gradient vs the exact plain "
+                    "backward)")
+        if "fma_k2_device_ms" in fma:
+            fma_line += (f", on the device alone {fma['fma_k2_device_ms']:.4f} + "
+                         f"{fma['fma_k3_device_ms']:.4f} ms")
     log(f"[kernel] K2+K3 {k2_ms + k3_ms:.3f} ms; library (attention backward) "
-        f"{library_ms:.3f} ms{library}{alone}")
+        f"{library_ms:.3f} ms{library}{alone}{fma_line}")
     named = {"library_backend": backend} if backend else {}
     both = {"library_ms": library_ms, "library_covers": "K2+K3", "shape": shape,
-            "design": design, **named}
+            "design": design, **named, **fma}
     if device:
         both["library_device_ms"] = device["library_device_ms"]
     k2 = {"ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound_ms, "bound_by": k2_by,
@@ -1310,7 +1399,8 @@ def phase_kernel_timing() -> dict:
     """K1 at the inference shape (batch 64) and K1, K2, K3 at the training
     shape of 3d3d.yaml (batch 10); then K1 at the fusion sweep's batch of
     64 x 9 = 576 pairs and K2, K3 at the fusion train step's 10 x 9 = 90;
-    then the wide shapes and float32 (the FMA designs)."""
+    then the wide shapes (the 256-channel ResUNet's among them) and float32
+    (the FMA designs)."""
     from mapfree_tpu_torch.ops import correlation as corr
 
     k1 = time_k1(64, 92, 68, 32, "bfloat16", seed=100, fma_too=True)
@@ -1321,7 +1411,7 @@ def phase_kernel_timing() -> dict:
                                                                  seed=104)
     # the wide shapes: the ResNet bottleneck's 1,024 channels at the 5x4 grid
     # of its 360x270 frames (K1 at the sweep's batch, K2 and K3 at the train
-    # batch: those on the FMA design beyond 128 channels), a ResUNet's 128
+    # batch: all three on the tensor cores, the FMA pair beside), a ResUNet's 128
     # channels (NUM_OUT_LAYERS 128) at the 3d3d grid (K1 at the train batch
     # and the sweep's, K2 and K3 on the tensor cores), and Cq != Cv beyond
     # 128 (256 / 96) at the 3d3d grid; K1 beside the FMA design it took
@@ -1330,7 +1420,7 @@ def phase_kernel_timing() -> dict:
     k1["resnet_shape"] = time_k1(64, H, W, 1024, "bfloat16", seed=105, fma_too=True,
                                  spread32=True)
     k2["resnet_shape"], k3["resnet_shape"] = time_backward(10, H, W, 1024, "bfloat16", seed=106,
-                                                           spread32=True)
+                                                           spread32=True, fma_too=True)
     k1["c128_shape"] = time_k1(10, 92, 68, 128, "bfloat16", seed=107, fma_too=True,
                                spread32=True)
     k1["c128_b64_shape"] = time_k1(64, 92, 68, 128, "bfloat16", seed=113, spread32=True)
@@ -1345,16 +1435,28 @@ def phase_kernel_timing() -> dict:
     k1["resnet_f32_shape"] = time_k1(64, H, W, 1024, "float32", seed=111, spread32=True)
     k2["resnet_f32_shape"], k3["resnet_f32_shape"] = time_backward(
         10, H, W, 1024, "float32", seed=112, spread32=True)
-    # K2 and K3's FMA design beyond 128 channels at the 3d3d grid (bf16, Cq
-    # 256 / Cv 96: channel chunks streamed, two column tiles of 64)
+    # K2 and K3 beyond 128 channels at the 3d3d grid (bf16, Cq 256 / Cv 96:
+    # the tensor-core pair with its own tiles resident in shared memory,
+    # beside the FMA pair that served it before on the same inputs)
     k2["q256_v96_shape"], k3["q256_v96_shape"] = time_backward(
-        10, 92, 68, 256, "bfloat16", seed=116, spread32=True, cv=96)
+        10, 92, 68, 256, "bfloat16", seed=116, spread32=True, cv=96, fma_too=True)
+    # the 256-channel ResUNet's shape (phase 11's train step): K1 in two
+    # column tiles, K2 and K3 the streamed pair (channels in chunks of 64,
+    # dq and [dk | dv] in column tiles of 128)
+    k1["resunet256_shape"] = time_k1(10, 92, 68, 256, "bfloat16", seed=117, spread32=True)
+    k2["resunet256_shape"], k3["resunet256_shape"] = time_backward(
+        10, 92, 68, 256, "bfloat16", seed=118, spread32=True)
     for t in [k1] + [k1[key] for key in ("train_shape", "resnet_shape", "c128_shape",
-                                         "c128_b64_shape", "q256_v96_shape")]:
+                                         "c128_b64_shape", "q256_v96_shape",
+                                         "resunet256_shape")]:
         if t["design"] != corr.DESIGN_MMA:
             raise AssertionError(f"K1 at {t['shape']} is served by the {t['design']} design")
-    for t in (k2["resnet_shape"], k1["f32_shape"], k1["f32_train_shape"], k2["f32_shape"],
-              k1["resnet_f32_shape"], k2["resnet_f32_shape"], k2["q256_v96_shape"]):
+    for t in (k2["resnet_shape"], k2["c128_shape"], k2["q256_v96_shape"],
+              k2["resunet256_shape"]):
+        if t["design"] != corr.DESIGN_MMA:
+            raise AssertionError(f"K2, K3 at {t['shape']} are served by the {t['design']} design")
+    for t in (k1["f32_shape"], k1["f32_train_shape"], k2["f32_shape"],
+              k1["resnet_f32_shape"], k2["resnet_f32_shape"]):
         if t["design"] != corr.DESIGN_FMA:
             raise AssertionError(f"{t['shape']} is served by the {t['design']} design")
     return {corr.KERNEL: k1, corr.KERNEL_BWD_ROWS: k2, corr.KERNEL_BWD_COLS: k3}
@@ -2490,7 +2592,10 @@ def drive_train_steps(cfg, batches: list, n_warm: int, what: str,
         train_step(state, batch)
 
     prof = profile_window(one_step, "train step")
-    kernel_ms = {name: sum(ms for key, ms in prof["ms_by_kernel"].items() if f"{name}_" in key)
+    # K2's C function launches the prologue kernel where its operands
+    # stream: its time is K2's
+    kernel_ms = {name: sum(ms for key, ms in prof["ms_by_kernel"].items() if f"{name}_" in key
+                           or (name == corr.KERNEL_BWD_ROWS and "correlation_bwd_prologue" in key))
                  for name in (corr.KERNEL, corr.KERNEL_BWD_ROWS, corr.KERNEL_BWD_COLS)}
     return {"launches": launches, "step_ms": step_ms, "peak_gb": peak_gb,
             "busy_share": prof["busy_share"], "kernel_ms": kernel_ms}
@@ -2657,12 +2762,11 @@ FMA_STEPS_WARM, FMA_STEPS_TIMED = 2, 5
 
 
 def phase_fma_steps() -> dict:
-    """Phase 18: the train steps that K2 and K3's FMA design serves, at full
+    """Phase 18: the float32 3d3d and the bf16 ResNet train steps at full
     width (360x270, batch 10, random weights from the seed): (a) 3d3d.yaml
     in float32 (TPU.COMPUTE_DTYPE: float32), K1-K3 all in their FMA design;
     (b) the ResNet-bottleneck model of phase 11 in bf16, the default (1,024
-    channels on the 5x4 grid), K1 on the tensor cores and K2, K3 in the FMA
-    design. Each through init_state -> make_train_step (:func:`drive_train_steps`:
+    channels on the 5x4 grid), K1-K3 on the tensor cores. Each through init_state -> make_train_step (:func:`drive_train_steps`:
     ms per step, samples/s, peak memory, K1-K3's ms in a profiler window,
     each launched once a step in those designs, finite losses), then one
     step held to the same step with the plain versions on the card: (a) as
@@ -2679,7 +2783,7 @@ def phase_fma_steps() -> dict:
     launches, numbers = {}, {}
     for i, (name, extra, designs) in enumerate((
             ("f32_3d3d", {"TPU.COMPUTE_DTYPE": "float32"}, (corr.DESIGN_FMA, corr.DESIGN_FMA)),
-            ("resnet_bf16", WIDE_MODELS["resnet"], (corr.DESIGN_MMA, corr.DESIGN_FMA)))):
+            ("resnet_bf16", WIDE_MODELS["resnet"], (corr.DESIGN_MMA, corr.DESIGN_MMA)))):
         cfg = load_cfg({**extra, "TPU.SEED": SEED})
         H, W, bs = cfg.DATASET.HEIGHT, cfg.DATASET.WIDTH, int(cfg.TRAINING.BATCH_SIZE)
         batches = train_batches(FMA_STEPS_WARM + FMA_STEPS_TIMED, bs, H, W, seed=SEED + 180 + i)
@@ -2978,7 +3082,54 @@ def wide_models(small: dict) -> dict:
     launches["resunet128_bf16_steps"] = bf16_step_kernels_vs_plain(
         bcfg, train_batches(1, 4, 96, 72, seed=SEED + 98)[0], "configs, resunet128")
     torch.cuda.empty_cache()
+    got = resunet256_step()
+    launches.update(got.pop("launches"))
+    numbers["resunet256_train"] = got
     return {"launches": launches, **numbers}
+
+
+# the first train step on the card whose K2 and K3 run on the tensor cores
+# beyond 128 channels: 3d3d.yaml with a 256-channel ResUNet at full width
+# (360x270, HW = 6,256, Cq = Cv = 256, bf16, batch 10)
+RESUNET256 = {"ENCODER.NUM_OUT_LAYERS": 256}
+RESUNET256_WARM, RESUNET256_TIMED = 2, 5
+
+
+def resunet256_step() -> dict:
+    """Phase 11's 256-channel ResUNet: train steps at batch 10 through
+    init_state -> make_train_step (:func:`drive_train_steps`: ms per step,
+    samples/s, peak memory, K1-K3's ms in a profiler window, each launched
+    once a step on the tensor cores), then one step held to the same step
+    with the plain backward after the same K1 forward, and with the plain
+    forward too, at phase 6's bf16 limits (:func:`bf16_step_kernels_vs_plain`),
+    and K2 and K3 (the streamed pair) on that step's own correlation inputs
+    at phase 3's limits (:func:`kernels_on_step_inputs`). Returns the numbers
+    and the launches."""
+    import torch
+
+    from mapfree_tpu_torch.models.encoders import encoder_out_channels
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    cfg = load_cfg({**RESUNET256, "TPU.SEED": SEED})
+    H, W, bs = cfg.DATASET.HEIGHT, cfg.DATASET.WIDTH, int(cfg.TRAINING.BATCH_SIZE)
+    what = "configs, resunet256"
+    log(f"[{what}] {cfg.ENCODER.TYPE} {cfg.ENCODER.NUM_BLOCKS}, "
+        f"{encoder_out_channels(cfg.ENCODER)} channels, {H}x{W}, {cfg.TPU.COMPUTE_DTYPE}, "
+        f"batch {bs}")
+    batches = train_batches(RESUNET256_WARM + RESUNET256_TIMED, bs, H, W, seed=SEED + 99)
+    got = drive_train_steps(cfg, batches, RESUNET256_WARM, what)
+    launches = {"resunet256_train": got.pop("launches")}
+    log(f"[{what}] in a profiler window of three steps: K1 "
+        f"{got['kernel_ms'][corr.KERNEL]:.3f} ms, K2 {got['kernel_ms'][corr.KERNEL_BWD_ROWS]:.3f}"
+        f" ms, K3 {got['kernel_ms'][corr.KERNEL_BWD_COLS]:.3f} ms a step of "
+        f"{got['step_ms']:.2f} ms; device busy {100 * got['busy_share']:.1f}%")
+    torch.cuda.empty_cache()
+    with correlation_inputs() as inputs:
+        launches["resunet256_vs_plain"] = bf16_step_kernels_vs_plain(cfg, batches[0], what)
+    got["on_step_inputs"] = kernels_on_step_inputs(inputs[0], what)
+    del inputs
+    torch.cuda.empty_cache()
+    return {"launches": launches, **got}
 
 
 # -- phase 12: the fusion model's CLIs from JPEG files ------------------------------
@@ -3569,8 +3720,11 @@ def phase_matching(root: Path) -> dict:
 # -- phase 14: the evaluation path -------------------------------------------------
 
 SCANNET_FRAMES = 80       # copies of the 4 ScanNet fixtures, each its own file
-SCANNET_PAIRS = 5 * 64 + 4  # 6 batches of INFER_BATCH 64, the last partial
-SEVENSCENES_REFS, SEVENSCENES_QUERIES = 4, 12
+# 3 batches of INFER_BATCH 64, the last partial, and 6 7Scenes queries: cut
+# from 6 batches and 12 queries to keep the script's running time as the
+# phases before it grew
+SCANNET_PAIRS = 2 * 64 + 4
+SEVENSCENES_REFS, SEVENSCENES_QUERIES = 4, 6
 # the card's SIFT against the port's CPU SIFT: tests/test_torch_sift.py's
 # per-keypoint tolerance (the blurs sum in other orders: equal masks, scores
 # to 1e-6, the valid keypoints as sets to 1e-3 px (scores that tie to
@@ -4831,16 +4985,18 @@ def main() -> None:
     paths = {name: phase.get("numbers", {}) for name, phase in later.items()}
     log("[paths] " + json.dumps({"card": smi, **paths}, default=str))
     kernels = []
-    for name, source, replaces in (
-            (corr.KERNEL, "correlation_fwd.cu", 60),
-            (corr.KERNEL_BWD_ROWS, "correlation_bwd.cu", 109),
-            (corr.KERNEL_BWD_COLS, "correlation_bwd.cu", 148)):
+    for name, sources, replaces in (
+            (corr.KERNEL, ["correlation_fwd.cu"], 60),
+            (corr.KERNEL_BWD_ROWS, ["correlation_bwd_mma.cu", "correlation_bwd.cu"], 109),
+            (corr.KERNEL_BWD_COLS, ["correlation_bwd_mma.cu", "correlation_bwd.cu"], 148)):
         t = timing[name]
         kernels.append({
             "name": name,
             "route": "cuda",
             "designs": [corr.DESIGN_MMA, corr.DESIGN_FMA],
-            "source": f"mapfree_tpu_torch/ops/csrc/{source}",
+            # the tensor-core design's source first (the main path's), then the FMA design's
+            "source": f"mapfree_tpu_torch/ops/csrc/{sources[0]}",
+            "sources": [f"mapfree_tpu_torch/ops/csrc/{src}" for src in sources],
             "replaces": f"mapfree_tpu/ops/correlation.py:{replaces}",
             "launches": sum(by_path[name].values()),
             "launches_by_path": by_path[name],

@@ -9,7 +9,8 @@ It imports nothing of JAX or of mapfree_tpu. Entry points take an explicit
 
 The hand-written kernels, the fused correlation softmax-warp forward and its
 backward, are CUDA C++ for sm_90a (``ops/csrc/correlation_fwd.cu``,
-``ops/csrc/correlation_bwd.cu``), built with nvcc at first use; so is the
+``ops/csrc/correlation_bwd.cu``, ``ops/csrc/correlation_bwd_mma.cu``), built
+with nvcc at first use; so is the
 data layer's JPEG decoder over nvJPEG (``data/csrc/jpeg_decode.cu``) and
 the PNG reader's row unfilter (``data/csrc/png_unfilter.cu``, host code).
 The feature-matching track (``models/matching.py``: the essential-matrix,

@@ -20,8 +20,9 @@ Bounds: at the 3d3d inference shape (B=64, HW=6,256, C=32, bf16) K1 does
 outputs, so it is bound by operations (about 0.6 ms of exponentials on an
 H100), not by memory; K2 and K3 at the training shape (B=10) are bound the
 same way, near 0.1 ms each. The kernels keep every score on chip. The CUDA
-sources ``csrc/correlation_fwd.cu`` and ``csrc/correlation_bwd.cu`` state the
-arithmetic and the design.
+sources ``csrc/correlation_fwd.cu``, ``csrc/correlation_bwd.cu`` (K2 and
+K3's FMA design) and ``csrc/correlation_bwd_mma.cu`` (their tensor-core
+design) state the arithmetic and the design.
 
 K1 exists in two hand-written designs, and :func:`forward_design` says which
 one serves a (dtype, Cq, Cv):
@@ -54,16 +55,24 @@ one serves a (dtype, Cq, Cv):
 K2 and K3 exist in two hand-written designs too, and :func:`backward_design`
 says which one serves a (dtype, Cq, Cv):
 
-- ``"mma"``: bf16 inputs with Cq and Cv multiples of 8 up to 128 (every
-  config under ``configs/regression/`` and the 128-channel ResUNet).
-  Operands stay bf16 in shared memory, brought in by 16-byte asynchronous
-  copies into a ring of stages; every product runs on the tensor cores
-  (``mma.sync`` m16n8k16, float32 accumulators); P and dS go from the first
-  products' accumulators to the second products' operands in registers. A prologue kernel, launched by K2's
-  C function and counted as K2, rounds the cotangent of [warped | pos] to
-  bf16 and forms the row constant c = dout . out. So dmain, P and dS are
-  rounded to bf16 where the other design keeps float32;
-  ``bf16_roundings=True`` makes the plain backward round at the same places.
+- ``"mma"``: bf16 inputs with Cq and Cv multiples of 8, at any width (every
+  config under ``configs/regression/``, the 128- and 256-channel ResUNets and
+  the ResNet encoder's 1,024 channels). Operands stay bf16 in shared memory,
+  brought in by 16-byte asynchronous copies into a ring of stages; every
+  product runs on the tensor cores (``mma.sync`` m16n8k16, float32
+  accumulators); P and dS go from the first products' accumulators to the
+  second products' operands in registers. K2 walks the keys once, with an
+  online row max moved lazily (by 2^8 in P) every ``BWD_KEY_TILE`` keys:
+  it rounds dS' = e (dP - c), e = exp(s - m) relative to the row's running
+  reference m, to bf16, and scales the sum by exp(m - max) / d at the end.
+  Where a block's own tiles fit shared memory (Cq and Cv up to 128, and Cq
+  up to 256 with Cv up to 96) K2 forms dmain (the cotangent of [warped |
+  pos] in bf16) and c = dout . out for its own rows; wider, q and k, dmain
+  and [v | grid] stream in channel chunks, the accumulator is cut into
+  column tiles of 128, and a prologue kernel launched by K2's C function
+  (counted as K2) forms dmain and c. So dmain, P and dS are rounded to bf16 where the other
+  design keeps float32; ``bf16_roundings=True`` makes the plain backward
+  round at the same places.
 - ``"fma"``: float32 inputs (exact float32 arithmetic, no TF32) and any other
   bf16 shape, at any width. Beyond 64 rows a block of 128 query rows (K2) or
   keys (K3) walks the other side in tiles of 64, with two 8 x 4 register
@@ -78,8 +87,7 @@ the plain version.
 The Function saves q, k, v, the grid and the forward's output buffer (8.8 MB
 at the training shape): with it the softmax VJP's row constant is
 c = dout . out and the denominator's reciprocal is the saved max score, so
-the tensor-core K2 sweeps the keys twice (the second time without an
-exponential to spare) instead of three times, and the FMA K2 once.
+K2 sweeps the keys once in either design.
 
 For a tensor on the CPU :func:`fused_correlation_warp` computes the plain
 versions (:func:`fused_correlation_warp_plain` forward,
@@ -91,6 +99,7 @@ counts launches per kernel.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -98,23 +107,46 @@ import torch
 from mapfree_tpu_torch.ops._build import load_library
 
 KERNEL = "correlation_fwd"          # K1: the library and its one function
-KERNEL_BWD = "correlation_bwd"      # the library of K2 and K3
+KERNEL_BWD = "correlation_bwd"      # the library of K2 and K3's FMA design
+KERNEL_BWD_MMA = "correlation_bwd_mma"   # ... and of their tensor-core design
 KERNEL_BWD_ROWS = "correlation_bwd_rows"   # K2
 KERNEL_BWD_COLS = "correlation_bwd_cols"   # K3
-LIBRARIES = (KERNEL, KERNEL_BWD)
+LIBRARIES = (KERNEL, KERNEL_BWD, KERNEL_BWD_MMA)
 DESIGN_MMA = "mma"   # bf16 operands on the tensor cores
 DESIGN_FMA = "fma"   # float32 tiles, scalar fused multiply-adds
 # the "mma" design against the exact plain backward, as a share of each
 # gradient's largest magnitude: what rounding dmain, P and dS to bf16 costs.
-# tests/test_torch_correlation_mma.py derives it on the CPU (HW=130 and
-# HW=1,020, C=32) and pins it; chip_smoke.py holds the kernels to it.
+# tests/test_torch_correlation_mma.py derives it on the CPU from the plain
+# backward with the kernels' roundings (K2's one sweep; HW=130 and HW=1,020,
+# C=32: up to 6.2e-3), pins it, and shows the factor of 2 at 128 channels
+# (7.7e-3); chip_smoke.py holds the kernels to it.
 MMA_VS_EXACT_TOL = 2e-2
 # the "mma" kernels against the plain backward with the same roundings, as
 # the relative L2 error of each gradient: float32 sums in another order,
 # exp2 of log2e-scaled scores, and the rare entry of P or dS whose two
 # float32 values straddle a bf16 rounding boundary (one bf16 step, 2^-8 of
-# that entry; the same test derives how often and how much)
+# that entry; the same test derives how often and how much: up to 5.7e-4 at
+# C = 32 and 6.4e-4 at 128 channels, HW 130 and 1,020)
 MMA_VS_MATCHED_L2_TOL = 1.5e-3
+# the same beyond 128 channels (Cq or Cv): the same test adds score noise of
+# 1e-6 of the largest score, as at C = 32, at (136, 136), (256, 256), (1,024,
+# 1,024) and 256 / 96, HW 20 and 70 (B = 2: few rows, so one flipped
+# rounding in a peaked row is a larger share of the L2 norm), scaled and
+# unscaled, two seeds: up to 2.9e-3 in L2 (1,024 unscaled at HW 70), which
+# this holds 2.8 times over. Up to 128 channels the C = 32 constant holds
+# (1.0e-3 unscaled at HW 70, where 32 channels read 9.2e-4 too)
+MMA_VS_MATCHED_L2_TOL_WIDE = 8e-3
+# MMA_VS_EXACT_TOL beyond 128 channels: on unscaled inputs the rows are
+# peaked and dS = P (dP - c) cancels at the argmax, where dP from the bf16
+# dmain misses c by 2^-9 of it; the same cases read up to 2.7e-2 of a
+# gradient's largest entry (256 / 96 at HW 20; 1.0e-2 scaled; 7.7e-3 at 128)
+MMA_VS_EXACT_TOL_WIDE = 6e-2
+# keys per step of the tensor-core K2's online row max (the .cu's TKG, which
+# a test reads): the group of the plain backward's one-sweep arithmetic
+BWD_KEY_TILE = 16
+# how far a row's largest score may pass K2's reference before it moves, in
+# log2 units of P (the .cu's LAZY_GAP: P up to 2^8)
+BWD_LAZY_GAP_LOG2 = 8.0
 # keys per tile of K1's online softmax: the kernel's TK (a test reads it from
 # the .cu), and the tile of the plain forward with the kernel's roundings
 FWD_KEY_TILE = 64
@@ -171,11 +203,28 @@ def mma_forward_matched_l2_tol(Cq: int, Cv: int) -> float:
 
 def backward_design(dtype, Cq: int, Cv: int) -> str:
     """Which hand-written design of K2 and K3 serves these inputs on the
-    card: ``DESIGN_MMA`` for bf16 with Cq and Cv multiples of 8 from 8 to
-    128, ``DESIGN_FMA`` for float32 and every other shape."""
-    if dtype == torch.bfloat16 and all(c % 8 == 0 and 8 <= c <= 128 for c in (Cq, Cv)):
+    card: ``DESIGN_MMA`` for bf16 with Cq and Cv multiples of 8 (at any
+    width), ``DESIGN_FMA`` for float32 and every other shape. K2 and K3
+    always take the same design."""
+    if dtype == torch.bfloat16 and all(c % 8 == 0 and c >= 8 for c in (Cq, Cv)):
         return DESIGN_MMA
     return DESIGN_FMA
+
+
+def mma_backward_matched_l2_tol(Cq: int, Cv: int) -> float:
+    """K2 and K3's "mma" design against the plain backward with its
+    roundings, as the relative L2 error of each gradient, at these widths."""
+    if Cq <= 128 and Cv <= 128:
+        return MMA_VS_MATCHED_L2_TOL
+    return MMA_VS_MATCHED_L2_TOL_WIDE
+
+
+def mma_backward_exact_tol(Cq: int, Cv: int) -> float:
+    """K2 and K3's "mma" design against the exact plain backward, as a share
+    of each gradient's largest entry (or of 1), at these widths."""
+    if Cq <= 128 and Cv <= 128:
+        return MMA_VS_EXACT_TOL
+    return MMA_VS_EXACT_TOL_WIDE
 
 
 def dmain_width(Cv: int) -> int:
@@ -328,7 +377,8 @@ def _bwd_plain_terms(q, k, v, grid, dout, argmax, bf16_roundings=False):
     backward. With ``bf16_roundings`` the three are rounded to bf16 where the
     "mma" kernels round them: dmain before the product with [v | grid], P
     before the product that gives dv, dS (formed in float32 from the float32
-    P, dP and c) once before the products that give dq and dk. The row
+    P, dP and c) once before the product that gives dk; dq takes K2's one
+    sweep instead (:func:`_rows_one_sweep`). The row
     constant c stays float32 and comes from the unrounded cotangent, as the
     prologue kernel forms it from dout . out."""
     _check_inputs(q, k, v, grid)
@@ -369,10 +419,59 @@ def correlation_bwd_prologue_plain(out, dout):
     return dmain, stats
 
 
+def _rows_one_sweep(q, k, v, grid, dout, argmax, key_tile, bf16_roundings):
+    """dq by the tensor-core K2's arithmetic: one sweep over key groups of
+    ``key_tile`` (the kernel's ``BWD_KEY_TILE``) with a reference m per row that moves to the row's largest
+    score so far once that passes it by 2^BWD_LAZY_GAP_LOG2 in P (the sum
+    rescaled by exp(m_old - m_new) then), dS' = exp(s - m) (dP - c) with dP
+    from dmain alone (rounded to bf16, as dmain is, with ``bf16_roundings``)
+    summed against k, and at the end dq = (exp(m - M) acc + d_ms k_amax) / d
+    with M the row's max and 1 / d = max P. The row constant c comes from the
+    unrounded cotangent, as from dout . out."""
+    B, HW, _ = q.shape
+    Cv = v.shape[-1]
+    vg = torch.cat([v, grid.to(v.dtype).expand(B, HW, 2)], dim=-1).float()
+    kf = k.float()
+    dmain = dout[..., :Cv + 2].float()
+    d_ms = dout[..., Cv + 2:].float()
+    s = torch.bmm(q.float(), kf.transpose(1, 2))
+    if argmax is None:
+        argmax = s.argmax(dim=-1)
+    M = s.amax(dim=-1, keepdim=True)
+    p = torch.softmax(s, dim=-1)
+    dP = torch.bmm(dmain, vg.transpose(1, 2))
+    c = ((dP.scatter_add(2, argmax[..., None], d_ms)) * p).sum(dim=-1, keepdim=True)
+    inv_d = p.amax(dim=-1, keepdim=True)
+    if bf16_roundings:
+        dP = torch.bmm(_round_bf16(dmain), vg.transpose(1, 2))
+    gap = BWD_LAZY_GAP_LOG2 * math.log(2.0)
+    m = s.new_full((B, HW, 1), float("-inf"))
+    best = m.clone()
+    acc = s.new_zeros((B, HW, kf.shape[-1]))
+    for j0 in range(0, HW, key_tile):
+        sj = s[..., j0:j0 + key_tile]
+        best = torch.maximum(best, sj.amax(dim=-1, keepdim=True))
+        moved = best > m + gap
+        m_new = torch.where(moved, best, m)
+        acc = torch.where(moved, acc * torch.exp(m - m_new), acc)
+        ds = torch.exp(sj - m_new) * (dP[..., j0:j0 + key_tile] - c)
+        if bf16_roundings:
+            ds = _round_bf16(ds)
+        acc = acc + torch.bmm(ds, kf[:, j0:j0 + key_tile])
+        m = m_new
+    k_amax = kf.gather(1, argmax[..., None].expand(B, HW, kf.shape[-1]))
+    return (acc * torch.exp(m - M) + d_ms * k_amax) * inv_d, argmax
+
+
 def correlation_bwd_rows_plain(q, k, v, grid, dout, argmax=None, bf16_roundings=False):
-    """Plain version of K2: dq [B, HW, Cq] float32 and the argmax [B, HW]."""
+    """Plain version of K2: dq [B, HW, Cq] float32 and the argmax [B, HW].
+    With ``bf16_roundings`` dq takes the tensor-core K2's one-sweep
+    arithmetic (:func:`fused_correlation_warp_bwd_plain`)."""
     with torch.autocast(q.device.type, enabled=False):
-        _, dS, _, argmax = _bwd_plain_terms(q, k, v, grid, dout, argmax, bf16_roundings)
+        if bf16_roundings:
+            _check_inputs(q, k, v, grid)
+            return _rows_one_sweep(q, k, v, grid, dout, argmax, BWD_KEY_TILE, True)
+        _, dS, _, argmax = _bwd_plain_terms(q, k, v, grid, dout, argmax)
         return torch.bmm(dS, k.float()), argmax
 
 
@@ -393,8 +492,10 @@ def fused_correlation_warp_bwd_plain(q, k, v, grid, dout, argmax=None, bf16_roun
             (warped, pos, max score).
         argmax: optional [B, HW] int64 column that takes each row's max-score
             cotangent; by default the first maximum of the float32 scores.
-        bf16_roundings: round dmain, P and dS to bf16 where the "mma" design
-            of the kernels does (the yardstick for those kernels); the
+        bf16_roundings: the "mma" design's arithmetic (the yardstick for
+            those kernels): dmain, P and dS rounded to bf16 where K3 rounds
+            them, and dq by K2's one sweep over groups of ``BWD_KEY_TILE``
+            keys, dS rounded relative to each row's running reference; the
             default is the exact float32 arithmetic.
     Returns:
         dq [B, HW, Cq], dk [B, HW, Cq], dv [B, HW, Cv] float32, and the
@@ -402,7 +503,10 @@ def fused_correlation_warp_bwd_plain(q, k, v, grid, dout, argmax=None, bf16_roun
     """
     with torch.autocast(q.device.type, enabled=False):
         p, dS, dmain, argmax = _bwd_plain_terms(q, k, v, grid, dout, argmax, bf16_roundings)
-        dq = torch.bmm(dS, k.float())
+        if bf16_roundings:
+            dq, _ = _rows_one_sweep(q, k, v, grid, dout, argmax, BWD_KEY_TILE, True)
+        else:
+            dq = torch.bmm(dS, k.float())
         dk = torch.bmm(dS.transpose(1, 2), q.float())
         dv = torch.bmm(p.transpose(1, 2), dmain[..., :v.shape[-1]])
     return dq, dk, dv, argmax
@@ -430,8 +534,8 @@ def _forward_cuda(q, k, v, grid):
 def correlation_bwd_rows(q, k, v, grid, out, dout):
     """K2 on CUDA tensors: dq [B, HW, Cq] float32 and the :class:`RowPass`
     that K3 takes, by the design :func:`backward_design` names. In the "mma"
-    design one call runs the prologue kernel, then the row pass; it counts
-    as one launch of K2."""
+    design at the widths whose operands stream one call runs the prologue
+    kernel, then the row pass; it counts as one launch of K2."""
     B, HW, Cq = q.shape
     Cv = v.shape[-1]
     dq = torch.empty((B, HW, Cq), dtype=torch.float32, device=q.device)
@@ -440,7 +544,7 @@ def correlation_bwd_rows(q, k, v, grid, out, dout):
         stats = torch.empty((B, HW, 4), dtype=torch.float32, device=q.device)
         dmain = torch.empty((B, HW, dmain_width(Cv)), dtype=torch.bfloat16, device=q.device)
         _check_aligned(q=q, k=k, v=v, dq=dq, stats=stats, dmain=dmain)
-        _launch(KERNEL_BWD, KERNEL_BWD_ROWS + "_mma",
+        _launch(KERNEL_BWD_MMA, KERNEL_BWD_ROWS + "_mma",
                 (q, k, v, grid, out, dout, dq, stats, amax, dmain), q, v,
                 counted=KERNEL_BWD_ROWS)
         return dq, RowPass(stats, amax, dmain)
@@ -459,7 +563,7 @@ def correlation_bwd_cols(q, k, v, grid, dout, rows: RowPass):
         if rows.dmain is None:
             raise ValueError("the tensor-core column pass needs the row pass's bf16 dmain")
         _check_aligned(q=q, k=k, v=v, dmain=rows.dmain, stats=rows.stats, dk=dk, dv=dv)
-        _launch(KERNEL_BWD, KERNEL_BWD_COLS + "_mma",
+        _launch(KERNEL_BWD_MMA, KERNEL_BWD_COLS + "_mma",
                 (q, k, v, grid, rows.dmain, rows.stats, rows.amax, dk, dv), q, v,
                 counted=KERNEL_BWD_COLS)
         return dk, dv

@@ -20,7 +20,10 @@ at (128, 128) and (256, 96), HW 20 and 70: warped and pos within
 ``MMA_FWD_VS_EXACT_TOL`` of their largest entry (or of 1), the tolerance
 ``tests/test_torch_correlation_fwd_mma.py`` derives for what that rounding
 costs and shows to cover these widths; the max score, which the design sums
-from the float32 P, within the card's float32 tolerance 5e-5.
+from the float32 P, within the card's float32 tolerance 5e-5. The bf16 backward the card runs at
+136, 256, 1,024 and 256 / 96 channels (the tensor-core K2 and K3) is held
+the same way in its plain version (``bf16_roundings=True``: K2's one sweep
+over ``BWD_KEY_TILE`` keys) against the JAX package's _fcw_bwd.
 """
 
 import numpy as np
@@ -96,3 +99,37 @@ def test_wide_bf16_rounded_forward_matches_jax(cq, cv, H, W):
         tol = pt_corr.MMA_FWD_VS_EXACT_TOL * max(1.0, float(np.abs(r).max()))
         np.testing.assert_allclose(o.numpy(), r, rtol=0, atol=tol)
     np.testing.assert_allclose(out[2].numpy(), np.asarray(ref[2]), rtol=0, atol=5e-5)
+
+
+BF16_BWD_CASES = [(cq, cv, H, W) for cq, cv in ((136, 136), (256, 256), (1024, 1024), (256, 96))
+                  for H, W in ((4, 5), (7, 10))]
+
+
+@pytest.mark.parametrize("cq,cv,H,W", BF16_BWD_CASES, ids=[f"q{c[0]}_v{c[1]}_hw{c[2] * c[3]}"
+                                                           for c in BF16_BWD_CASES])
+def test_wide_bf16_rounded_backward_matches_jax(cq, cv, H, W):
+    """The backward the card runs at these widths in bf16 (the tensor-core
+    K2 and K3: dmain, P and dS rounded to bf16, dq in one sweep over
+    BWD_KEY_TILE keys) in its plain version, against the JAX package's
+    _fcw_bwd on the same bf16 inputs (interpreted Pallas kernels, float32
+    inside, the gradients cast to bf16): each gradient within
+    mma_backward_exact_tol(Cq, Cv) of its largest entry (what the roundings
+    cost, derived in tests/test_torch_correlation_mma.py) plus 2^-8 of it
+    (JAX's cast of its gradients to bf16)."""
+    assert pt_corr.backward_design(torch.bfloat16, cq, cv) == pt_corr.DESIGN_MMA
+    q, k, v, grid, w = _inputs(cq, cv, H, W, seed=cq + cv + H * W + 2)
+    scale = (32.0 / cq) ** 0.25  # the scores spread as at 32 channels
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (scale * q, scale * k, v))
+    jgrid = jnp.asarray(grid)
+    _, vjp = jax.vjp(lambda a, b, c: jax_fcw(a, b, c, jgrid, interpret=True), jq, jk, jv)
+    jgrads = vjp(tuple(jnp.asarray(ww) for ww in w))
+    tq, tk, tv = (torch.from_numpy(np.array(a.astype(jnp.float32))).bfloat16()
+                  for a in (jq, jk, jv))
+    dout = torch.from_numpy(np.concatenate(w, axis=-1))
+    got = pt_corr.fused_correlation_warp_bwd_plain(
+        tq, tk, tv, torch.from_numpy(grid), dout, bf16_roundings=True)[:3]
+    for g, r in zip(got, jgrads):
+        r = np.asarray(r.astype(jnp.float32))
+        assert tuple(g.shape) == r.shape
+        tol = (pt_corr.mma_backward_exact_tol(cq, cv) + 2.0 ** -8) * max(1.0, float(np.abs(r).max()))
+        np.testing.assert_allclose(g.numpy(), r, rtol=0, atol=tol)

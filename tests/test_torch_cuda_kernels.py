@@ -194,9 +194,10 @@ def test_cuda_backward_kernels_match_plain(cuda_device):
     another order, exp2 of log2e-scaled scores). The tensor-core design
     (bf16) takes the card check's two tolerances: the relative L2
     ``MMA_VS_MATCHED_L2_TOL`` against the plain backward with the same bf16
-    roundings and ``MMA_VS_EXACT_TOL`` of the largest magnitude against the
-    exact one, each widened by the Function's rounding of its gradients to
-    bf16 (2^-8 of an entry)."""
+    roundings (``bf16_roundings=True``: K2's one sweep) and
+    ``MMA_VS_EXACT_TOL`` of the largest magnitude against the exact one, each
+    widened by the Function's rounding of its gradients to bf16 (2^-8 of an
+    entry)."""
     for cq, td in ((32, torch.float32), (16, torch.float32), (32, torch.bfloat16),
                    (16, torch.bfloat16)):
         q, k, v, grid = _qkv(seed=9)
@@ -346,3 +347,154 @@ def test_k23_cuda_fma_nan_row_stays_in_bounds(cuda_device, H, W):
     for got, r in zip((dq[1:], dk[1:], dv[1:]), ref):
         assert torch.isfinite(got).all()
         torch.testing.assert_close(got, r, atol=1e-4 * max(1.0, float(r.abs().max())), rtol=0)
+
+
+# (name, B, H, W, Cq, Cv, inputs): the tensor-core K2 and K3 at the edges of
+# their streamed design (ops/csrc/correlation_bwd_mma.cu::dispatch_rows_mma,
+# dispatch_cols_mma): 136 channels (streamed: a last channel chunk of 8 and
+# 56 zeros, a last column tile of 8 columns), Cq != Cv beyond 128 (256 / 96,
+# own tiles resident), 1,024 channels at HW 70, a ragged HW of 1,000 beyond
+# 128 channels and 130 at 32, and an exact tie for row 0's maximum, resident
+# (C = 32, 256 / 96) and streamed (C = 256). q and k are scaled by (32 /
+# Cq)^(1/4): the scores spread as at 32 channels.
+K23_MMA_EDGES = [
+    ("c136_hw70_chunk_and_tile_edges", 2, 7, 10, 136, 136, "normal"),
+    ("q256_v96_hw70", 2, 7, 10, 256, 96, "normal"),
+    ("c1024_hw70", 2, 7, 10, 1024, 1024, "normal"),
+    ("c256_hw1000_ragged", 1, 25, 40, 256, 256, "normal"),
+    ("c32_hw130_ragged", 2, 10, 13, 32, 32, "normal"),
+    ("c32_hw70_tie", 1, 7, 10, 32, 32, "tie"),
+    ("q256_v96_hw70_tie", 1, 7, 10, 256, 96, "tie"),
+    ("c256_hw70_tie", 1, 7, 10, 256, 256, "tie"),
+]
+
+
+def _k23_mma_inputs(name, B, H, W, cq, cv, kind, device, nan_row=False):
+    """bf16 q, k, v, the grid and a float32 cotangent for one edge case."""
+    HW = H * W
+    rng = np.random.default_rng(len(name) + HW + cq)
+    scale = (32.0 / max(cq, 32)) ** 0.25
+    q, k = (scale * rng.normal(size=(B, HW, cq)).astype(np.float32) for _ in range(2))
+    if kind == "tie":
+        k[:, 5] = k[:, 3]
+        q[:, 0] = 3.0 * k[:, 3]
+    if nan_row:
+        q[0, 0] = np.nan
+    v = rng.normal(size=(B, HW, cv)).astype(np.float32)
+    dout = torch.from_numpy(rng.normal(size=(B, HW, cv + 3)).astype(np.float32)).to(device)
+    args = _to(device, torch.bfloat16, q, k, v)
+    return args, _uv_grid(H, W).to(device, torch.bfloat16), dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,B,H,W,cq,cv,kind", K23_MMA_EDGES, ids=[c[0] for c in K23_MMA_EDGES])
+def test_k23_cuda_tensor_cores_at_their_edges(cuda_device, name, B, H, W, cq, cv, kind):
+    """The tensor-core K2 and K3, one launch each, given the exact forward's
+    buffer: dq, dk, dv within mma_backward_matched_l2_tol (relative L2) of
+    the plain backward with their roundings and mma_backward_exact_tol of the
+    largest magnitude of the exact one, with K2's argmax; two runs of each
+    give the same bits; K2's argmax is a maximum of the float32 scores (on a
+    tie the first), its lse gives back the row max, and its dmain, 1 / d and
+    d_ms are the plain prologue's to the bit (c to summation order)."""
+    assert pt_corr.backward_design(torch.bfloat16, cq, cv) == pt_corr.DESIGN_MMA
+    args, g, dout = _k23_mma_inputs(name, B, H, W, cq, cv, kind, cuda_device)
+    out = pt_corr._plain_buffer(*args, g)
+    before = dict(pt_corr.launches)
+    runs = []
+    for _ in range(2):
+        dq, rows = pt_corr.correlation_bwd_rows(*args, g, out, dout)
+        dk, dv = pt_corr.correlation_bwd_cols(*args, g, dout, rows)
+        runs.append((dq, dk, dv, rows.stats, rows.amax, rows.dmain))
+    torch.cuda.synchronize()
+    assert pt_corr.launches[pt_corr.KERNEL_BWD_ROWS] == before[pt_corr.KERNEL_BWD_ROWS] + 2
+    assert pt_corr.launches[pt_corr.KERNEL_BWD_COLS] == before[pt_corr.KERNEL_BWD_COLS] + 2
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    dq, dk, dv, stats, amax, dmain = runs[0]
+    s = torch.bmm(args[0].float(), args[1].float().transpose(1, 2))
+    top, amax = s.amax(dim=-1), amax.long()
+    scale = float(s.abs().max())
+    assert float((top - s.gather(2, amax[..., None])[..., 0]).abs().max()) <= 4e-6 * scale
+    if kind == "tie":
+        assert int(amax[0, 0]) == 3
+    row_max = (stats[..., 0] + torch.log2(stats[..., 1])) / 1.4426950408889634
+    torch.testing.assert_close(row_max, top, atol=4e-6 * scale + 4e-7 * max(1.0, scale), rtol=0)
+    dmain_p, stats_p = pt_corr.correlation_bwd_prologue_plain(out, dout)
+    assert torch.equal(dmain, dmain_p) and torch.equal(stats[..., [1, 3]], stats_p[..., [1, 3]])
+    torch.testing.assert_close(stats[..., 2], stats_p[..., 2], rtol=0,
+                               atol=1e-5 * max(1.0, float(stats_p[..., 2].abs().max())))
+    exact = pt_corr.fused_correlation_warp_bwd_plain(*args, g, dout, amax)[:3]
+    matched = pt_corr.fused_correlation_warp_bwd_plain(
+        *args, g, dout, amax, bf16_roundings=True)[:3]
+    l2_tol = pt_corr.mma_backward_matched_l2_tol(cq, cv)
+    tol = pt_corr.mma_backward_exact_tol(cq, cv)
+    for got, r, m in zip((dq, dk, dv), exact, matched):
+        assert torch.isfinite(got).all()
+        assert float((got - m).norm() / m.norm()) <= l2_tol
+        torch.testing.assert_close(got, r, atol=tol * max(1.0, float(r.abs().max())), rtol=0)
+
+
+@pytest.mark.parametrize("name,B,H,W,cq,cv,kind", K23_MMA_EDGES, ids=[c[0] for c in K23_MMA_EDGES])
+def test_k23_tensor_core_edges_plain_twin(name, B, H, W, cq, cv, kind):
+    """The CPU twin of the card case: on the same inputs the plain backward
+    with the kernels' roundings stays within half of mma_backward_exact_tol
+    of the exact one, the two take the same argmax (on a tie the first), and
+    the CPU route (the Function on CPU tensors) is the exact backward."""
+    args, g, dout = _k23_mma_inputs(name, B, H, W, cq, cv, kind, "cpu")
+    exact = pt_corr.fused_correlation_warp_bwd_plain(*args, g, dout)
+    matched = pt_corr.fused_correlation_warp_bwd_plain(
+        *args, g, dout, bf16_roundings=True)
+    assert torch.equal(exact[3], matched[3])
+    if kind == "tie":
+        assert int(exact[3][0, 0]) == 3
+    tol = pt_corr.mma_backward_exact_tol(cq, cv) / 2
+    for m, r in zip(matched[:3], exact[:3]):
+        assert float((m - r).abs().max()) <= tol * max(1.0, float(r.abs().max()))
+    qt, kt, vt = (a.clone().requires_grad_(True) for a in args)
+    torch.cat(pt_corr.fused_correlation_warp(qt, kt, vt, g), dim=-1).backward(dout)
+    for t, r in zip((qt, kt, vt), exact[:3]):
+        assert torch.equal(t.grad, r.bfloat16())
+
+
+K23_MMA_NAN = [("c32_hw70", 7, 10, 32, 32), ("q256_v96_hw70", 7, 10, 256, 96),
+               ("c256_hw70", 7, 10, 256, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,H,W,cq,cv", K23_MMA_NAN, ids=[c[0] for c in K23_MMA_NAN])
+def test_k23_cuda_tensor_cores_nan_row_stays_in_bounds(cuda_device, name, H, W, cq, cv):
+    """A NaN row (q's row 0 of batch element 0) on the tensor-core pair,
+    resident (C = 32, 256 / 96) and streamed (C = 256): no device fault, K2's argmax in [0, HW) (K2 reads
+    k at it), the NaN in that element's dq row and its dk and dv, and the
+    other element within mma_backward_exact_tol of the exact plain backward."""
+    args, g, dout = _k23_mma_inputs(name, 2, H, W, cq, cv, "normal", cuda_device, nan_row=True)
+    out = pt_corr._plain_buffer(*args, g)
+    dq, rows = pt_corr.correlation_bwd_rows(*args, g, out, dout)
+    dk, dv = pt_corr.correlation_bwd_cols(*args, g, dout, rows)
+    torch.cuda.synchronize()
+    amax = rows.amax.long()
+    assert 0 <= int(amax.min()) and int(amax.max()) < H * W
+    assert not torch.isfinite(dq[0, 0]).any()
+    assert not torch.isfinite(dk[0]).any() and not torch.isfinite(dv[0]).any()
+    ref = pt_corr.fused_correlation_warp_bwd_plain(*(a[1:] for a in args), g, dout[1:],
+                                                   amax[1:])[:3]
+    tol = pt_corr.mma_backward_exact_tol(cq, cv)
+    for got, r in zip((dq[1:], dk[1:], dv[1:]), ref):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, r, atol=tol * max(1.0, float(r.abs().max())), rtol=0)
+
+
+@pytest.mark.parametrize("name,H,W,cq,cv", K23_MMA_NAN, ids=[c[0] for c in K23_MMA_NAN])
+def test_k23_tensor_core_nan_row_plain_twin(name, H, W, cq, cv):
+    """The CPU twin: the plain backward with the kernels' roundings carries
+    the NaN row into element 0's dq row, dk and dv and leaves element 1
+    within half of mma_backward_exact_tol of the exact backward."""
+    args, g, dout = _k23_mma_inputs(name, 2, H, W, cq, cv, "normal", "cpu", nan_row=True)
+    matched = pt_corr.fused_correlation_warp_bwd_plain(
+        *args, g, dout, bf16_roundings=True)
+    assert not torch.isfinite(matched[0][0, 0]).any()
+    assert not torch.isfinite(matched[1][0]).any() and not torch.isfinite(matched[2][0]).any()
+    exact = pt_corr.fused_correlation_warp_bwd_plain(*(a[1:] for a in args), g, dout[1:])
+    tol = pt_corr.mma_backward_exact_tol(cq, cv) / 2
+    for m, r in zip(matched[:3], exact[:3]):
+        assert torch.isfinite(m[1:]).all()
+        assert float((m[1:] - r).abs().max()) <= tol * max(1.0, float(r.abs().max()))

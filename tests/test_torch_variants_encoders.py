@@ -28,10 +28,9 @@ def test_encoder_override_matches_jax(name):
     net = check_variant(BASE, seed=len(name), H=192 if resnet else 96,
                         W=144 if resnet else 72, **OVERRIDES[name])
     if resnet:
-        # 256 or 1,024 channels: on the card K1 takes them on the tensor
-        # cores in bf16, K2 and K3 on the FMA design; float32 stays FMA
+        # 256 or 1,024 channels: on the card K1, K2 and K3 take them on the
+        # tensor cores in bf16; float32 stays FMA
         width = 256 * net.encoder.layer3[0].expansion
-        assert forward_design(torch.bfloat16, width, width) == DESIGN_MMA
-        assert forward_design(torch.float32, width, width) == DESIGN_FMA
-        for dtype in (torch.float32, torch.bfloat16):
-            assert backward_design(dtype, width, width) == DESIGN_FMA
+        for design in (forward_design, backward_design):
+            assert design(torch.bfloat16, width, width) == DESIGN_MMA
+            assert design(torch.float32, width, width) == DESIGN_FMA
