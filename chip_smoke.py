@@ -506,23 +506,31 @@ def _rel_l2(out, ref) -> float:
     return max(float((o - r).norm() / r.norm().clamp_min(1e-30)) for o, r in zip(out, ref))
 
 
-def forward_case(q, k, v, grid) -> dict:
+def forward_case(q, k, v, grid, kernel=None, keep_out=False) -> dict:
     """K1 against its plain version on the same inputs, by the design that
-    serves them. The FMA design is held to the exact plain forward at ATOL;
-    the tensor-core design to the plain forward with its bf16 rounding of P
-    (relative L2 of warped and pos), to the exact one (a share of each
+    serves them (in the tensor-core design by the kernel the package picks,
+    or ``kernel``). The FMA design is held to the exact plain forward at
+    ATOL; the tensor-core design to the plain forward with its bf16 rounding
+    of P (relative L2 of warped and pos), to the exact one (a share of each
     output's largest entry) and, in its max score, to the exact one at
-    float32 tightness."""
+    float32 tightness. With ``keep_out`` the result keeps the kernel's
+    output (``out``)."""
     import torch
 
     from mapfree_tpu_torch.ops import correlation as corr
 
     design = corr.forward_design(q.dtype, q.shape[-1], v.shape[-1])
-    out = corr.fused_correlation_warp(q, k, v, grid)
+    if kernel is None:
+        kernel = corr.forward_kernel(q.dtype, q.shape[1], q.shape[-1], v.shape[-1])
+        out = corr.fused_correlation_warp(q, k, v, grid)
+    else:
+        out = corr._split(corr._forward_cuda(q, k, v, grid, kernel=kernel), v.shape[-1])
     torch.cuda.synchronize()
     ref = corr.fused_correlation_warp_plain(q, k, v, grid)
     torch.cuda.synchronize()
-    res = {"design": design, "max_abs_err": _max_err(out, ref)}
+    res = {"design": design, "kernel": kernel, "max_abs_err": _max_err(out, ref)}
+    if keep_out:
+        res["out"] = out
     if design == corr.DESIGN_MMA:
         matched = corr.fused_correlation_warp_plain(q, k, v, grid, bf16_roundings=True)
         torch.cuda.synchronize()
@@ -549,8 +557,8 @@ def check_forward(res: dict, what: str) -> None:
 
 
 def _forward_line(res: dict) -> str:
-    """One case's forward errors, with the design that served it."""
-    line = f"K1 design {res['design']}: "
+    """One case's forward errors, with the design (and kernel) that served it."""
+    line = f"K1 design {res['design']}" + (f" ({res['kernel']})" if res.get("kernel") else "") + ": "
     if "l2_tol" in res:
         return line + (f"{res['err']:.3g} of the largest entry vs the exact plain forward "
                        f"(tol {res['tol']:g}); relative L2 {res['l2']:.3g} vs the plain forward "
@@ -762,7 +770,7 @@ def phase_kernel_cases() -> dict:
                                  f"{name}: {err:.3g} > {atol:g}")
 
     def record_forward(name, res):
-        more = {"design": res["design"]}
+        more = {"design": res["design"], "tensor_core_kernel": res.get("kernel")}
         if res["design"] == corr.DESIGN_MMA:
             more.update(matched_rel_l2=res["l2"], matched_rel_l2_tol=res["l2_tol"],
                         max_score_err=res["ms_err"], max_score_atol=res["ms_tol"])
@@ -984,6 +992,67 @@ def phase_kernel_cases() -> dict:
         f"{worst['err']:.3g} of the largest entry vs the exact plain forward, relative L2 "
         f"{worst['l2']:.3g} vs the plain forward with the kernel's rounding, max score "
         f"{worst['ms_err']:.3g}")
+
+    # K1's wgmma kernel at its edges, asked for by name (the package gives it
+    # more than 64 positions): HW below one key tile and not a multiple of
+    # the row block or the key tile, Cq != Cv, C = 8 (channels zero-filled
+    # to a tensor-core depth of 16), Cv + 2 beyond 256 (three column tiles),
+    # two column tiles of 128 at C = 256, three consumer warpgroups (the
+    # instantiation of large grids, reached here by 1,000 batch elements of
+    # 70 positions); each held to both plain forwards, two runs to the same
+    # bits and to the mma.sync kernel's bits
+    for i, (name, (B, H, W, cq, cv)) in enumerate({
+        "wgmma_hw15": (2, 3, 5, 32, 32),
+        "wgmma_hw200": (2, 10, 20, 32, 32),
+        "wgmma_q16_v32_hw130": (2, 10, 13, 16, 32),
+        "wgmma_q256_v96_hw70": (2, 7, 10, 256, 96),
+        "wgmma_c8_hw130": (2, 10, 13, 8, 8),
+        "wgmma_q32_v264_hw70": (2, 7, 10, 32, 264),
+        "wgmma_c256_hw1000": (1, 25, 40, 256, 256),
+        "wgmma_c128_hw70_b1000": (1000, 7, 10, 128, 128),
+    }.items()):
+        q, k, v, grid = _kernel_inputs(B, H, W, cq, cv, "bfloat16", seed=450 + i, spread32=True)
+        fwd = forward_case(q, k, v, grid, kernel=corr.KERNEL_FWD_WGMMA, keep_out=True)
+        again = corr._forward_cuda(q, k, v, grid, kernel=corr.KERNEL_FWD_WGMMA)
+        other = corr._forward_cuda(q, k, v, grid, kernel=corr.KERNEL_FWD_MMA_SYNC)
+        torch.cuda.synchronize()
+        first = torch.cat(fwd.pop("out"), dim=-1)
+        same, as_mma_sync = torch.equal(first, again), torch.equal(first, other)
+        log(f"[kernel] {name}: {_forward_line(fwd)}; two runs give equal bits: {same}; the "
+            f"mma.sync kernel's bits: {as_mma_sync}")
+        record_forward(name, fwd)
+        if not (same and as_mma_sync):
+            raise AssertionError(f"K1's wgmma kernel in case {name}: equal bits on two runs "
+                                 f"{same}, the mma.sync kernel's {as_mma_sync}")
+        del q, k, v, fwd, first, again, other
+
+    # NaN in batch element 1's first rows of q, k and v: element 0's last key
+    # tile reaches past its HW = 70, where the tensor maps read zeros (never
+    # element 1's rows), so element 0 stays finite and held to the plain
+    # forwards; element 1 is NaN throughout
+    q, k, v, grid = _kernel_inputs(2, 7, 10, 32, 32, "bfloat16", seed=470, spread32=True)
+    for t in (q, k, v):
+        t[1, :3] = float("nan")
+    runs = [corr._split(corr._forward_cuda(q, k, v, grid, kernel=corr.KERNEL_FWD_WGMMA), 32)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    part = [o[:1] for o in runs[0]]
+    finite = all(bool(torch.isfinite(o).all()) for o in part)
+    same = all(torch.equal(a[:1], b[:1]) for a, b in zip(*runs))
+    nan_1 = all(bool(torch.isnan(o[1]).all()) for o in runs[0])
+    ref = corr.fused_correlation_warp_plain(q[:1], k[:1], v[:1], grid)
+    matched = corr.fused_correlation_warp_plain(q[:1], k[:1], v[:1], grid, bf16_roundings=True)
+    fwd = {"design": corr.DESIGN_MMA, "kernel": corr.KERNEL_FWD_WGMMA,
+           "max_abs_err": _max_err(part, ref), "err": _scaled_err(part[:2], ref[:2]),
+           "tol": corr.MMA_FWD_VS_EXACT_TOL, "l2": _rel_l2(part[:2], matched[:2]),
+           "l2_tol": corr.mma_forward_matched_l2_tol(32, 32), "ms_err": _max_err(part[2:], ref[2:]),
+           "ms_tol": ATOL["float32"]}
+    log(f"[kernel] wgmma_nan_next_batch_hw70, element 0: {_forward_line(fwd)}; finite: "
+        f"{finite}; equal bits on two runs: {same}; element 1 NaN throughout: {nan_1}")
+    record_forward("wgmma_nan_next_batch_hw70", fwd)
+    if not (finite and same and nan_1):
+        raise AssertionError("K1's wgmma kernel let batch element 1's NaN rows reach element 0 "
+                             f"(finite {finite}, equal bits {same}, element 1 NaN {nan_1})")
     return cases
 
 
@@ -1129,6 +1198,7 @@ def time_k1(B, H, W, C, dtype, seed, fma_too=False, spread32=False, cv=None) -> 
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **device,
             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": res["max_abs_err"],
             "shape": f"B={B} HW={HW} {width} {dtype}", "design": res["design"],
+            "kernel": res["kernel"],
             **({"library_backend": backend} if backend else {}),
             **({"matched_rel_l2": res["l2"]} if "l2" in res else {}), **fma}
 
@@ -1312,7 +1382,7 @@ def time_k1_batch(B, H, W, C, dtype, seed) -> dict:
     return {"ms": ms, "plain_ms_2_rows": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": res["max_abs_err"],
             "matched_rel_l2": res["l2"], "shape": f"B={B} HW={HW} C={C} {dtype}",
-            "design": design}
+            "design": design, "kernel": corr.forward_kernel(q.dtype, HW, C, C)}
 
 
 def time_backward_batch(B, H, W, C, dtype, seed) -> tuple:
@@ -1446,11 +1516,17 @@ def phase_kernel_timing() -> dict:
     k1["resunet256_shape"] = time_k1(10, 92, 68, 256, "bfloat16", seed=117, spread32=True)
     k2["resunet256_shape"], k3["resunet256_shape"] = time_backward(
         10, 92, 68, 256, "bfloat16", seed=118, spread32=True)
-    for t in [k1] + [k1[key] for key in ("train_shape", "resnet_shape", "c128_shape",
-                                         "c128_b64_shape", "q256_v96_shape",
+    # K1's tensor-core design, and which of its kernels, at each driven shape:
+    # the wgmma kernel beyond 64 positions, the mma.sync kernel at the ResNet
+    # encoder's 5x4 grid
+    for t in [k1] + [k1[key] for key in ("train_shape", "fusion_shape", "resnet_shape",
+                                         "c128_shape", "c128_b64_shape", "q256_v96_shape",
                                          "resunet256_shape")]:
-        if t["design"] != corr.DESIGN_MMA:
-            raise AssertionError(f"K1 at {t['shape']} is served by the {t['design']} design")
+        want = corr.KERNEL_FWD_MMA_SYNC if t is k1["resnet_shape"] else corr.KERNEL_FWD_WGMMA
+        if t["design"] != corr.DESIGN_MMA or t["kernel"] != want:
+            raise AssertionError(f"K1 at {t['shape']} is served by the {t['design']} design's "
+                                 f"{t['kernel']} kernel, not the {want} kernel")
+        log(f"[kernel] K1 at {t['shape']}: the {t['design']} design's {t['kernel']} kernel")
     for t in (k2["resnet_shape"], k2["c128_shape"], k2["q256_v96_shape"],
               k2["resunet256_shape"]):
         if t["design"] != corr.DESIGN_MMA:
@@ -1548,7 +1624,7 @@ def phase_main_path() -> int:
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
     launches = corr.launches[corr.KERNEL]
-    _expect_designs(seen, {"forward": [corr.DESIGN_MMA]}, "the inference sweep")
+    _expect_designs(seen, {"forward": [corr.DESIGN_MMA]}, "the inference sweep", [corr.KERNEL_FWD_WGMMA])
     if corr.launches[corr.KERNEL_BWD_ROWS] or corr.launches[corr.KERNEL_BWD_COLS]:
         raise AssertionError("the inference sweep launched a backward kernel")
     log(f"[main] {n_pairs} pairs in {len(batches)} batches: {elapsed:.3f} s, "
@@ -1646,32 +1722,44 @@ def time_upsample(model, transferred) -> None:
 @contextlib.contextmanager
 def designs_served():
     """Inside the block, notes the design the package picks for each launch
-    of K1 (``forward_design``) and of K2 and K3 (``backward_design``):
-    yields {"forward": set of designs, "backward": set of designs}."""
+    of K1 (``forward_design``) and of K2 and K3 (``backward_design``), and
+    the kernel of K1's tensor-core design (``forward_kernel``): yields
+    {"forward": set of designs, "backward": set of designs,
+    "forward_kernel": set of kernels}."""
     from mapfree_tpu_torch.ops import correlation as corr
 
-    seen = {"forward": set(), "backward": set()}
-    saved = corr.forward_design, corr.backward_design
+    seen = {"forward": set(), "backward": set(), "forward_kernel": set()}
+    saved = corr.forward_design, corr.backward_design, corr.forward_kernel
 
     def noting(kind, choose):
-        def design(dtype, Cq, Cv):
-            chosen = choose(dtype, Cq, Cv)
-            seen[kind].add(chosen)
+        def design(*args):
+            chosen = choose(*args)
+            if chosen is not None:
+                seen[kind].add(chosen)
             return chosen
         return design
 
     corr.forward_design = noting("forward", saved[0])
     corr.backward_design = noting("backward", saved[1])
+    corr.forward_kernel = noting("forward_kernel", saved[2])
     try:
         yield seen
     finally:
-        corr.forward_design, corr.backward_design = saved
+        corr.forward_design, corr.backward_design, corr.forward_kernel = saved
 
 
-def _expect_designs(seen: dict, expected: dict, what: str) -> None:
-    got = {kind: sorted(designs) for kind, designs in seen.items() if designs}
+def _expect_designs(seen: dict, expected: dict, what: str, kernels=None) -> None:
+    """Raise unless the designs in ``seen`` are ``expected`` and, where
+    ``kernels`` is given, K1's tensor-core kernels are those; log which K1
+    kernels served the path either way."""
+    got = {kind: sorted(designs) for kind, designs in seen.items()
+           if designs and kind != "forward_kernel"}
     if got != expected:
         raise AssertionError(f"{what} ran the designs {got}, expected {expected}")
+    served = sorted(seen.get("forward_kernel", ()))
+    log(f"[designs] {what}: K1 {got.get('forward')}, its tensor-core kernels {served}")
+    if kernels is not None and served != sorted(kernels):
+        raise AssertionError(f"{what} ran K1's kernels {served}, expected {sorted(kernels)}")
 
 
 def profile_window(fn, what: str, n: int = 3) -> dict:
@@ -1796,7 +1884,7 @@ def phase_train_path() -> dict:
     _expect_launches(corr, {corr.KERNEL: n_steps, corr.KERNEL_BWD_ROWS: n_steps,
                             corr.KERNEL_BWD_COLS: n_steps}, f"{n_steps} train steps")
     all_mma = {"forward": [corr.DESIGN_MMA], "backward": [corr.DESIGN_MMA]}
-    _expect_designs(seen, all_mma, f"{n_steps} train steps")
+    _expect_designs(seen, all_mma, f"{n_steps} train steps", [corr.KERNEL_FWD_WGMMA])
     losses = [float(lg["train/loss"]) for lg in logs]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"[train] {n_steps} steps after {n_warm} warm-up: {step_ms:.2f} ms/step, "
@@ -1836,7 +1924,7 @@ def phase_train_path() -> dict:
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         launches = dict(corr.launches)
-        _expect_designs(seen, all_mma, "the fit loop")
+        _expect_designs(seen, all_mma, "the fit loop", [corr.KERNEL_FWD_WGMMA])
         for line in captured.getvalue().splitlines():
             log(f"[fit]   {line}")
         # 8 train steps; validation at steps 4 and 8 over 2 of the 3 batches
@@ -2375,7 +2463,7 @@ def run_submission_cli(argv: list, expected: dict, what: str, tag: str = "cli") 
         path = submission.main(argv, times=times)
         elapsed = time.perf_counter() - t0
     launches = dict(corr.launches)
-    _expect_designs(seen, {"forward": [corr.DESIGN_MMA]}, what)
+    _expect_designs(seen, {"forward": [corr.DESIGN_MMA]}, what, [corr.KERNEL_FWD_WGMMA])
     poses = read_submission(path)
     n_pairs = sum(len(v) for v in expected.values())
     if {s: sorted(p) for s, p in poses.items()} != {s: sorted(q) for s, q in expected.items()}:
@@ -2429,7 +2517,7 @@ def phase_clis() -> dict:
         for line in captured.getvalue().splitlines():
             log(f"[cli]   {line}")
         _expect_designs(seen, {"forward": [corr.DESIGN_MMA], "backward": [corr.DESIGN_MMA]},
-                        "the train CLI")
+                        "the train CLI", [corr.KERNEL_FWD_WGMMA])
         _expect_launches(corr, {corr.KERNEL: 8 + 2, corr.KERNEL_BWD_ROWS: 8,
                                 corr.KERNEL_BWD_COLS: 8}, "the train CLI")
         run_dir = root / "weights" / "smoke"
@@ -2481,7 +2569,8 @@ def _check_poses(R, t, what: str) -> float:
     return float(np.abs(det - 1.0).max())
 
 
-def drive_sweep(cfg, batches: list, warm: list, what: str, design: str = "mma") -> dict:
+def drive_sweep(cfg, batches: list, warm: list, what: str, design: str = "mma",
+                kernels=None) -> dict:
     """``predict`` over ``batches`` after a warm-up over ``warm``, with the
     counts reset just before: K1 (in ``design``) once per batch, no backward
     kernel, one finite pose per pair. Then the forward alone on a batch
@@ -2505,7 +2594,7 @@ def drive_sweep(cfg, batches: list, warm: list, what: str, design: str = "mma") 
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
     launches = dict(corr.launches)
-    _expect_designs(seen, {"forward": [design]}, what)
+    _expect_designs(seen, {"forward": [design]}, what, kernels)
     _expect_launches(corr, {corr.KERNEL: len(batches), corr.KERNEL_BWD_ROWS: 0,
                             corr.KERNEL_BWD_COLS: 0}, f"{what}: {len(batches)} batches")
     poses = [p for ps in results.values() for p in ps]
@@ -2528,7 +2617,7 @@ def drive_sweep(cfg, batches: list, warm: list, what: str, design: str = "mma") 
 
 
 def drive_train_steps(cfg, batches: list, n_warm: int, what: str,
-                      designs: tuple = ("mma", "mma")) -> dict:
+                      designs: tuple = ("mma", "mma"), kernels=None) -> dict:
     """Train steps through init_state -> make_train_step on batches already
     on the device: ``n_warm`` warm-up steps, then the rest timed with the
     counts reset just before. K1, K2, K3 once per step in the designs
@@ -2568,7 +2657,7 @@ def drive_train_steps(cfg, batches: list, n_warm: int, what: str,
     _expect_launches(corr, {corr.KERNEL: n_steps, corr.KERNEL_BWD_ROWS: n_steps,
                             corr.KERNEL_BWD_COLS: n_steps}, f"{what}: {n_steps} train steps")
     _expect_designs(seen, {"forward": [designs[0]], "backward": [designs[1]]},
-                    f"{what}: the train steps")
+                    f"{what}: the train steps", kernels)
     losses = [float(lg["train/loss"]) for lg in logs]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"[{what}] {n_steps} steps at batch {bs} after {n_warm} warm-up: {step_ms:.2f} ms/step, "
@@ -3016,6 +3105,10 @@ def phase_configs() -> dict:
 # channels (Cv + 2 = 130; K1 in one column tile of 136 columns)
 WIDE_MODELS = {"resnet": {"ENCODER.TYPE": "ResNet", "ENCODER.BLOCK_TYPE": 1},
                "resunet128": {"ENCODER.NUM_OUT_LAYERS": 128}}
+# the kernel of K1's tensor-core design that serves each one's sweep: the
+# ResNet's 1,024 channels on a 5x4 grid take the mma.sync kernel
+# (correlation.FEW_ROWS_HW), the ResUNet's 128 channels the wgmma kernel
+WIDE_MODEL_K1 = {"resnet": "mma_sync", "resunet128": "wgmma"}
 
 
 def wide_models(small: dict) -> dict:
@@ -3046,7 +3139,8 @@ def wide_models(small: dict) -> dict:
             f"{h}x{w} grid, {H}x{W}, {cfg.TPU.COMPUTE_DTYPE}, batch {bs}")
         sweep = drive_sweep(cfg, synthetic_batches(2 * bs + 23, bs, H, W, seed=SEED + 91 + i),
                             synthetic_batches(bs, bs, H, W, seed=SEED + 93 + i),
-                            f"configs, {name}", design=corr.DESIGN_MMA)
+                            f"configs, {name}", design=corr.DESIGN_MMA,
+                            kernels=[WIDE_MODEL_K1[name]])
         del sweep["model"], sweep["transferred"]
         torch.cuda.empty_cache()
         launches[f"{name}_sweep"] = {corr.KERNEL: sweep["launches"]}
@@ -3117,7 +3211,8 @@ def resunet256_step() -> dict:
         f"{encoder_out_channels(cfg.ENCODER)} channels, {H}x{W}, {cfg.TPU.COMPUTE_DTYPE}, "
         f"batch {bs}")
     batches = train_batches(RESUNET256_WARM + RESUNET256_TIMED, bs, H, W, seed=SEED + 99)
-    got = drive_train_steps(cfg, batches, RESUNET256_WARM, what)
+    got = drive_train_steps(cfg, batches, RESUNET256_WARM, what,
+                            kernels=[corr.KERNEL_FWD_WGMMA])
     launches = {"resunet256_train": got.pop("launches")}
     log(f"[{what}] in a profiler window of three steps: K1 "
         f"{got['kernel_ms'][corr.KERNEL]:.3f} ms, K2 {got['kernel_ms'][corr.KERNEL_BWD_ROWS]:.3f}"
@@ -3174,7 +3269,7 @@ def phase_fusion_clis() -> dict:
         for line in captured.getvalue().splitlines():
             log(f"[fusion-cli]   {line}")
         _expect_designs(seen, {"forward": [corr.DESIGN_MMA], "backward": [corr.DESIGN_MMA]},
-                        "the fusion train CLI")
+                        "the fusion train CLI", [corr.KERNEL_FWD_WGMMA])
         # 2 scenes x 40 samples at batch 10; one validation batch of the
         # val scene's 10 windows
         _expect_launches(corr, {corr.KERNEL: 8 + 1, corr.KERNEL_BWD_ROWS: 8,
@@ -3845,7 +3940,7 @@ def eval_scannet_rpr(root: Path, dataset: Path) -> dict:
                        times=times)
         elapsed = time.perf_counter() - t0
     launches = dict(corr.launches)
-    _expect_designs(seen, {"forward": [corr.DESIGN_MMA]}, "the ScanNet RPR sweep")
+    _expect_designs(seen, {"forward": [corr.DESIGN_MMA]}, "the ScanNet RPR sweep", [corr.KERNEL_FWD_WGMMA])
     if launches[corr.KERNEL] != n_batches or launches[corr.KERNEL_BWD_ROWS] \
             or launches[corr.KERNEL_BWD_COLS]:
         raise AssertionError(f"the ScanNet RPR sweep launched {launches}, expected K1 "
@@ -4994,6 +5089,9 @@ def main() -> None:
             "name": name,
             "route": "cuda",
             "designs": [corr.DESIGN_MMA, corr.DESIGN_FMA],
+            # K1's tensor-core design in two kernels (correlation.forward_kernel)
+            **({"tensor_core_kernels": [corr.KERNEL_FWD_WGMMA, corr.KERNEL_FWD_MMA_SYNC]}
+               if name == corr.KERNEL else {}),
             # the tensor-core design's source first (the main path's), then the FMA design's
             "source": f"mapfree_tpu_torch/ops/csrc/{sources[0]}",
             "sources": [f"mapfree_tpu_torch/ops/csrc/{src}" for src in sources],

@@ -28,17 +28,20 @@ K1 exists in two hand-written designs, and :func:`forward_design` says which
 one serves a (dtype, Cq, Cv):
 
 - ``"mma"``: bf16 inputs with Cq and Cv multiples of 8, at any width (every
-  config under ``configs/regression/``, the 128-channel ResUNet and the ResNet
-  encoder's 256 and 1,024 channels). Both products run on the tensor cores
-  from bf16 tiles that a ring of asynchronous copies brings into shared
-  memory; the online softmax works on the score accumulators, and P goes from
-  them to the second product's operand in registers, rounded to bf16 relative
-  to the row's running max after each tile of ``FWD_KEY_TILE`` keys. The
-  denominator is summed from the float32 P, so the max score (1 /
-  denominator) is not rounded. Up to 128 channels q stays on chip; beyond,
-  q and k stream in channel chunks, and beyond 128 v channels the
-  accumulator is cut into column tiles of 128 that each recompute the
-  scores in the same order. ``fused_correlation_warp_plain(...,
+  config under ``configs/regression/``, the 128- and 256-channel ResUNets and
+  the ResNet encoder's 256 and 1,024 channels). Both products run on the
+  tensor cores from bf16 tiles in shared memory; the online softmax works on
+  the score accumulators, and P goes from them to the second product's
+  operand in registers, rounded to bf16 relative to the row's running max
+  after each tile of ``FWD_KEY_TILE`` keys. The denominator is summed from
+  the float32 P, so the max score (1 / denominator) is not rounded.
+  :func:`forward_kernel` picks one of its two kernels, which give the same
+  bits: beyond ``FEW_ROWS_HW`` positions with Cq up to ``WGMMA_MAX_CQ`` the
+  Hopper kernel (warpgroup products, ``wgmma``, on tiles that TMA copies
+  bring in; a producer warp and two or three consumer warpgroups; beyond 128
+  v channels column tiles of 128 that each recompute the scores in the same
+  order), else the ``mma.sync`` kernel (cp.async copies; q and k streamed in
+  channel chunks beyond 128). ``fused_correlation_warp_plain(...,
   bf16_roundings=True)`` rounds at the same place at every width.
 - ``"fma"``: float32 inputs (exact float32 arithmetic, no TF32) and bf16
   widths that are not multiples of 8 (widened to float32), at any Cq >= 1
@@ -147,9 +150,22 @@ BWD_KEY_TILE = 16
 # how far a row's largest score may pass K2's reference before it moves, in
 # log2 units of P (the .cu's LAZY_GAP: P up to 2^8)
 BWD_LAZY_GAP_LOG2 = 8.0
-# keys per tile of K1's online softmax: the kernel's TK (a test reads it from
-# the .cu), and the tile of the plain forward with the kernel's roundings
+# keys per tile of K1's online softmax: the tile of the plain forward with
+# the "mma" design's roundings. Both of that design's kernels take it (a test
+# reads each one's constant from the .cu: FWD_KEY_TILES)
 FWD_KEY_TILE = 64
+# the two kernels of K1's "mma" design (forward_kernel picks): warpgroup
+# products with TMA copies (sm_90a), and mma.sync with cp.async copies
+KERNEL_FWD_WGMMA = "wgmma"
+KERNEL_FWD_MMA_SYNC = "mma_sync"
+# each kernel's key tile and the name of its constant in the .cu
+FWD_KEY_TILES = {KERNEL_FWD_WGMMA: ("TKW", FWD_KEY_TILE), KERNEL_FWD_MMA_SYNC: ("TK", FWD_KEY_TILE)}
+# the wgmma kernel keeps q resident up to this many channels
+WGMMA_MAX_CQ = 256
+# up to this many positions (the ResNet encoder's 5 x 4 grid) K1's "mma"
+# design takes the mma.sync kernel: a 64-row warpgroup product would leave
+# most of its rows empty (tools/torch_chip_studies.py k1-wgmma-variants)
+FEW_ROWS_HW = 64
 # K1's "mma" design against the exact plain forward, as a share of each
 # output's largest magnitude (or of 1 where that is smaller): what rounding P
 # to bf16 costs (2^-9 of each weight, up to about 2^-9 max |v| in a peaked
@@ -191,6 +207,18 @@ def forward_design(dtype, Cq: int, Cv: int) -> str:
     if dtype == torch.bfloat16 and Cq % 8 == 0 and Cv % 8 == 0 and Cq >= 8 and Cv >= 8:
         return DESIGN_MMA
     return DESIGN_FMA
+
+
+def forward_kernel(dtype, HW: int, Cq: int, Cv: int) -> Optional[str]:
+    """Which kernel of K1's "mma" design serves these inputs on the card:
+    ``KERNEL_FWD_WGMMA`` beyond ``FEW_ROWS_HW`` positions with Cq up to
+    ``WGMMA_MAX_CQ``, else ``KERNEL_FWD_MMA_SYNC``; None where the "fma"
+    design serves them."""
+    if forward_design(dtype, Cq, Cv) != DESIGN_MMA:
+        return None
+    if HW <= FEW_ROWS_HW or Cq > WGMMA_MAX_CQ:
+        return KERNEL_FWD_MMA_SYNC
+    return KERNEL_FWD_WGMMA
 
 
 def mma_forward_matched_l2_tol(Cq: int, Cv: int) -> float:
@@ -514,9 +542,10 @@ def fused_correlation_warp_bwd_plain(q, k, v, grid, dout, argmax=None, bf16_roun
 
 # -- kernels ---------------------------------------------------------------------
 
-def _forward_cuda(q, k, v, grid):
-    """K1 on CUDA tensors by the design :func:`forward_design` names; either
-    counts as one launch of K1."""
+def _forward_cuda(q, k, v, grid, kernel=None):
+    """K1 on CUDA tensors by the design :func:`forward_design` names (in the
+    "mma" design by the kernel :func:`forward_kernel` names, or ``kernel``
+    where a test asks for one); each counts as one launch of K1."""
     B, HW, Cq = q.shape
     Cv = v.shape[-1]
     out = torch.empty((B, HW, Cv + 3), dtype=torch.float32, device=q.device)
@@ -524,8 +553,12 @@ def _forward_cuda(q, k, v, grid):
         _check_aligned(q=q, k=k, v=v)
         if grid.data_ptr() % 4:  # the grid goes in 4 bytes (one key) at a time
             raise ValueError(f"grid must be aligned to 4 bytes for the tensor-core "
-                             f"kernel (data_ptr() % 4 = {grid.data_ptr() % 4})")
-        _launch(KERNEL, KERNEL + "_mma", (q, k, v, grid, out), q, v, counted=KERNEL)
+                             f"kernels (data_ptr() % 4 = {grid.data_ptr() % 4})")
+        kernel = kernel or forward_kernel(q.dtype, HW, Cq, Cv)
+        if kernel not in FWD_KEY_TILES:
+            raise ValueError(f"K1's tensor-core design has no kernel {kernel!r}")
+        name = KERNEL + ("_wgmma" if kernel == KERNEL_FWD_WGMMA else "_mma")
+        _launch(KERNEL, name, (q, k, v, grid, out), q, v, counted=KERNEL)
     else:
         _launch(KERNEL, KERNEL, (q, k, v, grid, out), q, v)
     return out

@@ -97,7 +97,12 @@
 // operations, not memory: the [HW, HW] scores stay on chip (registers) and
 // each key/value tile is read once per block of query rows. It walks the
 // keys in tiles of TK = 64 (ops/correlation.py::FWD_KEY_TILE, which the
-// plain version with the kernel's roundings takes as its tile). What it does
+// plain version with the kernel's roundings takes as its tile). It has two
+// kernels, which give the same bits; ops/correlation.py::forward_kernel
+// picks: the wgmma kernel at the end of this file (Hopper's warpgroup
+// products and TMA copies, its design described there) beyond 64 positions
+// with Cq up to 256, and the mma.sync kernel below for the few-rows grids
+// (the ResNet encoder's 5x4) and wider q. What the mma.sync kernel does
 // about the bound:
 // - Both products run on the tensor cores: mma.sync m16n8k16, bf16 operands,
 //   float32 accumulators. A warp owns MT m-tiles of 16 query rows, which share
@@ -142,6 +147,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "hopper_tile.cuh"
 #include "mma_tile.cuh"
 
 namespace {
@@ -1124,6 +1130,13 @@ cudaError_t launch_mma(const MmaArgs& a) {
 // 0.0529, chunks of 32 (4 stages) 0.0365, four stages 0.0549; at Cq = 256,
 // Cv = 96 on the 3d3d grid (B=10) 64 rows as 4 warps 1.603 ms, 128 rows as
 // 8 warps 1.888, chunks of 128 2.218, chunks of 32 1.852.
+//
+// Since the wgmma kernel, the package takes this kernel only at 64 positions
+// or fewer and beyond 256 q channels (ops/correlation.py::forward_kernel):
+// at C = 1,024 on the 5x4 grid (B = 64) <64, 128, true, 1, 2, 2, 3> took
+// 0.0278-0.0295 ms on the device alone (tools/torch_chip_studies.py
+// k1-wgmma-variants, NVIDIA H100 80GB HBM3, 700 W). Its times at the shapes
+// the wgmma kernel now serves are beside dispatch_wgmma.
 cudaError_t dispatch_mma(const MmaArgs& a) {
   if (a.Cq <= 16 && a.Cv <= 16) return launch_mma<16, 16, false, 2, 4, 3, 3>(a);
   if (a.Cq <= 16 && a.Cv <= 32) return launch_mma<16, 32, false, 2, 4, 3, 3>(a);
@@ -1133,6 +1146,455 @@ cudaError_t dispatch_mma(const MmaArgs& a) {
   if (a.Cq <= 128) return launch_mma<128, 128, false, 1, 4, 2, 2>(a);
   if (a.HW <= 32) return launch_mma<64, 128, true, 1, 2, 2, 3>(a);
   return launch_mma<64, 128, true, 1, 4, 2, 3>(a);
+}
+
+// =========================================================== "wgmma" kernel ==
+//
+// The tensor-core design rebuilt on Hopper's own path (sm_90a): both
+// products on warpgroup matrix instructions (wgmma), every tile brought in by
+// the Tensor Memory Accelerator (TMA) with mbarriers (hopper_tile.cuh). It
+// computes what the mma.sync kernel above computes: key tiles of TKW = TK =
+// 64 in order, the same online softmax on the score accumulators, P rounded
+// to bf16 relative to the row's running max after each tile, the
+// denominator summed from the float32 P. Only the order in which the tensor
+// cores sum a score's channels differs.
+//
+// - Warps. A block owns BR = 64 NC query rows: NC consumer warpgroups of 64
+//   rows each (warps 0 .. 4 NC - 1), then a producer warpgroup whose first
+//   warp loads (a warpgroup, so that setmaxnreg can hand its registers to the
+//   consumers: with one warp alone, 9 warps put 3 on one of a SM's four
+//   register files and capped every thread at 168). The producer
+//   loads the block's q tile once, then keeps the key tiles of k and v in
+//   flight through a ring of ST stages: it waits for a stage to be empty
+//   (an mbarrier every consumer warp arrives on), writes the tile's grid
+//   values, and has TMA copy k and v into it, the stage's full barrier
+//   counting the bytes. No thread of the consumers spends an instruction or
+//   a register on a copy.
+// - S = q k^T: wgmma m64n64k16 with q and k from shared memory, both
+//   K-major (channels along a row), channels in blocks of W = 16, 32 or 64
+//   (rows of 32, 64 or 128 bytes, TMA's swizzle of the same width, which
+//   the descriptors name); KB blocks hold Cq, zeros past it.
+// - acc += P [v | grid]: P from registers (the S accumulator packed to
+//   bf16 in place, as the mma.sync kernel packs its fragments), v as B from
+//   shared memory MN-major (keys down the rows, channels along them: the
+//   transpose bit), in VB blocks of WV columns, one m64nWVk16 per block and
+//   16 keys.
+// - Overlap. Each warpgroup takes its tiles in turn: the score product,
+//   its softmax, then P . [v | grid]. What overlaps the exponentials, which
+//   bound the 3d3d shape, with the products is the other warpgroups of the
+//   SM: at 32 channels two blocks a SM (4 consumer warpgroups of 104
+//   registers), at 128 and 256 one block of 2 or 3. The other schedule, a
+//   warpgroup issuing tile j + 1's scores with tile j's P . [v | grid] and
+//   running the softmax while the second product runs (two score tiles in
+//   registers), was built and measured slower at every shape (see
+//   dispatch_wgmma).
+// - Width. The accumulator holds a column tile of CT = VB WV v channels,
+//   with q resident up to 256 channels: one tile up to 128 v channels (the
+//   128-channel ResUNet; 256 q with 96 v), column tiles of 128 beyond (a
+//   grid dimension; the same scores in the same order in each, so the
+//   statistics agree to the bit; tile 0 writes the max score, the last the
+//   position). All 256 columns in one tile (128 accumulator registers a
+//   thread) spilled beyond the 240 a consumer can take and measured slower
+//   than recomputing the scores for two tiles (see dispatch_wgmma). Beyond
+//   256 q channels (the ResNet encoder's 1,024) the mma.sync kernel streams
+//   them.
+//
+// What was in the way, and what this does about it:
+// 1. The grid's two columns. The grid is [HW, 2] bf16, 4 bytes a key: no
+//    TMA box (16 bytes at least) reads it, and TMA cannot write into the
+//    middle of a swizzled v tile. The producer warp loads it (4 bytes a key,
+//    two keys a lane) into a tile of its own, [8 rows][64 keys] K-major
+//    without swizzle (rows 2-7 zero), fences its stores for the async proxy
+//    and only then arrives on the stage's barrier; a second, narrow product
+//    (m64n8k16, the same P fragment) sums P . grid. A padded [v | grid | 0]
+//    copy built by the wrapper would have cost a pass over v every call, and
+//    a copy of the grid transposed one more launch on a host-bound path.
+// 2. Batch boundaries. q, k and v have tensor maps of rank 3, [B][HW][C]:
+//    rows past HW arrive as zeros, never the next batch element's rows (P =
+//    0 times a NaN there would be NaN). Keys past HW are masked to -inf in
+//    the last tile as before.
+// 3. The output. Its rows are Cv + 3 floats (140 bytes at Cv = 32), no
+//    multiple of 16: no TMA store. After the loop the consumers meet at a
+//    named barrier, and the q tile and the ring become the block's float32
+//    output tile, which leaves as whole rows in one coalesced stream (row by
+//    row where the block has a column tile only), as the mma.sync epilogue.
+// 4. Tensor maps. cuTensorMapEncodeTiled is a driver function: the runtime
+//    hands it out (cudaGetDriverEntryPoint), so nothing links libcuda. The
+//    three maps are encoded on the host at every call and passed by value
+//    (__grid_constant__): the host's time to issue one call stayed within
+//    the mma.sync kernel's (11.4-20.9 us against 14.7 at C = 32, B = 10, in
+//    the same study), so no cache of maps was needed.
+// 5. The rounding. The key tile stays 64 (TKW, which the plain forward's
+//    bf16_roundings repeats: ops/correlation.py::FWD_KEY_TILES) and the max
+//    moves on every tile as in the mma.sync kernel, so both kernels round P
+//    at the same places.
+// 6. Shared headers. The Hopper primitives live in hopper_tile.cuh; K2 and
+//    K3 include mma_tile.cuh alone and are built as before.
+// 7. No compiler here: the descriptors' strides, the swizzles and the
+//    register pins (fence_regs: a wgmma's registers are read and written
+//    asynchronously, so their readers are pinned after the wait, and an A
+//    fragment in flight is kept alive until it) are the places to look
+//    first when a result is wrong.
+
+namespace ht = hopper_tile;
+
+constexpr int TKW = 64;  // keys a tile of the wgmma kernel: ops/correlation.py::FWD_KEY_TILES
+static_assert(TKW == TK, "both kernels of the design round P after the same key tiles");
+
+// One instantiation's sizes: q and k channels in KB blocks of W, a column
+// tile of v in VB blocks of WV columns, NC consumer warpgroups. Every tile
+// starts on a 1,024-byte boundary.
+template <int KB, int W, int VB, int WV, int NC>
+struct WgGeo {
+  static constexpr int BR = 64 * NC;          // query rows a block
+  static constexpr int NTH = 128 * (NC + 1);  // threads: the consumers, then the producer warpgroup
+  static constexpr int KQ = KB * W / 16;     // depth steps of q . k^T
+  static constexpr int CT = VB * WV;         // v columns a column tile
+  static constexpr int QBLK = BR * W * 2;    // bytes of a q block
+  static constexpr int KBLK = TKW * W * 2;   // of a k block
+  static constexpr int VBLK = TKW * WV * 2;  // of a v block
+  static constexpr int GT = TKW * 16;        // of the grid tile: TKW / 8 core matrices of 128
+  static constexpr int STAGE = KB * KBLK + VB * VBLK + GT;
+  static constexpr int QBYTES = KB * QBLK;
+  static_assert(W == 16 || W == 32 || W == 64, "a swizzle width");
+  static_assert(WV == 16 || WV == 32 || WV == 64, "a swizzle width");
+  static_assert(QBLK % 1024 == 0 && KBLK % 1024 == 0 && VBLK % 1024 == 0 && GT % 1024 == 0,
+                "tiles on 1,024-byte boundaries");
+  static_assert(BR <= 256 && CT <= 256, "a TMA box and one column tile");
+};
+
+// Dynamic shared memory of an instantiation: 1,024 bytes of alignment slack,
+// the q tile and the ring (later the output tile), and the barriers.
+template <int KB, int W, int VB, int WV, int NC, int ST>
+__host__ __device__ constexpr size_t wgmma_region() {
+  using G = WgGeo<KB, W, VB, WV, NC>;
+  const size_t tiles = static_cast<size_t>(G::QBYTES) + static_cast<size_t>(ST) * G::STAGE;
+  const size_t outs = sizeof(float) * G::BR * (G::CT + 3);
+  return ((tiles > outs ? tiles : outs) + 7) / 8 * 8;
+}
+
+// Registers a thread of the producer warpgroup keeps, and what a consumer
+// thread takes from them (setmaxnreg), with MINB blocks a SM: each of a SM's
+// four register files (16,384 registers) holds one warp of every warpgroup.
+constexpr int PRODUCER_REGS = 24;
+__host__ __device__ constexpr int wgmma_consumer_regs(int NC, int MINB) {
+  const int launch = 512 / ((NC + 1) * MINB) / 8 * 8;  // a warp's registers / 32 at launch
+  const int take = (launch * (NC + 1) - PRODUCER_REGS) / NC / 8 * 8;
+  return take > 240 ? 240 : take;  // at least the launch count where NC + 1 warps fit at 240
+}
+
+template <int KB, int W, int VB, int WV, int NC, int ST, int MINB>
+__global__ void __launch_bounds__(128 * (NC + 1), MINB)
+correlation_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const bf16* __restrict__ grid, float* __restrict__ out, int HW,
+                             int Cv) {
+  using G = WgGeo<KB, W, VB, WV, NC>;
+  constexpr int NTK = TKW / 8;   // 8-key columns of S
+  constexpr int NKS = TKW / 16;  // depth-16 steps of P . [v | grid]
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  unsigned char* base = wg_smem + ((1024 - (ht::smem_u32(wg_smem) & 1023)) & 1023);
+  unsigned char* qs = base;                 // KB blocks [BR][W]
+  unsigned char* ring = base + G::QBYTES;   // ST x (KB k blocks, VB v blocks, grid tile)
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + wgmma_region<KB, W, VB, WV, NC, ST>());
+  uint64_t* empty = full + ST;
+  uint64_t* qfull = empty + ST;
+
+  const int b = blockIdx.y;
+  const int row0 = blockIdx.x * G::BR;
+  const int col0 = blockIdx.z * G::CT;              // this block's v channels
+  const int w = Cv - col0 < G::CT ? Cv - col0 : G::CT;
+  const bool has_grid = col0 + w == Cv;             // the last tile: the grid at w, w + 1
+  const int wo = w + (has_grid ? 2 : 0);            // its columns of the output
+  const int nvb = (w + WV - 1) / WV;                // v blocks holding columns
+  const int nT = (HW + TKW - 1) / TKW;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      ht::mbar_init(&full[s], 1);
+      ht::mbar_init(&empty[s], 4 * NC);  // lane 0 of every consumer warp
+    }
+    ht::mbar_init(qfull, 1);
+    ht::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * NC) {
+    // ---- the producer warpgroup: its first warp loads, the others leave ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (warp > 4 * NC) return;
+    // the grid tiles' rows 2-7 stay zero; rows 0 and 1 are written per tile
+    for (int i = lane; i < ST * (G::GT / 16); i += 32) {
+      const int s = i / (G::GT / 16), o = i % (G::GT / 16);
+      *reinterpret_cast<uint4*>(ring + s * G::STAGE + KB * G::KBLK + VB * G::VBLK + o * 16) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+    if (lane == 0) {
+      ht::mbar_arrive_expect_tx(qfull, G::QBYTES);
+      for (int kb = 0; kb < KB; ++kb) ht::tma_load_3d(qs + kb * G::QBLK, &tq, qfull, kb * W, row0, b);
+    }
+    for (int j = 0; j < nT; ++j) {
+      const int s = j % ST;
+      unsigned char* st = ring + s * G::STAGE;
+      ht::mbar_wait(&empty[s], ((j / ST) & 1) ^ 1);
+      // keys 2 lane and 2 lane + 1 of the tile: x into row 0, y into row 1
+      const int jj = 2 * lane, key = j * TKW + jj;
+      const uint32_t g0 = key < HW ? __ldg(reinterpret_cast<const unsigned*>(grid) + key) : 0u;
+      const uint32_t g1 =
+          key + 1 < HW ? __ldg(reinterpret_cast<const unsigned*>(grid) + key + 1) : 0u;
+      unsigned char* gt = st + KB * G::KBLK + VB * G::VBLK + (jj >> 3) * 128 + (jj & 7) * 2;
+      *reinterpret_cast<uint32_t*>(gt) = (g0 & 0xffffu) | (g1 << 16);
+      *reinterpret_cast<uint32_t*>(gt + 16) = (g0 >> 16) | (g1 & 0xffff0000u);
+      ht::fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) {
+        ht::mbar_arrive_expect_tx(&full[s], KB * G::KBLK + nvb * G::VBLK);
+        for (int kb = 0; kb < KB; ++kb)
+          ht::tma_load_3d(st + kb * G::KBLK, &tk, &full[s], kb * W, j * TKW, b);
+        for (int vb = 0; vb < nvb; ++vb)
+          ht::tma_load_3d(st + KB * G::KBLK + vb * G::VBLK, &tv, &full[s], col0 + vb * WV,
+                          j * TKW, b);
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroups ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(wgmma_consumer_regs(NC, MINB)));
+  const int wg = warp >> 2;                // rows 64 wg .. of the block
+  const int g = lane >> 2, t = lane & 3;   // within a warp's 16 rows: rows g, g + 8
+
+  // descriptors (hopper_tile.cuh): q and k K-major, swizzled by their row
+  // width; v MN-major; the grid tile K-major without a swizzle. Each product
+  // adds constant offsets (in 16-byte units) to one base descriptor.
+  constexpr uint32_t SWQ = ht::swizzle_code(2 * W), SWV = ht::swizzle_code(2 * WV);
+  const uint64_t dq_base = ht::make_desc(qs + wg * 64 * W * 2, 16, 16 * W, SWQ);
+  auto q_off = [](int ks, int blk) { return ((ks / (W / 16)) * blk + (ks % (W / 16)) * 32) >> 4; };
+
+  float acc[VB][WV / 2];  // P . v: column 8 n + 2 t + e % 2 of block vb at acc[vb][4 n + e]
+  float accg[4];          // P . grid: columns 0 (x) and 1 (y) at t = 0
+  float m_run[2], l_run[2];  // running max of s log2e; this lane's share of d
+#pragma unroll
+  for (int vb = 0; vb < VB; ++vb)
+#pragma unroll
+    for (int i = 0; i < WV / 2; ++i) acc[vb][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) accg[i] = 0.f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    m_run[h] = -INFINITY;
+    l_run[h] = 0.f;
+  }
+
+  auto issue_s = [&](float (&s)[TKW / 2], const unsigned char* st) {
+    const uint64_t dq = ht::opaque(dq_base);
+    const uint64_t dk = ht::make_desc(st, 16, 16 * W, SWQ);
+#pragma unroll
+    for (int ks = 0; ks < G::KQ; ++ks)
+      ht::wgmma_m64n64_ss(s, dq + q_off(ks, G::QBLK), dk + q_off(ks, G::KBLK), ks > 0 ? 1 : 0);
+  };
+  auto issue_pv = [&](uint32_t (&pa)[NKS][4], const unsigned char* st) {
+    const uint64_t dv = ht::make_desc(st + KB * G::KBLK, G::VBLK, 16 * WV, SWV);
+    const uint64_t dg = ht::make_desc(st + KB * G::KBLK + VB * G::VBLK, 128, G::GT,
+                                      ht::SWIZZLE_NONE);
+#pragma unroll
+    for (int kk = 0; kk < NKS; ++kk) {
+#pragma unroll
+      for (int vb = 0; vb < VB; ++vb)
+        ht::wgmma_rs<WV, 1>(acc[vb], pa[kk], dv + ((vb * G::VBLK + kk * 16 * 2 * WV) >> 4));
+      ht::wgmma_rs<8, 0>(accg, pa[kk], dg + kk * 16);  // 2 core matrices (256 bytes) a step
+    }
+  };
+  // the online softmax of one tile's scores (in the log2 domain, the row max
+  // over the 4 lanes of a row), P packed into A fragments: keys 16 kk .. +16
+  // are S columns 2 kk and 2 kk + 1. Returns whether a row's max moved.
+  auto softmax = [&](float (&s)[TKW / 2], int key0, uint32_t (&pa)[NKS][4],
+                     float (&alpha)[2]) {
+    if (key0 + TKW > HW) {  // only the last tile has keys past HW
+      const int n_keys = HW - key0;
+#pragma unroll
+      for (int n = 0; n < NTK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (n * 8 + 2 * t + (e & 1) >= n_keys) s[4 * n + e] = -INFINITY;
+    }
+    bool moved = false;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < NTK; ++n) mx = fmaxf(mx, fmaxf(s[4 * n + 2 * h], s[4 * n + 2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+      const float m_new = fmaxf(m_run[h], mx * LOG2E);
+      moved |= m_new != m_run[h];
+      alpha[h] = mt::ex2(m_run[h] - m_new);  // 0 on the first tile
+      m_run[h] = m_new;
+    }
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < NTK; ++n) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[e] = mt::ex2(fmaf(s[4 * n + e], LOG2E, -m_run[e >> 1]));
+      sum0 += p[0] + p[1];
+      sum1 += p[2] + p[3];
+      pa[n >> 1][(n & 1) * 2] = mt::pack_bf16(p[0], p[1]);
+      pa[n >> 1][(n & 1) * 2 + 1] = mt::pack_bf16(p[2], p[3]);
+    }
+    l_run[0] = fmaf(l_run[0], alpha[0], sum0);
+    l_run[1] = fmaf(l_run[1], alpha[1], sum1);
+    return moved;
+  };
+  auto rescale = [&](const float (&alpha)[2]) {
+#pragma unroll
+    for (int vb = 0; vb < VB; ++vb)
+#pragma unroll
+      for (int i = 0; i < WV / 2; ++i) acc[vb][i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) accg[i] *= alpha[i >> 1];
+  };
+
+  ht::mbar_wait(qfull, 0);
+  for (int j = 0; j < nT; ++j) {
+    const int sj = j % ST;
+    const unsigned char* st = ring + sj * G::STAGE;
+    ht::mbar_wait(&full[sj], (j / ST) & 1);
+    float s[TKW / 2];
+    ht::wgmma_fence();
+    issue_s(s, st);
+    ht::wgmma_commit();
+    ht::wgmma_wait<0>();
+    ht::fence_regs(s);
+    uint32_t pa[NKS][4];
+    float alpha[2];
+    const bool moved = softmax(s, j * TKW, pa, alpha);
+    if (__any_sync(FULL, moved)) rescale(alpha);
+    ht::wgmma_fence();
+    issue_pv(pa, st);
+    ht::wgmma_commit();
+    ht::wgmma_wait<0>();
+#pragma unroll
+    for (int vb = 0; vb < VB; ++vb) ht::fence_regs(acc[vb]);
+    ht::fence_regs(accg);
+    if (lane == 0) ht::mbar_arrive(&empty[sj]);
+  }
+
+  // epilogue: once every consumer is past the loop, the q tile and the ring
+  // become the block's [BR, wo + 1] float32 output tile (its columns, then
+  // 1 / d), which leaves as whole rows of the output where the block has
+  // them all, else row by row; only column tile 0 writes the max score
+  constexpr int NTC = 128 * NC;
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NTC) : "memory");
+  float* ot = reinterpret_cast<float*>(base);
+  const int E = wo + 1;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float d = l_run[h];
+    d += __shfl_xor_sync(FULL, d, 1);
+    d += __shfl_xor_sync(FULL, d, 2);
+    const float inv = 1.f / d;
+    float* o = ot + (64 * wg + 16 * (warp & 3) + 8 * h + g) * E;
+#pragma unroll
+    for (int vb = 0; vb < VB; ++vb)
+#pragma unroll
+      for (int n = 0; n < WV / 8; ++n) {
+        const int col = vb * WV + n * 8 + 2 * t;
+        if (col < w) {  // w is a multiple of 8: both columns or neither
+          o[col] = acc[vb][4 * n + 2 * h] * inv;
+          o[col + 1] = acc[vb][4 * n + 2 * h + 1] * inv;
+        }
+      }
+    if (t == 0) {
+      if (has_grid) {
+        o[w] = accg[2 * h] * inv;
+        o[w + 1] = accg[2 * h + 1] * inv;
+      }
+      o[wo] = inv;  // the max score: max_j P_ij = 1 / d
+    }
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NTC) : "memory");
+  const int CO = Cv + 3;
+  const int rows = HW - row0 < G::BR ? HW - row0 : G::BR;
+  float* dst = out + (static_cast<size_t>(b) * HW + row0) * CO;
+  if (E == CO) {
+    for (int i = tid; i < rows * CO; i += NTC) dst[i] = ot[i];
+  } else {
+    for (int i = tid; i < rows * E; i += NTC) {
+      const int r = i / E, c = i - r * E;
+      if (c < wo)
+        dst[r * CO + col0 + c] = ot[i];
+      else if (blockIdx.z == 0)
+        dst[r * CO + Cv + 2] = ot[i];
+    }
+  }
+}
+
+template <int KB, int W, int VB, int WV, int NC, int ST, int MINB>
+cudaError_t launch_wgmma(const MmaArgs& a) {
+  using G = WgGeo<KB, W, VB, WV, NC>;
+  if (a.Cq > KB * W) return cudaErrorInvalidValue;
+  auto kernel = correlation_fwd_wgmma_kernel<KB, W, VB, WV, NC, ST, MINB>;
+  constexpr size_t smem = 1024 + wgmma_region<KB, W, VB, WV, NC, ST>() + (2 * ST + 1) * 8;
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  CUtensorMap tq, tk, tv;
+  e = ht::encode_bf16_map(&tq, a.q, a.Cq, a.HW, a.B, W, G::BR);
+  if (e == cudaSuccess) e = ht::encode_bf16_map(&tk, a.k, a.Cq, a.HW, a.B, W, TKW);
+  if (e == cudaSuccess) e = ht::encode_bf16_map(&tv, a.v, a.Cv, a.HW, a.B, WV, TKW);
+  if (e != cudaSuccess) return e;
+  const dim3 blocks((a.HW + G::BR - 1) / G::BR, a.B, (a.Cv + G::CT - 1) / G::CT);
+  kernel<<<blocks, G::NTH, smem, a.stream>>>(tq, tk, tv, a.grid, a.out, a.HW, a.Cv);
+  return cudaGetLastError();
+}
+
+// The wgmma instantiations: q and k channels as KB blocks of W, a column tile
+// of v as VB blocks of WV, then consumer warpgroups, ring stages and the
+// least blocks a SM. Each takes the smallest class that holds Cq and Cv
+// (zeros pad the rest); beyond 64 channels v comes in column tiles of 128.
+//
+// Timed on an NVIDIA H100 80GB HBM3 at 700 W against each other and against
+// the mma.sync kernel in turns, at the 3d3d grid (HW = 6,256) unless stated
+// (tools/torch_chip_studies.py k1-wgmma-variants, CUDA events; every variant
+// gave the package's bits, the mma.sync kernel's too; ms):
+// - C = 32, B = 64: two blocks a SM (104 registers a consumer) 1.168-1.202
+//   with three stages, 1.186-1.213 with four, 1.186-1.211 with two; one
+//   block a SM 1.72-1.76; three warpgroups a block 1.35-1.38; one
+//   warpgroup, three blocks a SM, 1.31-1.33; the mma.sync kernel
+//   1.409-1.416. B = 10: 0.2054-0.2064 (two stages 0.2042-0.2058; mma.sync
+//   0.2632-0.2642); B = 576: 10.25-10.28 (12.09-12.20); the ScanNet grid
+//   (HW = 4,800, B = 64): 0.723-0.724 (0.857-0.859).
+// - C = 128: B = 10, two warpgroups 0.425-0.426 (four stages 0.423-0.426),
+//   three 0.451-0.452; B = 64, three 2.38-2.52, two 2.52-2.66; mma.sync
+//   0.805 and 4.78-5.00.
+// - Cq = 256, Cv = 96: two warpgroups 0.548 (two stages 0.581-0.586), three
+//   0.592-0.597; mma.sync 1.607-1.613. Cq = Cv = 256 (two column tiles of
+//   128): three warpgroups 1.010-1.019, two 1.119-1.128; all 256 columns in
+//   one tile (128 accumulator registers a thread, 1,160 bytes spilled at the
+//   consumers' 240) 1.430-1.431; mma.sync 3.257-3.261.
+// So three consumer warpgroups where the grid has some 600 blocks of 192
+// rows or more (counting column tiles: C = 128 at B = 64, C = 256 at B =
+// 10), two below. The rejected schedule, a warpgroup overlapping tile
+// j + 1's scores with tile j's P . [v | grid] (two score tiles in registers;
+// its scores copied out of the accumulator, not pinned in place, or ptxas
+// serialised every wgmma), measured slower wherever it was timed, with an
+// earlier form of the same study: C = 32, B = 64 1.66-2.03 (spilling at two
+// blocks a SM: 2.71-2.73); C = 128 0.521-0.582 at B = 10, 2.70-3.53 at
+// B = 64; 256 / 96 0.72-0.95; C = 256 1.46-1.82.
+cudaError_t dispatch_wgmma(const MmaArgs& a) {
+  const long blocks = static_cast<long>(a.B) * ((a.HW + 191) / 192) * ((a.Cv + 127) / 128);
+  if (a.Cq <= 16 && a.Cv <= 16) return launch_wgmma<1, 16, 1, 16, 2, 3, 2>(a);
+  if (a.Cq <= 32 && a.Cv <= 32) return launch_wgmma<1, 32, 1, 32, 2, 3, 2>(a);
+  if (a.Cq <= 64 && a.Cv <= 64) return launch_wgmma<1, 64, 1, 64, 2, 4, 1>(a);
+  if (a.Cq <= 128 && a.Cv <= 128)
+    return blocks >= 600 ? launch_wgmma<2, 64, 2, 64, 3, 3, 1>(a)
+                         : launch_wgmma<2, 64, 2, 64, 2, 3, 1>(a);
+  if (a.Cq <= 256)
+    return blocks >= 600 ? launch_wgmma<4, 64, 2, 64, 3, 2, 1>(a)
+                         : launch_wgmma<4, 64, 2, 64, 2, 3, 1>(a);
+  return cudaErrorInvalidValue;
 }
 
 bool mma_takes(int B, int HW, int Cq, int Cv, int dtype) {
@@ -1155,6 +1617,19 @@ extern "C" int correlation_fwd_mma(const void* q, const void* k, const void* v,
                   static_cast<const bf16*>(v), static_cast<const bf16*>(grid),
                   static_cast<float*>(out), B, HW, Cq, Cv, static_cast<cudaStream_t>(stream)};
   return dispatch_mma(a);
+}
+
+// The wgmma kernel of the "mma" design: as correlation_fwd_mma, for Cq up to
+// 256 (any Cv). Same arguments and output.
+extern "C" int correlation_fwd_wgmma(const void* q, const void* k, const void* v,
+                                     const void* grid, void* out, int B, int HW, int Cq,
+                                     int Cv, int dtype, void* stream) {
+  if (!mma_takes(B, HW, Cq, Cv, dtype) || Cq > 256) return cudaErrorInvalidValue;
+  if (B == 0 || HW == 0) return cudaSuccess;
+  const MmaArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<const bf16*>(grid),
+                  static_cast<float*>(out), B, HW, Cq, Cv, static_cast<cudaStream_t>(stream)};
+  return dispatch_wgmma(a);
 }
 
 // The "fma" design, at any Cq >= 1 and Cv >= 0. dtype: 0 = float32,

@@ -277,15 +277,86 @@ def test_kernel_key_tile_is_the_plain_versions_tile():
     assert tiles == [str(corr.FWD_KEY_TILE)]
 
 
+@pytest.mark.parametrize("kernel", sorted(corr.FWD_KEY_TILES))
+def test_each_tensor_core_kernel_key_tile_matches_the_cu(kernel):
+    """Each kernel of K1's tensor-core design names its key tile in the .cu
+    (FWD_KEY_TILES), and it is the tile the plain version's roundings take,
+    so that one bf16_roundings yardstick serves both kernels."""
+    name, tile = corr.FWD_KEY_TILES[kernel]
+    tiles = re.findall(rf"constexpr int {name} = (\d+);", FWD_SOURCE.read_text())
+    assert tiles == [str(tile)]
+    assert tile == corr.FWD_KEY_TILE
+
+
+@pytest.mark.parametrize("kernel", sorted(corr.FWD_KEY_TILES))
+@pytest.mark.parametrize("name,B,H,W", ROUNDING_CASES, ids=CASE_IDS)
+def test_each_kernel_tile_rounding_holds_the_constants(kernel, name, B, H, W):
+    """The plain forward rounding P at each kernel's key tile, against the
+    exact forward within half of MMA_FWD_VS_EXACT_TOL, its max score at the
+    float32 tolerance; and against the default bf16_roundings to the bit
+    (one tile for both kernels)."""
+    tile = corr.FWD_KEY_TILES[kernel][1]
+    q, k, v, grid = _inputs(B, H, W, 32, 32, seed=7)
+    exact = corr.fused_correlation_warp_plain(q, k, v, grid)
+    rounded = corr.fused_correlation_warp_plain(q, k, v, grid, bf16_roundings=True,
+                                                key_tile=tile)
+    for got, ref in zip(rounded[:2], exact[:2]):
+        assert _scaled_err(got, ref) <= corr.MMA_FWD_VS_EXACT_TOL / 2
+    assert _scaled_err(rounded[2], exact[2]) < 5e-5
+    default = corr.fused_correlation_warp_plain(q, k, v, grid, bf16_roundings=True)
+    assert all(torch.equal(a, b) for a, b in zip(rounded, default))
+
+
+# (path, HW, Cq, Cv) -> the kernel of K1's tensor-core design that serves it:
+# the 3d3d grid (360x270 frames, stride 4: 92 x 68) for the sweep, the train
+# step and the fusion sweep's 576 rows; ScanNet's 320x240 (80 x 60); the
+# 128- and 256-channel ResUNets; 256 / 96; the ResNet encoder's 5x4 grid
+DRIVEN_K1 = [
+    ("3d3d", 6256, 32, 32, corr.KERNEL_FWD_WGMMA),
+    ("cv_half_channels", 6256, 16, 32, corr.KERNEL_FWD_WGMMA),
+    ("scannet", 4800, 32, 32, corr.KERNEL_FWD_WGMMA),
+    ("resunet128", 6256, 128, 128, corr.KERNEL_FWD_WGMMA),
+    ("q256_v96", 6256, 256, 96, corr.KERNEL_FWD_WGMMA),
+    ("resunet256", 6256, 256, 256, corr.KERNEL_FWD_WGMMA),
+    ("resnet_bottleneck", 20, 1024, 1024, corr.KERNEL_FWD_MMA_SYNC),
+    ("hw64_few_rows", 64, 32, 32, corr.KERNEL_FWD_MMA_SYNC),
+    ("hw65", 65, 32, 32, corr.KERNEL_FWD_WGMMA),
+    ("q264_streamed", 6256, 264, 32, corr.KERNEL_FWD_MMA_SYNC),
+]
+
+
+@pytest.mark.parametrize("name,HW,cq,cv,kernel", DRIVEN_K1, ids=[c[0] for c in DRIVEN_K1])
+def test_forward_kernel_at_the_driven_shapes(name, HW, cq, cv, kernel):
+    """The kernel forward_kernel picks, which _forward_cuda launches: the
+    wgmma kernel beyond FEW_ROWS_HW positions with Cq up to WGMMA_MAX_CQ,
+    the mma.sync kernel on the few-rows grids and for wider q; none in
+    float32 or at a bf16 width the FMA design takes."""
+    assert corr.forward_kernel(torch.bfloat16, HW, cq, cv) == kernel
+    assert corr.forward_kernel(torch.float32, HW, cq, cv) is None
+    assert corr.forward_kernel(torch.bfloat16, HW, cq + 4, cv) is None
+
+
+def test_forward_cuda_refuses_an_unknown_kernel():
+    """A tensor-core kernel asked for by a name the design lacks raises
+    before anything is launched (no fallback)."""
+    q, k, v, grid = _inputs(1, 3, 5, 32, 32, seed=1)
+    with pytest.raises(ValueError, match="no kernel"):
+        corr._forward_cuda(q, k, v, grid, kernel="wmma")
+
+
 def test_forward_build_follows_the_shared_tile_header(tmp_path):
-    """K1's source includes mma_tile.cuh, so editing the header rebuilds K1
-    as it rebuilds K2 and K3."""
+    """K1's source includes mma_tile.cuh and hopper_tile.cuh, so editing
+    either header rebuilds K1 (mma_tile.cuh rebuilds K2 and K3 too)."""
     files = {p.name for p in _build.source_files(FWD_SOURCE)}
-    assert files == {"correlation_fwd.cu", "mma_tile.cuh"}
+    assert files == {"correlation_fwd.cu", "mma_tile.cuh", "hopper_tile.cuh"}
     for name in files:
         shutil.copy(_build.CSRC_DIR / name, tmp_path / name)
     src = tmp_path / "correlation_fwd.cu"
     assert _build.source_digest(src) == _build.source_digest(FWD_SOURCE)
-    header = tmp_path / "mma_tile.cuh"
-    header.write_text(header.read_text() + "\n// edited\n")
-    assert _build.source_digest(src) != _build.source_digest(FWD_SOURCE)
+    for name in ("mma_tile.cuh", "hopper_tile.cuh"):
+        header = tmp_path / name
+        saved = header.read_text()
+        header.write_text(saved + "\n// edited\n")
+        assert _build.source_digest(src) != _build.source_digest(FWD_SOURCE)
+        header.write_text(saved)
+    assert _build.source_digest(src) == _build.source_digest(FWD_SOURCE)

@@ -107,6 +107,97 @@ def test_k1_cuda_wide_tensor_cores_match_plain(cuda_device, cq, cv, H, W, B):
     torch.testing.assert_close(out[2], exact[2], atol=5e-5, rtol=0)
 
 
+# (name, B, H, W, Cq, Cv, nan): K1's wgmma kernel at its edges, asked for by
+# name (the package gives it more than 64 positions): HW below one key tile
+# and not a multiple of the row block (128) or the key tile (64), Cq != Cv,
+# C = 8 (channels zero-filled to a depth of 16), Cv + 2 beyond 256 (three
+# column tiles of 128), and NaN in batch element 1's first rows of q, k and
+# v (element 0's last key tile reaches past its HW, where the tensor maps
+# read zeros, never element 1's rows)
+K1_WGMMA_EDGES = [
+    ("hw15", 2, 3, 5, 32, 32, False),
+    ("hw200_ragged_rows_and_keys", 2, 10, 20, 32, 32, False),
+    ("q16_v32_hw130", 2, 10, 13, 16, 32, False),
+    ("q256_v96_hw70", 2, 7, 10, 256, 96, False),
+    ("c8_hw130", 2, 10, 13, 8, 8, False),
+    ("q32_v264_hw70", 2, 7, 10, 32, 264, False),
+    ("nan_next_batch_hw70", 2, 7, 10, 32, 32, True),
+]
+
+
+def _k1_wgmma_inputs(name, B, H, W, cq, cv, nan, device):
+    """bf16 q, k, v (NaN in batch element 1's first three rows where asked)
+    and the bf16 grid for one edge case."""
+    HW = H * W
+    rng = np.random.default_rng(len(name) + HW + cq + cv)
+    scale = (32.0 / max(cq, 32)) ** 0.25
+    q, k = (scale * rng.normal(size=(B, HW, cq)).astype(np.float32) for _ in range(2))
+    v = rng.normal(size=(B, HW, cv)).astype(np.float32)
+    if nan:
+        for a in (q, k, v):
+            a[1, :3] = np.nan
+    return _to(device, torch.bfloat16, q, k, v), _uv_grid(H, W).to(device, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,B,H,W,cq,cv,nan", K1_WGMMA_EDGES,
+                         ids=[c[0] for c in K1_WGMMA_EDGES])
+def test_k1_cuda_wgmma_kernel_at_its_edges(cuda_device, name, B, H, W, cq, cv, nan):
+    """The wgmma kernel of K1's tensor-core design, one counted launch a
+    call: warped and pos within mma_forward_matched_l2_tol (relative L2) of
+    the plain forward with its rounding of P and MMA_FWD_VS_EXACT_TOL of the
+    largest magnitude of the exact one, the max score within 5e-5 of it; two
+    runs give the same bits, and so does the mma.sync kernel. With NaN in
+    batch element 1, element 0 stays finite and held so, element 1 is NaN."""
+    args, g = _k1_wgmma_inputs(name, B, H, W, cq, cv, nan, cuda_device)
+    before = pt_corr.launches[pt_corr.KERNEL]
+    runs = [pt_corr._forward_cuda(*args, g, kernel=pt_corr.KERNEL_FWD_WGMMA) for _ in range(2)]
+    other = pt_corr._forward_cuda(*args, g, kernel=pt_corr.KERNEL_FWD_MMA_SYNC)
+    torch.cuda.synchronize()
+    assert pt_corr.launches[pt_corr.KERNEL] == before + 3
+    keep = slice(0, 1) if nan else slice(None)
+    first = runs[0][keep]
+    assert torch.equal(first, runs[1][keep]) and torch.equal(first, other[keep])
+    if nan:
+        assert torch.isnan(runs[0][1]).all()
+    kept = [a[keep] for a in args]
+    out = pt_corr._split(first, cv)
+    exact = pt_corr.fused_correlation_warp_plain(*kept, g)
+    matched = pt_corr.fused_correlation_warp_plain(*kept, g, bf16_roundings=True)
+    l2_tol = pt_corr.mma_forward_matched_l2_tol(cq, cv)
+    for got, r, m in zip(out[:2], exact[:2], matched[:2]):
+        assert torch.isfinite(got).all()
+        assert float((got - m).norm() / m.norm()) <= l2_tol
+        torch.testing.assert_close(
+            got, r, atol=pt_corr.MMA_FWD_VS_EXACT_TOL * max(1.0, float(r.abs().max())), rtol=0)
+    torch.testing.assert_close(out[2], exact[2], atol=5e-5, rtol=0)
+
+
+@pytest.mark.parametrize("name,B,H,W,cq,cv,nan", K1_WGMMA_EDGES,
+                         ids=[c[0] for c in K1_WGMMA_EDGES])
+def test_k1_wgmma_edges_plain_twin(name, B, H, W, cq, cv, nan):
+    """The CPU twin of the card case: on the same inputs the plain forward
+    with the kernel's rounding stays within half of MMA_FWD_VS_EXACT_TOL of
+    the exact one (the max score within 5e-5), NaN in batch element 1 stays
+    there in both, and the package's kernel for the shape is the one
+    forward_kernel names (the mma.sync kernel at 64 positions or fewer)."""
+    args, g = _k1_wgmma_inputs(name, B, H, W, cq, cv, nan, "cpu")
+    exact = pt_corr.fused_correlation_warp_plain(*args, g)
+    matched = pt_corr.fused_correlation_warp_plain(*args, g, bf16_roundings=True)
+    keep = slice(0, 1) if nan else slice(None)
+    if nan:
+        assert all(bool(torch.isnan(o[1]).all()) for o in exact + matched)
+    for m, r in zip(matched[:2], exact[:2]):
+        m, r = m[keep], r[keep]
+        assert torch.isfinite(m).all()
+        assert float((m - r).abs().max()) <= pt_corr.MMA_FWD_VS_EXACT_TOL / 2 * max(
+            1.0, float(r.abs().max()))
+    assert float((matched[2][keep] - exact[2][keep]).abs().max()) < 5e-5
+    want = (pt_corr.KERNEL_FWD_MMA_SYNC if H * W <= pt_corr.FEW_ROWS_HW
+            else pt_corr.KERNEL_FWD_WGMMA)
+    assert pt_corr.forward_kernel(torch.bfloat16, H * W, cq, cv) == want
+
+
 # (name, B, H, W, Cq, Cv, dtype, scale of q and k, atol): K1's FMA design at
 # the edges of its two kernels (ops/csrc/correlation_fwd.cu::dispatch_fma):
 # the 3d3d grid (ragged last row and key tiles), HW below the long-rows

@@ -11,6 +11,7 @@ does not repeat on every run. From the root of a checkout:
     python3 tools/torch_chip_studies.py mesh-faults
     python3 tools/torch_chip_studies.py wide-unscaled
     python3 tools/torch_chip_studies.py k1-variants
+    python3 tools/torch_chip_studies.py k1-wgmma-variants [SHAPE WORD ...]
     python3 tools/torch_chip_studies.py k1-fma-variants
     python3 tools/torch_chip_studies.py k1-fma-edits
     python3 tools/torch_chip_studies.py f32-checkouts [CHECKOUT ...]
@@ -21,6 +22,13 @@ does not repeat on every run. From the root of a checkout:
 decode-threads: wall time of data/jpeg.py::decode_resize_batch for 64 frames
 of the 540x720 fixtures (tests/data/torch_port/) to 270x360 planar YUV420,
 with 1, 2, 4 and 8 host decode threads (the mean of 5 batches after one).
+
+k1-wgmma-variants: K1's tensor-core kernels at every shape a driven path
+gives them (C = 32 at B = 64, 10 and 576 and on ScanNet's 80x60 grid, C = 128
+at B = 10 and 64, Cq 256 / Cv 96, C = 256, C = 1,024 on the ResNet's 5x4
+grid): instantiations of the wgmma kernel and of the mma.sync kernel, built
+from a file that includes the .cu, each held to the package's bits, timed in
+turns; words after the name keep the shapes whose names contain one.
 
 bf16-seeds: chip_smoke.py phase 6's bf16 train-step comparison of the small
 3d3d model (1-1-1 blocks, 96x72, batch 4) over six (batch, weight) seeds:
@@ -565,6 +573,117 @@ def k1_variants() -> None:
                 print(f"[{card()}] K1 {name}: <{a}> {vms:.4f} ms, equal bits to the "
                       f"package's: {same}", flush=True)
             del q, k, v, ref
+            torch.cuda.empty_cache()
+
+
+# K1's tensor-core kernels at every shape a driven path gives them: (name, B,
+# H, W, Cq, Cv) -> candidate template arguments of launch_wgmma (the
+# package's first) and of launch_mma (the mma.sync kernel the package took
+# before); the wgmma kernel does not take Cq beyond 256
+_C32_WG = ["1, 32, 1, 32, 2, 3, 2", "1, 32, 1, 32, 2, 4, 2", "1, 32, 1, 32, 2, 2, 2",
+           "1, 32, 1, 32, 2, 4, 1", "1, 32, 1, 32, 3, 4, 1", "1, 32, 1, 32, 1, 4, 3"]
+_C128_WG = ["2, 64, 2, 64, 2, 3, 1", "2, 64, 2, 64, 3, 3, 1", "2, 64, 2, 64, 2, 4, 1"]
+_MMA_C32 = ["32, 32, false, 2, 4, 3, 3"]
+K1_WGMMA_VARIANTS = {
+    ("C=32, 3d3d grid, B=64", 64, 92, 68, 32, 32): (_C32_WG, _MMA_C32),
+    ("C=32, 3d3d grid, B=10", 10, 92, 68, 32, 32): (_C32_WG[:3], _MMA_C32),
+    ("C=32, 3d3d grid, B=576", 576, 92, 68, 32, 32): (_C32_WG[:2], _MMA_C32),
+    ("C=32, ScanNet grid 80x60, B=64", 64, 60, 80, 32, 32): (_C32_WG[:2], _MMA_C32),
+    ("C=128, 3d3d grid, B=10", 10, 92, 68, 128, 128): (_C128_WG, ["128, 128, false, 1, 4, 2, 2"]),
+    ("C=128, 3d3d grid, B=64", 64, 92, 68, 128, 128): (_C128_WG[1::-1],
+                                                       ["128, 128, false, 1, 4, 2, 2"]),
+    ("Cq=256 Cv=96, 3d3d grid, B=10", 10, 92, 68, 256, 96): (
+        ["4, 64, 2, 64, 2, 3, 1", "4, 64, 2, 64, 2, 2, 1", "4, 64, 2, 64, 3, 2, 1"],
+        ["64, 128, true, 1, 4, 2, 3"]),
+    ("C=256, 3d3d grid, B=10", 10, 92, 68, 256, 256): (
+        ["4, 64, 2, 64, 3, 2, 1", "4, 64, 2, 64, 2, 3, 1", "4, 64, 4, 64, 2, 2, 1"],
+        ["64, 128, true, 1, 4, 2, 3"]),
+    ("C=1,024, ResNet grid 5x4, B=64", 64, 5, 4, 1024, 1024): ([], ["64, 128, true, 1, 2, 2, 3"]),
+}
+
+
+def k1_wgmma_variants() -> None:
+    """The wgmma kernel's instantiations against the mma.sync kernel's, each
+    built from a file that includes the checkout's .cu, each held to the
+    package's bits, timed in turns (wgmma, mma.sync, mma.sync, wgmma) by CUDA
+    events through the same C entry, and where the host paces the call (HW
+    of 64 or fewer) on the device alone from CUDA graphs; then the host's
+    time to issue one call of each kernel (the wgmma kernel encodes three
+    tensor maps a call)."""
+    import ctypes
+    import tempfile
+
+    import torch
+
+    import chip_smoke as cs
+    from mapfree_tpu_torch.ops import _build
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    _build.load_libraries([corr.KERNEL])
+    new = sorted({a for wg, _ in K1_WGMMA_VARIANTS.values() for a in wg})
+    old = sorted({a for _, mm in K1_WGMMA_VARIANTS.values() for a in mm})
+    args = ("const void* q, const void* k, const void* v, const void* grid, void* out, int B, "
+            "int HW, int Cq, int Cv, int dtype, void* stream")
+    mma = ("const MmaArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k), "
+           "static_cast<const bf16*>(v), static_cast<const bf16*>(grid), "
+           "static_cast<float*>(out), B, HW, Cq, Cv, static_cast<cudaStream_t>(stream)};")
+    body = [f'extern "C" int wg_{i}({args}) {{ {mma} return launch_wgmma<{a}>(a); }}'
+            for i, a in enumerate(new)]
+    body += [f'extern "C" int mm_{i}({args}) {{ {mma} return launch_mma<{a}>(a); }}'
+             for i, a in enumerate(old)]
+    with tempfile.TemporaryDirectory() as tmp:
+        lib = _variant_lib(Path(tmp), body)
+        for (name, B, H, W, cq, cv), (wg, mm) in K1_WGMMA_VARIANTS.items():
+            if sys.argv[2:] and not any(w in name for w in sys.argv[2:]):
+                continue
+            HW = H * W
+            q, k, v, grid = cs._kernel_inputs(B, H, W, cq, cv, "bfloat16", seed=7, spread32=True)
+            kernel = corr.forward_kernel(q.dtype, HW, cq, cv)
+            ref = corr._forward_cuda(q, k, v, grid)
+            torch.cuda.synchronize()
+            cands = [(f"wgmma <{a}>", getattr(lib, f"wg_{new.index(a)}")) for a in wg]
+            cands += [(f"mma.sync <{a}>", getattr(lib, f"mm_{old.index(a)}")) for a in mm]
+            launches = {}
+            for label, fn in cands:
+                fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+                out = torch.empty_like(ref)
+
+                def launch(fn=fn, out=out, label=label):
+                    err = fn(*(t.data_ptr() for t in (q, k, v, grid, out)), B, HW, cq, cv, 1,
+                             torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"{label} failed to launch: cudaError_t {err}")
+
+                launch()
+                torch.cuda.synchronize()
+                launches[label] = launch
+                print(f"[{card()}] K1 {name}: {label} gives the package's bits: "
+                      f"{torch.equal(out, ref)}", flush=True)
+            iters = max(3, min(50, int(400 / max(1, B * HW * HW * (cq + cv) / 2e9))))
+            timer = (lambda f: cs.graph_ms(f, 20)) if HW <= 64 else \
+                (lambda f: cs.cuda_time_ms(f, iters=iters, warmup=2))
+            times = {label: [] for label in launches}
+            order = list(launches) + list(launches)[::-1]
+            for label in order:
+                times[label].append(timer(launches[label]))
+            where = "on the device alone" if HW <= 64 else "CUDA events"
+            for label, ts in times.items():
+                print(f"[{card()}] K1 {name} ({where}): {label} "
+                      f"{min(ts):.4f}-{max(ts):.4f} ms", flush=True)
+            print(f"[{card()}] K1 {name}: the package takes the {kernel} kernel", flush=True)
+            for label, launch in launches.items():
+                launch()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    launch()
+                us = 1e6 * (time.perf_counter() - t0) / 20
+                torch.cuda.synchronize()
+                if HW <= 64 or cq <= 32 and B <= 10:
+                    print(f"[{card()}] K1 {name}: {label} host time to issue one call "
+                          f"{us:.1f} us", flush=True)
+            del q, k, v, ref, launches
             torch.cuda.empty_cache()
 
 
@@ -1309,6 +1428,7 @@ def main() -> None:
                "bf16-faults": bf16_faults, "upsample-ab": upsample_ab,
                "sweep-determinism": sweep_determinism, "mesh-faults": mesh_faults,
                "wide-unscaled": wide_unscaled, "k1-variants": k1_variants,
+               "k1-wgmma-variants": k1_wgmma_variants,
                "k1-fma-variants": k1_fma_variants, "k1-fma-edits": k1_fma_edits,
                "k23-fma-variants": k23_fma_variants, "k23-mma-variants": k23_mma_variants}
     if sys.argv[1:2] == ["decode-under-load"]:
