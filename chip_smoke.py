@@ -6,11 +6,12 @@
 Phases, in order; any failure raises and the script exits nonzero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the CUDA kernels (correlation_fwd: K1; correlation_bwd_mma and
-   correlation_bwd: K2, K3;
-   each in two designs, tensor cores for bf16 and float32 FMA, and the
-   prologue K2 launches where its operands stream), the nvJPEG decoder and
-   the PNG reader's host unfilter,
+2. build: the CUDA kernels (correlation_fwd: K1; correlation_bwd_wgmma,
+   correlation_bwd_mma and correlation_bwd: K2, K3;
+   each in two designs, tensor cores for bf16 and float32 FMA, each
+   tensor-core design in two kernels, wgmma and mma.sync, and the
+   prologue the mma.sync K2 launches where its operands stream), the nvJPEG
+   decoder and the PNG reader's host unfilter,
    compiled at once from this checkout's sources with nvcc, with ptxas's
    registers and spills per kernel instantiation;
 3. kernel: K1 (the fused correlation softmax-warp), K2 and K3 (its backward
@@ -58,7 +59,15 @@ Phases, in order; any failure raises and the script exits nonzero:
    index) and at a NaN row (no fault, the argmax in range, the NaN in the
    gradients); at HW <= 64, where the host's time to issue a call paces
    it, K1, K2, K3 and the library calls are also timed on the device alone
-   (CUDA graphs);
+   (CUDA graphs). K2 and K3 take the wgmma pair beyond 64 positions with Cq,
+   Cv from 65 to 256 (the mma.sync pair up to 64 channels, where it
+   measured faster, at HW <= 64 and wider); at every case of a width the
+   wgmma pair takes, both pairs also run by name on the same inputs (the
+   wgmma pair held to the matched backward, their bits printed, each pair's
+   K2 handed on to the other's K3 and held to it), the wgmma pair is also
+   held, asked for by name, at HW 65 and 1,000, Cq = Cv = 24, 1,000 batch
+   elements of 70 positions and NaN in the next batch element, and both
+   pairs are timed in turns at every driven shape;
 4. inference path: the 3d3d model (configs/regression/mapfree/3d3d.yaml over
    configs/mapfree.yaml: ResUNet 3-3-3 bottleneck, 360x270, bf16, batch 64,
    unique refs, planar YUV420 input) with random weights from a seed, driven
@@ -334,6 +343,12 @@ STEP_BF16_BWD_L2_TOL = 2e-2
 # by 1%: its limit only catches a step that is off altogether
 STEP_BF16_LOSS_RTOL = 1e-2
 STEP_BF16_L2_TOL = 0.25
+# the tensor-core pair of K2 and K3 a bf16 train path takes
+# (ops/correlation.py::backward_kernel, MMA_SYNC_FASTER): mma.sync at 32
+# channels (every config under configs/regression/) and on the ResNet
+# encoder's 5x4 grid, wgmma at 128 and 256 channels
+BWD_MMA_SYNC = ["mma_sync"]
+BWD_WGMMA = ["wgmma"]
 
 
 def log(msg: str) -> None:
@@ -567,28 +582,33 @@ def _forward_line(res: dict) -> str:
     return line + f"max |kernel - plain| = {res['err']:.3g} (atol {res['tol']:g})"
 
 
-def backward_case(q, k, v, grid, dout) -> dict:
+def backward_case(q, k, v, grid, dout, kernel=None) -> dict:
     """K2 and K3 against their plain versions on the same inputs, by the
-    design that serves them, given the exact forward's buffer. Where the
+    design that serves them (in the tensor-core design by the pair the
+    package picks, or ``kernel``), given the exact forward's buffer. Where the
     kernel's first argmax differs from the plain version's, the two scores
     must be equal within float32 summation noise (the two sum q.k in other
     orders); the plain version then routes the max-score cotangent as the
     kernel did, so that the comparison is of the same function. The
     tensor-core design is compared twice: with the plain backward that rounds
-    dmain, P and dS to bf16 as it does (relative L2), and with the exact one;
-    its prologue's outputs are compared too."""
+    dmain, P and dS to bf16 as it does (relative L2), and with the exact one
+    (at the tolerances of its widths and B x HW rows); its prologue's
+    outputs are compared too. The wgmma pair is also set beside the mma.sync
+    pair on the same inputs: their bits compared, and each one's K2 handed on
+    to the other's K3, held to the matched backward."""
     import torch
 
     from mapfree_tpu_torch.ops import correlation as corr
 
     design = corr.backward_design(q.dtype, q.shape[-1], v.shape[-1])
+    pair = kernel or corr.backward_kernel(q.dtype, q.shape[1], q.shape[-1], v.shape[-1])
     # K2 and K3 take the forward's buffer (1/d and c = dout . out); they get
     # the exact plain forward's, because the plain backward forms c from its
     # own float32 P: K1's tensor-core design rounds P to bf16, which moves c
     # by some 1e-3 relative and would stand between the two backwards
     out = corr._plain_buffer(q, k, v, grid)
-    dq, rows = corr.correlation_bwd_rows(q, k, v, grid, out, dout)
-    dk, dv = corr.correlation_bwd_cols(q, k, v, grid, dout, rows)
+    dq, rows = corr.correlation_bwd_rows(q, k, v, grid, out, dout, kernel=kernel)
+    dk, dv = corr.correlation_bwd_cols(q, k, v, grid, dout, rows, kernel=kernel)
     torch.cuda.synchronize()
     amax = rows.amax.long()
     if int(amax.min()) < 0 or int(amax.max()) >= q.shape[1]:
@@ -603,7 +623,7 @@ def backward_case(q, k, v, grid, dout) -> dict:
     del s, top, gap
     dq_p, dk_p, dv_p, _ = corr.fused_correlation_warp_bwd_plain(q, k, v, grid, dout, amax)
     torch.cuda.synchronize()
-    res = {"design": design, "k2_err": _scaled_err([dq], [dq_p]),
+    res = {"design": design, "kernel": pair, "k2_err": _scaled_err([dq], [dq_p]),
            "k3_err": _scaled_err([dk, dv], [dk_p, dv_p]), "argmax_near_ties": moved,
            "dk": dk, "dv": dv, "rows": rows, "tol": BWD_TOL}
     # the statistics K2 hands to K3, against the scores and the forward's max
@@ -621,20 +641,19 @@ def backward_case(q, k, v, grid, dout) -> dict:
                            float((inv_d / out[..., -1] - 1).abs().max()) / 1e-5)
     del s
     # fixed summation orders, no atomics: a second run gives the same bits
-    dq2, rows2 = corr.correlation_bwd_rows(q, k, v, grid, out, dout)
-    dk2, dv2 = corr.correlation_bwd_cols(q, k, v, grid, dout, rows2)
+    dq2, rows2 = corr.correlation_bwd_rows(q, k, v, grid, out, dout, kernel=kernel)
+    dk2, dv2 = corr.correlation_bwd_cols(q, k, v, grid, dout, rows2, kernel=kernel)
     torch.cuda.synchronize()
     res["same_bits"] = all(torch.equal(a, b) for a, b in (
         (dq, dq2), (dk, dk2), (dv, dv2), (rows.stats, rows2.stats), (rows.amax, rows2.amax)))
     del dq2, rows2, dk2, dv2
     if design == corr.DESIGN_MMA:
-        del dq_p, dk_p, dv_p
-        Cq, Cv = q.shape[-1], v.shape[-1]
+        Cq, Cv, n_rows = q.shape[-1], v.shape[-1], q.shape[0] * q.shape[1]
         dq_m, dk_m, dv_m, _ = corr.fused_correlation_warp_bwd_plain(
             q, k, v, grid, dout, amax, bf16_roundings=True)
         torch.cuda.synchronize()
-        res.update(tol=corr.mma_backward_exact_tol(Cq, Cv),
-                   l2_tol=corr.mma_backward_matched_l2_tol(Cq, Cv),
+        res.update(tol=corr.mma_backward_exact_tol(Cq, Cv, n_rows),
+                   l2_tol=corr.mma_backward_matched_l2_tol(Cq, Cv, n_rows),
                    k2_l2=_rel_l2([dq], [dq_m]), k3_l2=_rel_l2([dk, dv], [dk_m, dv_m]),
                    k2_matched=_scaled_err([dq], [dq_m]),
                    k3_matched=_scaled_err([dk, dv], [dk_m, dv_m]))
@@ -652,6 +671,35 @@ def backward_case(q, k, v, grid, dout) -> dict:
         res["prologue_c_err"] = _scaled_err([rows.stats[..., 2]], [stats_p[..., 2]])
         if res["prologue_c_err"] > PROLOGUE_TOL:
             raise AssertionError(f"K2's c is off by {res['prologue_c_err']:.3g}")
+        if corr.wgmma_width_class(Cq, Cv) is not None:
+            # both pairs by name on the same inputs: the wgmma pair held to
+            # both plain backwards and the plain prologue, with equal bits on
+            # two runs, its bits against the mma.sync pair's, and each one's K2
+            # handed on to the other's K3, held to the matched backward
+            wg, ms = corr.KERNEL_FWD_WGMMA, corr.KERNEL_FWD_MMA_SYNC
+            runs = []
+            for _ in range(2):
+                dq_w, rows_w = corr.correlation_bwd_rows(q, k, v, grid, out, dout, kernel=wg)
+                dk_w, dv_w = corr.correlation_bwd_cols(q, k, v, grid, dout, rows_w, kernel=wg)
+                runs.append((dq_w, dk_w, dv_w, rows_w.stats, rows_w.amax, rows_w.dmain))
+            dq_o, rows_o = corr.correlation_bwd_rows(q, k, v, grid, out, dout, kernel=ms)
+            dk_o, dv_o = corr.correlation_bwd_cols(q, k, v, grid, dout, rows_o, kernel=ms)
+            dk_h, dv_h = corr.correlation_bwd_cols(q, k, v, grid, dout, rows_w, kernel=ms)
+            dk_r, dv_r = corr.correlation_bwd_cols(q, k, v, grid, dout, rows_o, kernel=wg)
+            torch.cuda.synchronize()
+            res["as_mma_sync"] = {key: torch.equal(a, b) for key, a, b in (
+                ("dq", dq_w, dq_o), ("dk", dk_w, dk_o), ("dv", dv_w, dv_o),
+                ("stats", rows_w.stats, rows_o.stats), ("amax", rows_w.amax, rows_o.amax),
+                ("dmain", rows_w.dmain, rows_o.dmain))}
+            res["wgmma_l2"] = _rel_l2([dq_w, dk_w, dv_w], [dq_m, dk_m, dv_m])
+            res["wgmma_err"] = max(_scaled_err([dq_w], [dq_p]), _scaled_err([dk_w, dv_w],
+                                                                           [dk_p, dv_p]))
+            res["wgmma_same_bits"] = all(torch.equal(a, b) for a, b in zip(*runs))
+            res["wgmma_prologue"] = (torch.equal(rows_w.dmain, dmain_p) and torch.equal(
+                rows_w.stats[..., [1, 3]], stats_p[..., [1, 3]]))
+            res["handoff_l2"] = max(_rel_l2([dq_w, dk_h, dv_h], [dq_m, dk_m, dv_m]),
+                                    _rel_l2([dq_o, dk_r, dv_r], [dq_m, dk_m, dv_m]))
+            del dq_w, rows_w, dq_o, rows_o, dk_w, dv_w, dk_o, dv_o, dk_h, dv_h, dk_r, dv_r, runs
     return res
 
 
@@ -733,13 +781,27 @@ def check_backward(res: dict, what: str) -> None:
     if "k2_tile_l2" in res and not res["k2_tile_l2"] <= res["l2_tol"]:
         raise AssertionError(f"a column tile of K2's dq disagrees with the plain backward of "
                              f"the same roundings in {what}: relative L2 {res['k2_tile_l2']:.3g}")
+    if "wgmma_l2" in res and not (res["wgmma_l2"] <= res["l2_tol"]
+                                  and res["wgmma_err"] <= res["tol"]):
+        raise AssertionError(f"the wgmma K2 and K3 disagree with the plain backwards in {what}: "
+                             f"relative L2 {res['wgmma_l2']:.3g} to the matched one, "
+                             f"{res['wgmma_err']:.3g} of the largest gradient to the exact one")
+    if res.get("wgmma_same_bits") is False or res.get("wgmma_prologue") is False:
+        raise AssertionError(f"the wgmma K2 and K3 in {what}: equal bits on two runs "
+                             f"{res['wgmma_same_bits']}, dmain, 1/d and d_ms the plain "
+                             f"prologue's {res['wgmma_prologue']}")
+    if "handoff_l2" in res and not res["handoff_l2"] <= res["l2_tol"]:
+        raise AssertionError(f"a K2 of one tensor-core pair handed on to the other's K3 "
+                             f"disagrees with the plain backward of the same roundings in "
+                             f"{what}: relative L2 {res['handoff_l2']:.3g}")
 
 
 def _case_line(res: dict) -> str:
     """One case's backward errors, with the design that served it."""
     from mapfree_tpu_torch.ops import correlation as corr
 
-    line = (f"design {res['design']}; K2 {res['k2_err']:.3g}, K3 {res['k3_err']:.3g} of the "
+    line = (f"design {res['design']}" + (f" ({res['kernel']})" if res.get("kernel") else "")
+            + f"; K2 {res['k2_err']:.3g}, K3 {res['k3_err']:.3g} of the "
             f"largest gradient vs the exact plain backward (tol {res['tol']:g})")
     if res["design"] == corr.DESIGN_MMA:
         line += (f"; vs the plain backward with the kernels' bf16 roundings: relative L2 K2 "
@@ -750,6 +812,13 @@ def _case_line(res: dict) -> str:
     if "same_bits" in res:
         line += (f"; row statistics at {res['stats_err']:.3g} of their limits; two runs of K2 "
                  f"and K3 give equal bits: {res['same_bits']}")
+    if "as_mma_sync" in res:
+        same = [key for key, eq in res["as_mma_sync"].items() if eq]
+        line += (f"; the wgmma K2, K3 by name: relative L2 {res['wgmma_l2']:.3g}, "
+                 f"{res['wgmma_err']:.3g} of the largest gradient vs the exact plain backward, "
+                 f"equal bits on two runs {res['wgmma_same_bits']}, the plain prologue's "
+                 f"{res['wgmma_prologue']}, the mma.sync ones' bits in {same or 'none'}; either "
+                 f"K2 handed on to the other's K3: relative L2 {res['handoff_l2']:.3g}")
     return line + f"; argmax near-ties {res['argmax_near_ties']}"
 
 
@@ -779,9 +848,13 @@ def phase_kernel_cases() -> dict:
 
     def record_backward(name, res):
         for kernel, key in ((corr.KERNEL_BWD_ROWS, "k2"), (corr.KERNEL_BWD_COLS, "k3")):
-            more = {"design": res["design"]}
+            more = {"design": res["design"], "tensor_core_kernel": res.get("kernel")}
             if res["design"] == corr.DESIGN_MMA:
                 more.update(matched_rel_l2=res[key + "_l2"], matched_rel_l2_tol=res["l2_tol"])
+            if "as_mma_sync" in res:
+                more.update(wgmma_rel_l2=res["wgmma_l2"], wgmma_err=res["wgmma_err"],
+                            wgmma_has_mma_sync_bits=res["as_mma_sync"],
+                            handoff_rel_l2=res["handoff_l2"])
             record(kernel, name, res[key + "_err"], res["tol"], **more)
         check_backward(res, f"case {name}")
 
@@ -1053,7 +1126,79 @@ def phase_kernel_cases() -> dict:
     if not (finite and same and nan_1):
         raise AssertionError("K1's wgmma kernel let batch element 1's NaN rows reach element 0 "
                              f"(finite {finite}, equal bits {same}, element 1 NaN {nan_1})")
+
+    # K2 and K3's wgmma pair, asked for by name, at the edges the cases above
+    # leave (they give it every bf16 shape beyond 64 positions: HW 70, 130,
+    # 576, 1,000 and 6,256, Cq != Cv, C = 8, Cv of 8 mod 16 at 40 and 120,
+    # 136, 256 / 96, 256, ties, NaN rows, the max-score cotangent alone): one
+    # key past a tile (HW 65), Cq = Cv = 24, 32 channels at HW 1,000, and
+    # 1,000 batch elements of 70 positions at 128 channels (some 2,000
+    # blocks); each held to both plain backwards, two runs to the same bits,
+    # beside the mma.sync pair (bits printed, hand-offs held)
+    for i, (name, (B, H, W, cq, cv)) in enumerate({
+        "wgmma_bwd_hw65": (2, 5, 13, 32, 32),
+        "wgmma_bwd_c24_hw70": (2, 7, 10, 24, 24),
+        "wgmma_bwd_hw1000": (1, 25, 40, 32, 32),
+        "wgmma_bwd_c128_hw70_b1000": (1000, 7, 10, 128, 128),
+    }.items()):
+        q, k, v, grid = _kernel_inputs(B, H, W, cq, cv, "bfloat16", seed=480 + i, spread32=True)
+        res = backward_case(q, k, v, grid, _cotangent(B, H * W, cv, seed=490 + i),
+                            kernel=corr.KERNEL_FWD_WGMMA)
+        log(f"[kernel] {name}: {_case_line(res)}")
+        record_backward(name, res)
+        del q, k, v, grid, res
+    # NaN in batch element 1's first rows of q, k and v: element 0's last key
+    # tile (K2) and row chunk (K3) reach past its HW = 70, where the tensor
+    # maps read zeros, so element 0 stays finite and held to both plain
+    # backwards; element 1's gradients are NaN
+    q, k, v, grid = _kernel_inputs(2, 7, 10, 32, 32, "bfloat16", seed=495, spread32=True)
+    for t in (q, k, v):
+        t[1, :3] = float("nan")
+    res = nan_next_batch_case(q, k, v, grid, _cotangent(2, 70, 32, seed=496))
+    log(f"[kernel] wgmma_bwd_nan_next_batch_hw70, element 0: K2 {res['k2_err']:.3g}, K3 "
+        f"{res['k3_err']:.3g} of the largest gradient vs the exact plain backward (tol "
+        f"{res['tol']:g}); relative L2 {res['l2']:.3g} vs the matched one (tol "
+        f"{res['l2_tol']:g}); finite: {res['finite']}; equal bits on two runs: {res['same_bits']}"
+        f"; element 1 NaN: {res['nan_1']}")
+    for kernel, key in ((corr.KERNEL_BWD_ROWS, "k2"), (corr.KERNEL_BWD_COLS, "k3")):
+        record(kernel, "wgmma_bwd_nan_next_batch_hw70", res[key + "_err"], res["tol"],
+               design=corr.DESIGN_MMA, tensor_core_kernel=corr.KERNEL_FWD_WGMMA,
+               matched_rel_l2=res["l2"], matched_rel_l2_tol=res["l2_tol"])
+    if not (res["finite"] and res["same_bits"] and res["nan_1"] and res["l2"] <= res["l2_tol"]):
+        raise AssertionError(f"K2 and K3's wgmma pair let batch element 1's NaN rows reach "
+                             f"element 0: {res}")
     return cases
+
+
+def nan_next_batch_case(q, k, v, grid, dout) -> dict:
+    """The wgmma K2 and K3 where batch element 1 holds NaN rows: element 0
+    held to the exact plain backward and the matched one, finite, equal bits
+    on two runs; element 1's dq not finite."""
+    import torch
+
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    out = corr._plain_buffer(q, k, v, grid)
+    runs = []
+    for _ in range(2):
+        dq, rows = corr.correlation_bwd_rows(q, k, v, grid, out, dout,
+                                             kernel=corr.KERNEL_FWD_WGMMA)
+        dk, dv = corr.correlation_bwd_cols(q, k, v, grid, dout, rows,
+                                           kernel=corr.KERNEL_FWD_WGMMA)
+        runs.append((dq, dk, dv, rows.amax))
+    torch.cuda.synchronize()
+    got = [x[:1] for x in runs[0][:3]]
+    amax = runs[0][3][:1].long()
+    exact = corr.fused_correlation_warp_bwd_plain(q[:1], k[:1], v[:1], grid, dout[:1], amax)[:3]
+    matched = corr.fused_correlation_warp_bwd_plain(q[:1], k[:1], v[:1], grid, dout[:1], amax,
+                                                    bf16_roundings=True)[:3]
+    Cq, Cv, n_rows = q.shape[-1], v.shape[-1], q.shape[0] * q.shape[1]
+    return {"k2_err": _scaled_err(got[:1], exact[:1]), "k3_err": _scaled_err(got[1:], exact[1:]),
+            "tol": corr.mma_backward_exact_tol(Cq, Cv, n_rows), "l2": _rel_l2(got, matched),
+            "l2_tol": corr.mma_backward_matched_l2_tol(Cq, Cv, n_rows),
+            "finite": all(bool(torch.isfinite(x).all()) for x in got),
+            "same_bits": all(torch.equal(a[:1], b[:1]) for a, b in zip(runs[0], runs[1])),
+            "nan_1": not bool(torch.isfinite(runs[0][0][1]).all())}
 
 
 def _nbytes(*tensors) -> int:
@@ -1241,6 +1386,9 @@ def time_backward(B, H, W, C, dtype, seed, spread32=False, cv=None, fma_too=Fals
 
     k2_ms = cuda_time_ms(k2_call, iters=10)
     k3_ms = cuda_time_ms(k3_call, iters=10)
+    pair = corr.backward_kernel(q.dtype, HW, C, cv)
+    turns = (_pairs_in_turns(q, k, v, grid, out, dout, iters=10)
+             if pair and corr.wgmma_width_class(C, cv) else {})
     k2_plain = cuda_time_ms(lambda: corr.correlation_bwd_rows_plain(q, k, v, grid, dout), iters=3)
     k3_plain = cuda_time_ms(lambda: corr.correlation_bwd_cols_plain(q, k, v, grid, dout), iters=3)
     torch.cuda.empty_cache()
@@ -1311,20 +1459,49 @@ def time_backward(B, H, W, C, dtype, seed, spread32=False, cv=None, fma_too=Fals
         if "fma_k2_device_ms" in fma:
             fma_line += (f", on the device alone {fma['fma_k2_device_ms']:.4f} + "
                          f"{fma['fma_k3_device_ms']:.4f} ms")
-    log(f"[kernel] K2+K3 {k2_ms + k3_ms:.3f} ms; library (attention backward) "
-        f"{library_ms:.3f} ms{library}{alone}{fma_line}")
+    log(f"[kernel] K2+K3 {k2_ms + k3_ms:.3f} ms ({pair or 'fma'}); library (attention "
+        f"backward) {library_ms:.3f} ms{library}{alone}{fma_line}{_turns_line(turns)}")
     named = {"library_backend": backend} if backend else {}
     both = {"library_ms": library_ms, "library_covers": "K2+K3", "shape": shape,
             "design": design, **named, **fma}
     if device:
         both["library_device_ms"] = device["library_device_ms"]
     k2 = {"ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound_ms, "bound_by": k2_by,
-          "max_abs_err": k2_err, **both,
+          "max_abs_err": k2_err, "kernel": pair, **both, **turns.get("k2", {}),
           **({"device_ms": device["k2_device_ms"]} if device else {})}
     k3 = {"ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound_ms, "bound_by": k3_by,
-          "max_abs_err": k3_err, **both,
+          "max_abs_err": k3_err, "kernel": pair, **both, **turns.get("k3", {}),
           **({"device_ms": device["k3_device_ms"]} if device else {})}
     return k2, k3
+
+
+def _pairs_in_turns(q, k, v, grid, out, dout, iters) -> dict:
+    """Both pairs of K2 and K3 in the tensor-core design, asked for by name,
+    timed in turns on the same inputs (wgmma, mma.sync, mma.sync, wgmma):
+    {"k2": {"wgmma_ms_turns": [..], "mma_sync_ms_turns": [..]}, "k3": ...}."""
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    rows = {name: corr.correlation_bwd_rows(q, k, v, grid, out, dout, kernel=name)[1]
+            for name in (corr.KERNEL_FWD_WGMMA, corr.KERNEL_FWD_MMA_SYNC)}
+    got = {key: {f"{name}_ms_turns": [] for name in rows} for key in ("k2", "k3")}
+    for name in (corr.KERNEL_FWD_WGMMA, corr.KERNEL_FWD_MMA_SYNC,
+                 corr.KERNEL_FWD_MMA_SYNC, corr.KERNEL_FWD_WGMMA):
+        got["k2"][f"{name}_ms_turns"].append(cuda_time_ms(
+            lambda: corr.correlation_bwd_rows(q, k, v, grid, out, dout, kernel=name),
+            iters=iters))
+        got["k3"][f"{name}_ms_turns"].append(cuda_time_ms(
+            lambda: corr.correlation_bwd_cols(q, k, v, grid, dout, rows[name], kernel=name),
+            iters=iters))
+    return got
+
+
+def _turns_line(turns: dict) -> str:
+    if not turns:
+        return ""
+    return "; " + ", ".join(
+        f"{name.upper()} wgmma {min(t['wgmma_ms_turns']):.3f}-{max(t['wgmma_ms_turns']):.3f} ms, "
+        f"mma.sync {min(t['mma_sync_ms_turns']):.3f}-{max(t['mma_sync_ms_turns']):.3f} ms"
+        for name, t in turns.items()) + " (in turns)"
 
 
 def _batch_slices(B: int, n: int = 2) -> list:
@@ -1434,8 +1611,17 @@ def time_backward_batch(B, H, W, C, dtype, seed) -> tuple:
     del dq, dk, dv
     torch.cuda.empty_cache()
     out = torch.cat(corr.fused_correlation_warp(q, k, v, grid), dim=-1)  # K1's, as in training
-    k2_ms = cuda_time_ms(lambda: corr.correlation_bwd_rows(q, k, v, grid, out, dout), iters=5)
-    k3_ms = cuda_time_ms(lambda: corr.correlation_bwd_cols(q, k, v, grid, dout, rows), iters=5)
+
+    def k2_call():
+        corr.correlation_bwd_rows(q, k, v, grid, out, dout)
+
+    def k3_call():
+        corr.correlation_bwd_cols(q, k, v, grid, dout, rows)
+
+    k2_ms = cuda_time_ms(k2_call, iters=5)
+    k3_ms = cuda_time_ms(k3_call, iters=5)
+    pair = corr.backward_kernel(q.dtype, HW, C, C)
+    turns = _pairs_in_turns(q, k, v, grid, out, dout, iters=5)
     sl = _batch_slices(B)[0]
     k2_plain = cuda_time_ms(
         lambda: corr.correlation_bwd_rows_plain(q[sl], k[sl], v[sl], grid, dout[sl]), iters=3)
@@ -1454,14 +1640,16 @@ def time_backward_batch(B, H, W, C, dtype, seed) -> tuple:
                                        ("K3", k3_ms, k3_plain, k3_bound_ms, k3_by)):
         log(f"[kernel] {name} {shape}: kernel_ms={ms:.3f} bound_ms={bound:.4f} ({by}), "
             f"{100 * bound / ms:.1f}% of its bound; plain version on 2 rows {plain:.3f} ms")
-    log(f"[kernel] K2+K3 B={B}: {k2_ms + k3_ms:.3f} ms; library (attention backward) "
-        f"{library_ms:.3f} ms")
+    log(f"[kernel] K2+K3 B={B}: {k2_ms + k3_ms:.3f} ms ({pair}); library (attention "
+        f"backward) {library_ms:.3f} ms{_turns_line(turns)}")
     k2 = {"ms": k2_ms, "plain_ms_2_rows": k2_plain, "library_ms": library_ms,
           "library_covers": "K2+K3", "bound_ms": k2_bound_ms, "bound_by": k2_by,
-          "max_abs_err": errs["k2"], "shape": shape, "design": design}
+          "max_abs_err": errs["k2"], "shape": shape, "design": design, "kernel": pair,
+          **turns["k2"]}
     k3 = {"ms": k3_ms, "plain_ms_2_rows": k3_plain, "library_ms": library_ms,
           "library_covers": "K2+K3", "bound_ms": k3_bound_ms, "bound_by": k3_by,
-          "max_abs_err": errs["k3"], "shape": shape, "design": design}
+          "max_abs_err": errs["k3"], "shape": shape, "design": design, "kernel": pair,
+          **turns["k3"]}
     return k2, k3
 
 
@@ -1527,10 +1715,16 @@ def phase_kernel_timing() -> dict:
             raise AssertionError(f"K1 at {t['shape']} is served by the {t['design']} design's "
                                  f"{t['kernel']} kernel, not the {want} kernel")
         log(f"[kernel] K1 at {t['shape']}: the {t['design']} design's {t['kernel']} kernel")
-    for t in (k2["resnet_shape"], k2["c128_shape"], k2["q256_v96_shape"],
-              k2["resunet256_shape"]):
-        if t["design"] != corr.DESIGN_MMA:
-            raise AssertionError(f"K2, K3 at {t['shape']} are served by the {t['design']} design")
+    # K2 and K3's tensor-core pair at each driven shape: wgmma at 128 and
+    # 256 channels and at 256 / 96, mma.sync at 32 (measured faster there)
+    # and on the ResNet encoder's 5x4 grid
+    for t in (k2, k2["fusion_shape"], k2["resnet_shape"], k2["c128_shape"],
+              k2["q256_v96_shape"], k2["resunet256_shape"]):
+        want = (corr.KERNEL_FWD_MMA_SYNC if t is k2 or t is k2["fusion_shape"]
+                or t is k2["resnet_shape"] else corr.KERNEL_FWD_WGMMA)
+        if t["design"] != corr.DESIGN_MMA or t["kernel"] != want:
+            raise AssertionError(f"K2, K3 at {t['shape']} are served by the {t['design']} "
+                                 f"design's {t['kernel']} pair, not the {want} pair")
     for t in (k1["f32_shape"], k1["f32_train_shape"], k2["f32_shape"],
               k1["resnet_f32_shape"], k2["resnet_f32_shape"]):
         if t["design"] != corr.DESIGN_FMA:
@@ -1722,14 +1916,17 @@ def time_upsample(model, transferred) -> None:
 @contextlib.contextmanager
 def designs_served():
     """Inside the block, notes the design the package picks for each launch
-    of K1 (``forward_design``) and of K2 and K3 (``backward_design``), and
-    the kernel of K1's tensor-core design (``forward_kernel``): yields
-    {"forward": set of designs, "backward": set of designs,
-    "forward_kernel": set of kernels}."""
+    of K1 (``forward_design``) and of K2 and K3 (``backward_design``), the
+    kernel of K1's tensor-core design (``forward_kernel``) and the pair of
+    K2 and K3's (``backward_kernel``): yields {"forward": set of designs,
+    "backward": set of designs, "forward_kernel": set of kernels,
+    "backward_kernel": set of kernels}."""
     from mapfree_tpu_torch.ops import correlation as corr
 
-    seen = {"forward": set(), "backward": set(), "forward_kernel": set()}
-    saved = corr.forward_design, corr.backward_design, corr.forward_kernel
+    seen = {"forward": set(), "backward": set(), "forward_kernel": set(),
+            "backward_kernel": set()}
+    saved = (corr.forward_design, corr.backward_design, corr.forward_kernel,
+             corr.backward_kernel)
 
     def noting(kind, choose):
         def design(*args):
@@ -1742,24 +1939,33 @@ def designs_served():
     corr.forward_design = noting("forward", saved[0])
     corr.backward_design = noting("backward", saved[1])
     corr.forward_kernel = noting("forward_kernel", saved[2])
+    corr.backward_kernel = noting("backward_kernel", saved[3])
     try:
         yield seen
     finally:
-        corr.forward_design, corr.backward_design, corr.forward_kernel = saved
+        (corr.forward_design, corr.backward_design, corr.forward_kernel,
+         corr.backward_kernel) = saved
 
 
-def _expect_designs(seen: dict, expected: dict, what: str, kernels=None) -> None:
+def _expect_designs(seen: dict, expected: dict, what: str, kernels=None,
+                    bwd_kernels=None) -> None:
     """Raise unless the designs in ``seen`` are ``expected`` and, where
-    ``kernels`` is given, K1's tensor-core kernels are those; log which K1
-    kernels served the path either way."""
+    ``kernels`` is given, K1's tensor-core kernels are those, where
+    ``bwd_kernels`` is, K2 and K3's; log which kernels served the path
+    either way."""
     got = {kind: sorted(designs) for kind, designs in seen.items()
-           if designs and kind != "forward_kernel"}
+           if designs and not kind.endswith("_kernel")}
     if got != expected:
         raise AssertionError(f"{what} ran the designs {got}, expected {expected}")
     served = sorted(seen.get("forward_kernel", ()))
-    log(f"[designs] {what}: K1 {got.get('forward')}, its tensor-core kernels {served}")
+    served_bwd = sorted(seen.get("backward_kernel", ()))
+    log(f"[designs] {what}: K1 {got.get('forward')}, its tensor-core kernels {served}; K2, K3 "
+        f"{got.get('backward')}, their tensor-core pair {served_bwd}")
     if kernels is not None and served != sorted(kernels):
         raise AssertionError(f"{what} ran K1's kernels {served}, expected {sorted(kernels)}")
+    if bwd_kernels is not None and served_bwd != sorted(bwd_kernels):
+        raise AssertionError(f"{what} ran K2 and K3's tensor-core pair {served_bwd}, expected "
+                             f"{sorted(bwd_kernels)}")
 
 
 def profile_window(fn, what: str, n: int = 3) -> dict:
@@ -1831,6 +2037,17 @@ def train_batches(n: int, batch: int, H: int, W: int, seed: int, last: int = 0) 
     return out
 
 
+def launch_counts() -> dict:
+    """The package's launches per kernel (K1, K2, K3) since the last reset,
+    and under "by_function" those per C function that served them (a
+    function's name begins with its kernel's: which design and which
+    tensor-core kernel)."""
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    return {**corr.launches,
+            "by_function": {fn: n for fn, n in corr.kernel_launches.items() if n}}
+
+
 def _expect_launches(corr, expected: dict, what: str) -> None:
     got = dict(corr.launches)
     if got != expected:
@@ -1884,7 +2101,7 @@ def phase_train_path() -> dict:
     _expect_launches(corr, {corr.KERNEL: n_steps, corr.KERNEL_BWD_ROWS: n_steps,
                             corr.KERNEL_BWD_COLS: n_steps}, f"{n_steps} train steps")
     all_mma = {"forward": [corr.DESIGN_MMA], "backward": [corr.DESIGN_MMA]}
-    _expect_designs(seen, all_mma, f"{n_steps} train steps", [corr.KERNEL_FWD_WGMMA])
+    _expect_designs(seen, all_mma, f"{n_steps} train steps", [corr.KERNEL_FWD_WGMMA], BWD_MMA_SYNC)
     losses = [float(lg["train/loss"]) for lg in logs]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"[train] {n_steps} steps after {n_warm} warm-up: {step_ms:.2f} ms/step, "
@@ -1923,8 +2140,8 @@ def phase_train_path() -> dict:
                                 weights_dir=tmp, device=dev)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
-        launches = dict(corr.launches)
-        _expect_designs(seen, all_mma, "the fit loop", [corr.KERNEL_FWD_WGMMA])
+        launches = launch_counts()
+        _expect_designs(seen, all_mma, "the fit loop", [corr.KERNEL_FWD_WGMMA], BWD_MMA_SYNC)
         for line in captured.getvalue().splitlines():
             log(f"[fit]   {line}")
         # 8 train steps; validation at steps 4 and 8 over 2 of the 3 batches
@@ -2176,7 +2393,8 @@ def phase_train_parity() -> None:
 
 
 def bf16_step_kernels_vs_plain(cfg, batch: dict, what: str,
-                               designs: tuple = ("mma", "mma"), control: bool = False) -> dict:
+                               designs: tuple = ("mma", "mma"), control: bool = False,
+                               bwd_kernels=None) -> dict:
     """One bf16 train step of ``cfg``'s model on the card with K1, K2 and K3
     in the designs ``designs`` (K1's, then K2 and K3's; the tensor cores by
     default), against the same step with the plain backward after the same
@@ -2208,11 +2426,11 @@ def bf16_step_kernels_vs_plain(cfg, batch: dict, what: str,
     with designs_served() as seen:
         one_step("kernels")
     one_step("again")
-    launches = dict(corr.launches)
+    launches = launch_counts()
     _expect_launches(corr, {corr.KERNEL: 2, corr.KERNEL_BWD_ROWS: 2, corr.KERNEL_BWD_COLS: 2},
                      f"{what}: two bf16 train steps on the card")
     _expect_designs(seen, {"forward": [designs[0]], "backward": [designs[1]]},
-                    f"{what}: the bf16 train step")
+                    f"{what}: the bf16 train step", bwd_kernels=bwd_kernels)
     with plain_versions_on_the_card(forward=False):
         one_step("plain_backward")
     with plain_versions_on_the_card():
@@ -2260,7 +2478,8 @@ def phase_train_parity_bf16() -> None:
                     "DATASET.WIDTH": 72, "TRAINING.BATCH_SIZE": 4, "TRAINING.LR": 1e-3,
                     "TRAINING.GRAD_CLIP": 1.0, "TPU.COMPUTE_DTYPE": "bfloat16",
                     "TPU.SEED": SEED})
-    bf16_step_kernels_vs_plain(cfg, train_batches(1, 4, 96, 72, seed=SEED + 21)[0], "parity")
+    bf16_step_kernels_vs_plain(cfg, train_batches(1, 4, 96, 72, seed=SEED + 21)[0], "parity",
+                               bwd_kernels=BWD_MMA_SYNC)
 
 
 # -- phase 7 -----------------------------------------------------------------
@@ -2462,14 +2681,15 @@ def run_submission_cli(argv: list, expected: dict, what: str, tag: str = "cli") 
         t0 = time.perf_counter()
         path = submission.main(argv, times=times)
         elapsed = time.perf_counter() - t0
-    launches = dict(corr.launches)
+    launches = launch_counts()
     _expect_designs(seen, {"forward": [corr.DESIGN_MMA]}, what, [corr.KERNEL_FWD_WGMMA])
     poses = read_submission(path)
     n_pairs = sum(len(v) for v in expected.values())
     if {s: sorted(p) for s, p in poses.items()} != {s: sorted(q) for s, q in expected.items()}:
         raise AssertionError(f"{what}: submission.zip does not hold one line per query frame")
     n_batches = -(-n_pairs // 64)
-    if launches != {corr.KERNEL: n_batches, corr.KERNEL_BWD_ROWS: 0, corr.KERNEL_BWD_COLS: 0}:
+    if dict(corr.launches) != {corr.KERNEL: n_batches, corr.KERNEL_BWD_ROWS: 0,
+                               corr.KERNEL_BWD_COLS: 0}:
         raise AssertionError(f"{what}: launches {launches} for {n_batches} batches")
     sweep = times.seconds["sweep"]
     log(f"[{tag}] {what}: {n_pairs} pairs from JPEG files in {n_batches} batches: CLI "
@@ -2513,11 +2733,11 @@ def phase_clis() -> dict:
             state = train_main([model_cfg, str(dataset_cfg), "--config", str(run_cfg),
                                 "--experiment", "smoke", "--device", "cuda"])
         elapsed = time.perf_counter() - t0
-        train_launches = dict(corr.launches)
+        train_launches = launch_counts()
         for line in captured.getvalue().splitlines():
             log(f"[cli]   {line}")
         _expect_designs(seen, {"forward": [corr.DESIGN_MMA], "backward": [corr.DESIGN_MMA]},
-                        "the train CLI", [corr.KERNEL_FWD_WGMMA])
+                        "the train CLI", [corr.KERNEL_FWD_WGMMA], BWD_MMA_SYNC)
         _expect_launches(corr, {corr.KERNEL: 8 + 2, corr.KERNEL_BWD_ROWS: 8,
                                 corr.KERNEL_BWD_COLS: 8}, "the train CLI")
         run_dir = root / "weights" / "smoke"
@@ -2593,7 +2813,7 @@ def drive_sweep(cfg, batches: list, warm: list, what: str, design: str = "mma",
         results = predict(batches, model, times)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
-    launches = dict(corr.launches)
+    launches = launch_counts()
     _expect_designs(seen, {"forward": [design]}, what, kernels)
     _expect_launches(corr, {corr.KERNEL: len(batches), corr.KERNEL_BWD_ROWS: 0,
                             corr.KERNEL_BWD_COLS: 0}, f"{what}: {len(batches)} batches")
@@ -2617,7 +2837,7 @@ def drive_sweep(cfg, batches: list, warm: list, what: str, design: str = "mma",
 
 
 def drive_train_steps(cfg, batches: list, n_warm: int, what: str,
-                      designs: tuple = ("mma", "mma"), kernels=None) -> dict:
+                      designs: tuple = ("mma", "mma"), kernels=None, bwd_kernels=None) -> dict:
     """Train steps through init_state -> make_train_step on batches already
     on the device: ``n_warm`` warm-up steps, then the rest timed with the
     counts reset just before. K1, K2, K3 once per step in the designs
@@ -2653,11 +2873,11 @@ def drive_train_steps(cfg, batches: list, n_warm: int, what: str,
             logs.append(step_logs)
         torch.cuda.synchronize()
         step_ms = 1e3 * (time.perf_counter() - t0) / n_steps
-    launches = dict(corr.launches)
+    launches = launch_counts()
     _expect_launches(corr, {corr.KERNEL: n_steps, corr.KERNEL_BWD_ROWS: n_steps,
                             corr.KERNEL_BWD_COLS: n_steps}, f"{what}: {n_steps} train steps")
     _expect_designs(seen, {"forward": [designs[0]], "backward": [designs[1]]},
-                    f"{what}: the train steps", kernels)
+                    f"{what}: the train steps", kernels, bwd_kernels)
     losses = [float(lg["train/loss"]) for lg in logs]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"[{what}] {n_steps} steps at batch {bs} after {n_warm} warm-up: {step_ms:.2f} ms/step, "
@@ -2732,7 +2952,7 @@ def f32_step_kernels_vs_plain(cfg, batch: dict, what: str, full_width: bool = Fa
         corr.reset_launches()
         _, logs = make_train_step(net, cfg)(state, dbatch)
         loss[name] = float(logs["train/loss"])
-        launches[name] = dict(corr.launches)
+        launches[name] = launch_counts()
         grads[name] = {k: p.grad.detach().cpu() for k, p in net.named_parameters()}
         for hook in hooks:
             hook.remove()
@@ -2750,7 +2970,7 @@ def f32_step_kernels_vs_plain(cfg, batch: dict, what: str, full_width: bool = Fa
     for name, got in launches.items():
         want = dict(zip((corr.KERNEL, corr.KERNEL_BWD_ROWS, corr.KERNEL_BWD_COLS),
                         expected[name]))
-        if got != want:
+        if {kernel: got[kernel] for kernel in want} != want:
             raise AssertionError(f"{what}: the float32 step '{name}' launched {got}, not {want}")
     per, l2 = _grad_errors(grads["kernels"], grads["plain"])
     rel = abs(loss["kernels"] - loss["plain"]) / abs(loss["plain"])
@@ -2870,14 +3090,19 @@ def phase_fma_steps() -> dict:
     from mapfree_tpu_torch.ops import correlation as corr
 
     launches, numbers = {}, {}
-    for i, (name, extra, designs) in enumerate((
-            ("f32_3d3d", {"TPU.COMPUTE_DTYPE": "float32"}, (corr.DESIGN_FMA, corr.DESIGN_FMA)),
-            ("resnet_bf16", WIDE_MODELS["resnet"], (corr.DESIGN_MMA, corr.DESIGN_MMA)))):
+    # (name, overrides, K1's and K2, K3's designs, K2's and K3's tensor-core
+    # kernels: mma.sync on the ResNet encoder's 5x4 grid, none in float32)
+    for i, (name, extra, designs, bwd) in enumerate((
+            ("f32_3d3d", {"TPU.COMPUTE_DTYPE": "float32"}, (corr.DESIGN_FMA, corr.DESIGN_FMA),
+             []),
+            ("resnet_bf16", WIDE_MODELS["resnet"], (corr.DESIGN_MMA, corr.DESIGN_MMA),
+             BWD_MMA_SYNC))):
         cfg = load_cfg({**extra, "TPU.SEED": SEED})
         H, W, bs = cfg.DATASET.HEIGHT, cfg.DATASET.WIDTH, int(cfg.TRAINING.BATCH_SIZE)
         batches = train_batches(FMA_STEPS_WARM + FMA_STEPS_TIMED, bs, H, W, seed=SEED + 180 + i)
         what = f"FMA steps, {name}"
-        got = drive_train_steps(cfg, batches, FMA_STEPS_WARM, what, designs=designs)
+        got = drive_train_steps(cfg, batches, FMA_STEPS_WARM, what, designs=designs,
+                                bwd_kernels=bwd)
         launches[f"{name}_train"] = got.pop("launches")
         numbers[name] = got
         log(f"[{what}] in a profiler window of three steps: K1 "
@@ -2891,7 +3116,7 @@ def phase_fma_steps() -> dict:
                     cfg, batches[0], what, full_width=True)
             else:
                 launches[f"{name}_vs_plain"] = bf16_step_kernels_vs_plain(
-                    cfg, batches[0], what, designs=designs, control=True)
+                    cfg, batches[0], what, designs=designs, control=True, bwd_kernels=bwd)
         _expect_designs(seen, {"forward": [designs[0]], "backward": [designs[1]]},
                         f"{what}: the step held to the plain versions")
         numbers[name]["on_step_inputs"] = kernels_on_step_inputs(inputs[0], what)
@@ -2917,7 +3142,8 @@ def phase_qkv_path() -> dict:
     del sweep["model"], sweep["transferred"]
     tcfg = load_cfg({"TPU.SEED": SEED}, QKV_YAML)
     train = drive_train_steps(tcfg, train_batches(13, int(tcfg.TRAINING.BATCH_SIZE), H, W,
-                                                  seed=SEED + 32), 3, "qkv")
+                                                  seed=SEED + 32), 3, "qkv",
+                              bwd_kernels=BWD_MMA_SYNC)
     small = load_cfg({"ENCODER.NUM_BLOCKS": "1-1-1", "DATASET.HEIGHT": 96, "DATASET.WIDTH": 72,
                       "TRAINING.BATCH_SIZE": 4, "TRAINING.LR": 1e-3, "TRAINING.GRAD_CLIP": 1.0,
                       "TPU.COMPUTE_DTYPE": "float32", "TPU.SEED": SEED}, QKV_YAML)
@@ -3017,7 +3243,8 @@ def phase_fusion_path() -> dict:
     torch.cuda.empty_cache()
     tbs = int(cfg.TRAINING.BATCH_SIZE)
     train = drive_train_steps(cfg, window_batches(13 * tbs, tbs, F, H, W, seed=SEED + 41,
-                                                  train=True), 3, "fusion")
+                                                  train=True), 3, "fusion",
+                              bwd_kernels=BWD_MMA_SYNC)
     torch.cuda.empty_cache()
     small = load_cfg({"ENCODER.NUM_BLOCKS": "1-1-1", "DATASET.HEIGHT": 96, "DATASET.WIDTH": 72,
                       "TRAINING.BATCH_SIZE": 4, "TRAINING.LR": 1e-3, "TRAINING.GRAD_CLIP": 1.0,
@@ -3088,7 +3315,7 @@ def phase_configs() -> dict:
         _check_poses(*out[DEVICE], name)
         if err > PARITY_ATOL:
             raise AssertionError(f"{name}: the GPU and CPU forwards disagree")
-    launches = dict(corr.launches)
+    launches = launch_counts()
     fused = sum(_fuses(load_cfg({}, model_yaml)) for model_yaml, _ in cases)
     log(f"[configs] {len(cases)} configs within {worst:.3g} of the CPU; K1 launched "
         f"{launches[corr.KERNEL]} times, once for each of the {fused} that take the fused route")
@@ -3174,7 +3401,8 @@ def wide_models(small: dict) -> dict:
                      "TRAINING.LR": 1e-3, "TRAINING.GRAD_CLIP": 1.0,
                      "TPU.COMPUTE_DTYPE": "bfloat16", "TPU.SEED": SEED})
     launches["resunet128_bf16_steps"] = bf16_step_kernels_vs_plain(
-        bcfg, train_batches(1, 4, 96, 72, seed=SEED + 98)[0], "configs, resunet128")
+        bcfg, train_batches(1, 4, 96, 72, seed=SEED + 98)[0], "configs, resunet128",
+        bwd_kernels=BWD_WGMMA)
     torch.cuda.empty_cache()
     got = resunet256_step()
     launches.update(got.pop("launches"))
@@ -3212,7 +3440,7 @@ def resunet256_step() -> dict:
         f"batch {bs}")
     batches = train_batches(RESUNET256_WARM + RESUNET256_TIMED, bs, H, W, seed=SEED + 99)
     got = drive_train_steps(cfg, batches, RESUNET256_WARM, what,
-                            kernels=[corr.KERNEL_FWD_WGMMA])
+                            kernels=[corr.KERNEL_FWD_WGMMA], bwd_kernels=BWD_WGMMA)
     launches = {"resunet256_train": got.pop("launches")}
     log(f"[{what}] in a profiler window of three steps: K1 "
         f"{got['kernel_ms'][corr.KERNEL]:.3f} ms, K2 {got['kernel_ms'][corr.KERNEL_BWD_ROWS]:.3f}"
@@ -3220,7 +3448,8 @@ def resunet256_step() -> dict:
         f"{got['step_ms']:.2f} ms; device busy {100 * got['busy_share']:.1f}%")
     torch.cuda.empty_cache()
     with correlation_inputs() as inputs:
-        launches["resunet256_vs_plain"] = bf16_step_kernels_vs_plain(cfg, batches[0], what)
+        launches["resunet256_vs_plain"] = bf16_step_kernels_vs_plain(cfg, batches[0], what,
+                                                                     bwd_kernels=BWD_WGMMA)
     got["on_step_inputs"] = kernels_on_step_inputs(inputs[0], what)
     del inputs
     torch.cuda.empty_cache()
@@ -3265,11 +3494,11 @@ def phase_fusion_clis() -> dict:
             state = train_main([model_cfg, str(dataset_cfg), "--config", str(run_cfg),
                                 "--experiment", "fusion", "--device", DEVICE])
         elapsed = time.perf_counter() - t0
-        train_launches = dict(corr.launches)
+        train_launches = launch_counts()
         for line in captured.getvalue().splitlines():
             log(f"[fusion-cli]   {line}")
         _expect_designs(seen, {"forward": [corr.DESIGN_MMA], "backward": [corr.DESIGN_MMA]},
-                        "the fusion train CLI", [corr.KERNEL_FWD_WGMMA])
+                        "the fusion train CLI", [corr.KERNEL_FWD_WGMMA], BWD_MMA_SYNC)
         # 2 scenes x 40 samples at batch 10; one validation batch of the
         # val scene's 10 windows
         _expect_launches(corr, {corr.KERNEL: 8 + 1, corr.KERNEL_BWD_ROWS: 8,
@@ -3939,7 +4168,7 @@ def eval_scannet_rpr(root: Path, dataset: Path) -> dict:
         agg = cli.main([str(yaml), "--dataset_config", str(dataset), "--device", DEVICE],
                        times=times)
         elapsed = time.perf_counter() - t0
-    launches = dict(corr.launches)
+    launches = launch_counts()
     _expect_designs(seen, {"forward": [corr.DESIGN_MMA]}, "the ScanNet RPR sweep", [corr.KERNEL_FWD_WGMMA])
     if launches[corr.KERNEL] != n_batches or launches[corr.KERNEL_BWD_ROWS] \
             or launches[corr.KERNEL_BWD_COLS]:
@@ -4481,7 +4710,7 @@ def converter_and_sharded_sweep(root: Path) -> dict:
         out = submission.main(common + ["--checkpoint", str(pt), "--num_hosts", "3",
                                         "--host_id", str(host), "-o", str(root / "hosts")])
     sharded_s = time.perf_counter() - t0
-    runs["sharded_cli"] = dict(corr.launches)
+    runs["sharded_cli"] = launch_counts()
     scenes = sorted(queries)
     expected = sum(-(-sum(len(queries[s]) for s in scenes[h::3]) // 64) for h in range(3))
     if runs["sharded_cli"][corr.KERNEL] != expected:
@@ -4771,7 +5000,7 @@ def mesh_predictor() -> dict:
     results = predict(batches, model)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = dict(corr.launches)
+    launches = launch_counts()
     n_pairs = sum(len(b["pair_names"]) for b in batches)
     poses = [p for ps in results.values() for p in ps]
     log(f"[mesh] two replicas on the card at full width: {n_pairs} pairs in {len(batches)} "
@@ -4832,7 +5061,7 @@ def mesh_train_cli() -> dict:
                        (root / "weights" / tag / "scalars.jsonl").read_text().splitlines()]
             steps = [r for r in records if "train/loss" in r]
             runs[tag] = {"losses": [r["train/loss"] for r in steps], "step": state.step,
-                         "launches": dict(corr.launches),
+                         "launches": launch_counts(),
                          "ms_per_step": 1e3 * bs / steps[-1]["train/samples_per_sec"]}
             log(f"[mesh] train CLI, {tag}: {state.step} steps, losses "
                 + " ".join(f"{x:.5f}" for x in runs[tag]["losses"])
@@ -5067,37 +5296,62 @@ def main() -> None:
     # K1 at the ScanNet RPR sweep's shape (phase 14 b) beside its other shapes
     timing[corr.KERNEL]["scannet_shape"] = later["evaluation"].pop("k1_scannet_shape")
 
-    by_path = {name: {"train_loop": n} for name, n in train_launches.items()}
-    by_path[corr.KERNEL]["inference_sweep"] = sweep_launches
-    runs = {run: cli_launches[run]
-            for run in ("submission_cli", "train_cli", "submission_cli_checkpoint")}
+    # launches by kernel and run, and by the C function that served them
+    by_path = {name: {} for name in corr.launches}
+    by_fn: dict = {}
+    runs = {"train_loop": train_launches, "inference_sweep": {corr.KERNEL: sweep_launches}}
+    runs.update({run: cli_launches[run]
+                 for run in ("submission_cli", "train_cli", "submission_cli_checkpoint")})
     for phase in later.values():
         runs.update(phase["launches"])
     for run, counts in runs.items():
         for name, n in counts.items():
-            if n:
+            if name == "by_function":
+                for fn, m in n.items():
+                    by_fn.setdefault(fn, {})[run] = m
+            elif n:
                 by_path[name][run] = n
+    # every bf16 train path took, for all its launches, the tensor-core pair
+    # of K2 and K3 that backward_kernel gives its width: wgmma at 128 and 256
+    # channels, mma.sync at 32 (measured faster there) and on the ResNet
+    # encoder's 5x4 grid
+    for suffix, pair_runs in (("_wgmma", ("resunet128_bf16_steps", "resunet256_train",
+                                          "resunet256_vs_plain")),
+                              ("_mma", ("train_loop", "train_cli", "qkv_train", "fusion_train",
+                                        "fusion_train_cli", "mesh_train_cli_nccl_rank",
+                                        "resnet_bf16_train", "resnet_bf16_vs_plain"))):
+        for name in (corr.KERNEL_BWD_ROWS, corr.KERNEL_BWD_COLS):
+            for run in pair_runs:
+                want, got = by_path[name].get(run), by_fn.get(name + suffix, {}).get(run)
+                if not want or got != want:
+                    raise AssertionError(f"{run}: {name} launched {want} times, {got} of them "
+                                         f"by {name + suffix}")
     paths = {name: phase.get("numbers", {}) for name, phase in later.items()}
     log("[paths] " + json.dumps({"card": smi, **paths}, default=str))
     kernels = []
+    tc_kernels = [corr.KERNEL_FWD_WGMMA, corr.KERNEL_FWD_MMA_SYNC]
     for name, sources, replaces in (
             (corr.KERNEL, ["correlation_fwd.cu"], 60),
-            (corr.KERNEL_BWD_ROWS, ["correlation_bwd_mma.cu", "correlation_bwd.cu"], 109),
-            (corr.KERNEL_BWD_COLS, ["correlation_bwd_mma.cu", "correlation_bwd.cu"], 148)):
+            (corr.KERNEL_BWD_ROWS, ["correlation_bwd_wgmma.cu", "correlation_bwd_mma.cu",
+                                    "correlation_bwd.cu"], 109),
+            (corr.KERNEL_BWD_COLS, ["correlation_bwd_wgmma.cu", "correlation_bwd_mma.cu",
+                                    "correlation_bwd.cu"], 148)):
         t = timing[name]
         kernels.append({
             "name": name,
             "route": "cuda",
             "designs": [corr.DESIGN_MMA, corr.DESIGN_FMA],
-            # K1's tensor-core design in two kernels (correlation.forward_kernel)
-            **({"tensor_core_kernels": [corr.KERNEL_FWD_WGMMA, corr.KERNEL_FWD_MMA_SYNC]}
-               if name == corr.KERNEL else {}),
-            # the tensor-core design's source first (the main path's), then the FMA design's
+            # each tensor-core design in two kernels (correlation.forward_kernel,
+            # correlation.backward_kernel)
+            "tensor_core_kernels": tc_kernels,
+            # the main path's source first (the wgmma kernels'), then the rest
             "source": f"mapfree_tpu_torch/ops/csrc/{sources[0]}",
             "sources": [f"mapfree_tpu_torch/ops/csrc/{src}" for src in sources],
             "replaces": f"mapfree_tpu/ops/correlation.py:{replaces}",
             "launches": sum(by_path[name].values()),
             "launches_by_path": by_path[name],
+            "launches_by_kernel_and_path": {fn: r for fn, r in sorted(by_fn.items())
+                                            if fn.startswith(name)},
             "card": smi,
             **t,
             "cases": cases[name],

@@ -21,8 +21,9 @@ outputs, so it is bound by operations (about 0.6 ms of exponentials on an
 H100), not by memory; K2 and K3 at the training shape (B=10) are bound the
 same way, near 0.1 ms each. The kernels keep every score on chip. The CUDA
 sources ``csrc/correlation_fwd.cu``, ``csrc/correlation_bwd.cu`` (K2 and
-K3's FMA design) and ``csrc/correlation_bwd_mma.cu`` (their tensor-core
-design) state the arithmetic and the design.
+K3's FMA design), ``csrc/correlation_bwd_mma.cu`` and
+``csrc/correlation_bwd_wgmma.cu`` (their tensor-core design's two pairs)
+state the arithmetic and the design.
 
 K1 exists in two hand-written designs, and :func:`forward_design` says which
 one serves a (dtype, Cq, Cv):
@@ -75,7 +76,17 @@ says which one serves a (dtype, Cq, Cv):
   column tiles of 128, and a prologue kernel launched by K2's C function
   (counted as K2) forms dmain and c. So dmain, P and dS are rounded to bf16 where the other
   design keeps float32; ``bf16_roundings=True`` makes the plain backward
-  round at the same places.
+  round at the same places. The design has two pairs of kernels, which
+  round at the same places and hand on the same statistics (either K2
+  serves either K3), and :func:`backward_kernel` picks one: beyond
+  ``FEW_ROWS_HW`` positions with Cq and Cv up to ``WGMMA_MAX_CQ`` the
+  Hopper pair (``csrc/correlation_bwd_wgmma.cu``: warpgroup products on
+  tiles that TMA copies bring in, a producer warp and one to four consumer
+  warpgroups, the accumulator in column tiles that each recompute the same
+  scores, no prologue kernel), except at up to 64 channels, where the
+  ``mma.sync`` pair measured faster (``MMA_SYNC_FASTER``); else the
+  ``mma.sync`` pair described above (the ResNet encoder's 5 x 4 grid and
+  its 1,024 channels).
 - ``"fma"``: float32 inputs (exact float32 arithmetic, no TF32) and any other
   bf16 shape, at any width. Beyond 64 rows a block of 128 query rows (K2) or
   keys (K3) walks the other side in tiles of 64, with two 8 x 4 register
@@ -111,10 +122,11 @@ from mapfree_tpu_torch.ops._build import load_library
 
 KERNEL = "correlation_fwd"          # K1: the library and its one function
 KERNEL_BWD = "correlation_bwd"      # the library of K2 and K3's FMA design
-KERNEL_BWD_MMA = "correlation_bwd_mma"   # ... and of their tensor-core design
+KERNEL_BWD_MMA = "correlation_bwd_mma"   # ... and of their tensor-core design's mma.sync pair
+KERNEL_BWD_WGMMA = "correlation_bwd_wgmma"   # ... and of its wgmma pair
 KERNEL_BWD_ROWS = "correlation_bwd_rows"   # K2
 KERNEL_BWD_COLS = "correlation_bwd_cols"   # K3
-LIBRARIES = (KERNEL, KERNEL_BWD, KERNEL_BWD_MMA)
+LIBRARIES = (KERNEL, KERNEL_BWD, KERNEL_BWD_MMA, KERNEL_BWD_WGMMA)
 DESIGN_MMA = "mma"   # bf16 operands on the tensor cores
 DESIGN_FMA = "fma"   # float32 tiles, scalar fused multiply-adds
 # the "mma" design against the exact plain backward, as a share of each
@@ -144,6 +156,20 @@ MMA_VS_MATCHED_L2_TOL_WIDE = 8e-3
 # dmain misses c by 2^-9 of it; the same cases read up to 2.7e-2 of a
 # gradient's largest entry (256 / 96 at HW 20; 1.0e-2 scaled; 7.7e-3 at 128)
 MMA_VS_EXACT_TOL_WIDE = 6e-2
+# MMA_VS_MATCHED_L2_TOL and MMA_VS_EXACT_TOL keep their factor of 2 over
+# the CPU readings where a call has MMA_TOL_MANY_ROWS rows (B x HW) or more
+# and Cq, Cv of MMA_TOL_MIN_WIDTH or more. The same test derives both over
+# the shapes phase 3 and the cuda tests give the pair up to 128 channels (HW
+# 65, 70, 130, 1,000 and 1,020, 8 to 128 channels, q and k scaled as there,
+# eight seeds): with fewer rows one flipped rounding is a larger share of
+# the L2 norm (up to 1.3e-3), and at 8 and 16 channels dS cancels further at
+# the argmax (up to 2.1e-2 of a gradient's largest entry). Those shapes take
+# these, each between 2x and 20x of its largest reading there; the C = 32
+# constants above are not widened
+MMA_VS_MATCHED_L2_TOL_EDGE = 3e-3
+MMA_VS_EXACT_TOL_EDGE = 5e-2
+MMA_TOL_MANY_ROWS = 1000
+MMA_TOL_MIN_WIDTH = 24
 # keys per step of the tensor-core K2's online row max (the .cu's TKG, which
 # a test reads): the group of the plain backward's one-sweep arithmetic
 BWD_KEY_TILE = 16
@@ -160,11 +186,29 @@ KERNEL_FWD_WGMMA = "wgmma"
 KERNEL_FWD_MMA_SYNC = "mma_sync"
 # each kernel's key tile and the name of its constant in the .cu
 FWD_KEY_TILES = {KERNEL_FWD_WGMMA: ("TKW", FWD_KEY_TILE), KERNEL_FWD_MMA_SYNC: ("TK", FWD_KEY_TILE)}
-# the wgmma kernel keeps q resident up to this many channels
+# the wgmma kernels keep q (K1; K2 and K3: q and v) resident up to this many channels
 WGMMA_MAX_CQ = 256
+# the two pairs of K2 and K3 in their "mma" design (backward_kernel picks),
+# by name: the library and the suffix of their C functions
+BWD_KERNELS = {KERNEL_FWD_WGMMA: (KERNEL_BWD_WGMMA, "_wgmma"),
+               KERNEL_FWD_MMA_SYNC: (KERNEL_BWD_MMA, "_mma")}
+# the width classes (Cq, Cv) of the wgmma kernels' instantiations, in the
+# order of csrc/correlation_bwd_wgmma.cu::dispatch_rows_wgmma: a width takes
+# the first that holds it
+WGMMA_WIDTH_CLASSES = ((16, 16), (16, 32), (32, 32), (64, 64), (128, 128), (256, 96), (256, 256))
+# the classes where tools/torch_chip_studies.py k23-wgmma-variants measured
+# the mma.sync pair faster than the wgmma one in the same call (NVIDIA H100
+# 80GB HBM3, 700 W; the times beside that dispatch and in PERF.md): C = 32,
+# K2 0.3994-0.4021 ms against 0.4080-0.4136 and K3 0.3796-0.3809 against
+# 0.4714-0.4878 at B = 10 (3.20-3.27 and 3.07-3.09 against 3.57-3.61 and
+# 4.12-4.29 at B = 90); the classes of 16 and 64 channels, which no driven
+# path has, follow C = 32's. The wgmma pair is faster at 128 and 256
+# channels and at Cq 256 / Cv 96
+MMA_SYNC_FASTER = {(16, 16), (16, 32), (32, 32), (64, 64)}
 # up to this many positions (the ResNet encoder's 5 x 4 grid) K1's "mma"
-# design takes the mma.sync kernel: a 64-row warpgroup product would leave
-# most of its rows empty (tools/torch_chip_studies.py k1-wgmma-variants)
+# design takes the mma.sync kernel, and K2 and K3's the mma.sync pair: a
+# 64-row warpgroup product would leave most of its rows empty
+# (tools/torch_chip_studies.py k1-wgmma-variants)
 FEW_ROWS_HW = 64
 # K1's "mma" design against the exact plain forward, as a share of each
 # output's largest magnitude (or of 1 where that is smaller): what rounding P
@@ -190,6 +234,9 @@ MMA_FWD_VS_MATCHED_L2_TOL = 5e-4
 MMA_FWD_VS_MATCHED_L2_TOL_WIDE = 1e-3
 # kernel launches since the last reset_launches(), per kernel
 launches = {KERNEL: 0, KERNEL_BWD_ROWS: 0, KERNEL_BWD_COLS: 0}
+# the same launches per C function (which design and which of its kernels
+# served each; a function's name begins with its kernel's)
+kernel_launches: dict = {}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _fns: dict = {}
@@ -198,6 +245,7 @@ _fns: dict = {}
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    kernel_launches.clear()
 
 
 def forward_design(dtype, Cq: int, Cv: int) -> str:
@@ -239,20 +287,49 @@ def backward_design(dtype, Cq: int, Cv: int) -> str:
     return DESIGN_FMA
 
 
-def mma_backward_matched_l2_tol(Cq: int, Cv: int) -> float:
+def wgmma_width_class(Cq: int, Cv: int) -> Optional[tuple]:
+    """The class of the wgmma kernels' instantiations that takes these
+    widths (``WGMMA_WIDTH_CLASSES``), or None beyond them."""
+    return next(((cq, cv) for cq, cv in WGMMA_WIDTH_CLASSES if Cq <= cq and Cv <= cv), None)
+
+
+def backward_kernel(dtype, HW: int, Cq: int, Cv: int) -> Optional[str]:
+    """Which pair of K2 and K3 in their "mma" design serves these inputs on
+    the card: ``KERNEL_FWD_WGMMA`` beyond ``FEW_ROWS_HW`` positions with Cq
+    and Cv up to ``WGMMA_MAX_CQ``, except at the width classes where the
+    mma.sync pair measured faster (``MMA_SYNC_FASTER``), else
+    ``KERNEL_FWD_MMA_SYNC``; None where the "fma" design serves them. Both
+    pairs' K2 hand on the same statistics, so either serves either K3."""
+    if backward_design(dtype, Cq, Cv) != DESIGN_MMA:
+        return None
+    width = wgmma_width_class(Cq, Cv)
+    if HW <= FEW_ROWS_HW or width is None or width in MMA_SYNC_FASTER:
+        return KERNEL_FWD_MMA_SYNC
+    return KERNEL_FWD_WGMMA
+
+
+def _edge_shape(Cq: int, Cv: int, rows: Optional[int]) -> bool:
+    """Where the C = 32 constants lack their factor of 2 (``rows`` = B x HW
+    given): few rows or narrow channels, up to 128 channels."""
+    return rows is not None and (rows < MMA_TOL_MANY_ROWS or min(Cq, Cv) < MMA_TOL_MIN_WIDTH)
+
+
+def mma_backward_matched_l2_tol(Cq: int, Cv: int, rows: Optional[int] = None) -> float:
     """K2 and K3's "mma" design against the plain backward with its
-    roundings, as the relative L2 error of each gradient, at these widths."""
-    if Cq <= 128 and Cv <= 128:
-        return MMA_VS_MATCHED_L2_TOL
-    return MMA_VS_MATCHED_L2_TOL_WIDE
+    roundings, as the relative L2 error of each gradient, at these widths
+    (and, given, ``rows`` = B x HW)."""
+    if Cq > 128 or Cv > 128:
+        return MMA_VS_MATCHED_L2_TOL_WIDE
+    return MMA_VS_MATCHED_L2_TOL_EDGE if _edge_shape(Cq, Cv, rows) else MMA_VS_MATCHED_L2_TOL
 
 
-def mma_backward_exact_tol(Cq: int, Cv: int) -> float:
+def mma_backward_exact_tol(Cq: int, Cv: int, rows: Optional[int] = None) -> float:
     """K2 and K3's "mma" design against the exact plain backward, as a share
-    of each gradient's largest entry (or of 1), at these widths."""
-    if Cq <= 128 and Cv <= 128:
-        return MMA_VS_EXACT_TOL
-    return MMA_VS_EXACT_TOL_WIDE
+    of each gradient's largest entry (or of 1), at these widths (and, given,
+    ``rows`` = B x HW)."""
+    if Cq > 128 or Cv > 128:
+        return MMA_VS_EXACT_TOL_WIDE
+    return MMA_VS_EXACT_TOL_EDGE if _edge_shape(Cq, Cv, rows) else MMA_VS_EXACT_TOL
 
 
 def dmain_width(Cv: int) -> int:
@@ -322,6 +399,7 @@ def _launch(library, name, pointers, q, v, counted=None):
         raise RuntimeError(f"{name} kernel failed to launch: cudaError_t {err} "
                            f"(B={B}, HW={HW}, Cq={Cq}, Cv={Cv}, {q.dtype})")
     launches[counted or name] += 1
+    kernel_launches[name] = kernel_launches.get(name, 0) + 1
 
 
 def _check_aligned(**tensors):
@@ -564,11 +642,23 @@ def _forward_cuda(q, k, v, grid, kernel=None):
     return out
 
 
-def correlation_bwd_rows(q, k, v, grid, out, dout):
+def _backward_pair(q, v, kernel):
+    """The library and C-function suffix of the "mma" design's pair that
+    serves these inputs (``backward_kernel``), or of ``kernel`` where a test
+    asks for one by name."""
+    _, HW, Cq = q.shape
+    kernel = kernel or backward_kernel(q.dtype, HW, Cq, v.shape[-1])
+    if kernel not in BWD_KERNELS:
+        raise ValueError(f"K2 and K3's tensor-core design has no kernel {kernel!r}")
+    return BWD_KERNELS[kernel]
+
+
+def correlation_bwd_rows(q, k, v, grid, out, dout, kernel=None):
     """K2 on CUDA tensors: dq [B, HW, Cq] float32 and the :class:`RowPass`
-    that K3 takes, by the design :func:`backward_design` names. In the "mma"
-    design at the widths whose operands stream one call runs the prologue
-    kernel, then the row pass; it counts as one launch of K2."""
+    that K3 takes, by the design :func:`backward_design` names (in the "mma"
+    design by the pair :func:`backward_kernel` names, or ``kernel``). In the
+    mma.sync pair at the widths whose operands stream one call runs the
+    prologue kernel, then the row pass; it counts as one launch of K2."""
     B, HW, Cq = q.shape
     Cv = v.shape[-1]
     dq = torch.empty((B, HW, Cq), dtype=torch.float32, device=q.device)
@@ -577,7 +667,8 @@ def correlation_bwd_rows(q, k, v, grid, out, dout):
         stats = torch.empty((B, HW, 4), dtype=torch.float32, device=q.device)
         dmain = torch.empty((B, HW, dmain_width(Cv)), dtype=torch.bfloat16, device=q.device)
         _check_aligned(q=q, k=k, v=v, dq=dq, stats=stats, dmain=dmain)
-        _launch(KERNEL_BWD_MMA, KERNEL_BWD_ROWS + "_mma",
+        library, suffix = _backward_pair(q, v, kernel)
+        _launch(library, KERNEL_BWD_ROWS + suffix,
                 (q, k, v, grid, out, dout, dq, stats, amax, dmain), q, v,
                 counted=KERNEL_BWD_ROWS)
         return dq, RowPass(stats, amax, dmain)
@@ -586,9 +677,11 @@ def correlation_bwd_rows(q, k, v, grid, out, dout):
     return dq, RowPass(stats, amax)
 
 
-def correlation_bwd_cols(q, k, v, grid, dout, rows: RowPass):
+def correlation_bwd_cols(q, k, v, grid, dout, rows: RowPass, kernel=None):
     """K3 on CUDA tensors: dk [B, HW, Cq] and dv [B, HW, Cv] float32, from
-    what K2 left (``rows``), by the same design as K2."""
+    what K2 left (``rows``, from either of the "mma" design's K2 kernels),
+    by the same design as K2 and the pair :func:`backward_kernel` names (or
+    ``kernel``)."""
     B, HW, Cq = q.shape
     dk = torch.empty((B, HW, Cq), dtype=torch.float32, device=q.device)
     dv = torch.empty((B, HW, v.shape[-1]), dtype=torch.float32, device=q.device)
@@ -596,7 +689,8 @@ def correlation_bwd_cols(q, k, v, grid, dout, rows: RowPass):
         if rows.dmain is None:
             raise ValueError("the tensor-core column pass needs the row pass's bf16 dmain")
         _check_aligned(q=q, k=k, v=v, dmain=rows.dmain, stats=rows.stats, dk=dk, dv=dv)
-        _launch(KERNEL_BWD_MMA, KERNEL_BWD_COLS + "_mma",
+        library, suffix = _backward_pair(q, v, kernel)
+        _launch(library, KERNEL_BWD_COLS + suffix,
                 (q, k, v, grid, rows.dmain, rows.stats, rows.amax, dk, dv), q, v,
                 counted=KERNEL_BWD_COLS)
         return dk, dv

@@ -77,10 +77,12 @@
 //   bank conflicts), float32 accumulators. P and dS never touch shared
 //   memory: the first products' accumulator fragments become the second
 //   products' A fragments in registers, the transposes coming with
-//   ldmatrix.trans. (wgmma would need shared-memory descriptors and a
-//   64-row operand per warpgroup; at depth 32 the fragment traffic and the
-//   latency between the two products, not the tensor pipe, are what
-//   mma.sync leaves to win.)
+//   ldmatrix.trans. The design's wgmma kernels (correlation_bwd_wgmma.cu:
+//   TMA copies, warpgroup products with the transposes read from the same
+//   stages) give these kernels' bits and serve the widths where they
+//   measured faster (ops/correlation.py::backward_kernel, MMA_SYNC_FASTER);
+//   at 32 channels, where the exponentials and the waits between the two
+//   products bound both, these kernels stay.
 // - Ragged edges: rows and keys past HW, and channels past Cq or DM in a
 //   streamed chunk, are zero-filled by the copies and nothing past HW is
 //   stored; K2 scores keys past HW -inf, and a row past HW has q = dmain = c

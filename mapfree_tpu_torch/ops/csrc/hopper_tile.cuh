@@ -4,7 +4,8 @@
 // 3-d tensor-map copies, the proxy fence between thread stores and the
 // tensor cores' reads, shared-memory matrix descriptors, the wgmma shapes
 // these kernels take, and the host's encoding of a tensor map. Kept apart
-// from mma_tile.cuh (mma.sync and cp.async), which K2 and K3 include.
+// from mma_tile.cuh (mma.sync and cp.async), which the mma.sync K2 and K3
+// include alone.
 //
 // Tiles. A tile that TMA writes with a swizzle of S = 32, 64 or 128 bytes
 // holds rows of S bytes (16, 32 or 64 bf16), each 16-byte piece of row r at
@@ -177,6 +178,46 @@ __device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t desc_a,
       "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
       "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (+)= A . B^T, m64n32k16: A (64 x 16) and B (32 x 16) both K-major in
+// shared memory; with scale_d == 0 the product overwrites d.
+__device__ __forceinline__ void wgmma_m64n32_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (+)= A . B^T, m64n16k16: A (64 x 16) and B (16 x 16) both K-major in
+// shared memory; with scale_d == 0 the product overwrites d.
+__device__ __forceinline__ void wgmma_m64n16_ss(float (&d)[8], uint64_t desc_a, uint64_t desc_b,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (+)= A . B^T, m64nNk16 from shared memory, N of 16, 32 or 64.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  static_assert(N == 16 || N == 32 || N == 64, "a shape of this header");
+  if constexpr (N == 16) wgmma_m64n16_ss(d, desc_a, desc_b, scale_d);
+  if constexpr (N == 32) wgmma_m64n32_ss(d, desc_a, desc_b, scale_d);
+  if constexpr (N == 64) wgmma_m64n64_ss(d, desc_a, desc_b, scale_d);
 }
 
 // d += A . B, m64n8k16: A (64 x 16) from registers (a, the layout of an

@@ -7,11 +7,13 @@ sweep over ``BWD_KEY_TILE`` keys (dS rounded relative to each row's running
 reference, not to its max). Here that version is held against
 the exact plain backward (which ``tests/test_torch_correlation_bwd.py`` holds
 against the JAX package), which derives the tolerances the card check
-(``chip_smoke.py``) uses; the plain prologue, the design dispatch and the
-build digest are tested beside it. The kernels themselves run on the card
-only.
+(``chip_smoke.py``) uses (again over the ragged HW and the 8-128 channels
+that the card runs, where few rows or narrow channels take the ``_EDGE``
+constants); the plain prologue, the design dispatch and the build digest
+are tested beside it. The kernels themselves run on the card only.
 """
 
+import functools
 import math
 import re
 from pathlib import Path
@@ -457,3 +459,90 @@ def test_wide_readings_derive_the_wide_tolerances():
     for key, tol in (("noise", corr.MMA_VS_MATCHED_L2_TOL_WIDE),
                      ("exact", corr.MMA_VS_EXACT_TOL_WIDE)):
         assert tol / 20 <= wide[key] <= tol / 2, (key, wide[key])
+
+
+# The shapes phase 3 (chip_smoke.py) and tests/test_torch_cuda_kernels.py
+# give the tensor-core pair up to 128 channels: HW ragged past one key tile
+# (65, 70), two tiles (130), past 1,000 (B = 2 below 1,000 positions, else
+# 1), 8 to 128 channels with Cq != Cv and a Cv of 8 mod 16, q and k scaled by
+# (32 / max(Cq, 32))^(1/4) as there, eight seeds
+DERIVE_GRIDS = {65: (5, 13), 70: (7, 10), 130: (10, 13), 1000: (25, 40), 1020: (34, 30)}
+DERIVE_WIDTHS = [(8, 8), (16, 32), (24, 24), (32, 32), (64, 64), (120, 120), (128, 128)]
+DERIVE_SEEDS = range(8)
+
+
+def _derive_batch(HW):
+    return 1 if HW >= 1000 else 2
+
+
+@functools.lru_cache(maxsize=None)
+def _derived_readings(HW):
+    """{(Cq, Cv): (noise, exact)} at this HW over DERIVE_SEEDS: the largest
+    relative L2 of the noisy one-sweep arithmetic (scores moved by 1e-6 of
+    the largest, as another summation order moves them) against the
+    package's matched backward, and the largest share of a gradient's
+    largest entry between the matched and the exact backward."""
+    H, W = DERIVE_GRIDS[HW]
+    B = _derive_batch(HW)
+    out = {}
+    for cq, cv in DERIVE_WIDTHS:
+        noise = exact = 0.0
+        for seed in DERIVE_SEEDS:
+            rng = np.random.default_rng(seed)
+            scale = (32.0 / max(cq, 32)) ** 0.25
+            q, k = (torch.from_numpy(scale * rng.standard_normal((B, HW, cq), np.float32))
+                    .bfloat16() for _ in range(2))
+            v = torch.from_numpy(rng.standard_normal((B, HW, cv), np.float32)).bfloat16()
+            dout = torch.from_numpy(rng.standard_normal((B, HW, cv + 3), np.float32))
+            grid = _uv_grid(H, W).bfloat16()
+            ref = corr.fused_correlation_warp_bwd_plain(q, k, v, grid, dout, bf16_roundings=True)
+            noisy = _one_sweep_with_score_noise(q, k, v, grid, dout, 1e-6,
+                                                torch.Generator().manual_seed(0))
+            noise = max(noise, max(_rel_l2(a, r) for a, r in zip(noisy, ref[:3])))
+            ex = corr.fused_correlation_warp_bwd_plain(q, k, v, grid, dout)
+            exact = max(exact, max(_scaled_err(a, r) for a, r in zip(ref[:3], ex[:3])))
+        out[(cq, cv)] = (noise, exact)
+    return out
+
+
+@pytest.mark.parametrize("HW", sorted(DERIVE_GRIDS))
+def test_each_shape_keeps_a_factor_of_2_under_its_constants(HW):
+    """At every derivation shape the readings stay within half of the
+    constants mma_backward_matched_l2_tol and mma_backward_exact_tol give
+    it (B x HW rows)."""
+    rows = _derive_batch(HW) * HW
+    for (cq, cv), (noise, exact) in _derived_readings(HW).items():
+        assert 0 < noise <= corr.mma_backward_matched_l2_tol(cq, cv, rows) / 2, (cq, cv, noise)
+        assert exact <= corr.mma_backward_exact_tol(cq, cv, rows) / 2, (cq, cv, exact)
+
+
+def test_edge_constants_are_derived_where_the_c32_ones_lack_their_factor():
+    """Where a call has MMA_TOL_MANY_ROWS rows or more and Cq, Cv of
+    MMA_TOL_MIN_WIDTH or more, the C = 32 constants keep their factor of 2
+    (up to 6.2e-4 in L2 and 8.0e-3 of the largest entry); below either the
+    readings pass half of them (up to 1.3e-3 in L2 at 140 rows, 2.1e-2 of the
+    largest entry at 8 channels), so those shapes take the _EDGE constants,
+    pinned between 2x and 20x of their largest reading. The C = 32 constants
+    are not widened, and the main path (3d3d at B = 10) keeps them."""
+    base = {"noise": 0.0, "exact": 0.0}
+    edge = {"noise": 0.0, "exact": 0.0}
+    for HW in DERIVE_GRIDS:
+        rows = _derive_batch(HW) * HW
+        for (cq, cv), (noise, exact) in _derived_readings(HW).items():
+            side = edge if corr._edge_shape(cq, cv, rows) else base
+            side["noise"] = max(side["noise"], noise)
+            side["exact"] = max(side["exact"], exact)
+    assert base["noise"] <= corr.MMA_VS_MATCHED_L2_TOL / 2
+    assert base["exact"] <= corr.MMA_VS_EXACT_TOL / 2
+    assert edge["noise"] > corr.MMA_VS_MATCHED_L2_TOL / 2
+    assert edge["exact"] > corr.MMA_VS_EXACT_TOL / 2
+    for key, tol in (("noise", corr.MMA_VS_MATCHED_L2_TOL_EDGE),
+                     ("exact", corr.MMA_VS_EXACT_TOL_EDGE)):
+        assert tol / 20 <= edge[key] <= tol / 2, (key, edge[key])
+    assert (corr.MMA_VS_MATCHED_L2_TOL, corr.MMA_VS_EXACT_TOL) == (1.5e-3, 2e-2)
+    rows = 10 * 92 * 68
+    assert corr.mma_backward_matched_l2_tol(32, 32, rows) == corr.MMA_VS_MATCHED_L2_TOL
+    assert corr.mma_backward_exact_tol(32, 32, rows) == corr.MMA_VS_EXACT_TOL
+    # without rows, the tolerance of the widths alone, as before
+    assert corr.mma_backward_exact_tol(16, 32) == corr.MMA_VS_EXACT_TOL
+    assert corr.mma_backward_exact_tol(256, 96, 140) == corr.MMA_VS_EXACT_TOL_WIDE

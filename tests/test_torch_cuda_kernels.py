@@ -589,3 +589,145 @@ def test_k23_tensor_core_nan_row_plain_twin(name, H, W, cq, cv):
     for m, r in zip(matched[:3], exact[:3]):
         assert torch.isfinite(m[1:]).all()
         assert float((m[1:] - r).abs().max()) <= tol * max(1.0, float(r.abs().max()))
+
+
+# (name, B, H, W, Cq, Cv, kind): the wgmma pair of K2 and K3
+# (ops/csrc/correlation_bwd_wgmma.cu), asked for by name (the package gives
+# it more than 64 positions): HW one key past a tile (65), ragged (70, 130)
+# and past 1,000, Cq != Cv, C = 8 (channels zero-filled to a depth of 16), a
+# Cv of 8 mod 16 (24, 120: the grid's depth step apart from v's last 8
+# columns in K2, shared with them in K3), 136 (a column tile of 8), 256 / 96
+# and 256 (column tiles of 128), 1,000 batch elements of 70 positions, a NaN
+# row, NaN in the next batch element's first rows (element 0's last tiles
+# reach past its HW, where the tensor maps read zeros), an exact tie for
+# row 0's maximum and the max-score cotangent alone. q and k scaled by
+# (32 / max(Cq, 32))^(1/4), as _k23_mma_inputs does.
+K23_WGMMA_EDGES = [
+    ("hw65", 2, 5, 13, 32, 32, "normal"),
+    ("hw70", 2, 7, 10, 32, 32, "normal"),
+    ("hw130", 2, 10, 13, 32, 32, "normal"),
+    ("hw1000", 1, 25, 40, 32, 32, "normal"),
+    ("q16_v32_hw130", 2, 10, 13, 16, 32, "normal"),
+    ("c8_hw130", 2, 10, 13, 8, 8, "normal"),
+    ("c24_hw70", 2, 7, 10, 24, 24, "normal"),
+    ("c120_hw70", 2, 7, 10, 120, 120, "normal"),
+    ("c136_hw70", 2, 7, 10, 136, 136, "normal"),
+    ("q256_v96_hw70", 2, 7, 10, 256, 96, "normal"),
+    ("c256_hw1000", 1, 25, 40, 256, 256, "normal"),
+    ("c128_hw70_b1000", 1000, 7, 10, 128, 128, "normal"),
+    ("nan_row_hw70", 2, 7, 10, 32, 32, "nan_row"),
+    ("nan_next_batch_hw70", 2, 7, 10, 32, 32, "nan_next"),
+    ("tie_hw70", 1, 7, 10, 32, 32, "tie"),
+    ("max_score_only_hw130", 2, 10, 13, 32, 32, "ms_only"),
+]
+
+
+def _k23_wgmma_inputs(name, B, H, W, cq, cv, kind, device):
+    """bf16 q, k, v, the grid and a float32 cotangent for one wgmma edge case,
+    and the batch elements the plain backward is held to (all but the one
+    that holds NaN)."""
+    args, g, dout = _k23_mma_inputs(name, B, H, W, cq, cv, "tie" if kind == "tie" else "normal",
+                                    device, nan_row=kind == "nan_row")
+    keep = slice(None)
+    if kind == "nan_row":
+        keep = slice(1, None)
+    if kind == "nan_next":
+        for a in args:
+            a[1, :3] = float("nan")
+        keep = slice(0, 1)
+    if kind == "ms_only":
+        dout[..., :cv + 2] = 0.0
+    return args, g, dout, keep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,B,H,W,cq,cv,kind", K23_WGMMA_EDGES,
+                         ids=[c[0] for c in K23_WGMMA_EDGES])
+def test_k23_cuda_wgmma_pair_at_its_edges(cuda_device, name, B, H, W, cq, cv, kind):
+    """The wgmma K2 and K3, one counted launch each a call, given the exact
+    forward's buffer: dq, dk, dv within mma_backward_matched_l2_tol
+    (relative L2) of the plain backward with their roundings and
+    mma_backward_exact_tol of the largest magnitude of the exact one (with
+    B x HW rows), with K2's argmax; two runs give the same bits; the argmax
+    is a maximum (on a tie the first), lse gives back the row max, dmain, 1/d
+    and d_ms are the plain prologue's to the bit; either pair's K2 hands on
+    to the other's K3 within the matched tolerance. A NaN row reaches its
+    element's gradients, NaN in element 1 leaves element 0 finite."""
+    args, g, dout, keep = _k23_wgmma_inputs(name, B, H, W, cq, cv, kind, cuda_device)
+    HW = H * W
+    out = torch.cat([pt_corr._plain_buffer(*(a[i:i + 100] for a in args), g)
+                     for i in range(0, B, 100)])
+    before = dict(pt_corr.launches)
+    runs = []
+    for _ in range(2):
+        dq, rows = pt_corr.correlation_bwd_rows(*args, g, out, dout, kernel="wgmma")
+        dk, dv = pt_corr.correlation_bwd_cols(*args, g, dout, rows, kernel="wgmma")
+        runs.append((dq, dk, dv, rows.stats, rows.amax, rows.dmain))
+    torch.cuda.synchronize()
+    assert pt_corr.launches[pt_corr.KERNEL_BWD_ROWS] == before[pt_corr.KERNEL_BWD_ROWS] + 2
+    assert pt_corr.launches[pt_corr.KERNEL_BWD_COLS] == before[pt_corr.KERNEL_BWD_COLS] + 2
+    assert all(torch.equal(a[keep], b[keep]) for a, b in zip(*runs))
+    dq, dk, dv, stats, amax, dmain = runs[0]
+    amax = amax.long()
+    assert 0 <= int(amax.min()) and int(amax.max()) < HW
+    if kind == "nan_row":
+        assert not torch.isfinite(dq[0, 0]).any()
+        assert not torch.isfinite(dk[0]).any() and not torch.isfinite(dv[0]).any()
+    if kind == "nan_next":
+        assert not torch.isfinite(dq[1]).all()
+    if kind == "tie":
+        assert int(amax[0, 0]) == 3
+    a_kept = [a[keep] for a in args]
+    s = torch.bmm(a_kept[0].float(), a_kept[1].float().transpose(1, 2))
+    top, scale = s.amax(dim=-1), float(s.abs().max())
+    assert float((top - s.gather(2, amax[keep][..., None])[..., 0]).abs().max()) <= 4e-6 * scale
+    row_max = (stats[keep][..., 0] + torch.log2(stats[keep][..., 1])) / 1.4426950408889634
+    torch.testing.assert_close(row_max, top, atol=4e-6 * scale + 4e-7 * max(1.0, scale), rtol=0)
+    dmain_p, stats_p = pt_corr.correlation_bwd_prologue_plain(out, dout)
+    assert torch.equal(dmain[keep], dmain_p[keep])
+    assert torch.equal(stats[keep][..., [1, 3]], stats_p[keep][..., [1, 3]])
+    exact = pt_corr.fused_correlation_warp_bwd_plain(*a_kept, g, dout[keep], amax[keep])[:3]
+    matched = pt_corr.fused_correlation_warp_bwd_plain(
+        *a_kept, g, dout[keep], amax[keep], bf16_roundings=True)[:3]
+    rows_n = B * HW
+    l2_tol = pt_corr.mma_backward_matched_l2_tol(cq, cv, rows_n)
+    tol = pt_corr.mma_backward_exact_tol(cq, cv, rows_n)
+    for got, r, m in zip((dq[keep], dk[keep], dv[keep]), exact, matched):
+        assert torch.isfinite(got).all()
+        assert float((got - m).norm() / m.norm().clamp_min(1e-30)) <= l2_tol
+        torch.testing.assert_close(got, r, atol=tol * max(1.0, float(r.abs().max())), rtol=0)
+    for k2, k3 in (("wgmma", "mma_sync"), ("mma_sync", "wgmma")):
+        dq2, rows2 = pt_corr.correlation_bwd_rows(*args, g, out, dout, kernel=k2)
+        dk2, dv2 = pt_corr.correlation_bwd_cols(*args, g, dout, rows2, kernel=k3)
+        torch.cuda.synchronize()
+        for got, m in zip((dq2[keep], dk2[keep], dv2[keep]), matched):
+            assert float((got - m).norm() / m.norm().clamp_min(1e-30)) <= l2_tol, (k2, k3)
+
+
+@pytest.mark.parametrize("name,B,H,W,cq,cv,kind", K23_WGMMA_EDGES,
+                         ids=[c[0] for c in K23_WGMMA_EDGES])
+def test_k23_wgmma_edges_plain_twin(name, B, H, W, cq, cv, kind):
+    """The CPU twin of the card case: on the same inputs the plain backward
+    with the kernels' roundings stays within half of mma_backward_exact_tol
+    (with B x HW rows) of the exact one on the elements without NaN, the two
+    take the same argmax (on a tie the first), NaN stays in its element, and
+    the package gives the shape the pair measured faster at its width class
+    (MMA_SYNC_FASTER)."""
+    args, g, dout, keep = _k23_wgmma_inputs(name, B, H, W, cq, cv, kind, "cpu")
+    exact = pt_corr.fused_correlation_warp_bwd_plain(*(a[keep] for a in args), g, dout[keep])
+    matched = pt_corr.fused_correlation_warp_bwd_plain(*args, g, dout, bf16_roundings=True)
+    assert torch.equal(exact[3], matched[3][keep])
+    if kind == "tie":
+        assert int(exact[3][0, 0]) == 3
+    if kind == "nan_row":
+        assert not torch.isfinite(matched[0][0, 0]).any()
+    if kind == "nan_next":
+        assert not torch.isfinite(matched[0][1]).all()
+    tol = pt_corr.mma_backward_exact_tol(cq, cv, B * H * W) / 2
+    for m, r in zip(matched[:3], exact[:3]):
+        m = m[keep]
+        assert torch.isfinite(m).all()
+        assert float((m - r).abs().max()) <= tol * max(1.0, float(r.abs().max()))
+    want = (pt_corr.KERNEL_FWD_MMA_SYNC if pt_corr.wgmma_width_class(cq, cv)
+            in pt_corr.MMA_SYNC_FASTER else pt_corr.KERNEL_FWD_WGMMA)
+    assert pt_corr.backward_kernel(torch.bfloat16, H * W, cq, cv) == want

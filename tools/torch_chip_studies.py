@@ -17,6 +17,7 @@ does not repeat on every run. From the root of a checkout:
     python3 tools/torch_chip_studies.py f32-checkouts [CHECKOUT ...]
     python3 tools/torch_chip_studies.py k23-fma-variants
     python3 tools/torch_chip_studies.py k23-mma-variants
+    python3 tools/torch_chip_studies.py k23-wgmma-variants [SHAPE WORD ...]
     python3 tools/torch_chip_studies.py bwd-checkouts [CHECKOUT ...]
 
 decode-threads: wall time of data/jpeg.py::decode_resize_batch for 64 frames
@@ -145,6 +146,21 @@ the package's K2 outputs; timed by CUDA events, at HW 20 from CUDA graphs
 (the device alone) beside the FMA few-rows pair on the same inputs, with the
 backward of scaled_dot_product_attention.
 
+k23-wgmma-variants: the wgmma kernels of K2 and K3's tensor-core design at
+every shape a driven bf16 path gives the design beyond 64 positions (the
+3d3d grid at C = 32, B = 10 and 90, C = 128, Cq 256 / Cv 96 and C = 256, B =
+10): instantiations (:data:`K23_WGMMA_VARIANTS`: column tiles, consumer
+warpgroups, ring stages, blocks a SM, keys or rows a pass; the dispatch's
+first) built from a file that includes the checkout's
+correlation_bwd_wgmma.cu, with ptxas's registers, spills and every
+instantiation whose wgmma it serialised; each K2 given the exact forward's
+buffer and each K3 the package's K2 outputs, held to the package's bits
+(else to the matched tolerance), timed by CUDA events in turns (the list,
+then again in reverse) beside the package's mma.sync pair (its bits
+compared) and the backward of scaled_dot_product_attention; words after the
+name keep the shapes whose names contain one. Where the mma.sync pair
+measures faster, ops/correlation.py::MMA_SYNC_FASTER keeps it.
+
 bwd-checkouts: K2 and K3 through the package's wrapper at the shapes phase 3
 times them (bf16 at the 3d3d grid at C=32, B=10 and 90, and C=128, B=10;
 float32 3d3d grid at B=10; 1,024 channels on the 5x4 grid at B=10 in float32
@@ -160,6 +176,7 @@ Each line carries the card's name and power limit. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import re
 import subprocess
 import sys
 import time
@@ -506,6 +523,13 @@ def _variant_lib(tmp: Path, body: list, source: str = "correlation_fwd.cu"):
     print(f"[{card()}] {len(body)} variants built in {time.perf_counter() - t0:.1f} s", flush=True)
     for kernel, regs, spill in cs.ptxas_report(proc.stdout + proc.stderr):
         print(f"  {kernel}: {regs} registers, {spill} bytes spilled", flush=True)
+    for line in (proc.stdout + proc.stderr).splitlines():
+        if "Performance Loss" in line:  # ptxas serialised a kernel's wgmma: why, and which
+            why = line.split("serialized due to ")[-1].split(" in the function")[0]
+            name = re.search(r"(correlation_\w+?_kernel)I(\w*?)EEv", line)
+            args = ", ".join(re.findall(r"Li(\d+)E", name.group(2))) if name else "?"
+            print(f"  {name.group(1) if name else '?'}<{args}>: wgmma serialised, {why}",
+                  flush=True)
     return ctypes.CDLL(str(so))
 
 
@@ -1266,8 +1290,11 @@ def k23_mma_variants() -> None:
                                               spread32=cq > 32)
             dout = cs._cotangent(B, HW, cv, seed=8)
             out = _exact_buffer(corr, q, k, v, grid)
-            dq, rows = corr.correlation_bwd_rows(q, k, v, grid, out, dout)
-            dk, dv = corr.correlation_bwd_cols(q, k, v, grid, dout, rows)
+            # the package's mma.sync pair, asked for by name (the package gives
+            # more than 64 positions to its wgmma pair)
+            mm = corr.KERNEL_FWD_MMA_SYNC
+            dq, rows = corr.correlation_bwd_rows(q, k, v, grid, out, dout, kernel=mm)
+            dk, dv = corr.correlation_bwd_cols(q, k, v, grid, dout, rows, kernel=mm)
             torch.cuda.synchronize()
             # the package's pair against the plain backward with its
             # roundings, on the first two batch rows (the variants are then
@@ -1282,10 +1309,10 @@ def k23_mma_variants() -> None:
                 raise AssertionError(f"{name}: the package's K2, K3 at relative L2 {l2:.3g}")
 
             def k2():
-                corr.correlation_bwd_rows(q, k, v, grid, out, dout)
+                corr.correlation_bwd_rows(q, k, v, grid, out, dout, kernel=mm)
 
             def k3():
-                corr.correlation_bwd_cols(q, k, v, grid, dout, rows)
+                corr.correlation_bwd_cols(q, k, v, grid, dout, rows, kernel=mm)
 
             alone = HW <= 64
             vg = torch.cat([v, grid.expand(B, HW, 2), v.new_zeros(B, HW, 6)], dim=-1)[:, None]
@@ -1351,6 +1378,147 @@ def k23_mma_variants() -> None:
                 print(f"[{card()}] {name}: {label}: {timer(launch, 10):.4f} ms, equal bits to the "
                       f"package's: {same}", flush=True)
             del q, k, v, grid, dout, out, dq, dk, dv, rows
+            torch.cuda.empty_cache()
+
+
+# (name, B, H, W, Cq, Cv) -> candidate template arguments of launch_rows_wgmma
+# (KB, W, CV, WD, CTB, NC, ST, MINB, NH) and of launch_cols_wgmma (KB, W, CV,
+# WD, TK, TV, NC, ST, MINB, NH); the package's choice first
+K23_WGMMA_VARIANTS = {
+    ("C=32, 3d3d grid, B=10", 10, 92, 68, 32, 32): (
+        ["1, 32, 32, 32, 1, 4, 3, 1, 32", "1, 32, 32, 32, 1, 4, 2, 1, 32",
+         "1, 32, 32, 32, 1, 4, 3, 1, 16", "1, 32, 32, 32, 1, 2, 3, 2, 16",
+         "1, 32, 32, 32, 1, 3, 4, 1, 64", "1, 32, 32, 32, 1, 2, 4, 1, 64"],
+        ["1, 32, 32, 32, 1, 1, 4, 3, 1, 16", "1, 32, 32, 32, 1, 1, 4, 3, 1, 32",
+         "1, 32, 32, 32, 1, 1, 3, 4, 1, 64", "1, 32, 32, 32, 1, 1, 2, 4, 1, 64"]),
+    ("C=32, 3d3d grid, B=90", 90, 92, 68, 32, 32): (
+        ["1, 32, 32, 32, 1, 4, 3, 1, 32", "1, 32, 32, 32, 1, 4, 3, 1, 16"],
+        ["1, 32, 32, 32, 1, 1, 4, 3, 1, 16", "1, 32, 32, 32, 1, 1, 4, 3, 1, 32"]),
+    ("C=128, 3d3d grid, B=10", 10, 92, 68, 128, 128): (
+        ["2, 64, 128, 64, 2, 2, 3, 1, 64", "2, 64, 128, 64, 2, 2, 3, 1, 32",
+         "2, 64, 128, 64, 2, 1, 3, 1, 64"],
+        ["2, 64, 128, 64, 2, 2, 1, 3, 1, 64", "2, 64, 128, 64, 1, 1, 2, 3, 1, 64",
+         "2, 64, 128, 64, 1, 1, 3, 2, 1, 32"]),
+    ("Cq=256 Cv=96, 3d3d grid, B=10", 10, 92, 68, 256, 96): (
+        ["4, 64, 96, 32, 2, 2, 2, 1, 64", "4, 64, 96, 32, 2, 2, 2, 1, 32",
+         "4, 64, 96, 32, 2, 1, 2, 1, 64"],
+        ["4, 64, 96, 32, 4, 3, 1, 2, 1, 16", "4, 64, 96, 32, 2, 2, 1, 3, 1, 64",
+         "4, 64, 96, 32, 2, 2, 2, 2, 1, 16"]),
+    ("C=256, 3d3d grid, B=10", 10, 92, 68, 256, 256): (
+        ["4, 64, 256, 64, 2, 1, 2, 1, 64", "4, 64, 256, 64, 1, 1, 2, 1, 64"],
+        ["4, 64, 256, 64, 2, 2, 1, 2, 1, 64", "4, 64, 256, 64, 1, 1, 1, 2, 1, 64"]),
+}
+
+
+def k23_wgmma_variants() -> None:
+    """The wgmma pair's instantiations against the mma.sync pair's, each
+    built from a file that includes the checkout's .cu and held to the
+    package's bits, timed in turns by CUDA events through the same C entry."""
+    import ctypes
+    import tempfile
+
+    import torch
+
+    import chip_smoke as cs
+    from mapfree_tpu_torch.ops import _build
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    _build.load_libraries([corr.KERNEL, corr.KERNEL_BWD_MMA, corr.KERNEL_BWD_WGMMA])
+    rows_v = sorted({a for r, _ in K23_WGMMA_VARIANTS.values() for a in r})
+    cols_v = sorted({a for _, c in K23_WGMMA_VARIANTS.values() for a in c})
+    body = [f'extern "C" int rows_{i}({_MMA_ROWS_ARGS}) {{ return launch_rows_wgmma<{a}>('
+            f'wgmma_args(q, k, v, grid, out, dout, dmain, stats, amax, dq, nullptr, nullptr, B, '
+            f'HW, Cq, Cv, stream)); }}' for i, a in enumerate(rows_v)]
+    body += [f'extern "C" int cols_{i}({_MMA_COLS_ARGS}) {{ return launch_cols_wgmma<{a}>('
+             f'wgmma_args(q, k, v, grid, nullptr, nullptr, dmain, stats, amax, nullptr, dk, dv, '
+             f'B, HW, Cq, Cv, stream)); }}' for i, a in enumerate(cols_v)]
+    with tempfile.TemporaryDirectory() as tmp:
+        lib = _variant_lib(Path(tmp), body, "correlation_bwd_wgmma.cu")
+        for (name, B, H, W, cq, cv), (r_list, c_list) in K23_WGMMA_VARIANTS.items():
+            if sys.argv[2:] and not any(w in name for w in sys.argv[2:]):
+                continue
+            HW = H * W
+            q, k, v, grid = cs._kernel_inputs(B, H, W, cq, cv, "bfloat16", seed=7,
+                                              spread32=cq > 32)
+            dout = cs._cotangent(B, HW, cv, seed=8)
+            out = _exact_buffer(corr, q, k, v, grid)
+            kernel = corr.backward_kernel(q.dtype, HW, cq, cv)
+            dq, rows = corr.correlation_bwd_rows(q, k, v, grid, out, dout)
+            dk, dv = corr.correlation_bwd_cols(q, k, v, grid, dout, rows)
+            torch.cuda.synchronize()
+            sl = slice(0, 2)
+            ref = corr.fused_correlation_warp_bwd_plain(
+                q[sl], k[sl], v[sl], grid, dout[sl], rows.amax[sl].long(), bf16_roundings=True)[:3]
+            tol = corr.mma_backward_matched_l2_tol(cq, cv, B * HW)
+            l2 = cs._rel_l2([dq[sl], dk[sl], dv[sl]], ref)
+            del ref
+            print(f"[{card()}] {name}: the package takes the {kernel} pair (relative L2 {l2:.3g} "
+                  f"vs the plain backward with its roundings on 2 rows, tol {tol:g})", flush=True)
+            if l2 > tol:
+                raise AssertionError(f"{name}: the package's K2, K3 at relative L2 {l2:.3g}")
+            launches = {}
+            for kind, args_list, values in (("K2", r_list, rows_v), ("K3", c_list, cols_v)):
+                for a in args_list:
+                    fn = getattr(lib, f"{'rows' if kind == 'K2' else 'cols'}_{values.index(a)}")
+                    n_ptr = 10 if kind == "K2" else 9
+                    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                    fn.restype = ctypes.c_int
+                    if kind == "K2":
+                        got = [torch.full_like(dq, float("nan")), torch.empty_like(rows.stats),
+                               torch.empty_like(rows.amax), torch.empty_like(rows.dmain)]
+                        ptrs, want = (q, k, v, grid, out, dout, *got), [dq, rows.stats, rows.amax,
+                                                                        rows.dmain]
+                    else:
+                        got = [torch.full_like(dk, float("nan")), torch.full_like(dv, float("nan"))]
+                        ptrs, want = (q, k, v, grid, rows.dmain, rows.stats, rows.amax, *got), [dk, dv]
+
+                    def launch(fn=fn, ptrs=ptrs, label=f"{kind} wgmma <{a}>"):
+                        err = fn(*(t.data_ptr() for t in ptrs), B, HW, cq, cv, 1,
+                                 torch.cuda.current_stream().cuda_stream)
+                        if err:
+                            raise RuntimeError(f"{label} failed to launch: cudaError_t {err}")
+
+                    label = f"{kind} wgmma <{a}>"
+                    try:
+                        launch()
+                        torch.cuda.synchronize()
+                    except RuntimeError as e:
+                        print(f"[{card()}] {name}: {e}", flush=True)
+                        continue
+                    same = all(torch.equal(x, y) for x, y in zip(got, want))
+                    if not same:
+                        n = 1 if kind == "K2" else 2
+                        err = cs._rel_l2([x[sl] for x in got[:n]], [x[sl] for x in want[:n]])
+                        if err > tol:
+                            raise AssertionError(f"{label} at {name}: relative L2 {err:.3g} to "
+                                                 "the package's")
+                    print(f"[{card()}] {name}: {label} gives the package's bits: {same}",
+                          flush=True)
+                    launches[label] = launch
+            other = corr.KERNEL_FWD_MMA_SYNC
+            dq_o, rows_o = corr.correlation_bwd_rows(q, k, v, grid, out, dout, kernel=other)
+            dk_o, dv_o = corr.correlation_bwd_cols(q, k, v, grid, dout, rows_o, kernel=other)
+            torch.cuda.synchronize()
+            same = [torch.equal(a, b) for a, b in ((dq_o, dq), (dk_o, dk), (dv_o, dv))]
+            print(f"[{card()}] {name}: the mma.sync pair gives the package's bits in dq, dk, dv: "
+                  f"{same}", flush=True)
+            launches["K2 mma.sync (the package's)"] = \
+                lambda: corr.correlation_bwd_rows(q, k, v, grid, out, dout, kernel=other)
+            launches["K3 mma.sync (the package's)"] = \
+                lambda: corr.correlation_bwd_cols(q, k, v, grid, dout, rows_o, kernel=other)
+            times = {label: [] for label in launches}
+            for label in list(launches) + list(launches)[::-1]:
+                times[label].append(cs.cuda_time_ms(launches[label], iters=10, warmup=2))
+            for label, ts in times.items():
+                print(f"[{card()}] {name} (CUDA events): {label} {min(ts):.4f}-{max(ts):.4f} ms",
+                      flush=True)
+            vg = torch.cat([v, grid.expand(B, HW, 2), v.new_zeros(B, HW, 6)], dim=-1)[:, None]
+            qh, kh, vh = (t.detach().requires_grad_(True) for t in (q[:, None], k[:, None], vg))
+            do = torch.cat([dout[..., :cv + 2], dout.new_zeros(B, HW, 6)],
+                           dim=-1)[:, None].to(q.dtype)
+            print(f"[{card()}] {name}: attention backward "
+                  f"{cs.sdpa_ms(qh, kh, vh, iters=10, do=do)[0]:.4f} ms", flush=True)
+            del q, k, v, grid, dout, out, dq, dk, dv, rows, dq_o, dk_o, dv_o, rows_o, launches
             torch.cuda.empty_cache()
 
 
@@ -1430,7 +1598,8 @@ def main() -> None:
                "wide-unscaled": wide_unscaled, "k1-variants": k1_variants,
                "k1-wgmma-variants": k1_wgmma_variants,
                "k1-fma-variants": k1_fma_variants, "k1-fma-edits": k1_fma_edits,
-               "k23-fma-variants": k23_fma_variants, "k23-mma-variants": k23_mma_variants}
+               "k23-fma-variants": k23_fma_variants, "k23-mma-variants": k23_mma_variants,
+               "k23-wgmma-variants": k23_wgmma_variants}
     if sys.argv[1:2] == ["decode-under-load"]:
         decode_under_load(*sys.argv[2:])
         return
@@ -1439,6 +1608,9 @@ def main() -> None:
         return
     if sys.argv[1:2] == ["bwd-checkouts"]:
         bwd_checkouts(*sys.argv[2:])
+        return
+    if sys.argv[1:2] in (["k1-wgmma-variants"], ["k23-wgmma-variants"]):
+        studies[sys.argv[1]]()  # the words after it name shapes
         return
     names = sys.argv[1:] or list(studies)
     for name in names:
