@@ -6,10 +6,11 @@
 Phases, in order; any failure raises and the script exits nonzero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the CUDA kernels (correlation_fwd: K1; correlation_bwd_wgmma,
-   correlation_bwd_mma and correlation_bwd: K2, K3;
-   each in two designs, tensor cores for bf16 and float32 FMA, each
-   tensor-core design in two kernels, wgmma and mma.sync, and the
+2. build: the CUDA kernels (correlation_fwd: K1; correlation_bwd_narrow,
+   correlation_bwd_wgmma, correlation_bwd_mma and correlation_bwd: K2, K3;
+   each in two designs, tensor cores for bf16 and float32 FMA, K1's
+   tensor-core design in two kernels, wgmma and mma.sync, K2 and K3's in
+   three pairs, narrow (up to 64 channels), wgmma and mma.sync, and the
    prologue the mma.sync K2 launches where its operands stream), the nvJPEG
    decoder and the PNG reader's host unfilter,
    compiled at once from this checkout's sources with nvcc, with ptxas's
@@ -25,7 +26,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    own) and to the exact one (the tolerances the CPU tests derive, wider
    beyond 128 channels), K1's max score to the exact one at float32
    tightness, K2's row statistics to the scores and the forward's max score,
-   and K2's dmain and row constant to the plain prologue. Then each is timed beside the plain version, one PyTorch
+   and K2's dmain and row constant to the plain prologue; the Hopper pair
+   of K2 and K3 that takes a case's widths is set beside the mma.sync pair
+   on it (bits, hand-offs both ways), and the narrow pair is held by name at
+   every class it takes, at B = 10 and 90 on the 3d3d grid, on a tie, NaN
+   rows and the max-score cotangent alone. Then each is timed beside the plain version, one PyTorch
    library call (scaled_dot_product_attention and its backward, timed here
    only) and its bound: K1 at the inference shape (B=64, HW=6,256, C=32,
    bf16) in both designs, and K1, K2, K3 at the training shape (B=10), which
@@ -43,7 +48,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    instantiation), the FMA designs elsewhere (the
    channels in chunks and the accumulator columns in tiles of 128), and K1,
    K2, K3 timed at the ResNet bottleneck's 1,024 channels on its 5x4 grid,
-   at 128 channels on the 3d3d grid (K1 at B=10 and 64), at 256 / 96 (the
+   at 128 channels on the 3d3d grid (K1 at B=10 and 64), K2 and K3 at 64
+   (the narrow pair's class) on the 3d3d grid at B=10, at 256 / 96 (the
    FMA designs beside the tensor-core ones there) and at the 256-channel
    ResUNet's 256 (K2 and K3 streamed); then float32 K1, K2, K3 (the FMA
    designs) at the 3d3d shapes (K1 at B=64 and B=10) and at 1,024 channels
@@ -593,9 +599,10 @@ def backward_case(q, k, v, grid, dout, kernel=None) -> dict:
     tensor-core design is compared twice: with the plain backward that rounds
     dmain, P and dS to bf16 as it does (relative L2), and with the exact one
     (at the tolerances of its widths and B x HW rows); its prologue's
-    outputs are compared too. The wgmma pair is also set beside the mma.sync
-    pair on the same inputs: their bits compared, and each one's K2 handed on
-    to the other's K3, held to the matched backward."""
+    outputs are compared too. The Hopper pair that takes the widths (up to
+    64 channels the narrow one, beyond the wgmma one) is also set beside the
+    mma.sync pair on the same inputs: their bits compared, and each one's K2
+    handed on to the other's K3, held to the matched backward."""
     import torch
 
     from mapfree_tpu_torch.ops import correlation as corr
@@ -671,49 +678,74 @@ def backward_case(q, k, v, grid, dout, kernel=None) -> dict:
         res["prologue_c_err"] = _scaled_err([rows.stats[..., 2]], [stats_p[..., 2]])
         if res["prologue_c_err"] > PROLOGUE_TOL:
             raise AssertionError(f"K2's c is off by {res['prologue_c_err']:.3g}")
-        if corr.wgmma_width_class(Cq, Cv) is not None:
-            # both pairs by name on the same inputs: the wgmma pair held to
-            # both plain backwards and the plain prologue, with equal bits on
-            # two runs, its bits against the mma.sync pair's, and each one's K2
-            # handed on to the other's K3, held to the matched backward
-            wg, ms = corr.KERNEL_FWD_WGMMA, corr.KERNEL_FWD_MMA_SYNC
-            runs = []
-            for _ in range(2):
-                dq_w, rows_w = corr.correlation_bwd_rows(q, k, v, grid, out, dout, kernel=wg)
-                dk_w, dv_w = corr.correlation_bwd_cols(q, k, v, grid, dout, rows_w, kernel=wg)
-                runs.append((dq_w, dk_w, dv_w, rows_w.stats, rows_w.amax, rows_w.dmain))
-            dq_o, rows_o = corr.correlation_bwd_rows(q, k, v, grid, out, dout, kernel=ms)
-            dk_o, dv_o = corr.correlation_bwd_cols(q, k, v, grid, dout, rows_o, kernel=ms)
-            dk_h, dv_h = corr.correlation_bwd_cols(q, k, v, grid, dout, rows_w, kernel=ms)
-            dk_r, dv_r = corr.correlation_bwd_cols(q, k, v, grid, dout, rows_o, kernel=wg)
-            torch.cuda.synchronize()
-            res["as_mma_sync"] = {key: torch.equal(a, b) for key, a, b in (
-                ("dq", dq_w, dq_o), ("dk", dk_w, dk_o), ("dv", dv_w, dv_o),
-                ("stats", rows_w.stats, rows_o.stats), ("amax", rows_w.amax, rows_o.amax),
-                ("dmain", rows_w.dmain, rows_o.dmain))}
-            res["wgmma_l2"] = _rel_l2([dq_w, dk_w, dv_w], [dq_m, dk_m, dv_m])
-            res["wgmma_err"] = max(_scaled_err([dq_w], [dq_p]), _scaled_err([dk_w, dv_w],
-                                                                           [dk_p, dv_p]))
-            res["wgmma_same_bits"] = all(torch.equal(a, b) for a, b in zip(*runs))
-            res["wgmma_prologue"] = (torch.equal(rows_w.dmain, dmain_p) and torch.equal(
-                rows_w.stats[..., [1, 3]], stats_p[..., [1, 3]]))
-            res["handoff_l2"] = max(_rel_l2([dq_w, dk_h, dv_h], [dq_m, dk_m, dv_m]),
-                                    _rel_l2([dq_o, dk_r, dv_r], [dq_m, dk_m, dv_m]))
-            del dq_w, rows_w, dq_o, rows_o, dk_w, dv_w, dk_o, dv_o, dk_h, dv_h, dk_r, dv_r, runs
+        pair = _hopper_pair(Cq, Cv)
+        if pair is not None:
+            res["beside"] = {pair: _pair_beside_mma_sync(
+                pair, q, k, v, grid, out, dout, (dq_m, dk_m, dv_m), (dq_p, dk_p, dv_p), dmain_p,
+                stats_p)}
     return res
 
 
-def nan_row_case(q, k, v, grid, dout) -> dict:
-    """K2 and K3 where batch element 0 holds a NaN row: they must not fault,
-    K2's argmax stays in [0, HW), the NaN reaches element 0's dq row and its
-    dk and dv, and element 1 is held to the exact plain backward."""
+def _hopper_pair(Cq, Cv):
+    """The Hopper pair of K2 and K3 whose width classes hold Cq and Cv (the
+    narrow one up to 64 channels, the wgmma one beyond), or None."""
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    width = corr.hopper_width_class(Cq, Cv)
+    if width is None:
+        return None
+    return (corr.KERNEL_BWD_PAIR_NARROW if width in corr.NARROW_WIDTH_CLASSES
+            else corr.KERNEL_FWD_WGMMA)
+
+
+def _pair_beside_mma_sync(pair, q, k, v, grid, out, dout, matched, exact, dmain_p,
+                          stats_p) -> dict:
+    """A Hopper pair of K2 and K3 asked for by name on the inputs of a
+    :func:`backward_case`: held to both plain backwards (``matched``,
+    ``exact``: dq, dk, dv) and the plain prologue, equal bits on two runs,
+    its bits against the mma.sync pair's, and each one's K2 handed on to the
+    other's K3, held to the matched backward."""
+    import torch
+
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    ms = corr.KERNEL_FWD_MMA_SYNC
+    runs = []
+    for _ in range(2):
+        dq_w, rows_w = corr.correlation_bwd_rows(q, k, v, grid, out, dout, kernel=pair)
+        dk_w, dv_w = corr.correlation_bwd_cols(q, k, v, grid, dout, rows_w, kernel=pair)
+        runs.append((dq_w, dk_w, dv_w, rows_w.stats, rows_w.amax, rows_w.dmain))
+    dq_o, rows_o = corr.correlation_bwd_rows(q, k, v, grid, out, dout, kernel=ms)
+    dk_o, dv_o = corr.correlation_bwd_cols(q, k, v, grid, dout, rows_o, kernel=ms)
+    dk_h, dv_h = corr.correlation_bwd_cols(q, k, v, grid, dout, rows_w, kernel=ms)
+    dk_r, dv_r = corr.correlation_bwd_cols(q, k, v, grid, dout, rows_o, kernel=pair)
+    torch.cuda.synchronize()
+    return {
+        "as_mma_sync": {key: torch.equal(a, b) for key, a, b in (
+            ("dq", dq_w, dq_o), ("dk", dk_w, dk_o), ("dv", dv_w, dv_o),
+            ("stats", rows_w.stats, rows_o.stats), ("amax", rows_w.amax, rows_o.amax),
+            ("dmain", rows_w.dmain, rows_o.dmain))},
+        "l2": _rel_l2([dq_w, dk_w, dv_w], matched),
+        "err": max(_scaled_err([dq_w], exact[:1]), _scaled_err([dk_w, dv_w], exact[1:])),
+        "same_bits": all(torch.equal(a, b) for a, b in zip(*runs)),
+        "prologue": (torch.equal(rows_w.dmain, dmain_p)
+                     and torch.equal(rows_w.stats[..., [1, 3]], stats_p[..., [1, 3]])),
+        "handoff_l2": max(_rel_l2([dq_w, dk_h, dv_h], matched),
+                          _rel_l2([dq_o, dk_r, dv_r], matched))}
+
+
+def nan_row_case(q, k, v, grid, dout, kernel=None) -> dict:
+    """K2 and K3 (the package's pair, or ``kernel``) where batch element 0
+    holds a NaN row: they must not fault, K2's argmax stays in [0, HW), the
+    NaN reaches element 0's dq row and its dk and dv, and element 1 is held
+    to the exact plain backward."""
     import torch
 
     from mapfree_tpu_torch.ops import correlation as corr
 
     out = corr._plain_buffer(q, k, v, grid)
-    dq, rows = corr.correlation_bwd_rows(q, k, v, grid, out, dout)
-    dk, dv = corr.correlation_bwd_cols(q, k, v, grid, dout, rows)
+    dq, rows = corr.correlation_bwd_rows(q, k, v, grid, out, dout, kernel=kernel)
+    dk, dv = corr.correlation_bwd_cols(q, k, v, grid, dout, rows, kernel=kernel)
     torch.cuda.synchronize()  # a read out of bounds faults here
     amax = rows.amax.long()
     if int(amax.min()) < 0 or int(amax.max()) >= q.shape[1]:
@@ -781,19 +813,19 @@ def check_backward(res: dict, what: str) -> None:
     if "k2_tile_l2" in res and not res["k2_tile_l2"] <= res["l2_tol"]:
         raise AssertionError(f"a column tile of K2's dq disagrees with the plain backward of "
                              f"the same roundings in {what}: relative L2 {res['k2_tile_l2']:.3g}")
-    if "wgmma_l2" in res and not (res["wgmma_l2"] <= res["l2_tol"]
-                                  and res["wgmma_err"] <= res["tol"]):
-        raise AssertionError(f"the wgmma K2 and K3 disagree with the plain backwards in {what}: "
-                             f"relative L2 {res['wgmma_l2']:.3g} to the matched one, "
-                             f"{res['wgmma_err']:.3g} of the largest gradient to the exact one")
-    if res.get("wgmma_same_bits") is False or res.get("wgmma_prologue") is False:
-        raise AssertionError(f"the wgmma K2 and K3 in {what}: equal bits on two runs "
-                             f"{res['wgmma_same_bits']}, dmain, 1/d and d_ms the plain "
-                             f"prologue's {res['wgmma_prologue']}")
-    if "handoff_l2" in res and not res["handoff_l2"] <= res["l2_tol"]:
-        raise AssertionError(f"a K2 of one tensor-core pair handed on to the other's K3 "
-                             f"disagrees with the plain backward of the same roundings in "
-                             f"{what}: relative L2 {res['handoff_l2']:.3g}")
+    for pair, b in res.get("beside", {}).items():
+        if not (b["l2"] <= res["l2_tol"] and b["err"] <= res["tol"]):
+            raise AssertionError(f"the {pair} K2 and K3 disagree with the plain backwards in "
+                                 f"{what}: relative L2 {b['l2']:.3g} to the matched one, "
+                                 f"{b['err']:.3g} of the largest gradient to the exact one")
+        if not (b["same_bits"] and b["prologue"]):
+            raise AssertionError(f"the {pair} K2 and K3 in {what}: equal bits on two runs "
+                                 f"{b['same_bits']}, dmain, 1/d and d_ms the plain "
+                                 f"prologue's {b['prologue']}")
+        if not b["handoff_l2"] <= res["l2_tol"]:
+            raise AssertionError(f"the {pair} K2 handed on to the mma.sync K3, or the other "
+                                 f"way, disagrees with the plain backward of the same "
+                                 f"roundings in {what}: relative L2 {b['handoff_l2']:.3g}")
 
 
 def _case_line(res: dict) -> str:
@@ -812,13 +844,13 @@ def _case_line(res: dict) -> str:
     if "same_bits" in res:
         line += (f"; row statistics at {res['stats_err']:.3g} of their limits; two runs of K2 "
                  f"and K3 give equal bits: {res['same_bits']}")
-    if "as_mma_sync" in res:
-        same = [key for key, eq in res["as_mma_sync"].items() if eq]
-        line += (f"; the wgmma K2, K3 by name: relative L2 {res['wgmma_l2']:.3g}, "
-                 f"{res['wgmma_err']:.3g} of the largest gradient vs the exact plain backward, "
-                 f"equal bits on two runs {res['wgmma_same_bits']}, the plain prologue's "
-                 f"{res['wgmma_prologue']}, the mma.sync ones' bits in {same or 'none'}; either "
-                 f"K2 handed on to the other's K3: relative L2 {res['handoff_l2']:.3g}")
+    for pair, b in res.get("beside", {}).items():
+        same = [key for key, eq in b["as_mma_sync"].items() if eq]
+        line += (f"; the {pair} K2, K3 by name: relative L2 {b['l2']:.3g}, "
+                 f"{b['err']:.3g} of the largest gradient vs the exact plain backward, "
+                 f"equal bits on two runs {b['same_bits']}, the plain prologue's "
+                 f"{b['prologue']}, the mma.sync ones' bits in {same or 'none'}; its K2 handed "
+                 f"on to the mma.sync K3 and the other way: relative L2 {b['handoff_l2']:.3g}")
     return line + f"; argmax near-ties {res['argmax_near_ties']}"
 
 
@@ -851,10 +883,10 @@ def phase_kernel_cases() -> dict:
             more = {"design": res["design"], "tensor_core_kernel": res.get("kernel")}
             if res["design"] == corr.DESIGN_MMA:
                 more.update(matched_rel_l2=res[key + "_l2"], matched_rel_l2_tol=res["l2_tol"])
-            if "as_mma_sync" in res:
-                more.update(wgmma_rel_l2=res["wgmma_l2"], wgmma_err=res["wgmma_err"],
-                            wgmma_has_mma_sync_bits=res["as_mma_sync"],
-                            handoff_rel_l2=res["handoff_l2"])
+            for pair, b in res.get("beside", {}).items():
+                more.update({f"{pair}_rel_l2": b["l2"], f"{pair}_err": b["err"],
+                             f"{pair}_has_mma_sync_bits": b["as_mma_sync"],
+                             f"{pair}_handoff_rel_l2": b["handoff_l2"]})
             record(kernel, name, res[key + "_err"], res["tol"], **more)
         check_backward(res, f"case {name}")
 
@@ -1128,17 +1160,18 @@ def phase_kernel_cases() -> dict:
                              f"(finite {finite}, equal bits {same}, element 1 NaN {nan_1})")
 
     # K2 and K3's wgmma pair, asked for by name, at the edges the cases above
-    # leave (they give it every bf16 shape beyond 64 positions: HW 70, 130,
-    # 576, 1,000 and 6,256, Cq != Cv, C = 8, Cv of 8 mod 16 at 40 and 120,
-    # 136, 256 / 96, 256, ties, NaN rows, the max-score cotangent alone): one
-    # key past a tile (HW 65), Cq = Cv = 24, 32 channels at HW 1,000, and
-    # 1,000 batch elements of 70 positions at 128 channels (some 2,000
-    # blocks); each held to both plain backwards, two runs to the same bits,
-    # beside the mma.sync pair (bits printed, hand-offs held)
+    # leave (they give it every bf16 shape beyond 64 positions with a width
+    # past 64 channels: HW 70, 130, 1,000 and 6,256, Cv of 8 mod 16 at 120,
+    # 126 and 136, 256 / 96, 256, ties, NaN rows): one key past a tile (HW
+    # 65), the narrowest widths it takes (72 channels, and Cq 16 with Cv 72,
+    # zero-filled to its class of 128; there also the max-score cotangent
+    # alone), and 1,000 batch elements of 70 positions at 128 channels (some
+    # 2,000 blocks); each held to both plain backwards, two runs to the same
+    # bits, beside the mma.sync pair (bits printed, hand-offs held)
     for i, (name, (B, H, W, cq, cv)) in enumerate({
-        "wgmma_bwd_hw65": (2, 5, 13, 32, 32),
-        "wgmma_bwd_c24_hw70": (2, 7, 10, 24, 24),
-        "wgmma_bwd_hw1000": (1, 25, 40, 32, 32),
+        "wgmma_bwd_hw65": (2, 5, 13, 128, 128),
+        "wgmma_bwd_c72_hw70": (2, 7, 10, 72, 72),
+        "wgmma_bwd_q16_v72_hw1000": (1, 25, 40, 16, 72),
         "wgmma_bwd_c128_hw70_b1000": (1000, 7, 10, 128, 128),
     }.items()):
         q, k, v, grid = _kernel_inputs(B, H, W, cq, cv, "bfloat16", seed=480 + i, spread32=True)
@@ -1146,34 +1179,189 @@ def phase_kernel_cases() -> dict:
                             kernel=corr.KERNEL_FWD_WGMMA)
         log(f"[kernel] {name}: {_case_line(res)}")
         record_backward(name, res)
+        if name == "wgmma_bwd_q16_v72_hw1000":
+            only = backward_case(q, k, v, grid, _cotangent(B, H * W, cv, 494, ms_only=True),
+                                 kernel=corr.KERNEL_FWD_WGMMA)
+            log(f"[kernel] {name}, max-score cotangent only: {_case_line(only)}")
+            record_backward(name + "_ms_only", only)
+            del only
         del q, k, v, grid, res
     # NaN in batch element 1's first rows of q, k and v: element 0's last key
     # tile (K2) and row chunk (K3) reach past its HW = 70, where the tensor
     # maps read zeros, so element 0 stays finite and held to both plain
     # backwards; element 1's gradients are NaN
-    q, k, v, grid = _kernel_inputs(2, 7, 10, 32, 32, "bfloat16", seed=495, spread32=True)
+    q, k, v, grid = _kernel_inputs(2, 7, 10, 128, 128, "bfloat16", seed=495, spread32=True)
     for t in (q, k, v):
         t[1, :3] = float("nan")
-    res = nan_next_batch_case(q, k, v, grid, _cotangent(2, 70, 32, seed=496))
-    log(f"[kernel] wgmma_bwd_nan_next_batch_hw70, element 0: K2 {res['k2_err']:.3g}, K3 "
+    res = nan_next_batch_case(q, k, v, grid, _cotangent(2, 70, 128, seed=496))
+    log(f"[kernel] wgmma_bwd_nan_next_batch_hw70_c128, element 0: K2 {res['k2_err']:.3g}, K3 "
         f"{res['k3_err']:.3g} of the largest gradient vs the exact plain backward (tol "
         f"{res['tol']:g}); relative L2 {res['l2']:.3g} vs the matched one (tol "
         f"{res['l2_tol']:g}); finite: {res['finite']}; equal bits on two runs: {res['same_bits']}"
         f"; element 1 NaN: {res['nan_1']}")
     for kernel, key in ((corr.KERNEL_BWD_ROWS, "k2"), (corr.KERNEL_BWD_COLS, "k3")):
-        record(kernel, "wgmma_bwd_nan_next_batch_hw70", res[key + "_err"], res["tol"],
+        record(kernel, "wgmma_bwd_nan_next_batch_hw70_c128", res[key + "_err"], res["tol"],
                design=corr.DESIGN_MMA, tensor_core_kernel=corr.KERNEL_FWD_WGMMA,
                matched_rel_l2=res["l2"], matched_rel_l2_tol=res["l2_tol"])
     if not (res["finite"] and res["same_bits"] and res["nan_1"] and res["l2"] <= res["l2_tol"]):
         raise AssertionError(f"K2 and K3's wgmma pair let batch element 1's NaN rows reach "
                              f"element 0: {res}")
+    narrow_cases(record, record_backward)
     return cases
 
 
-def nan_next_batch_case(q, k, v, grid, dout) -> dict:
-    """The wgmma K2 and K3 where batch element 1 holds NaN rows: element 0
-    held to the exact plain backward and the matched one, finite, equal bits
-    on two runs; element 1's dq not finite."""
+def narrow_cases(record, record_backward) -> None:
+    """K2 and K3's narrow pair (ops/csrc/correlation_bwd_narrow.cu), asked
+    for by name, at every width class it takes (Cq = Cv = 16, 16 / 32, 24,
+    32, 64) and ragged HW (65, 70, 1,000, 6,256): each held to both plain
+    backwards, two runs to equal bits, its bits printed against the
+    mma.sync pair's and each one's K2 handed on to the other's K3
+    (:func:`backward_case`); at the train step's B = 10 and the fusion step's
+    B = 90 on the 3d3d grid, held on the first and last batch rows
+    (:func:`narrow_batch_case`); an exact tie for a row's max, a NaN row, NaN
+    in the next batch element and the max-score cotangent alone. Logs the
+    seconds they take."""
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    t0 = time.perf_counter()
+    nw = corr.KERNEL_BWD_PAIR_NARROW
+    for i, (name, (B, H, W, cq, cv)) in enumerate({
+        "narrow_bwd_c16_hw65": (2, 5, 13, 16, 16),
+        "narrow_bwd_q16_v32_hw1000": (1, 25, 40, 16, 32),
+        "narrow_bwd_c24_hw70": (2, 7, 10, 24, 24),
+        "narrow_bwd_c32_hw65": (2, 5, 13, 32, 32),
+        "narrow_bwd_c32_hw1000": (1, 25, 40, 32, 32),
+        "narrow_bwd_c32_hw6256_b2": (2, 92, 68, 32, 32),
+        "narrow_bwd_c64_hw1000": (1, 25, 40, 64, 64),
+        "narrow_bwd_c8_hw70": (2, 7, 10, 8, 8),
+    }.items()):
+        q, k, v, grid = _kernel_inputs(B, H, W, cq, cv, "bfloat16", seed=520 + i, spread32=True)
+        dout = _cotangent(B, H * W, cv, seed=530 + i)
+        res = backward_case(q, k, v, grid, dout, kernel=nw)
+        log(f"[kernel] {name}: {_case_line(res)}")
+        record_backward(name, res)
+        if name == "narrow_bwd_c32_hw1000":
+            # the argmax route alone: only the max score has a cotangent
+            only = backward_case(q, k, v, grid, _cotangent(B, H * W, cv, 540, ms_only=True),
+                                 kernel=nw)
+            log(f"[kernel] {name}, max-score cotangent only: {_case_line(only)}")
+            record_backward(name + "_ms_only", only)
+            del only
+        del q, k, v, grid, dout, res
+    # an exact tie for row 0's maximum (keys 3 and 5 equal): the max-score
+    # cotangent goes to the first
+    q, k, v, grid = _kernel_inputs(1, 7, 10, 32, 32, "bfloat16", seed=545, spread32=True)
+    k[:, 5] = k[:, 3]
+    q[:, 0] = 3.0 * k[:, 3]
+    res = backward_case(q, k, v, grid, _cotangent(1, 70, 32, seed=546), kernel=nw)
+    first = int(res["rows"].amax[0, 0])
+    log(f"[kernel] narrow_bwd_tie_hw70: {_case_line(res)}; row 0's argmax {first} (keys 3 "
+        "and 5 tie)")
+    if first != 3:
+        raise AssertionError(f"the narrow pair's tie: argmax {first}")
+    record_backward("narrow_bwd_tie_hw70", res)
+    # a NaN row, and NaN in the next batch element's first rows
+    q, k, v, grid = _kernel_inputs(2, 7, 10, 32, 32, "bfloat16", seed=547, spread32=True)
+    q[0, 0] = float("nan")
+    res = nan_row_case(q, k, v, grid, _cotangent(2, 70, 32, seed=548), kernel=nw)
+    tol = corr.mma_backward_exact_tol(32, 32)
+    log(f"[kernel] narrow_bwd_nan_row_hw70: batch element 1: K2 {res['k2_err']:.3g}, K3 "
+        f"{res['k3_err']:.3g} of the largest gradient vs the exact plain backward (tol {tol:g})"
+        f"; row 0's argmax {res['amax']}, its dq finite: {res['dq_finite']}, element 0's dk, "
+        f"dv finite: {res['dkv_finite']}")
+    if res["dq_finite"] or res["dkv_finite"]:
+        raise AssertionError("the NaN row did not reach the narrow pair's gradients")
+    for kernel, key in ((corr.KERNEL_BWD_ROWS, "k2"), (corr.KERNEL_BWD_COLS, "k3")):
+        record(kernel, "narrow_bwd_nan_row_hw70", res[key + "_err"], tol,
+               design=corr.DESIGN_MMA, tensor_core_kernel=nw)
+    q, k, v, grid = _kernel_inputs(2, 7, 10, 32, 32, "bfloat16", seed=549, spread32=True)
+    for t in (q, k, v):
+        t[1, :3] = float("nan")
+    res = nan_next_batch_case(q, k, v, grid, _cotangent(2, 70, 32, seed=550), kernel=nw)
+    log(f"[kernel] narrow_bwd_nan_next_batch_hw70, element 0: K2 {res['k2_err']:.3g}, K3 "
+        f"{res['k3_err']:.3g} of the largest gradient vs the exact plain backward (tol "
+        f"{res['tol']:g}); relative L2 {res['l2']:.3g} vs the matched one (tol "
+        f"{res['l2_tol']:g}); finite: {res['finite']}; equal bits on two runs: {res['same_bits']}"
+        f"; element 1 NaN: {res['nan_1']}")
+    for kernel, key in ((corr.KERNEL_BWD_ROWS, "k2"), (corr.KERNEL_BWD_COLS, "k3")):
+        record(kernel, "narrow_bwd_nan_next_batch_hw70", res[key + "_err"], res["tol"],
+               design=corr.DESIGN_MMA, tensor_core_kernel=nw, matched_rel_l2=res["l2"],
+               matched_rel_l2_tol=res["l2_tol"])
+    if not (res["finite"] and res["same_bits"] and res["nan_1"] and res["l2"] <= res["l2_tol"]):
+        raise AssertionError(f"the narrow pair let batch element 1's NaN rows reach element 0: "
+                             f"{res}")
+    for i, B in enumerate((10, 90)):
+        res = narrow_batch_case(B, 92, 68, 32, seed=560 + i)
+        for kernel, key in ((corr.KERNEL_BWD_ROWS, "k2"), (corr.KERNEL_BWD_COLS, "k3")):
+            record(kernel, f"narrow_bwd_c32_hw6256_b{B}", res[key], res["tol"],
+                   design=corr.DESIGN_MMA, tensor_core_kernel=nw,
+                   matched_rel_l2=res[key + "_l2"], matched_rel_l2_tol=res["l2_tol"])
+    log(f"[kernel] the narrow pair's cases: {time.perf_counter() - t0:.1f} s")
+
+
+def narrow_batch_case(B, H, W, C, seed) -> dict:
+    """The narrow pair over a whole train batch on the 3d3d grid (B = 10, the
+    fusion step's 90), given the exact forward's buffer: held to both plain
+    backwards on the first and last two batch rows, equal bits on two runs,
+    its bits against the mma.sync pair's over the whole batch, and each
+    one's K2 handed on to the other's K3, held on the same rows."""
+    import torch
+
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    HW = H * W
+    nw, ms = corr.KERNEL_BWD_PAIR_NARROW, corr.KERNEL_FWD_MMA_SYNC
+    q, k, v, grid = _kernel_inputs(B, H, W, C, C, "bfloat16", seed=seed)
+    dout = _cotangent(B, HW, C, seed=seed + 1)
+    out = torch.cat([corr._plain_buffer(q[i:i + 6], k[i:i + 6], v[i:i + 6], grid)
+                     for i in range(0, B, 6)])
+    runs = []
+    for pair in (nw, nw, ms):
+        dq, rows = corr.correlation_bwd_rows(q, k, v, grid, out, dout, kernel=pair)
+        dk, dv = corr.correlation_bwd_cols(q, k, v, grid, dout, rows, kernel=pair)
+        runs.append((dq, dk, dv, rows))
+    (dq, dk, dv, rows), _, (dq_o, dk_o, dv_o, rows_o) = runs
+    dk_h, dv_h = corr.correlation_bwd_cols(q, k, v, grid, dout, rows_o, kernel=nw)
+    dk_r, dv_r = corr.correlation_bwd_cols(q, k, v, grid, dout, rows, kernel=ms)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(runs[0][:3], runs[1][:3]))
+    as_ms = {key: torch.equal(a, b) for key, a, b in (
+        ("dq", dq, dq_o), ("dk", dk, dk_o), ("dv", dv, dv_o), ("stats", rows.stats, rows_o.stats),
+        ("amax", rows.amax, rows_o.amax), ("dmain", rows.dmain, rows_o.dmain))}
+    res = {"k2": 0.0, "k3": 0.0, "k2_l2": 0.0, "k3_l2": 0.0, "handoff_l2": 0.0,
+           "tol": corr.mma_backward_exact_tol(C, C, B * HW),
+           "l2_tol": corr.mma_backward_matched_l2_tol(C, C, B * HW)}
+    for sl in _batch_slices(B):
+        amax = rows.amax[sl].long()
+        exact = corr.fused_correlation_warp_bwd_plain(q[sl], k[sl], v[sl], grid, dout[sl], amax)
+        matched = corr.fused_correlation_warp_bwd_plain(q[sl], k[sl], v[sl], grid, dout[sl],
+                                                        amax, bf16_roundings=True)
+        res["k2"] = max(res["k2"], _scaled_err([dq[sl]], exact[:1]))
+        res["k3"] = max(res["k3"], _scaled_err([dk[sl], dv[sl]], exact[1:3]))
+        res["k2_l2"] = max(res["k2_l2"], _rel_l2([dq[sl]], matched[:1]))
+        res["k3_l2"] = max(res["k3_l2"], _rel_l2([dk[sl], dv[sl]], matched[1:3]))
+        res["handoff_l2"] = max(res["handoff_l2"],
+                                _rel_l2([dk_h[sl], dv_h[sl], dk_r[sl], dv_r[sl]],
+                                        [matched[1], matched[2], matched[1], matched[2]]))
+        del exact, matched
+    log(f"[kernel] narrow_bwd_c32_hw6256_b{B}, rows 0-1 and {B - 2}-{B - 1}: K2 "
+        f"{res['k2']:.3g}, K3 {res['k3']:.3g} of the largest gradient vs the exact plain "
+        f"backward (tol {res['tol']:g}); relative L2 vs the matched one K2 {res['k2_l2']:.3g}, "
+        f"K3 {res['k3_l2']:.3g} (tol {res['l2_tol']:g}); equal bits on two runs: {same}; the "
+        f"mma.sync pair's bits over the batch in "
+        f"{[key for key, eq in as_ms.items() if eq] or 'none'}; either K2 handed on to the "
+        f"other's K3: relative L2 {res['handoff_l2']:.3g}")
+    bad = [key for key in ("k2", "k3") if res[key] > res["tol"] or res[key + "_l2"] > res["l2_tol"]]
+    if bad or not same or res["handoff_l2"] > res["l2_tol"]:
+        raise AssertionError(f"the narrow pair at B={B}: {bad} out of tolerance, equal bits on "
+                             f"two runs {same}, hand-offs {res['handoff_l2']:.3g}")
+    return res
+
+
+def nan_next_batch_case(q, k, v, grid, dout, kernel="wgmma") -> dict:
+    """A Hopper pair of K2 and K3 (``kernel``) where batch element 1 holds
+    NaN rows: element 0 held to the exact plain backward and the matched
+    one, finite, equal bits on two runs; element 1's dq not finite."""
     import torch
 
     from mapfree_tpu_torch.ops import correlation as corr
@@ -1181,10 +1369,8 @@ def nan_next_batch_case(q, k, v, grid, dout) -> dict:
     out = corr._plain_buffer(q, k, v, grid)
     runs = []
     for _ in range(2):
-        dq, rows = corr.correlation_bwd_rows(q, k, v, grid, out, dout,
-                                             kernel=corr.KERNEL_FWD_WGMMA)
-        dk, dv = corr.correlation_bwd_cols(q, k, v, grid, dout, rows,
-                                           kernel=corr.KERNEL_FWD_WGMMA)
+        dq, rows = corr.correlation_bwd_rows(q, k, v, grid, out, dout, kernel=kernel)
+        dk, dv = corr.correlation_bwd_cols(q, k, v, grid, dout, rows, kernel=kernel)
         runs.append((dq, dk, dv, rows.amax))
     torch.cuda.synchronize()
     got = [x[:1] for x in runs[0][:3]]
@@ -1388,7 +1574,7 @@ def time_backward(B, H, W, C, dtype, seed, spread32=False, cv=None, fma_too=Fals
     k3_ms = cuda_time_ms(k3_call, iters=10)
     pair = corr.backward_kernel(q.dtype, HW, C, cv)
     turns = (_pairs_in_turns(q, k, v, grid, out, dout, iters=10)
-             if pair and corr.wgmma_width_class(C, cv) else {})
+             if pair and _hopper_pair(C, cv) else {})
     k2_plain = cuda_time_ms(lambda: corr.correlation_bwd_rows_plain(q, k, v, grid, dout), iters=3)
     k3_plain = cuda_time_ms(lambda: corr.correlation_bwd_cols_plain(q, k, v, grid, dout), iters=3)
     torch.cuda.empty_cache()
@@ -1461,6 +1647,12 @@ def time_backward(B, H, W, C, dtype, seed, spread32=False, cv=None, fma_too=Fals
                          f"{fma['fma_k3_device_ms']:.4f} ms")
     log(f"[kernel] K2+K3 {k2_ms + k3_ms:.3f} ms ({pair or 'fma'}); library (attention "
         f"backward) {library_ms:.3f} ms{library}{alone}{fma_line}{_turns_line(turns)}")
+    turn_bounds = {"k2": k2_bound_ms, "k3": k3_bound_ms}
+    for kernel, t in turns.items():
+        if kernel in turn_bounds:
+            log(f"[kernel] {kernel.upper()} {shape}, in turns: " + ", ".join(
+                f"{key[:-len('_ms_turns')]} {100 * turn_bounds[kernel] / min(ts):.1f}% of its "
+                f"bound {turn_bounds[kernel]:.4f} ms at best" for key, ts in t.items()))
     named = {"library_backend": backend} if backend else {}
     both = {"library_ms": library_ms, "library_covers": "K2+K3", "shape": shape,
             "design": design, **named, **fma}
@@ -1468,24 +1660,49 @@ def time_backward(B, H, W, C, dtype, seed, spread32=False, cv=None, fma_too=Fals
         both["library_device_ms"] = device["library_device_ms"]
     k2 = {"ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound_ms, "bound_by": k2_by,
           "max_abs_err": k2_err, "kernel": pair, **both, **turns.get("k2", {}),
+          **({"library_ms_turns": turns["library_ms_turns"]} if turns else {}),
           **({"device_ms": device["k2_device_ms"]} if device else {})}
     k3 = {"ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound_ms, "bound_by": k3_by,
           "max_abs_err": k3_err, "kernel": pair, **both, **turns.get("k3", {}),
+          **({"library_ms_turns": turns["library_ms_turns"]} if turns else {}),
           **({"device_ms": device["k3_device_ms"]} if device else {})}
     return k2, k3
 
 
+def _sdpa_backward(q, k, v, grid, dout):
+    """The backward of scaled_dot_product_attention over [v | grid] (bf16,
+    as PyTorch dispatches it) with dout's columns as its cotangent: the
+    library call that stands for K2+K3. Timed only: the port never calls
+    it."""
+    import torch
+    import torch.nn.functional as F
+
+    B, HW, cv = v.shape
+    vg = torch.cat([v, grid.expand(B, HW, 2), v.new_zeros(B, HW, 6)], dim=-1)[:, None]
+    qh, kh, vh = (t.detach().requires_grad_(True) for t in (q[:, None], k[:, None], vg))
+    do = torch.cat([dout[..., :cv + 2], dout.new_zeros(B, HW, 6)], dim=-1)[:, None].to(q.dtype)
+    o = F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
+    return lambda: torch.autograd.grad(o, (qh, kh, vh), do, retain_graph=True)
+
+
 def _pairs_in_turns(q, k, v, grid, out, dout, iters) -> dict:
-    """Both pairs of K2 and K3 in the tensor-core design, asked for by name,
-    timed in turns on the same inputs (wgmma, mma.sync, mma.sync, wgmma):
-    {"k2": {"wgmma_ms_turns": [..], "mma_sync_ms_turns": [..]}, "k3": ...}."""
+    """The pairs of K2 and K3 in the tensor-core design that take these
+    widths (the Hopper one, narrow up to 64 channels and wgmma beyond, and
+    the mma.sync one), asked for by name, and the library backward (:func:`_sdpa_backward`),
+    timed in turns on the same inputs (the list, then again in reverse):
+    {"k2": {"<pair>_ms_turns": [..], ...}, "k3": {...}, "library_ms_turns": [..]}."""
     from mapfree_tpu_torch.ops import correlation as corr
 
+    pairs = [_hopper_pair(q.shape[-1], v.shape[-1]), corr.KERNEL_FWD_MMA_SYNC]
     rows = {name: corr.correlation_bwd_rows(q, k, v, grid, out, dout, kernel=name)[1]
-            for name in (corr.KERNEL_FWD_WGMMA, corr.KERNEL_FWD_MMA_SYNC)}
+            for name in pairs}
+    library = _sdpa_backward(q, k, v, grid, dout)
     got = {key: {f"{name}_ms_turns": [] for name in rows} for key in ("k2", "k3")}
-    for name in (corr.KERNEL_FWD_WGMMA, corr.KERNEL_FWD_MMA_SYNC,
-                 corr.KERNEL_FWD_MMA_SYNC, corr.KERNEL_FWD_WGMMA):
+    got["library_ms_turns"] = []
+    for name in pairs + [None, None] + pairs[::-1]:
+        if name is None:
+            got["library_ms_turns"].append(cuda_time_ms(library, iters=iters))
+            continue
         got["k2"][f"{name}_ms_turns"].append(cuda_time_ms(
             lambda: corr.correlation_bwd_rows(q, k, v, grid, out, dout, kernel=name),
             iters=iters))
@@ -1498,10 +1715,13 @@ def _pairs_in_turns(q, k, v, grid, out, dout, iters) -> dict:
 def _turns_line(turns: dict) -> str:
     if not turns:
         return ""
+    lib = turns["library_ms_turns"]
     return "; " + ", ".join(
-        f"{name.upper()} wgmma {min(t['wgmma_ms_turns']):.3f}-{max(t['wgmma_ms_turns']):.3f} ms, "
-        f"mma.sync {min(t['mma_sync_ms_turns']):.3f}-{max(t['mma_sync_ms_turns']):.3f} ms"
-        for name, t in turns.items()) + " (in turns)"
+        f"{kernel.upper()} " + ", ".join(
+            f"{key[:-len('_ms_turns')].replace('_', '.')} {min(ts):.3f}-{max(ts):.3f} ms"
+            for key, ts in t.items())
+        for kernel, t in turns.items() if kernel in ("k2", "k3")) + (
+        f", library (attention backward) {min(lib):.3f}-{max(lib):.3f} ms (in turns)")
 
 
 def _batch_slices(B: int, n: int = 2) -> list:
@@ -1642,14 +1862,18 @@ def time_backward_batch(B, H, W, C, dtype, seed) -> tuple:
             f"{100 * bound / ms:.1f}% of its bound; plain version on 2 rows {plain:.3f} ms")
     log(f"[kernel] K2+K3 B={B}: {k2_ms + k3_ms:.3f} ms ({pair}); library (attention "
         f"backward) {library_ms:.3f} ms{_turns_line(turns)}")
+    for kernel, bound in (("k2", k2_bound_ms), ("k3", k3_bound_ms)):
+        log(f"[kernel] {kernel.upper()} {shape}, in turns: " + ", ".join(
+            f"{key[:-len('_ms_turns')]} {100 * bound / min(ts):.1f}% of its bound "
+            f"{bound:.4f} ms at best" for key, ts in turns[kernel].items()))
     k2 = {"ms": k2_ms, "plain_ms_2_rows": k2_plain, "library_ms": library_ms,
           "library_covers": "K2+K3", "bound_ms": k2_bound_ms, "bound_by": k2_by,
           "max_abs_err": errs["k2"], "shape": shape, "design": design, "kernel": pair,
-          **turns["k2"]}
+          **turns["k2"], "library_ms_turns": turns["library_ms_turns"]}
     k3 = {"ms": k3_ms, "plain_ms_2_rows": k3_plain, "library_ms": library_ms,
           "library_covers": "K2+K3", "bound_ms": k3_bound_ms, "bound_by": k3_by,
           "max_abs_err": errs["k3"], "shape": shape, "design": design, "kernel": pair,
-          **turns["k3"]}
+          **turns["k3"], "library_ms_turns": turns["library_ms_turns"]}
     return k2, k3
 
 
@@ -1684,6 +1908,10 @@ def phase_kernel_timing() -> dict:
     k1["c128_b64_shape"] = time_k1(64, 92, 68, 128, "bfloat16", seed=113, spread32=True)
     k2["c128_shape"], k3["c128_shape"] = time_backward(10, 92, 68, 128, "bfloat16", seed=108,
                                                        spread32=True)
+    # 64 channels at the 3d3d grid: the class where the narrow pair serves,
+    # in turns with the mma.sync pair and the library's backward
+    k2["c64_shape"], k3["c64_shape"] = time_backward(10, 92, 68, 64, "bfloat16", seed=119,
+                                                     spread32=True)
     k1["q256_v96_shape"] = time_k1(10, 92, 68, 256, "bfloat16", seed=114, spread32=True, cv=96)
     # float32 (the FMA designs, exact: no TF32) beside the library's float32
     # attention with TF32 off: the 3d3d shapes and the ResNet bottleneck's
@@ -1716,12 +1944,13 @@ def phase_kernel_timing() -> dict:
                                  f"{t['kernel']} kernel, not the {want} kernel")
         log(f"[kernel] K1 at {t['shape']}: the {t['design']} design's {t['kernel']} kernel")
     # K2 and K3's tensor-core pair at each driven shape: wgmma at 128 and
-    # 256 channels and at 256 / 96, mma.sync at 32 (measured faster there)
-    # and on the ResNet encoder's 5x4 grid
+    # 256 channels and at 256 / 96, narrow at 64, mma.sync at 32 (measured
+    # faster there) and on the ResNet encoder's 5x4 grid
     for t in (k2, k2["fusion_shape"], k2["resnet_shape"], k2["c128_shape"],
-              k2["q256_v96_shape"], k2["resunet256_shape"]):
+              k2["q256_v96_shape"], k2["resunet256_shape"], k2["c64_shape"]):
         want = (corr.KERNEL_FWD_MMA_SYNC if t is k2 or t is k2["fusion_shape"]
-                or t is k2["resnet_shape"] else corr.KERNEL_FWD_WGMMA)
+                or t is k2["resnet_shape"] else corr.KERNEL_BWD_PAIR_NARROW
+                if t is k2["c64_shape"] else corr.KERNEL_FWD_WGMMA)
         if t["design"] != corr.DESIGN_MMA or t["kernel"] != want:
             raise AssertionError(f"K2, K3 at {t['shape']} are served by the {t['design']} "
                                  f"design's {t['kernel']} pair, not the {want} pair")
@@ -5313,13 +5542,12 @@ def main() -> None:
                 by_path[name][run] = n
     # every bf16 train path took, for all its launches, the tensor-core pair
     # of K2 and K3 that backward_kernel gives its width: wgmma at 128 and 256
-    # channels, mma.sync at 32 (measured faster there) and on the ResNet
+    # channels, mma.sync at 32 (every published config) and on the ResNet
     # encoder's 5x4 grid
-    for suffix, pair_runs in (("_wgmma", ("resunet128_bf16_steps", "resunet256_train",
-                                          "resunet256_vs_plain")),
-                              ("_mma", ("train_loop", "train_cli", "qkv_train", "fusion_train",
-                                        "fusion_train_cli", "mesh_train_cli_nccl_rank",
-                                        "resnet_bf16_train", "resnet_bf16_vs_plain"))):
+    for suffix, pair_runs in (
+            ("_wgmma", ("resunet128_bf16_steps", "resunet256_train", "resunet256_vs_plain")),
+            ("_mma", ("train_loop", "train_cli", "qkv_train", "fusion_train", "fusion_train_cli",
+                      "mesh_train_cli_nccl_rank", "resnet_bf16_train", "resnet_bf16_vs_plain"))):
         for name in (corr.KERNEL_BWD_ROWS, corr.KERNEL_BWD_COLS):
             for run in pair_runs:
                 want, got = by_path[name].get(run), by_fn.get(name + suffix, {}).get(run)
@@ -5329,22 +5557,25 @@ def main() -> None:
     paths = {name: phase.get("numbers", {}) for name, phase in later.items()}
     log("[paths] " + json.dumps({"card": smi, **paths}, default=str))
     kernels = []
-    tc_kernels = [corr.KERNEL_FWD_WGMMA, corr.KERNEL_FWD_MMA_SYNC]
-    for name, sources, replaces in (
-            (corr.KERNEL, ["correlation_fwd.cu"], 60),
-            (corr.KERNEL_BWD_ROWS, ["correlation_bwd_wgmma.cu", "correlation_bwd_mma.cu",
-                                    "correlation_bwd.cu"], 109),
-            (corr.KERNEL_BWD_COLS, ["correlation_bwd_wgmma.cu", "correlation_bwd_mma.cu",
-                                    "correlation_bwd.cu"], 148)):
+    # the main path's source first (the mma.sync pair, which the 32-channel
+    # train steps take), then the rest
+    bwd_sources = ["correlation_bwd_mma.cu", "correlation_bwd_narrow.cu",
+                   "correlation_bwd_wgmma.cu"]
+    for name, sources, replaces, tc_kernels in (
+            (corr.KERNEL, ["correlation_fwd.cu"], 60,
+             [corr.KERNEL_FWD_WGMMA, corr.KERNEL_FWD_MMA_SYNC]),
+            (corr.KERNEL_BWD_ROWS, bwd_sources + ["correlation_bwd.cu"], 109,
+             list(corr.BWD_KERNELS)),
+            (corr.KERNEL_BWD_COLS, bwd_sources + ["correlation_bwd.cu"], 148,
+             list(corr.BWD_KERNELS))):
         t = timing[name]
         kernels.append({
             "name": name,
             "route": "cuda",
             "designs": [corr.DESIGN_MMA, corr.DESIGN_FMA],
-            # each tensor-core design in two kernels (correlation.forward_kernel,
-            # correlation.backward_kernel)
+            # each tensor-core design's kernels (correlation.forward_kernel,
+            # correlation.backward_kernel): K1 two, K2 and K3 three pairs
             "tensor_core_kernels": tc_kernels,
-            # the main path's source first (the wgmma kernels'), then the rest
             "source": f"mapfree_tpu_torch/ops/csrc/{sources[0]}",
             "sources": [f"mapfree_tpu_torch/ops/csrc/{src}" for src in sources],
             "replaces": f"mapfree_tpu/ops/correlation.py:{replaces}",

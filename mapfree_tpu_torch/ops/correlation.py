@@ -21,9 +21,9 @@ outputs, so it is bound by operations (about 0.6 ms of exponentials on an
 H100), not by memory; K2 and K3 at the training shape (B=10) are bound the
 same way, near 0.1 ms each. The kernels keep every score on chip. The CUDA
 sources ``csrc/correlation_fwd.cu``, ``csrc/correlation_bwd.cu`` (K2 and
-K3's FMA design), ``csrc/correlation_bwd_mma.cu`` and
-``csrc/correlation_bwd_wgmma.cu`` (their tensor-core design's two pairs)
-state the arithmetic and the design.
+K3's FMA design), ``csrc/correlation_bwd_mma.cu``,
+``csrc/correlation_bwd_narrow.cu`` and ``csrc/correlation_bwd_wgmma.cu``
+(their tensor-core design's three pairs) state the arithmetic and the design.
 
 K1 exists in two hand-written designs, and :func:`forward_design` says which
 one serves a (dtype, Cq, Cv):
@@ -76,17 +76,22 @@ says which one serves a (dtype, Cq, Cv):
   column tiles of 128, and a prologue kernel launched by K2's C function
   (counted as K2) forms dmain and c. So dmain, P and dS are rounded to bf16 where the other
   design keeps float32; ``bf16_roundings=True`` makes the plain backward
-  round at the same places. The design has two pairs of kernels, which
-  round at the same places and hand on the same statistics (either K2
-  serves either K3), and :func:`backward_kernel` picks one: beyond
-  ``FEW_ROWS_HW`` positions with Cq and Cv up to ``WGMMA_MAX_CQ`` the
-  Hopper pair (``csrc/correlation_bwd_wgmma.cu``: warpgroup products on
-  tiles that TMA copies bring in, a producer warp and one to four consumer
-  warpgroups, the accumulator in column tiles that each recompute the same
-  scores, no prologue kernel), except at up to 64 channels, where the
-  ``mma.sync`` pair measured faster (``MMA_SYNC_FASTER``); else the
-  ``mma.sync`` pair described above (the ResNet encoder's 5 x 4 grid and
-  its 1,024 channels).
+  round at the same places. The design has three pairs of kernels, which
+  round at the same places and hand on the same statistics (any K2
+  serves any K3), and :func:`backward_kernel` picks one: beyond
+  ``FEW_ROWS_HW`` positions with Cq and Cv up to ``WGMMA_MAX_CQ`` a Hopper
+  pair (warpgroup products on tiles that TMA copies bring in, no prologue
+  kernel): up to 64 channels the narrow pair
+  (``csrc/correlation_bwd_narrow.cu``: no producer, warp 0 loads the first
+  stages and the last warp done with a stage has it refilled; four consumer
+  warpgroups at 128 registers, two at 64 channels in K3, each issuing a
+  pass's first products beside the previous pass's second ones) where it
+  measured faster than the mma.sync pair (outside ``MMA_SYNC_FASTER``),
+  from 65 channels the wgmma pair (``csrc/correlation_bwd_wgmma.cu``: a
+  producer warpgroup and one or two consumer warpgroups, the accumulator in
+  column tiles that each recompute the same scores); else the ``mma.sync``
+  pair described above (the ResNet encoder's 5 x 4 grid and its 1,024
+  channels, and the narrow widths of ``MMA_SYNC_FASTER``).
 - ``"fma"``: float32 inputs (exact float32 arithmetic, no TF32) and any other
   bf16 shape, at any width. Beyond 64 rows a block of 128 query rows (K2) or
   keys (K3) walks the other side in tiles of 64, with two 8 x 4 register
@@ -124,9 +129,11 @@ KERNEL = "correlation_fwd"          # K1: the library and its one function
 KERNEL_BWD = "correlation_bwd"      # the library of K2 and K3's FMA design
 KERNEL_BWD_MMA = "correlation_bwd_mma"   # ... and of their tensor-core design's mma.sync pair
 KERNEL_BWD_WGMMA = "correlation_bwd_wgmma"   # ... and of its wgmma pair
+KERNEL_BWD_NARROW = "correlation_bwd_narrow"   # ... and of its narrow wgmma pair (up to 64 channels)
 KERNEL_BWD_ROWS = "correlation_bwd_rows"   # K2
 KERNEL_BWD_COLS = "correlation_bwd_cols"   # K3
-LIBRARIES = (KERNEL, KERNEL_BWD, KERNEL_BWD_MMA, KERNEL_BWD_WGMMA)
+LIBRARIES = (KERNEL, KERNEL_BWD, KERNEL_BWD_MMA, KERNEL_BWD_WGMMA,
+             KERNEL_BWD_NARROW)
 DESIGN_MMA = "mma"   # bf16 operands on the tensor cores
 DESIGN_FMA = "fma"   # float32 tiles, scalar fused multiply-adds
 # the "mma" design against the exact plain backward, as a share of each
@@ -188,23 +195,30 @@ KERNEL_FWD_MMA_SYNC = "mma_sync"
 FWD_KEY_TILES = {KERNEL_FWD_WGMMA: ("TKW", FWD_KEY_TILE), KERNEL_FWD_MMA_SYNC: ("TK", FWD_KEY_TILE)}
 # the wgmma kernels keep q (K1; K2 and K3: q and v) resident up to this many channels
 WGMMA_MAX_CQ = 256
-# the two pairs of K2 and K3 in their "mma" design (backward_kernel picks),
+# the pair of K2 and K3 built for the narrow widths (Cq and Cv up to 64)
+KERNEL_BWD_PAIR_NARROW = "narrow"
+# the three pairs of K2 and K3 in their "mma" design (backward_kernel picks),
 # by name: the library and the suffix of their C functions
 BWD_KERNELS = {KERNEL_FWD_WGMMA: (KERNEL_BWD_WGMMA, "_wgmma"),
-               KERNEL_FWD_MMA_SYNC: (KERNEL_BWD_MMA, "_mma")}
-# the width classes (Cq, Cv) of the wgmma kernels' instantiations, in the
-# order of csrc/correlation_bwd_wgmma.cu::dispatch_rows_wgmma: a width takes
-# the first that holds it
-WGMMA_WIDTH_CLASSES = ((16, 16), (16, 32), (32, 32), (64, 64), (128, 128), (256, 96), (256, 256))
-# the classes where tools/torch_chip_studies.py k23-wgmma-variants measured
-# the mma.sync pair faster than the wgmma one in the same call (NVIDIA H100
-# 80GB HBM3, 700 W; the times beside that dispatch and in PERF.md): C = 32,
-# K2 0.3994-0.4021 ms against 0.4080-0.4136 and K3 0.3796-0.3809 against
-# 0.4714-0.4878 at B = 10 (3.20-3.27 and 3.07-3.09 against 3.57-3.61 and
-# 4.12-4.29 at B = 90); the classes of 16 and 64 channels, which no driven
-# path has, follow C = 32's. The wgmma pair is faster at 128 and 256
-# channels and at Cq 256 / Cv 96
-MMA_SYNC_FASTER = {(16, 16), (16, 32), (32, 32), (64, 64)}
+               KERNEL_FWD_MMA_SYNC: (KERNEL_BWD_MMA, "_mma"),
+               KERNEL_BWD_PAIR_NARROW: (KERNEL_BWD_NARROW, "_narrow")}
+# the width classes (Cq, Cv) of the narrow pair's instantiations, in the
+# order of csrc/correlation_bwd_narrow.cu::dispatch_rows_narrow, and of the
+# wgmma pair's, in the order of csrc/correlation_bwd_wgmma.cu::
+# dispatch_rows_wgmma: a width takes the first class of the two lists that
+# holds it
+NARROW_WIDTH_CLASSES = ((16, 16), (16, 32), (32, 32), (64, 64))
+WGMMA_WIDTH_CLASSES = ((128, 128), (256, 96), (256, 256))
+# the narrow classes where tools/torch_chip_studies.py k23-narrow-variants
+# measured the mma.sync pair faster than the narrow one in the same call
+# (NVIDIA H100 80GB HBM3, 700 W; the times beside that dispatch and in
+# PERF.md): C = 32, the narrow K2 0.3862-0.3971 ms against 0.4101-0.4126 at
+# B = 10 but 3.3324-3.4130 against 3.1828-3.2134 at B = 90, its K3
+# 0.4441-0.4481 against 0.3863-0.3878; 16 / 32 and 16 the same way. At C =
+# 64 the narrow pair is ahead: K2 0.5816-0.5829 against 0.7324-0.7345, K3
+# 0.6390-0.6405 against 0.8280-0.8288 at B = 10. The wgmma pair is ahead at
+# all its classes
+MMA_SYNC_FASTER = {(16, 16), (16, 32), (32, 32)}
 # up to this many positions (the ResNet encoder's 5 x 4 grid) K1's "mma"
 # design takes the mma.sync kernel, and K2 and K3's the mma.sync pair: a
 # 64-row warpgroup product would leave most of its rows empty
@@ -287,25 +301,27 @@ def backward_design(dtype, Cq: int, Cv: int) -> str:
     return DESIGN_FMA
 
 
-def wgmma_width_class(Cq: int, Cv: int) -> Optional[tuple]:
-    """The class of the wgmma kernels' instantiations that takes these
-    widths (``WGMMA_WIDTH_CLASSES``), or None beyond them."""
-    return next(((cq, cv) for cq, cv in WGMMA_WIDTH_CLASSES if Cq <= cq and Cv <= cv), None)
+def hopper_width_class(Cq: int, Cv: int) -> Optional[tuple]:
+    """The class of a Hopper pair's instantiations that takes these widths:
+    the narrow pair's (``NARROW_WIDTH_CLASSES``) up to 64 channels, the
+    wgmma pair's (``WGMMA_WIDTH_CLASSES``) beyond, or None beyond them."""
+    return next(((cq, cv) for cq, cv in NARROW_WIDTH_CLASSES + WGMMA_WIDTH_CLASSES
+                 if Cq <= cq and Cv <= cv), None)
 
 
 def backward_kernel(dtype, HW: int, Cq: int, Cv: int) -> Optional[str]:
     """Which pair of K2 and K3 in their "mma" design serves these inputs on
-    the card: ``KERNEL_FWD_WGMMA`` beyond ``FEW_ROWS_HW`` positions with Cq
-    and Cv up to ``WGMMA_MAX_CQ``, except at the width classes where the
-    mma.sync pair measured faster (``MMA_SYNC_FASTER``), else
-    ``KERNEL_FWD_MMA_SYNC``; None where the "fma" design serves them. Both
-    pairs' K2 hand on the same statistics, so either serves either K3."""
+    the card: beyond ``FEW_ROWS_HW`` positions ``KERNEL_BWD_PAIR_NARROW`` at
+    ``NARROW_WIDTH_CLASSES`` and ``KERNEL_FWD_WGMMA`` at
+    ``WGMMA_WIDTH_CLASSES``, outside ``MMA_SYNC_FASTER``; else
+    ``KERNEL_FWD_MMA_SYNC``; None where the "fma" design serves them. Every
+    pair's K2 hands on the same statistics, so any serves any K3."""
     if backward_design(dtype, Cq, Cv) != DESIGN_MMA:
         return None
-    width = wgmma_width_class(Cq, Cv)
+    width = hopper_width_class(Cq, Cv)
     if HW <= FEW_ROWS_HW or width is None or width in MMA_SYNC_FASTER:
         return KERNEL_FWD_MMA_SYNC
-    return KERNEL_FWD_WGMMA
+    return KERNEL_BWD_PAIR_NARROW if width in NARROW_WIDTH_CLASSES else KERNEL_FWD_WGMMA
 
 
 def _edge_shape(Cq: int, Cv: int, rows: Optional[int]) -> bool:

@@ -1,7 +1,8 @@
 // Fused correlation-volume softmax-warp, backward pass on Hopper's own
-// tensor-core path (sm_90a): the wgmma kernels of K2 and K3's "mma" design.
-// correlation_bwd_mma.cu holds the design's mma.sync kernels and the
-// arithmetic both share; correlation_bwd.cu the "fma" design.
+// tensor-core path (sm_90a): the wgmma kernels of K2 and K3's "mma" design,
+// for 65 to 256 channels. correlation_bwd_narrow.cu holds the design's pair
+// for up to 64 channels, correlation_bwd_mma.cu its mma.sync kernels and the
+// arithmetic all share; correlation_bwd.cu the "fma" design.
 //
 // Replaces, with the mma.sync kernels, the two TPU kernels of
 // mapfree_tpu/ops/correlation.py::_fcw_bwd: _bwd_rows_kernel (:109, K2, the
@@ -26,10 +27,8 @@
 // Bound (chip_smoke.py::k2_bound, k3_bound; H100 SXM at 700 W): operations.
 // K2 does 2 B HW^2 (2 Cq + Cv + 2) FLOP in products and B HW^2
 // exponentials, K3 2 B HW^2 (2 Cq + 2 Cv + 2) and as many exponentials. At
-// the 3d3d train shape (B = 10, HW = 6,256, C = 32) the exponentials bound
-// both, 0.094 and 0.103 ms (with the products: 0.0936 and 0.1029); B = 90,
-// 0.842 and 0.926; C = 128, the products: 0.306 and 0.407; Cq 256 / Cv 96,
-// 0.483 and 0.559; C = 256, 0.609 and 0.812.
+// the 3d3d grid (B = 10, HW = 6,256) the products bound both: C = 128, 0.306
+// and 0.407 ms; Cq 256 / Cv 96, 0.483 and 0.559; C = 256, 0.609 and 0.812.
 //
 // The design, K1's wgmma kernel (correlation_fwd.cu) taken to the backward:
 // - Warps. A block has NC consumer warpgroups of 64 rows (K2: query rows;
@@ -80,19 +79,21 @@
 //   16-deep step in the mma.sync kernels' order, so the pair gives their bits;
 //   K2's dP steps differ where Cv % 16 == 8 (the grid's step apart from v's
 //   last 8 columns, where the mma.sync kernel shares one), and gave the same
-//   bits there too at every width measured (24, 40, 120).
+//   bits there too at every width measured (24, 40, 120; the first two
+//   before the narrow pair took those widths).
 // - Passes. A tile of 64 keys (K2) or chunk of 64 rows (K3) goes in passes
 //   of NH = 64, 32 or 16, so that the first products' accumulators take
 //   NH / 2 registers a thread: ptxas compiles a consumer at the launch
-//   bound's register cap, not at what setmaxnreg gives it, and four
-//   warpgroups a SM (96 registers) need passes of 32 at 32 channels. A
+//   bound's register cap, not at what setmaxnreg gives it (four consumer
+//   warpgroups a SM, 96 registers, needed passes of 32 at 32 channels). A
 //   pass's second products stay in flight while the next pass's first ones
 //   are issued; the tile's last ones land before its stage is freed (steps
 //   in flight across a tile's end made ptxas serialise every wgmma).
 // The instantiations (dispatch_rows_wgmma, dispatch_cols_wgmma) were chosen
 // by timing, tools/torch_chip_studies.py k23-wgmma-variants; the candidates
-// and their times are beside the dispatch. Where the mma.sync pair measured
-// faster (up to 64 channels), ops/correlation.py::backward_kernel keeps it.
+// and their times are beside the dispatch. They take 65 to 256 channels;
+// correlation_bwd_narrow.cu takes the narrower widths, where a producer
+// warpgroup costs the consumers too many registers (below).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -101,11 +102,13 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "correlation_bwd_hopper.cuh"
 #include "hopper_tile.cuh"
 #include "mma_tile.cuh"
 
 namespace {
 
+namespace bh = bwd_hopper;
 namespace ht = hopper_tile;
 namespace mt = mma_tile;
 using bf16 = __nv_bfloat16;
@@ -118,60 +121,12 @@ constexpr float LAZY_GAP = 8.f / LOG2E;  // how far a row's score may pass K2's 
 constexpr int GT = 2048;  // bytes of K2's grid tile: [64 keys] x [16 channels] bf16
 constexpr int PRODUCER_REGS = 24;
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
 // What a consumer thread takes from the producer warpgroup (setmaxnreg),
 // with MINB blocks a SM (correlation_fwd.cu::wgmma_consumer_regs).
 __host__ __device__ constexpr int consumer_regs(int NC, int MINB) {
   const int launch = 512 / ((NC + 1) * MINB) / 8 * 8;
   const int take = (launch * (NC + 1) - PRODUCER_REGS) / NC / 8 * 8;
   return take > 240 ? 240 : take;
-}
-
-// Byte offset of element (r, c) of a K-major tile held as blocks of [rows]
-// [WB] bf16 (blk bytes apart) with TMA's swizzle of 2 WB bytes
-// (hopper_tile.cuh's note): what TMA would write there.
-template <int WB>
-__device__ __forceinline__ int swizzled(int r, int c, int blk) {
-  constexpr int S = 2 * WB;
-  const int cc = c % WB;
-  return (c / WB) * blk + r * S + (((cc >> 3) ^ ((r / (128 / S)) % (S / 16))) << 4) + (cc & 7) * 2;
-}
-
-// The descriptor offset (16-byte units) of depth step ks of a K-major tile
-// in blocks of WB columns, blk bytes apart.
-template <int WB>
-__device__ __forceinline__ uint64_t kstep(int ks, int blk) {
-  return static_cast<uint64_t>(((ks / (WB / 16)) * blk + (ks % (WB / 16)) * 32) >> 4);
-}
-
-// Named barrier `id` over one warpgroup's 128 threads.
-__device__ __forceinline__ void warpgroup_sync(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
-
-// Whether x holds in any thread of the warpgroup (a barrier over its 128
-// threads that ORs a predicate).
-__device__ __forceinline__ bool warpgroup_any(bool x, int id) {
-  uint32_t r;
-  asm volatile(
-      "{\n.reg .pred p, q;\nsetp.ne.u32 q, %1, 0;\nbar.red.or.pred p, %2, 128, q;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(r)
-      : "r"(static_cast<uint32_t>(x)), "r"(id)
-      : "memory");
-  return r != 0;
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) r[i] = 0.f;
 }
 
 // =================================================================== K2 ==
@@ -292,77 +247,16 @@ correlation_bwd_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int g = lane >> 2, t = lane & 3;    // within them rows g and g + 8
   const int bar = 1 + wg;
 
-  // the prologue, while the copies fly: each warp its 16 rows, four at a
-  // time with every load in flight, a lane columns lane + 32 j (the
-  // prologue kernel's order, so c has its bits); dmain's v columns into the
-  // warpgroup's tile, zeros from Cv on; tile 0 writes dmain for K3
-  constexpr int NJ = (CV + 3 + 31) / 32;
-  static_assert(32 * NJ >= CV + 16, "the lanes reach every column of dmain");
-  const int CO = Cv + 3;
-#pragma unroll 1
-  for (int i0 = 0; i0 < 16; i0 += 4) {
-    float dv[4][NJ], ov[4][NJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = row0 + 64 * wg + 16 * wq + i0 + i;
-      const size_t grow = boff + (row < HW ? row : 0);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int col = lane + 32 * j;
-        const bool ok = row < HW && col < CO;
-        dv[i][j] = ok ? dout[grow * CO + col] : 0.f;
-        ov[i][j] = ok ? out[grow * CO + col] : 0.f;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 64 * wg + 16 * wq + i0 + i, row = row0 + r;
-      float part = 0.f;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) part = fmaf(dv[i][j], ov[i][j], part);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(FULL, part, off);
-      bf16* drow = dmain + (boff + (row < HW ? row : 0)) * DM;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int col = lane + 32 * j;
-        const bf16 x = __float2bfloat16_rn(col < Cv + 2 ? dv[i][j] : 0.f);
-        if (col < CV)
-          *reinterpret_cast<bf16*>(dms + swizzled<WD>(r, col, G::DBLK)) =
-              col < Cv ? x : __float2bfloat16_rn(0.f);
-        if (z == 0 && row < HW && col < DM) drow[col] = x;
-      }
-      // (0, 1/d, c, d_ms): the lane holding column Cv + 2 has both
-      const int jl = (Cv + 2) >> 5, ll = (Cv + 2) & 31;
-      float inv = 0.f, dms_v = 0.f;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        if (j == jl) {
-          inv = __shfl_sync(FULL, ov[i][j], ll);
-          dms_v = __shfl_sync(FULL, dv[i][j], ll);
-        }
-      if (lane == 0) rs[r] = make_float4(0.f, inv, part, dms_v);
-    }
-  }
+  // the prologue, while the copies fly: dmain's v columns into the
+  // warpgroup's tile, the rows' (0, 1/d, c, d_ms); column tile 0 writes dmain for K3
+  bh::rows_prologue<CV, WD, G::DBLK>(out, dout, dmain, dms, rs, 64 * wg + 16 * wq, row0, HW, Cv,
+                                      DM, boff, lane, z == 0);
   ht::fence_proxy_async();  // the dmain tile, written by threads, read by wgmma
-  warpgroup_sync(bar);
+  ht::warpgroup_sync(bar);
 
-  // the grid's depth step: A holds dmain's columns Cv, Cv + 1 of rows g and
-  // g + 8 at depth 0, 1 (lanes t = 0), zeros elsewhere
-  uint32_t ga[4] = {0u, 0u, 0u, 0u};
+  uint32_t ga[4];  // the grid's depth step
   float cval[2], inv_d[2], d_ms[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = 64 * wg + 16 * wq + 8 * h + g, row = row0 + r;
-    if (t == 0 && row < HW) {
-      const float* d = dout + (boff + row) * CO + Cv;
-      ga[h] = mt::pack_bf16(d[0], d[1]);
-    }
-    const float4 r4 = rs[r];
-    inv_d[h] = r4.y;
-    cval[h] = r4.z;
-    d_ms[h] = r4.w;
-  }
+  bh::rows_values(dout, rs, 64 * wg + 16 * wq, row0, g, t, HW, Cv, boff, ga, cval, inv_d, d_ms);
 
   constexpr uint32_t SWQ = ht::swizzle_code(2 * W), SWD = ht::swizzle_code(2 * WD);
   const uint64_t dq_base = ht::make_desc(qs + wg * 64 * W * 2, 16, 16 * W, SWQ);
@@ -370,7 +264,7 @@ correlation_bwd_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   float acc[CTB][W / 2];  // dq: column 8 n + 2 t + e % 2 of block CTB z + cb at acc[cb][4 n + e]
 #pragma unroll
-  for (int cb = 0; cb < CTB; ++cb) zero(acc[cb]);
+  for (int cb = 0; cb < CTB; ++cb) ht::zero(acc[cb]);
   float mref[2], best[2];  // the rows' reference (a raw score, common to a row's 4 lanes); this lane's largest score
   int bidx[2];             // ... and its first index
 #pragma unroll
@@ -399,13 +293,13 @@ correlation_bwd_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const uint64_t dkd = ht::make_desc(st + hh * NH * 2 * W, 16, 16 * W, SWQ);
 #pragma unroll
         for (int ks = 0; ks < G::KQ; ++ks)
-          ht::wgmma_ss<NH>(s, dqd + kstep<W>(ks, G::QBLK), dkd + kstep<W>(ks, G::KBLK),
+          ht::wgmma_ss<NH>(s, dqd + ht::kstep<W>(ks, G::QBLK), dkd + ht::kstep<W>(ks, G::KBLK),
                            ks > 0 ? 1 : 0);
         const uint64_t ddd = ht::opaque(dd_base);
         const uint64_t dvd = ht::make_desc(st + KB * G::KBLK + hh * NH * 2 * WD, 16, 16 * WD, SWD);
 #pragma unroll
         for (int ks = 0; ks < G::KV; ++ks)
-          ht::wgmma_ss<NH>(dp, ddd + kstep<WD>(ks, G::DBLK), dvd + kstep<WD>(ks, G::VBLK),
+          ht::wgmma_ss<NH>(dp, ddd + ht::kstep<WD>(ks, G::DBLK), dvd + ht::kstep<WD>(ks, G::VBLK),
                            ks > 0 ? 1 : 0);
         ht::wgmma_rs<NH, 0>(dp, ga,
                             ht::make_desc(st + KB * G::KBLK + DB * G::VBLK + hh * NH * 32, 128,
@@ -471,7 +365,7 @@ correlation_bwd_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int h = 0; h < 2; ++h) mg[gi][h] = mref[h];
       }
-      if (NG > 1) late = warpgroup_any(late, bar);
+      if (NG > 1) late = ht::warpgroup_any(late, bar);
 
       // dS' = e (dP - c), e = 2^((s - m) log2e) against the reference after
       // the group, packed to bf16 A fragments; dq += dS' . k[keys of the
@@ -534,50 +428,9 @@ correlation_bwd_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) ht::mbar_arrive(&empty[sj]);
   }
 
-  // the end of the sweep (correlation_bwd_mma.cu::rows_finish): the row's
-  // lanes merge their maxima (the smallest key wins a tie) into M and the
-  // first argmax (key 0 for a row with none, a NaN row); dq = (2^((m - M)
-  // log2e) acc + d_ms k_amax) / d; tile 0 writes lse = M log2e - log2(1/d),
-  // the row's other statistics and its argmax
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float bv = best[h];
-    int bi = bidx[h];
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      const float ov = __shfl_xor_sync(FULL, bv, off);
-      const int oi = __shfl_xor_sync(FULL, bi, off);
-      if (ov > bv || (ov == bv && oi < bi)) {
-        bv = ov;
-        bi = oi;
-      }
-    }
-    if (bi >= HW) bi = 0;
-    const float a = mt::ex2((mref[h] - bv) * LOG2E);  // 1 where m is the row's max
-    const int row = row0 + 64 * wg + 16 * wq + 8 * h + g;
-    if (row < HW) {
-      const bf16* ka = k + (boff + bi) * Cq;
-      float* o = dq + (boff + row) * Cq;
-#pragma unroll
-      for (int cb = 0; cb < CTB; ++cb)
-#pragma unroll
-        for (int n = 0; n < W / 8; ++n) {
-          const int col = (z * CTB + cb) * W + n * 8 + 2 * t;
-          if (col < Cq) {
-            const float2 kv =
-                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(ka + col));
-            *reinterpret_cast<float2*>(o + col) =
-                make_float2(fmaf(acc[cb][4 * n + 2 * h], a, d_ms[h] * kv.x) * inv_d[h],
-                            fmaf(acc[cb][4 * n + 2 * h + 1], a, d_ms[h] * kv.y) * inv_d[h]);
-          }
-        }
-      if (z == 0 && t == 0) {
-        *reinterpret_cast<float4*>(stats + (boff + row) * 4) =
-            make_float4(bv * LOG2E - log2f(inv_d[h]), inv_d[h], cval[h], d_ms[h]);
-        amax_out[boff + row] = bi;
-      }
-    }
-  }
+  // the end of the sweep; column tile 0 writes the row's statistics
+  bh::rows_finish<CTB, W>(acc, best, bidx, mref, cval, inv_d, d_ms, k, dq, stats, amax_out,
+                          64 * wg + 16 * wq, row0, g, t, HW, Cq, boff, z * CTB, z == 0);
 }
 
 // =================================================================== K3 ==
@@ -693,25 +546,10 @@ correlation_bwd_cols_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
   const int g = lane >> 2, t = lane & 3;    // within them keys g and g + 8
   const int bar = 1 + wg;
 
-  // [v | grid | 0] of the warpgroup's 64 keys, in the layout TMA would give
-  // it: v's columns, the grid's two at Cv (Cv is a multiple of 8: one
-  // 16-byte piece), zeros past them and past HW
-  {
-    constexpr int PIECES = DB * WD / 8;
-    for (int e = tid & 127; e < 64 * PIECES; e += 128) {
-      const int r = 64 * wg + e / PIECES, c = 8 * (e % PIECES), key = col0 + r;
-      uint4 x = make_uint4(0u, 0u, 0u, 0u);
-      if (key < HW) {
-        if (c < Cv)
-          x = __ldg(reinterpret_cast<const uint4*>(v + (boff + key) * Cv + c));
-        else if (c == Cv)
-          x.x = __ldg(reinterpret_cast<const unsigned*>(grid) + key);
-      }
-      *reinterpret_cast<uint4*>(vgs + swizzled<WD>(r, c, G::GBLK)) = x;
-    }
-  }
+  // [v | grid | 0] of the warpgroup's 64 keys
+  bh::cols_vgrid<DB, WD, G::GBLK>(v, grid, vgs, wg, tid, col0, HW, Cv, boff);
   ht::fence_proxy_async();
-  warpgroup_sync(bar);
+  ht::warpgroup_sync(bar);
 
   constexpr uint32_t SWQ = ht::swizzle_code(2 * W), SWD = ht::swizzle_code(2 * WD);
   const uint64_t dk_base = ht::make_desc(ks + wg * 64 * W * 2, 16, 16 * W, SWQ);
@@ -720,9 +558,9 @@ correlation_bwd_cols_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
 
   float acc_k[TK][W / 2], acc_v[TV][WD / 2];  // key 16 wq + g + 8 (e / 2), column 8 n + 2 t + e % 2 at [4 n + e]
 #pragma unroll
-  for (int i = 0; i < TK; ++i) zero(acc_k[i]);
+  for (int i = 0; i < TK; ++i) ht::zero(acc_k[i]);
 #pragma unroll
-  for (int i = 0; i < TV; ++i) zero(acc_v[i]);
+  for (int i = 0; i < TV; ++i) ht::zero(acc_v[i]);
 
   ht::mbar_wait(kfull, 0);
   constexpr int NK = NH / 16;  // depth steps of 16 rows a pass
@@ -747,7 +585,7 @@ correlation_bwd_cols_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
         const uint64_t dqd = ht::make_desc(st + hh * NH * 2 * W, 16, 16 * W, SWQ);
 #pragma unroll
         for (int kq = 0; kq < G::KQ; ++kq)
-          ht::wgmma_ss<NH>(s, dkd + kstep<W>(kq, G::KBLK), dqd + kstep<W>(kq, G::QBLK),
+          ht::wgmma_ss<NH>(s, dkd + ht::kstep<W>(kq, G::KBLK), dqd + ht::kstep<W>(kq, G::QBLK),
                            kq > 0 ? 1 : 0);
         if (has_k) {
           const uint64_t dgd = ht::opaque(dg_base);
@@ -755,7 +593,7 @@ correlation_bwd_cols_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
               ht::make_desc(st + KB * G::QBLK + hh * NH * 2 * WD, 16, 16 * WD, SWD);
 #pragma unroll
           for (int kd = 0; kd < G::KD; ++kd)
-            ht::wgmma_ss<NH>(dp, dgd + kstep<WD>(kd, G::GBLK), dmd + kstep<WD>(kd, G::MBLK),
+            ht::wgmma_ss<NH>(dp, dgd + ht::kstep<WD>(kd, G::GBLK), dmd + ht::kstep<WD>(kd, G::MBLK),
                              kd > 0 ? 1 : 0);
         }
       }
@@ -834,50 +672,14 @@ correlation_bwd_cols_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
     if (lane == 0) ht::mbar_arrive(&empty[su]);
   }
 
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int key = kw0 + 8 * h;
-    if (key >= HW) continue;
-    if (has_k) {
-      float* o = dk + (boff + key) * Cq;
-#pragma unroll
-      for (int i = 0; i < TK; ++i)
-#pragma unroll
-        for (int n = 0; n < W / 8; ++n) {
-          const int col = (zk + i) * W + n * 8 + 2 * t;
-          if (col < Cq)
-            *reinterpret_cast<float2*>(o + col) =
-                make_float2(acc_k[i][4 * n + 2 * h], acc_k[i][4 * n + 2 * h + 1]);
-        }
-    }
-    if (has_v) {
-      float* o = dv + (boff + key) * Cv;
-#pragma unroll
-      for (int i = 0; i < TV; ++i)
-#pragma unroll
-        for (int n = 0; n < WD / 8; ++n) {
-          const int col = (zv + i) * WD + n * 8 + 2 * t;
-          if (col < Cv)
-            *reinterpret_cast<float2*>(o + col) =
-                make_float2(acc_v[i][4 * n + 2 * h], acc_v[i][4 * n + 2 * h + 1]);
-        }
-    }
-  }
+  bh::cols_store<TK, W, TV, WD>(acc_k, acc_v, dk, dv, kw0, t, HW, Cq, Cv, boff, zk, zv, has_k,
+                                has_v);
 }
 
 // ============================================================ launches ==
 
-struct Args {
-  const bf16 *q, *k, *v, *grid;
-  const float *out, *dout;
-  bf16* dmain;
-  float *stats, *dq, *dk, *dv;
-  int* amax;
-  int B, HW, Cq, Cv, DM;
-  cudaStream_t stream;
-};
-
-int ceil_div(int a, int b) { return (a + b - 1) / b; }
+using bh::Args;
+using bh::ceil_div;
 
 template <int KB, int W, int CV, int WD, int CTB, int NC, int ST, int MINB, int NH>
 cudaError_t launch_rows_wgmma(const Args& a) {
@@ -886,7 +688,7 @@ cudaError_t launch_rows_wgmma(const Args& a) {
   if (a.Cq > KB * W || a.Cv > CV) return cudaErrorInvalidValue;
   auto kernel = correlation_bwd_rows_wgmma_kernel<KB, W, CV, WD, CTB, NC, ST, MINB, NH>;
   constexpr size_t smem = 1024 + rows_region<KB, W, CV, WD, CTB, NC, ST>() + (2 * ST + 1) * 8;
-  cudaError_t e = allow_smem(kernel, smem);
+  cudaError_t e = bh::allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   CUtensorMap tq, tk, tv;
   e = ht::encode_bf16_map(&tq, a.q, a.Cq, a.HW, a.B, W, G::BR);
@@ -907,7 +709,7 @@ cudaError_t launch_cols_wgmma(const Args& a) {
   if (a.Cq > KB * W || a.Cv > CV) return cudaErrorInvalidValue;
   auto kernel = correlation_bwd_cols_wgmma_kernel<KB, W, CV, WD, TK, TV, NC, ST, MINB, NH>;
   constexpr size_t smem = 1024 + cols_region<KB, W, CV, WD, TK, TV, NC, ST>() + (2 * ST + 1) * 8;
-  cudaError_t e = allow_smem(kernel, smem);
+  cudaError_t e = bh::allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   CUtensorMap tk, tq, tm;
   e = ht::encode_bf16_map(&tk, a.k, a.Cq, a.HW, a.B, W, G::BR);
@@ -928,7 +730,8 @@ cudaError_t launch_cols_wgmma(const Args& a) {
 // stages, least blocks a SM, keys a pass (NH). K3: the same, with dk and dv
 // column tiles of TK and TV blocks and rows a pass. Each width takes the
 // smallest class that holds Cq and Cv (zeros pad the rest); every class of
-// this list stands in ops/correlation.py::WGMMA_WIDTH_CLASSES.
+// this list stands in ops/correlation.py::WGMMA_WIDTH_CLASSES. Up to 64
+// channels the narrow pair (correlation_bwd_narrow.cu) serves.
 //
 // Chosen with tools/torch_chip_studies.py k23-wgmma-variants on an NVIDIA
 // H100 80GB HBM3 at 700 W, the wgmma and mma.sync kernels in turns in one
@@ -938,17 +741,11 @@ cudaError_t launch_cols_wgmma(const Args& a) {
 // 168 with two consumer warpgroups, 128 with three, 96 with four, 80 with
 // two blocks a SM), not at the count setmaxnreg gives it, and a kernel short
 // of registers has every wgmma serialised (C7512).
-// - C = 32: K2 four warpgroups in passes of 32 keys (96 registers)
-//   0.4080-0.4136, a ring of 2 stages 0.4101-0.4154, passes of 16
-//   0.4562-0.4642, two warpgroups with two blocks a SM 0.4629-0.4680, three
-//   in passes of 64 0.4964-0.5013, two in passes of 64 0.5868-0.5876; K3
-//   four warpgroups in passes of 16 0.4714-0.4715, of 32 0.4877-0.4878
-//   (serialised for registers), three in passes of 64 0.5217-0.5224, two
-//   0.7018-0.7066. The mma.sync pair 0.3994-0.4021 and 0.3796-0.3809, so the
-//   package keeps it there (ops/correlation.py::MMA_SYNC_FASTER; B = 90:
-//   3.5723-3.6051 and 4.1228-4.1247 against 3.1989-3.2709 and
-//   3.0650-3.0901). The classes of 16 and 64 channels follow C = 32
-//   (untimed: no driven path has them).
+// - C = 32, where this design lost to the mma.sync pair and the narrow pair
+//   took over: K2 four warpgroups in passes of 32 keys (96 registers)
+//   0.4080-0.4136, two in passes of 64 0.5868-0.5876; K3 four warpgroups in
+//   passes of 16 0.4714-0.4715, two 0.7018-0.7066; the mma.sync pair
+//   0.3994-0.4021 and 0.3796-0.3809 (PERF.md has every candidate).
 // - C = 128: K2 two warpgroups in passes of 64 0.8129-0.8301 (passes of 32
 //   0.8842-0.8984, one warpgroup 1.3472-1.3665; mma.sync 1.1076-1.1250). K3
 //   with the whole [dk | dv] in one warpgroup's registers 1.3211-1.3382 (two
@@ -961,10 +758,6 @@ cudaError_t launch_cols_wgmma(const Args& a) {
 //   tiles 5.3195-5.3402; mma.sync, streamed, 6.4420-6.4478); K3 two tiles of
 //   dk and dv 3.1402-3.1536 (four 5.5984-5.6215; mma.sync 7.7059-7.7190).
 cudaError_t dispatch_rows_wgmma(const Args& a) {
-  if (a.Cq <= 16 && a.Cv <= 16) return launch_rows_wgmma<1, 16, 16, 16, 1, 4, 3, 1, 32>(a);
-  if (a.Cq <= 16 && a.Cv <= 32) return launch_rows_wgmma<1, 16, 32, 32, 1, 4, 3, 1, 32>(a);
-  if (a.Cq <= 32 && a.Cv <= 32) return launch_rows_wgmma<1, 32, 32, 32, 1, 4, 3, 1, 32>(a);
-  if (a.Cq <= 64 && a.Cv <= 64) return launch_rows_wgmma<1, 64, 64, 64, 1, 2, 3, 1, 64>(a);
   if (a.Cq <= 128 && a.Cv <= 128) return launch_rows_wgmma<2, 64, 128, 64, 2, 2, 3, 1, 64>(a);
   if (a.Cq <= 256 && a.Cv <= 96) return launch_rows_wgmma<4, 64, 96, 32, 2, 2, 2, 1, 64>(a);
   if (a.Cq <= 256 && a.Cv <= 256) return launch_rows_wgmma<4, 64, 256, 64, 2, 1, 2, 1, 64>(a);
@@ -972,10 +765,6 @@ cudaError_t dispatch_rows_wgmma(const Args& a) {
 }
 
 cudaError_t dispatch_cols_wgmma(const Args& a) {
-  if (a.Cq <= 16 && a.Cv <= 16) return launch_cols_wgmma<1, 16, 16, 16, 1, 1, 4, 3, 1, 16>(a);
-  if (a.Cq <= 16 && a.Cv <= 32) return launch_cols_wgmma<1, 16, 32, 32, 1, 1, 4, 3, 1, 16>(a);
-  if (a.Cq <= 32 && a.Cv <= 32) return launch_cols_wgmma<1, 32, 32, 32, 1, 1, 4, 3, 1, 16>(a);
-  if (a.Cq <= 64 && a.Cv <= 64) return launch_cols_wgmma<1, 64, 64, 64, 1, 1, 2, 3, 1, 64>(a);
   if (a.Cq <= 128 && a.Cv <= 128) return launch_cols_wgmma<2, 64, 128, 64, 2, 2, 1, 3, 1, 64>(a);
   if (a.Cq <= 256 && a.Cv <= 96) return launch_cols_wgmma<4, 64, 96, 32, 4, 3, 1, 2, 1, 16>(a);
   if (a.Cq <= 256 && a.Cv <= 256) return launch_cols_wgmma<4, 64, 256, 64, 2, 2, 1, 2, 1, 64>(a);
@@ -984,28 +773,14 @@ cudaError_t dispatch_cols_wgmma(const Args& a) {
 
 bool wgmma_takes(int B, int HW, int Cq, int Cv, int dtype) {
   return B >= 0 && HW >= 0 && B <= 65535 && dtype == 1 && Cq % 8 == 0 && Cv % 8 == 0 &&
-         Cq >= 8 && Cv >= 8 && Cq <= 256 && Cv <= 256;
-}
-
-int dmain_width(int Cv) { return (Cv + 2 + 15) / 16 * 16; }
-
-Args wgmma_args(const void* q, const void* k, const void* v, const void* grid, const void* out,
-                const void* dout, const void* dmain, const void* stats, const void* amax,
-                void* dq, void* dk, void* dv, int B, int HW, int Cq, int Cv, void* stream) {
-  return Args{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-              static_cast<const bf16*>(v), static_cast<const bf16*>(grid),
-              static_cast<const float*>(out), static_cast<const float*>(dout),
-              const_cast<bf16*>(static_cast<const bf16*>(dmain)),
-              const_cast<float*>(static_cast<const float*>(stats)), static_cast<float*>(dq),
-              static_cast<float*>(dk), static_cast<float*>(dv),
-              const_cast<int*>(static_cast<const int*>(amax)), B, HW, Cq, Cv, dmain_width(Cv),
-              static_cast<cudaStream_t>(stream)};
+         Cq >= 8 && Cv >= 8 && Cq <= 256 && Cv <= 256 && (Cq > 64 || Cv > 64);
 }
 
 }  // namespace
 
 // The wgmma kernels of the "mma" design: bf16 (dtype 1), Cq and Cv multiples
-// of 8 from 8 to 256; q, k, v, dmain, stats, dq, dk, dv aligned to 16 bytes,
+// of 8 from 8 to 256, one of them beyond 64 (correlation_bwd_narrow.cu takes
+// the narrower ones); q, k, v, dmain, stats, dq, dk, dv aligned to 16 bytes,
 // the grid to 4. Arguments and outputs as correlation_bwd_rows_mma and
 // correlation_bwd_cols_mma; cudaErrorInvalidValue for inputs they do not take.
 
@@ -1018,7 +793,7 @@ extern "C" int correlation_bwd_rows_wgmma(const void* q, const void* k, const vo
                                           int HW, int Cq, int Cv, int dtype, void* stream) {
   if (!wgmma_takes(B, HW, Cq, Cv, dtype)) return cudaErrorInvalidValue;
   if (B == 0 || HW == 0) return cudaSuccess;
-  return dispatch_rows_wgmma(wgmma_args(q, k, v, grid, out, dout, dmain, stats, amax, dq,
+  return dispatch_rows_wgmma(bh::make_args(q, k, v, grid, out, dout, dmain, stats, amax, dq,
                                         nullptr, nullptr, B, HW, Cq, Cv, stream));
 }
 
@@ -1031,6 +806,6 @@ extern "C" int correlation_bwd_cols_wgmma(const void* q, const void* k, const vo
                                           void* stream) {
   if (!wgmma_takes(B, HW, Cq, Cv, dtype)) return cudaErrorInvalidValue;
   if (B == 0 || HW == 0) return cudaSuccess;
-  return dispatch_cols_wgmma(wgmma_args(q, k, v, grid, nullptr, nullptr, dmain, stats, amax,
+  return dispatch_cols_wgmma(bh::make_args(q, k, v, grid, nullptr, nullptr, dmain, stats, amax,
                                         nullptr, dk, dv, B, HW, Cq, Cv, stream));
 }

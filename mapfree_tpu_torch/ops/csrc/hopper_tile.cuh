@@ -160,6 +160,51 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
+// -- tiles and warpgroups -------------------------------------------------------
+
+// Byte offset of element (r, c) of a K-major tile held as blocks of [rows]
+// [WB] bf16 (blk bytes apart) with TMA's swizzle of 2 WB bytes
+// (this header's note): what TMA would write there.
+template <int WB>
+__device__ __forceinline__ int swizzled(int r, int c, int blk) {
+  constexpr int S = 2 * WB;
+  const int cc = c % WB;
+  return (c / WB) * blk + r * S + (((cc >> 3) ^ ((r / (128 / S)) % (S / 16))) << 4) + (cc & 7) * 2;
+}
+
+// The descriptor offset (16-byte units) of depth step ks of a K-major tile
+// in blocks of WB columns, blk bytes apart.
+template <int WB>
+__device__ __forceinline__ uint64_t kstep(int ks, int blk) {
+  return static_cast<uint64_t>(((ks / (WB / 16)) * blk + (ks % (WB / 16)) * 32) >> 4);
+}
+
+// Named barrier `id` over one warpgroup's 128 threads.
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// Whether x holds in any thread of the warpgroup (a barrier over its 128
+// threads that ORs a predicate).
+__device__ __forceinline__ bool warpgroup_any(bool x, int id) {
+  uint32_t r;
+  asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.u32 q, %1, 0;\nbar.red.or.pred p, %2, 128, q;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(r)
+      : "r"(static_cast<uint32_t>(x)), "r"(id)
+      : "memory");
+  return r != 0;
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.f;
+}
+
+// -- wgmma shapes ---------------------------------------------------------------
+
 // d (+)= A . B^T, m64n64k16: A (64 x 16) and B (64 x 16) both K-major in
 // shared memory; with scale_d == 0 the product overwrites d.
 __device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,

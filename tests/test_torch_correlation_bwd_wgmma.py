@@ -24,6 +24,7 @@ from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 REPO = Path(__file__).resolve().parent.parent
 WGMMA_SOURCE = _build.CSRC_DIR / "correlation_bwd_wgmma.cu"
 MMA_SOURCE = _build.CSRC_DIR / "correlation_bwd_mma.cu"
+NARROW_SOURCE = _build.CSRC_DIR / "correlation_bwd_narrow.cu"
 REGRESSION = sorted((REPO / "configs" / "regression").rglob("*.yaml"))
 
 
@@ -55,12 +56,12 @@ def test_the_regression_configs_are_all_here():
 def test_every_regression_config_trains_on_the_measured_pair(path):
     """Every config under configs/regression/ trains in bf16 on a grid of
     more than 64 positions at 32 channels (16 / 32 with CV_HALF_CHANNELS),
-    where the mma.sync K2 and K3 measured faster than the wgmma ones
+    where the mma.sync K2 and K3 measured faster than the Hopper ones
     (MMA_SYNC_FASTER): the mma.sync pair; in float32 the same widths take
     the FMA design (no tensor-core pair)."""
     dtype, HW, cq, cv = _train_shape(path)
     assert dtype == torch.bfloat16 and HW > corr.FEW_ROWS_HW
-    assert corr.wgmma_width_class(cq, cv) in corr.MMA_SYNC_FASTER
+    assert corr.hopper_width_class(cq, cv) in corr.MMA_SYNC_FASTER
     assert corr.backward_kernel(dtype, HW, cq, cv) == corr.KERNEL_FWD_MMA_SYNC
     assert corr.backward_kernel(torch.float32, HW, cq, cv) is None
 
@@ -100,38 +101,46 @@ def test_backward_kernel_at_the_driven_shapes(name, HW, cq, cv, kernel):
 
 
 def test_backward_kernel_follows_the_design():
-    """Every bf16 width the tensor-core design takes has a pair; the wgmma
-    one exactly beyond FEW_ROWS_HW positions, within the wgmma kernels'
-    width classes and outside MMA_SYNC_FASTER."""
+    """Every bf16 width the tensor-core design takes has a pair; beyond
+    FEW_ROWS_HW positions and outside MMA_SYNC_FASTER the narrow one exactly
+    within its width classes and the wgmma one exactly within the wgmma
+    kernels' width classes."""
     for HW in (20, 64, 65, 6256):
         for cq in range(8, 513, 8):
             for cv in (8, 24, 96, 128, 136, 256, 264):
-                width = corr.wgmma_width_class(cq, cv)
+                width = corr.hopper_width_class(cq, cv)
                 assert (width is None) == (max(cq, cv) > corr.WGMMA_MAX_CQ or cq > 256)
                 got = corr.backward_kernel(torch.bfloat16, HW, cq, cv)
                 assert got in corr.BWD_KERNELS
-                assert (got == WG) == (HW > corr.FEW_ROWS_HW and width is not None
-                                       and width not in corr.MMA_SYNC_FASTER)
+                beyond = (HW > corr.FEW_ROWS_HW and width is not None
+                          and width not in corr.MMA_SYNC_FASTER)
+                assert (got == corr.KERNEL_BWD_PAIR_NARROW) == (
+                    beyond and width in corr.NARROW_WIDTH_CLASSES)
+                assert (got == WG) == (beyond and width in corr.WGMMA_WIDTH_CLASSES)
 
 
 @pytest.mark.parametrize("dispatch", ["dispatch_rows_wgmma", "dispatch_cols_wgmma"])
 def test_width_classes_are_the_cu_dispatchs(dispatch):
     """WGMMA_WIDTH_CLASSES is each wgmma dispatch's list of (Cq, Cv) classes,
-    in its order, and MMA_SYNC_FASTER names classes of it."""
+    in its order, each past 64 channels (the narrow pair's widths), and its C
+    functions refuse the widths the narrow pair takes."""
     src = WGMMA_SOURCE.read_text()
     body = src[src.index(f"cudaError_t {dispatch}(const Args& a)"):]
     body = body[:body.index("return cudaErrorInvalidValue;")]
     classes = [(int(a), int(b)) for a, b in
                re.findall(r"if \(a\.Cq <= (\d+) && a\.Cv <= (\d+)\)", body)]
     assert tuple(classes) == corr.WGMMA_WIDTH_CLASSES
-    assert corr.MMA_SYNC_FASTER <= set(corr.WGMMA_WIDTH_CLASSES)
+    assert all(max(c) > 64 for c in classes)
+    guard = src[src.index("bool wgmma_takes("):]
+    assert "(Cq > 64 || Cv > 64)" in guard[:guard.index("}")]
 
 
-@pytest.mark.parametrize("source", [MMA_SOURCE, WGMMA_SOURCE], ids=["mma_sync", "wgmma"])
+@pytest.mark.parametrize("source", [MMA_SOURCE, WGMMA_SOURCE, NARROW_SOURCE],
+                         ids=["mma_sync", "wgmma", "narrow"])
 def test_each_pair_keeps_the_plain_versions_key_group_and_gap(source):
-    """Both pairs' TKG (keys a step of K2's online max) and LAZY_GAP (8 /
+    """Every pair's TKG (keys a step of K2's online max) and LAZY_GAP (8 /
     log2e in raw score units) are the plain one-sweep's BWD_KEY_TILE and
-    BWD_LAZY_GAP_LOG2, so that one bf16_roundings yardstick serves both."""
+    BWD_LAZY_GAP_LOG2, so that one bf16_roundings yardstick serves all."""
     src = source.read_text()
     assert re.findall(r"constexpr int TKG = (\d+);", src) == [str(corr.BWD_KEY_TILE)]
     gap = re.findall(r"constexpr float LAZY_GAP = ([\d.]+)f / LOG2E;", src)
@@ -149,19 +158,21 @@ def test_wgmma_pair_is_a_library_of_its_own():
         src = (_build.CSRC_DIR / f"{library}.cu").read_text()
         for fn in (corr.KERNEL_BWD_ROWS + suffix, corr.KERNEL_BWD_COLS + suffix):
             assert f'extern "C" int {fn}(' in src, (kernel, fn)
-    assert set(corr.BWD_KERNELS) == set(corr.FWD_KEY_TILES)
+    assert set(corr.BWD_KERNELS) == set(corr.FWD_KEY_TILES) | {corr.KERNEL_BWD_PAIR_NARROW}
 
 
 def test_wgmma_build_follows_its_headers(tmp_path):
-    """The wgmma pair's source includes hopper_tile.cuh and mma_tile.cuh:
-    editing either names a new build of it."""
+    """The wgmma pair's source includes correlation_bwd_hopper.cuh (the parts
+    both Hopper pairs share), hopper_tile.cuh and mma_tile.cuh: editing any
+    of them names a new build of it."""
     files = {p.name for p in _build.source_files(WGMMA_SOURCE)}
-    assert files == {"correlation_bwd_wgmma.cu", "hopper_tile.cuh", "mma_tile.cuh"}
+    assert files == {"correlation_bwd_wgmma.cu", "correlation_bwd_hopper.cuh", "hopper_tile.cuh",
+                     "mma_tile.cuh"}
     for name in files:
         shutil.copy(_build.CSRC_DIR / name, tmp_path / name)
     src = tmp_path / "correlation_bwd_wgmma.cu"
     assert _build.source_digest(src) == _build.source_digest(WGMMA_SOURCE)
-    for name in ("hopper_tile.cuh", "mma_tile.cuh"):
+    for name in ("correlation_bwd_hopper.cuh", "hopper_tile.cuh", "mma_tile.cuh"):
         header = tmp_path / name
         saved = header.read_text()
         header.write_text(saved + "\n// edited\n")

@@ -593,32 +593,34 @@ def test_k23_tensor_core_nan_row_plain_twin(name, H, W, cq, cv):
 
 # (name, B, H, W, Cq, Cv, kind): the wgmma pair of K2 and K3
 # (ops/csrc/correlation_bwd_wgmma.cu), asked for by name (the package gives
-# it more than 64 positions): HW one key past a tile (65), ragged (70, 130)
-# and past 1,000, Cq != Cv, C = 8 (channels zero-filled to a depth of 16), a
-# Cv of 8 mod 16 (24, 120: the grid's depth step apart from v's last 8
-# columns in K2, shared with them in K3), 136 (a column tile of 8), 256 / 96
-# and 256 (column tiles of 128), 1,000 batch elements of 70 positions, a NaN
-# row, NaN in the next batch element's first rows (element 0's last tiles
-# reach past its HW, where the tensor maps read zeros), an exact tie for
-# row 0's maximum and the max-score cotangent alone. q and k scaled by
-# (32 / max(Cq, 32))^(1/4), as _k23_mma_inputs does.
+# it more than 64 positions with a width past 64 channels): HW one key past a
+# tile (65), ragged (70, 130) and past 1,000, the narrowest widths it takes
+# (72, and Cq 16 or Cv 8 beside 72: channels zero-filled to its class of
+# 128), a Cv of 8 mod 16 (72, 120: the grid's depth step apart from v's last
+# 8 columns in K2, shared with them in K3), 136 (a column tile of 8), 256 /
+# 96 and 256 (column tiles of 128), 1,000 batch elements of 70 positions, a
+# NaN row, NaN in the next batch element's first rows (element 0's last
+# tiles reach past its HW, where the tensor maps read zeros), an exact tie
+# for row 0's maximum and the max-score cotangent alone. q and k scaled by
+# (32 / max(Cq, 32))^(1/4), as _k23_mma_inputs does. Up to 64 channels the
+# narrow pair takes these edges (K23_NARROW_EDGES).
 K23_WGMMA_EDGES = [
-    ("hw65", 2, 5, 13, 32, 32, "normal"),
-    ("hw70", 2, 7, 10, 32, 32, "normal"),
-    ("hw130", 2, 10, 13, 32, 32, "normal"),
-    ("hw1000", 1, 25, 40, 32, 32, "normal"),
-    ("q16_v32_hw130", 2, 10, 13, 16, 32, "normal"),
-    ("c8_hw130", 2, 10, 13, 8, 8, "normal"),
-    ("c24_hw70", 2, 7, 10, 24, 24, "normal"),
+    ("hw65", 2, 5, 13, 128, 128, "normal"),
+    ("hw70", 2, 7, 10, 128, 128, "normal"),
+    ("hw130", 2, 10, 13, 128, 128, "normal"),
+    ("hw1000", 1, 25, 40, 128, 128, "normal"),
+    ("q16_v72_hw130", 2, 10, 13, 16, 72, "normal"),
+    ("c72_hw130", 2, 10, 13, 72, 72, "normal"),
+    ("q72_v8_hw70", 2, 7, 10, 72, 8, "normal"),
     ("c120_hw70", 2, 7, 10, 120, 120, "normal"),
     ("c136_hw70", 2, 7, 10, 136, 136, "normal"),
     ("q256_v96_hw70", 2, 7, 10, 256, 96, "normal"),
     ("c256_hw1000", 1, 25, 40, 256, 256, "normal"),
     ("c128_hw70_b1000", 1000, 7, 10, 128, 128, "normal"),
-    ("nan_row_hw70", 2, 7, 10, 32, 32, "nan_row"),
-    ("nan_next_batch_hw70", 2, 7, 10, 32, 32, "nan_next"),
-    ("tie_hw70", 1, 7, 10, 32, 32, "tie"),
-    ("max_score_only_hw130", 2, 10, 13, 32, 32, "ms_only"),
+    ("nan_row_hw70", 2, 7, 10, 128, 128, "nan_row"),
+    ("nan_next_batch_hw70", 2, 7, 10, 128, 128, "nan_next"),
+    ("tie_hw70", 1, 7, 10, 128, 128, "tie"),
+    ("max_score_only_hw130", 2, 10, 13, 128, 128, "ms_only"),
 ]
 
 
@@ -644,24 +646,70 @@ def _k23_wgmma_inputs(name, B, H, W, cq, cv, kind, device):
 @pytest.mark.parametrize("name,B,H,W,cq,cv,kind", K23_WGMMA_EDGES,
                          ids=[c[0] for c in K23_WGMMA_EDGES])
 def test_k23_cuda_wgmma_pair_at_its_edges(cuda_device, name, B, H, W, cq, cv, kind):
-    """The wgmma K2 and K3, one counted launch each a call, given the exact
-    forward's buffer: dq, dk, dv within mma_backward_matched_l2_tol
-    (relative L2) of the plain backward with their roundings and
-    mma_backward_exact_tol of the largest magnitude of the exact one (with
-    B x HW rows), with K2's argmax; two runs give the same bits; the argmax
-    is a maximum (on a tie the first), lse gives back the row max, dmain, 1/d
-    and d_ms are the plain prologue's to the bit; either pair's K2 hands on
-    to the other's K3 within the matched tolerance. A NaN row reaches its
-    element's gradients, NaN in element 1 leaves element 0 finite."""
-    args, g, dout, keep = _k23_wgmma_inputs(name, B, H, W, cq, cv, kind, cuda_device)
+    """The wgmma K2 and K3 at their edges (:func:`_hopper_pair_at_an_edge`)."""
+    _hopper_pair_at_an_edge("wgmma", cuda_device, name, B, H, W, cq, cv, kind)
+
+
+# (name, B, H, W, Cq, Cv, kind): the narrow pair of K2 and K3
+# (ops/csrc/correlation_bwd_narrow.cu), asked for by name, at every width
+# class it takes (16, 16 / 32, 32, 64; C = 8, 24 and 40 / 56 zero-filled to
+# their class), HW one key past a tile (65), ragged (70, 130) and past 1,000,
+# 1,000 batch elements of 70 positions, and the kinds of K23_WGMMA_EDGES
+K23_NARROW_EDGES = [
+    ("hw65", 2, 5, 13, 32, 32, "normal"),
+    ("hw70", 2, 7, 10, 32, 32, "normal"),
+    ("hw1000", 1, 25, 40, 32, 32, "normal"),
+    ("c16_hw130", 2, 10, 13, 16, 16, "normal"),
+    ("q16_v32_hw130", 2, 10, 13, 16, 32, "normal"),
+    ("c8_hw130", 2, 10, 13, 8, 8, "normal"),
+    ("c24_hw70", 2, 7, 10, 24, 24, "normal"),
+    ("q40_v56_hw70", 2, 7, 10, 40, 56, "normal"),
+    ("c64_hw130", 2, 10, 13, 64, 64, "normal"),
+    ("c32_hw70_b1000", 1000, 7, 10, 32, 32, "normal"),
+    ("nan_row_hw70", 2, 7, 10, 32, 32, "nan_row"),
+    ("nan_next_batch_hw70", 2, 7, 10, 32, 32, "nan_next"),
+    ("tie_hw70", 1, 7, 10, 32, 32, "tie"),
+    ("max_score_only_hw130", 2, 10, 13, 32, 32, "ms_only"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,B,H,W,cq,cv,kind", K23_NARROW_EDGES,
+                         ids=[c[0] for c in K23_NARROW_EDGES])
+def test_k23_cuda_narrow_pair_at_its_edges(cuda_device, name, B, H, W, cq, cv, kind):
+    """The narrow K2 and K3 at their edges (:func:`_hopper_pair_at_an_edge`),
+    and their bits against the mma.sync pair's where no NaN stands between."""
+    dq, dk, dv = _hopper_pair_at_an_edge("narrow", cuda_device, name, B, H, W, cq, cv, kind)
+    if kind not in ("nan_row", "nan_next"):
+        args, g, dout, _ = _k23_wgmma_inputs(name, B, H, W, cq, cv, kind, cuda_device)
+        out = torch.cat([pt_corr._plain_buffer(*(a[i:i + 100] for a in args), g)
+                         for i in range(0, B, 100)])
+        dq_o, rows_o = pt_corr.correlation_bwd_rows(*args, g, out, dout, kernel="mma_sync")
+        dk_o, dv_o = pt_corr.correlation_bwd_cols(*args, g, dout, rows_o, kernel="mma_sync")
+        torch.cuda.synchronize()
+        assert torch.equal(dq, dq_o) and torch.equal(dk, dk_o) and torch.equal(dv, dv_o)
+
+
+def _hopper_pair_at_an_edge(pair, device, name, B, H, W, cq, cv, kind):
+    """A Hopper pair of K2 and K3 (``pair``), one counted launch each a call,
+    given the exact forward's buffer: dq, dk, dv within
+    mma_backward_matched_l2_tol (relative L2) of the plain backward with
+    their roundings and mma_backward_exact_tol of the largest magnitude of
+    the exact one (with B x HW rows), with K2's argmax; two runs give the
+    same bits; the argmax is a maximum (on a tie the first), lse gives back
+    the row max, dmain, 1/d and d_ms are the plain prologue's to the bit; its
+    K2 hands on to the mma.sync K3, and the other way, within the matched
+    tolerance. A NaN row reaches its element's gradients, NaN in element 1
+    leaves element 0 finite. Returns dq, dk, dv."""
+    args, g, dout, keep = _k23_wgmma_inputs(name, B, H, W, cq, cv, kind, device)
     HW = H * W
     out = torch.cat([pt_corr._plain_buffer(*(a[i:i + 100] for a in args), g)
                      for i in range(0, B, 100)])
     before = dict(pt_corr.launches)
     runs = []
     for _ in range(2):
-        dq, rows = pt_corr.correlation_bwd_rows(*args, g, out, dout, kernel="wgmma")
-        dk, dv = pt_corr.correlation_bwd_cols(*args, g, dout, rows, kernel="wgmma")
+        dq, rows = pt_corr.correlation_bwd_rows(*args, g, out, dout, kernel=pair)
+        dk, dv = pt_corr.correlation_bwd_cols(*args, g, dout, rows, kernel=pair)
         runs.append((dq, dk, dv, rows.stats, rows.amax, rows.dmain))
     torch.cuda.synchronize()
     assert pt_corr.launches[pt_corr.KERNEL_BWD_ROWS] == before[pt_corr.KERNEL_BWD_ROWS] + 2
@@ -696,23 +744,38 @@ def test_k23_cuda_wgmma_pair_at_its_edges(cuda_device, name, B, H, W, cq, cv, ki
         assert torch.isfinite(got).all()
         assert float((got - m).norm() / m.norm().clamp_min(1e-30)) <= l2_tol
         torch.testing.assert_close(got, r, atol=tol * max(1.0, float(r.abs().max())), rtol=0)
-    for k2, k3 in (("wgmma", "mma_sync"), ("mma_sync", "wgmma")):
+    for k2, k3 in ((pair, "mma_sync"), ("mma_sync", pair)):
         dq2, rows2 = pt_corr.correlation_bwd_rows(*args, g, out, dout, kernel=k2)
         dk2, dv2 = pt_corr.correlation_bwd_cols(*args, g, dout, rows2, kernel=k3)
         torch.cuda.synchronize()
         for got, m in zip((dq2[keep], dk2[keep], dv2[keep]), matched):
             assert float((got - m).norm() / m.norm().clamp_min(1e-30)) <= l2_tol, (k2, k3)
+    return dq, dk, dv
 
 
 @pytest.mark.parametrize("name,B,H,W,cq,cv,kind", K23_WGMMA_EDGES,
                          ids=[c[0] for c in K23_WGMMA_EDGES])
 def test_k23_wgmma_edges_plain_twin(name, B, H, W, cq, cv, kind):
-    """The CPU twin of the card case: on the same inputs the plain backward
-    with the kernels' roundings stays within half of mma_backward_exact_tol
-    (with B x HW rows) of the exact one on the elements without NaN, the two
-    take the same argmax (on a tie the first), NaN stays in its element, and
-    the package gives the shape the pair measured faster at its width class
-    (MMA_SYNC_FASTER)."""
+    """The CPU twin of the card case (:func:`_hopper_edge_plain_twin`)."""
+    _hopper_edge_plain_twin(name, B, H, W, cq, cv, kind)
+
+
+@pytest.mark.parametrize("name,B,H,W,cq,cv,kind", K23_NARROW_EDGES,
+                         ids=[c[0] for c in K23_NARROW_EDGES])
+def test_k23_narrow_edges_plain_twin(name, B, H, W, cq, cv, kind):
+    """The CPU twin of the narrow pair's card case
+    (:func:`_hopper_edge_plain_twin`)."""
+    _hopper_edge_plain_twin(name, B, H, W, cq, cv, kind)
+
+
+def _hopper_edge_plain_twin(name, B, H, W, cq, cv, kind):
+    """On the inputs of a Hopper pair's card case the plain backward with
+    the kernels' roundings stays within half of mma_backward_exact_tol (with
+    B x HW rows) of the exact one on the elements without NaN, the two take
+    the same argmax (on a tie the first), NaN stays in its element, and the
+    package gives the shape the pair that measured fastest at its width
+    class: the mma.sync one in MMA_SYNC_FASTER, else the Hopper pair whose
+    classes hold it (narrow up to 64 channels, else wgmma)."""
     args, g, dout, keep = _k23_wgmma_inputs(name, B, H, W, cq, cv, kind, "cpu")
     exact = pt_corr.fused_correlation_warp_bwd_plain(*(a[keep] for a in args), g, dout[keep])
     matched = pt_corr.fused_correlation_warp_bwd_plain(*args, g, dout, bf16_roundings=True)
@@ -728,6 +791,8 @@ def test_k23_wgmma_edges_plain_twin(name, B, H, W, cq, cv, kind):
         m = m[keep]
         assert torch.isfinite(m).all()
         assert float((m - r).abs().max()) <= tol * max(1.0, float(r.abs().max()))
-    want = (pt_corr.KERNEL_FWD_MMA_SYNC if pt_corr.wgmma_width_class(cq, cv)
-            in pt_corr.MMA_SYNC_FASTER else pt_corr.KERNEL_FWD_WGMMA)
+    width = pt_corr.hopper_width_class(cq, cv)
+    want = (pt_corr.KERNEL_FWD_MMA_SYNC if width in pt_corr.MMA_SYNC_FASTER
+            else pt_corr.KERNEL_BWD_PAIR_NARROW if width in pt_corr.NARROW_WIDTH_CLASSES
+            else pt_corr.KERNEL_FWD_WGMMA)
     assert pt_corr.backward_kernel(torch.bfloat16, H * W, cq, cv) == want

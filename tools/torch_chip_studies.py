@@ -18,6 +18,7 @@ does not repeat on every run. From the root of a checkout:
     python3 tools/torch_chip_studies.py k23-fma-variants
     python3 tools/torch_chip_studies.py k23-mma-variants
     python3 tools/torch_chip_studies.py k23-wgmma-variants [SHAPE WORD ...]
+    python3 tools/torch_chip_studies.py k23-narrow-variants [SHAPE WORD ...]
     python3 tools/torch_chip_studies.py bwd-checkouts [CHECKOUT ...]
 
 decode-threads: wall time of data/jpeg.py::decode_resize_batch for 64 frames
@@ -147,9 +148,8 @@ the package's K2 outputs; timed by CUDA events, at HW 20 from CUDA graphs
 backward of scaled_dot_product_attention.
 
 k23-wgmma-variants: the wgmma kernels of K2 and K3's tensor-core design at
-every shape a driven bf16 path gives the design beyond 64 positions (the
-3d3d grid at C = 32, B = 10 and 90, C = 128, Cq 256 / Cv 96 and C = 256, B =
-10): instantiations (:data:`K23_WGMMA_VARIANTS`: column tiles, consumer
+every shape a driven bf16 path gives the pair (the 3d3d grid at C = 128, Cq
+256 / Cv 96 and C = 256, B = 10): instantiations (:data:`K23_WGMMA_VARIANTS`: column tiles, consumer
 warpgroups, ring stages, blocks a SM, keys or rows a pass; the dispatch's
 first) built from a file that includes the checkout's
 correlation_bwd_wgmma.cu, with ptxas's registers, spills and every
@@ -158,8 +158,13 @@ buffer and each K3 the package's K2 outputs, held to the package's bits
 (else to the matched tolerance), timed by CUDA events in turns (the list,
 then again in reverse) beside the package's mma.sync pair (its bits
 compared) and the backward of scaled_dot_product_attention; words after the
-name keep the shapes whose names contain one. Where the mma.sync pair
-measures faster, ops/correlation.py::MMA_SYNC_FASTER keeps it.
+name keep the shapes whose names contain one.
+
+k23-narrow-variants: the same for the narrow pair
+(correlation_bwd_narrow.cu, :data:`K23_NARROW_VARIANTS`: consumer
+warpgroups, ring stages, blocks a SM, keys or rows a pass) at the 3d3d grid
+at C = 32 (B = 10 and 90), 16 / 32, 16 and 64 (B = 10). Where the mma.sync
+pair measures faster, ops/correlation.py::MMA_SYNC_FASTER keeps it.
 
 bwd-checkouts: K2 and K3 through the package's wrapper at the shapes phase 3
 times them (bf16 at the 3d3d grid at C=32, B=10 and 90, and C=128, B=10;
@@ -505,32 +510,56 @@ def wide_unscaled() -> None:
             corr._forward_cuda = saved
 
 
-def _variant_lib(tmp: Path, body: list, source: str = "correlation_fwd.cu"):
+class _Libraries:
+    """The functions of several libraries, each found in the one that has it."""
+
+    def __init__(self, libs):
+        self.libs = libs
+
+    def __getattr__(self, name):
+        for lib in self.libs:
+            if hasattr(lib, name):
+                return getattr(lib, name)
+        raise AttributeError(name)
+
+
+def _variant_lib(tmp: Path, body: list, source: str = "correlation_fwd.cu", parts: int = 1):
     """Build a library of the extern "C" functions ``body`` from a file that
-    includes the checkout's ``source``; print ptxas's registers."""
+    includes the checkout's ``source`` (``parts`` files of them, one nvcc
+    each, all at once); print ptxas's registers and every kernel whose wgmma
+    it serialised."""
     import ctypes
 
     import chip_smoke as cs
     from mapfree_tpu_torch.ops import _build
 
-    cu, so = tmp / "variants.cu", tmp / "libvariants.so"
-    cu.write_text("\n".join([f'#include "{_build.CSRC_DIR / source}"'] + body) + "\n")
+    chunks = [body[i::parts] for i in range(parts) if body[i::parts]]
+    procs = []
     t0 = time.perf_counter()
-    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        sys.exit(proc.stdout + proc.stderr)
-    print(f"[{card()}] {len(body)} variants built in {time.perf_counter() - t0:.1f} s", flush=True)
-    for kernel, regs, spill in cs.ptxas_report(proc.stdout + proc.stderr):
-        print(f"  {kernel}: {regs} registers, {spill} bytes spilled", flush=True)
-    for line in (proc.stdout + proc.stderr).splitlines():
-        if "Performance Loss" in line:  # ptxas serialised a kernel's wgmma: why, and which
-            why = line.split("serialized due to ")[-1].split(" in the function")[0]
-            name = re.search(r"(correlation_\w+?_kernel)I(\w*?)EEv", line)
-            args = ", ".join(re.findall(r"Li(\d+)E", name.group(2))) if name else "?"
-            print(f"  {name.group(1) if name else '?'}<{args}>: wgmma serialised, {why}",
-                  flush=True)
-    return ctypes.CDLL(str(so))
+    for i, chunk in enumerate(chunks):
+        cu, so = tmp / f"variants{i}.cu", tmp / f"libvariants{i}.so"
+        cu.write_text("\n".join([f'#include "{_build.CSRC_DIR / source}"'] + chunk) + "\n")
+        procs.append((so, subprocess.Popen(
+            [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs = [(so, proc.communicate()[0], proc.returncode) for so, proc in procs]
+    for _, log, rc in logs:
+        if rc:
+            sys.exit(log)
+    print(f"[{card()}] {len(body)} variants built in {time.perf_counter() - t0:.1f} s "
+          f"({len(chunks)} nvcc at once)", flush=True)
+    for _, log, _ in logs:
+        for kernel, regs, spill in cs.ptxas_report(log):
+            print(f"  {kernel}: {regs} registers, {spill} bytes spilled", flush=True)
+        for line in log.splitlines():
+            if "Performance Loss" in line:  # ptxas serialised a kernel's wgmma: why, and which
+                why = line.split("serialized due to ")[-1].split(" in the function")[0]
+                name = re.search(r"(correlation_\w+?_kernel)I(\w*?)EEv", line)
+                args = ", ".join(re.findall(r"Li(\d+)E", name.group(2))) if name else "?"
+                print(f"  {name.group(1) if name else '?'}<{args}>: wgmma serialised, {why}",
+                      flush=True)
+    libs = [ctypes.CDLL(str(so)) for so, _, _ in logs]
+    return libs[0] if len(libs) == 1 else _Libraries(libs)
 
 
 # (name, B, H, W, Cq, Cv) -> candidate template arguments of launch_mma
@@ -1385,15 +1414,6 @@ def k23_mma_variants() -> None:
 # (KB, W, CV, WD, CTB, NC, ST, MINB, NH) and of launch_cols_wgmma (KB, W, CV,
 # WD, TK, TV, NC, ST, MINB, NH); the package's choice first
 K23_WGMMA_VARIANTS = {
-    ("C=32, 3d3d grid, B=10", 10, 92, 68, 32, 32): (
-        ["1, 32, 32, 32, 1, 4, 3, 1, 32", "1, 32, 32, 32, 1, 4, 2, 1, 32",
-         "1, 32, 32, 32, 1, 4, 3, 1, 16", "1, 32, 32, 32, 1, 2, 3, 2, 16",
-         "1, 32, 32, 32, 1, 3, 4, 1, 64", "1, 32, 32, 32, 1, 2, 4, 1, 64"],
-        ["1, 32, 32, 32, 1, 1, 4, 3, 1, 16", "1, 32, 32, 32, 1, 1, 4, 3, 1, 32",
-         "1, 32, 32, 32, 1, 1, 3, 4, 1, 64", "1, 32, 32, 32, 1, 1, 2, 4, 1, 64"]),
-    ("C=32, 3d3d grid, B=90", 90, 92, 68, 32, 32): (
-        ["1, 32, 32, 32, 1, 4, 3, 1, 32", "1, 32, 32, 32, 1, 4, 3, 1, 16"],
-        ["1, 32, 32, 32, 1, 1, 4, 3, 1, 16", "1, 32, 32, 32, 1, 1, 4, 3, 1, 32"]),
     ("C=128, 3d3d grid, B=10", 10, 92, 68, 128, 128): (
         ["2, 64, 128, 64, 2, 2, 3, 1, 64", "2, 64, 128, 64, 2, 2, 3, 1, 32",
          "2, 64, 128, 64, 2, 1, 3, 1, 64"],
@@ -1410,10 +1430,56 @@ K23_WGMMA_VARIANTS = {
 }
 
 
+# (name, B, H, W, Cq, Cv) -> candidate template arguments of
+# launch_rows_narrow and launch_cols_narrow (W, CV, NC, ST, MINB, NH: q's
+# block, v's class, consumer warpgroups, ring stages, least blocks a SM, keys
+# or rows a pass); the package's choice first
+K23_NARROW_VARIANTS = {
+    ("C=32, 3d3d grid, B=10", 10, 92, 68, 32, 32): (
+        ["32, 32, 4, 3, 1, 64", "32, 32, 2, 3, 2, 64"],
+        ["32, 32, 4, 4, 1, 32", "32, 32, 4, 3, 1, 32", "32, 32, 4, 5, 1, 32",
+         "32, 32, 4, 6, 1, 32", "32, 32, 3, 4, 1, 64", "32, 32, 2, 4, 2, 32"]),
+    ("C=32, 3d3d grid, B=90", 90, 92, 68, 32, 32): (
+        ["32, 32, 4, 3, 1, 64", "32, 32, 2, 3, 2, 64"],
+        ["32, 32, 4, 4, 1, 32", "32, 32, 4, 5, 1, 32", "32, 32, 3, 3, 1, 64",
+         "32, 32, 3, 4, 1, 64"]),
+    ("Cq=16 Cv=32, 3d3d grid, B=10", 10, 92, 68, 16, 32): (
+        ["16, 32, 4, 3, 1, 64"],
+        ["16, 32, 4, 4, 1, 32", "16, 32, 4, 3, 1, 32"]),
+    ("C=16, 3d3d grid, B=10", 10, 92, 68, 16, 16): (
+        ["16, 16, 4, 3, 1, 64"],
+        ["16, 16, 4, 4, 1, 32", "16, 16, 4, 3, 1, 32"]),
+    ("C=64, 3d3d grid, B=10", 10, 92, 68, 64, 64): (
+        ["64, 64, 4, 3, 1, 32", "64, 64, 3, 3, 1, 64"],
+        ["64, 64, 2, 3, 1, 64", "64, 64, 2, 4, 1, 64", "64, 64, 3, 3, 1, 32"]),
+}
+
+
 def k23_wgmma_variants() -> None:
     """The wgmma pair's instantiations against the mma.sync pair's, each
     built from a file that includes the checkout's .cu and held to the
     package's bits, timed in turns by CUDA events through the same C entry."""
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    _pair_variants(corr.KERNEL_BWD_WGMMA, "wgmma", K23_WGMMA_VARIANTS)
+
+
+def k23_narrow_variants() -> None:
+    """The narrow pair's instantiations against the mma.sync pair's, as
+    k23-wgmma-variants."""
+    from mapfree_tpu_torch.ops import correlation as corr
+
+    _pair_variants(corr.KERNEL_BWD_NARROW, "narrow", K23_NARROW_VARIANTS, parts=4)
+
+
+def _pair_variants(library: str, pair: str, variants: dict, parts: int = 1) -> None:
+    """Instantiations of ``library``'s launch_rows_<pair> and
+    launch_cols_<pair> (their template arguments: ``variants``) against the
+    mma.sync pair, at each shape of ``variants`` (the words after the
+    study's name keep the shapes whose names contain one): each held to the
+    package's bits (else to the matched tolerance), timed in turns by CUDA
+    events through the same C entry, beside the backward of
+    scaled_dot_product_attention."""
     import ctypes
     import tempfile
 
@@ -1423,18 +1489,18 @@ def k23_wgmma_variants() -> None:
     from mapfree_tpu_torch.ops import _build
     from mapfree_tpu_torch.ops import correlation as corr
 
-    _build.load_libraries([corr.KERNEL, corr.KERNEL_BWD_MMA, corr.KERNEL_BWD_WGMMA])
-    rows_v = sorted({a for r, _ in K23_WGMMA_VARIANTS.values() for a in r})
-    cols_v = sorted({a for _, c in K23_WGMMA_VARIANTS.values() for a in c})
-    body = [f'extern "C" int rows_{i}({_MMA_ROWS_ARGS}) {{ return launch_rows_wgmma<{a}>('
-            f'wgmma_args(q, k, v, grid, out, dout, dmain, stats, amax, dq, nullptr, nullptr, B, '
-            f'HW, Cq, Cv, stream)); }}' for i, a in enumerate(rows_v)]
-    body += [f'extern "C" int cols_{i}({_MMA_COLS_ARGS}) {{ return launch_cols_wgmma<{a}>('
-             f'wgmma_args(q, k, v, grid, nullptr, nullptr, dmain, stats, amax, nullptr, dk, dv, '
-             f'B, HW, Cq, Cv, stream)); }}' for i, a in enumerate(cols_v)]
+    _build.load_libraries([corr.KERNEL, corr.KERNEL_BWD_MMA, library])
+    rows_v = sorted({a for r, _ in variants.values() for a in r})
+    cols_v = sorted({a for _, c in variants.values() for a in c})
+    body = [f'extern "C" int rows_{i}({_MMA_ROWS_ARGS}) {{ return launch_rows_{pair}<{a}>('
+            f'bwd_hopper::make_args(q, k, v, grid, out, dout, dmain, stats, amax, dq, nullptr, '
+            f'nullptr, B, HW, Cq, Cv, stream)); }}' for i, a in enumerate(rows_v)]
+    body += [f'extern "C" int cols_{i}({_MMA_COLS_ARGS}) {{ return launch_cols_{pair}<{a}>('
+             f'bwd_hopper::make_args(q, k, v, grid, nullptr, nullptr, dmain, stats, amax, nullptr, '
+             f'dk, dv, B, HW, Cq, Cv, stream)); }}' for i, a in enumerate(cols_v)]
     with tempfile.TemporaryDirectory() as tmp:
-        lib = _variant_lib(Path(tmp), body, "correlation_bwd_wgmma.cu")
-        for (name, B, H, W, cq, cv), (r_list, c_list) in K23_WGMMA_VARIANTS.items():
+        lib = _variant_lib(Path(tmp), body, f"{library}.cu", parts)
+        for (name, B, H, W, cq, cv), (r_list, c_list) in variants.items():
             if sys.argv[2:] and not any(w in name for w in sys.argv[2:]):
                 continue
             HW = H * W
@@ -1472,13 +1538,13 @@ def k23_wgmma_variants() -> None:
                         got = [torch.full_like(dk, float("nan")), torch.full_like(dv, float("nan"))]
                         ptrs, want = (q, k, v, grid, rows.dmain, rows.stats, rows.amax, *got), [dk, dv]
 
-                    def launch(fn=fn, ptrs=ptrs, label=f"{kind} wgmma <{a}>"):
+                    def launch(fn=fn, ptrs=ptrs, label=f"{kind} {pair} <{a}>"):
                         err = fn(*(t.data_ptr() for t in ptrs), B, HW, cq, cv, 1,
                                  torch.cuda.current_stream().cuda_stream)
                         if err:
                             raise RuntimeError(f"{label} failed to launch: cudaError_t {err}")
 
-                    label = f"{kind} wgmma <{a}>"
+                    label = f"{kind} {pair} <{a}>"
                     try:
                         launch()
                         torch.cuda.synchronize()
@@ -1599,7 +1665,8 @@ def main() -> None:
                "k1-wgmma-variants": k1_wgmma_variants,
                "k1-fma-variants": k1_fma_variants, "k1-fma-edits": k1_fma_edits,
                "k23-fma-variants": k23_fma_variants, "k23-mma-variants": k23_mma_variants,
-               "k23-wgmma-variants": k23_wgmma_variants}
+               "k23-wgmma-variants": k23_wgmma_variants,
+               "k23-narrow-variants": k23_narrow_variants}
     if sys.argv[1:2] == ["decode-under-load"]:
         decode_under_load(*sys.argv[2:])
         return
@@ -1609,7 +1676,8 @@ def main() -> None:
     if sys.argv[1:2] == ["bwd-checkouts"]:
         bwd_checkouts(*sys.argv[2:])
         return
-    if sys.argv[1:2] in (["k1-wgmma-variants"], ["k23-wgmma-variants"]):
+    if sys.argv[1:2] in (["k1-wgmma-variants"], ["k23-wgmma-variants"],
+                         ["k23-narrow-variants"]):
         studies[sys.argv[1]]()  # the words after it name shapes
         return
     names = sys.argv[1:] or list(studies)
