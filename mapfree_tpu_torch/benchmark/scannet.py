@@ -27,7 +27,7 @@ from mapfree_tpu_torch.metrics import A_metrics, MetricsAccumulator, precision, 
 from mapfree_tpu_torch.models.builder import build_model
 from mapfree_tpu_torch.utils.logger import tee_stdout
 from mapfree_tpu_torch.utils.submission import iter_predictions
-from mapfree_tpu_torch.utils.timing import NULL_TIMES
+from mapfree_tpu_torch.utils.timing import NULL_TIMES, stage
 
 
 def pose_error_numpy(R, t, Tgt):
@@ -102,7 +102,7 @@ def main(argv=None, times=None) -> dict:
     out_dir = Path("results/scannet")
     out_dir.mkdir(parents=True, exist_ok=True)
     with tee_stdout(out_dir / f"{config_name}.txt"):
-        with times.stage("sweep"):
+        with stage(times, "sweep"):
             agg_metrics = evaluate(loader, model, times)
         report(agg_metrics)
     np.savez(out_dir / config_name, **agg_metrics)

@@ -35,7 +35,7 @@ from mapfree_tpu_torch.geom.quaternion import mat2quat
 from mapfree_tpu_torch.models.builder import build_model
 from mapfree_tpu_torch.utils.logger import tee_stdout
 from mapfree_tpu_torch.utils.submission import iter_predictions
-from mapfree_tpu_torch.utils.timing import NULL_TIMES
+from mapfree_tpu_torch.utils.timing import NULL_TIMES, stage
 
 _META_KEYS = ("pair_names", "scene_id", "abs_q_0", "abs_c_0", "abs_q_1", "abs_c_1",
               "T_0to1", "sim")
@@ -97,7 +97,7 @@ def eval(args, times=None):
         dataloader.times = times
         model = build_model(cfg, args.checkpoint, device=args.device)
 
-        with times.stage("sweep"):
+        with stage(times, "sweep"):
             results_dict = predict(dataloader, model, times)
         np.save(args.output_root / "rawpred.npy", results_dict)
 

@@ -106,6 +106,8 @@ class DataLoader:
         getbatch = getattr(self.dataset, "getbatch", None)
         use_getbatch = self.unique_refs and on_the_card and getbatch is not None
 
+        from mapfree_tpu_torch.utils.timing import stage
+
         times = self.times
 
         def produce():
@@ -126,20 +128,20 @@ class DataLoader:
                         b = mine or b[:1]  # one row for the entries' shapes
                     item = None
                     if use_getbatch:
-                        with times.stage("decode"):
+                        with stage(times, "decode"):
                             item = getbatch(b)
                     if item is None:
-                        with times.stage("decode"):
+                        with stage(times, "decode"):
                             if use_batch_io:
                                 samples = getitems(b)
                             else:
                                 samples = list(
                                     ex.map(self.dataset.__getitem__, b))
-                        with times.stage("collate"):
+                        with stage(times, "collate"):
                             item = collate(samples)
                     if none_here:
                         item = {k: v[:0] for k, v in item.items()}
-                    with times.stage("queue_put"):  # backpressure wait
+                    with stage(times, "queue_put"):  # backpressure wait
                         q.put(item)
 
         t = threading.Thread(target=produce, daemon=True)

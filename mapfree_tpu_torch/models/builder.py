@@ -52,7 +52,7 @@ from mapfree_tpu_torch.parallel.mesh import (batch_sharding, local_mesh, make_me
 from mapfree_tpu_torch.tools.convert_weights import load_checkpoint
 from mapfree_tpu_torch.utils.data import fetch_later
 from mapfree_tpu_torch.utils.packing import pack_arrays, spec_of, unpack
-from mapfree_tpu_torch.utils.timing import NULL_TIMES
+from mapfree_tpu_torch.utils.timing import NULL_TIMES, active, stage
 
 
 def resolve_device(device) -> torch.device:
@@ -210,7 +210,7 @@ class RegressionPredictor:
         times = times or NULL_TIMES
         named, B = self._named_arrays(batch)
         shipped = []
-        with times.stage("h2d"):
+        with stage(times, "h2d"):
             for dev, (start, stop) in zip(self.devices, self.blocks):
                 part = [(name, a if name == "image0u" else a[start:stop]) for name, a in named]
                 shipped.append((*ship_packed([a for _, a in part], dev, self._tls),
@@ -237,15 +237,16 @@ class RegressionPredictor:
         times = times or NULL_TIMES
         shipped, B = transferred
         fetched = []
-        with times.stage("dispatch"):
+        with stage(times, "dispatch"):
             for net, dev, (buf, ready, _host, spec) in zip(self.replicas, self.devices, shipped):
                 with (torch.cuda.device(dev) if dev.type == "cuda"
                       else contextlib.nullcontext()):
                     parts = receive_packed(buf, ready, spec)
-                    fetched.append(fetch_later(self._forward(net, parts)))
+                    with active(times):  # the network's spans are stages of ``times``
+                        fetched.append(fetch_later(self._forward(net, parts)))
 
         def finalize():
-            with times.stage("d2h_wait"):
+            with stage(times, "d2h_wait"):
                 for _, done in fetched:
                     if done is not None:
                         done.synchronize()

@@ -52,7 +52,7 @@ from mapfree_tpu_torch.ops.procrustes_ransac import dense_cloud_from_depth, proc
 from mapfree_tpu_torch.ops.ransac import device_sampler
 from mapfree_tpu_torch.models.builder import fetch_later, receive_packed, ship_packed
 from mapfree_tpu_torch.utils.packing import spec_of
-from mapfree_tpu_torch.utils.timing import NULL_TIMES
+from mapfree_tpu_torch.utils.timing import NULL_TIMES, stage
 
 SOLVERS = ("EssentialMatrix", "EssentialMatrixMetric", "EssentialMatrixMetricMean",
            "Procrustes", "PNP")
@@ -333,7 +333,7 @@ class FeatureMatchingModel:
         tail = []
         B = named[0][1].shape[0]
         if not on_device:
-            with times.stage("correspondences"):
+            with stage(times, "correspondences"):
                 pts0, pts1, mask = self.feature_matching.get_correspondences(batch)
             named = [("pts0", pts0), ("pts1", pts1)] + named
             tail.append(("mask", mask))
@@ -356,7 +356,7 @@ class FeatureMatchingModel:
                                         for d in self._depth_map_host(batch, m)]))
                           for m in maps]
             else:
-                with times.stage("depth_gather"):
+                with stage(times, "depth_gather"):
                     for key, m, pts in zip(("d0", "d1"), maps, (pts0, pts1)):
                         named.append((key, self._gather_depth_host(self._depth_map_host(batch, m),
                                                                    pts)))
@@ -365,7 +365,7 @@ class FeatureMatchingModel:
             d1 = np.stack([np.asarray(m, np.float32) for m in self._depth_map_host(batch, "depth1")])
             named += [("depth0", d0), ("depth1", d1)]
             if bool(cfg.PROCRUSTES.REFINE):
-                with times.stage("depth_gather"):
+                with stage(times, "depth_gather"):
                     clouds = [[], [], [], []]
                     for i in range(B):
                         c0, m0 = dense_cloud_from_depth(
@@ -381,11 +381,11 @@ class FeatureMatchingModel:
     def _match_on_device(self, d, times):
         """The on-device matcher's correspondences into ``d``, and the file
         depth gathered at them where the solver takes point depths."""
-        with times.stage("correspondences"):
+        with stage(times, "correspondences"):
             d["pts0"], d["pts1"], d["mask"] = self.feature_matching.correspond(
                 d["image0"], d["image1"])
         if (self.metric or self.solver == "PNP") and "depth0" in d:
-            with times.stage("depth_gather"):
+            with stage(times, "depth_gather"):
                 d["d0"] = gather_depth_device(d["depth0"], d["pts0"])
                 if self.metric:
                     d["d1"] = gather_depth_device(d["depth1"], d["pts1"])
@@ -397,7 +397,7 @@ class FeatureMatchingModel:
         named, B = self._named_arrays(batch, times)
         spec = spec_of(named)
         arrays = [a for _, a in named]
-        with times.stage("h2d"):
+        with stage(times, "h2d"):
             dev, ready, host = ship_packed(arrays, self.device, self._tls)
         return dev, ready, host, B, spec
 
@@ -421,7 +421,7 @@ class FeatureMatchingModel:
                 if "d0" in d:
                     d0, d1 = d["d0"], d["d1"]
                 else:
-                    with times.stage("depth_net"):
+                    with stage(times, "depth_net"):
                         d0 = self.depth_net.point_depths(d["image0"], pts0)
                         d1 = self.depth_net.point_depths(d["image1"], pts1)
                 point_depths = (d0, d1, scale_thr, variant)
@@ -440,7 +440,7 @@ class FeatureMatchingModel:
             if "d0" in d:
                 d0 = d["d0"]
             else:
-                with times.stage("depth_net"):
+                with stage(times, "depth_net"):
                     d0 = self.depth_net.point_depths(d["image0"], pts0)
             out = pnp_pose(pts0, pts1, mask, d0, K0, K1,
                            float(cfg.PNP.REPROJECTION_INLIER_THRESHOLD), sampler,
@@ -449,7 +449,7 @@ class FeatureMatchingModel:
             if "depth0" in d:
                 depth0, depth1 = d["depth0"], d["depth1"]
             else:
-                with times.stage("depth_net"):
+                with stage(times, "depth_net"):
                     depth0, depth1 = self.depth_net(d["image0"]), self.depth_net(d["image1"])
             clouds = {k: d[k] for k in ("icp_cloud0", "icp_mask0", "icp_cloud1", "icp_mask1")
                       if k in d}
@@ -467,7 +467,7 @@ class FeatureMatchingModel:
         Returns finalize() -> (R [B, 3, 3], t [B, 1, 3], inliers [B]) numpy."""
         times = times or NULL_TIMES
         dev, ready, _host, B, spec = transferred
-        with times.stage("solve"):
+        with stage(times, "solve"):
             d = receive_packed(dev, ready, spec)
             if self._matches_on_device:
                 self._match_on_device(d, times)
@@ -480,7 +480,7 @@ class FeatureMatchingModel:
                 host_out, done = fetch_later(packed)
 
         def finalize():
-            with times.stage("d2h_wait"):
+            with stage(times, "d2h_wait"):
                 if fut is not None:
                     result = fut.result()
                     p = result["_host_packed"]

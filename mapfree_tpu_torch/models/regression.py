@@ -29,6 +29,7 @@ from mapfree_tpu_torch.models.aggregators import aggregator_out_channels, build_
 from mapfree_tpu_torch.models.encoders import build_encoder, encoder_out_channels, encoder_out_hw
 from mapfree_tpu_torch.models.heads import build_head
 from mapfree_tpu_torch.ops.image import yuv420_to_rgb
+from mapfree_tpu_torch.utils.timing import span
 
 REGRESSION_MODELS = ("Regression", "RegressionMultiFrame", "RegressionMultiFrameFusion")
 
@@ -71,17 +72,21 @@ class RegressionNet(nn.Module):
         may be planar YUV420 [N, H*3/2, W]."""
         if self.multi_frame:
             image1 = image1[:, -1]
-        image0 = self.to_float(image0)
-        image1 = self.to_float(image1)
+        with span("to_float"):
+            image0 = self.to_float(image0)
+            image1 = self.to_float(image1)
         U = image0.shape[0]
         bf16 = self.compute_dtype == torch.bfloat16
         with torch.autocast(image0.device.type, dtype=torch.bfloat16, enabled=bf16):
-            vols = self.encoder(torch.cat([image0, image1], dim=0))
+            with span("encoder"):
+                vols = self.encoder(torch.cat([image0, image1], dim=0))
             vol0, vol1 = vols[:U], vols[U:]
-            if ref_idx is not None:
-                vol0 = vol0[ref_idx.long()]
-            global_volume = self.aggregator(vol0, vol1)
-            R, t, aux = self.head(global_volume)
+            with span("aggregator"):
+                if ref_idx is not None:
+                    vol0 = vol0[ref_idx.long()]
+                global_volume = self.aggregator(vol0, vol1)
+            with span("head"):
+                R, t, aux = self.head(global_volume)
         if hasattr(self, "s_r"):
             aux = dict(aux, s_r=self.s_r, s_t=self.s_t)
         return R.float(), t.float(), aux
@@ -157,23 +162,26 @@ class RegressionMultiFrameFusionNet(nn.Module):
         if q_device is None or t_device is None:
             raise ValueError("the fusion model needs the device-tracking poses")
         B, F = image1.shape[:2]
-        image0 = RegressionNet.to_float(image0)
-        image1 = RegressionNet.to_float(image1.reshape((B * F,) + image1.shape[2:]))
+        with span("to_float"):
+            image0 = RegressionNet.to_float(image0)
+            image1 = RegressionNet.to_float(image1.reshape((B * F,) + image1.shape[2:]))
         bf16 = self.compute_dtype == torch.bfloat16
         with torch.autocast(image0.device.type, dtype=torch.bfloat16, enabled=bf16):
-            # one encoder batch for all B * (F + 1) frames
-            vols = self.encoder(torch.cat([image0, image1], dim=0))
-            # each reference volume once per frame of its window
-            vol0 = vols[:B].repeat_interleave(F, dim=0)
-            gv = self.aggregator(vol0, vols[B:])  # [B * F, h, w, C']
-            R_f, t_f, aux = self.head(gv)
-            pooled = gv.to(self.compute_dtype).mean(dim=(1, 2))  # [B * F, C']
-        with torch.autocast(image0.device.type, enabled=False):
-            logits = self.frame_weight(pooled.float()).reshape(B, F)
-            w = torch.softmax(logits, dim=-1)
-        R, t, R_est, t_est = fuse_frame_poses(
-            R_f.float().reshape(B, F, 3, 3), t_f.float().reshape(B, F, 3),
-            q_device, t_device, w)
+            with span("encoder"):  # one encoder batch for all B * (F + 1) frames
+                vols = self.encoder(torch.cat([image0, image1], dim=0))
+            with span("aggregator"):  # each reference volume once per frame of its window
+                vol0 = vols[:B].repeat_interleave(F, dim=0)
+                gv = self.aggregator(vol0, vols[B:])  # [B * F, h, w, C']
+            with span("head"):
+                R_f, t_f, aux = self.head(gv)
+            with span("fuse"):  # the frames' weights and the fused pose
+                pooled = gv.to(self.compute_dtype).mean(dim=(1, 2))  # [B * F, C']
+                with torch.autocast(image0.device.type, enabled=False):  # weights, fusion: float32
+                    logits = self.frame_weight(pooled.float()).reshape(B, F)
+                    w = torch.softmax(logits, dim=-1)
+                    R, t, R_est, t_est = fuse_frame_poses(
+                        R_f.float().reshape(B, F, 3, 3), t_f.float().reshape(B, F, 3),
+                        q_device, t_device, w)
         aux = dict(aux, per_frame_R=R_est, per_frame_t=t_est, frame_weights=w)
         if hasattr(self, "s_r"):
             aux.update(s_r=self.s_r, s_t=self.s_t)

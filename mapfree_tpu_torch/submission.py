@@ -24,7 +24,7 @@ from mapfree_tpu_torch.data import DataLoader, DataModule
 from mapfree_tpu_torch.models.builder import build_model
 from mapfree_tpu_torch.parallel import default_barrier, host_topology, run_sharded_sweep
 from mapfree_tpu_torch.utils.submission import predict, save_submission
-from mapfree_tpu_torch.utils.timing import NULL_TIMES
+from mapfree_tpu_torch.utils.timing import NULL_TIMES, stage
 
 
 def parse_args(argv=None):
@@ -81,9 +81,9 @@ def main(argv=None, times=None) -> Path:
     times = times or NULL_TIMES
     dataloader.times = times
 
-    with times.stage("build_model"):
+    with stage(times, "build_model"):
         model = build_model(cfg, args.checkpoint, device=args.device)
-    with times.stage("sweep"):  # spans the loader's and predict's stages
+    with stage(times, "sweep"):  # spans the loader's and predict's stages
         results_dict = predict(dataloader, model, times)
 
     args.output_root.mkdir(parents=True, exist_ok=True)

@@ -17,7 +17,7 @@ from zipfile import ZipFile
 import numpy as np
 
 from mapfree_tpu_torch.geom.quaternion import mat2quat
-from mapfree_tpu_torch.utils.timing import NULL_TIMES
+from mapfree_tpu_torch.utils.timing import NULL_TIMES, in_batch, set_batch, stage
 
 
 @dataclass
@@ -50,6 +50,12 @@ def iter_predictions(loader, model, meta_fn, times=None):
     ``transfer_batch``/``dispatch_device`` split: worker threads pack and
     ship batches to the device, the calling thread issues the forwards in
     order, and up to ``DEPTH`` batches in flight defer their result fetch.
+
+    Batches are numbered in loader order from 0, and each thread's spans
+    (``utils/timing.py``) carry the number of the batch it works on: a
+    worker's while it transfers one, the calling thread's while it loads,
+    waits for and dispatches one, and, from each yield until the consumer
+    asks for the next, that of the batch yielded.
     """
     from concurrent.futures import ThreadPoolExecutor
 
@@ -58,26 +64,42 @@ def iter_predictions(loader, model, meta_fn, times=None):
     inflight = []
     it = iter(loader)
     exhausted = False
-    with ThreadPoolExecutor(max_workers=TRANSFER_WORKERS) as ex:
-        while not exhausted or inflight or pending:
-            while not exhausted and len(inflight) < MAX_TRANSFERS:
-                with times.stage("load_wait"):
-                    batch = next(it, None)
-                if batch is None:
-                    exhausted = True
-                    break
-                meta = meta_fn(batch)
-                inflight.append(
-                    (meta, ex.submit(model.transfer_batch, batch, times)))
-            if inflight:
-                meta, fut = inflight.pop(0)
-                with times.stage("transfer_wait"):
-                    transferred = fut.result()
-                pending.append((meta, model.dispatch_device(transferred, times)))
-                while len(pending) > DEPTH:
-                    yield pending.pop(0)
-            elif pending:
-                yield pending.pop(0)
+    taken = 0  # batches taken from the loader
+    outer = set_batch(None)
+    try:
+        with ThreadPoolExecutor(max_workers=TRANSFER_WORKERS) as ex:
+            while not exhausted or inflight or pending:
+                while not exhausted and len(inflight) < MAX_TRANSFERS:
+                    set_batch(taken)
+                    with stage(times, "load_wait"):
+                        batch = next(it, None)
+                    if batch is None:
+                        exhausted = True
+                        break
+                    meta = meta_fn(batch)
+                    inflight.append((taken, meta, ex.submit(
+                        in_batch, taken, model.transfer_batch, batch, times)))
+                    taken += 1
+                if inflight:
+                    seq, meta, fut = inflight.pop(0)
+                    set_batch(seq)
+                    with stage(times, "transfer_wait"):
+                        transferred = fut.result()
+                    pending.append((seq, meta, model.dispatch_device(transferred, times)))
+                    while len(pending) > DEPTH:
+                        yield _handed_over(pending.pop(0))
+                elif pending:
+                    yield _handed_over(pending.pop(0))
+    finally:
+        set_batch(outer)
+
+
+def _handed_over(entry):
+    """``(meta, fetch)`` of a pending ``(seq, meta, fetch)``, with the
+    calling thread's batch id set to ``seq`` for the consumer's spans."""
+    seq, meta, fetch = entry
+    set_batch(seq)
+    return meta, fetch
 
 
 def predict(loader, model, times=None):
@@ -91,7 +113,7 @@ def predict(loader, model, times=None):
     for (scene_ids, pair_names), fetch in iter_predictions(
             loader, model, meta_fn, times):
         R, t, inliers = fetch()
-        with times.stage("pose_extract"):
+        with stage(times, "pose_extract"):
             for i in range(R.shape[0]):
                 Ri = np.asarray(R[i], np.float64)
                 ti = np.asarray(t[i], np.float64).reshape(-1)
