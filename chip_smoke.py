@@ -11,8 +11,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    each in two designs, tensor cores for bf16 and float32 FMA, K1's
    tensor-core design in two kernels, wgmma and mma.sync, K2 and K3's in
    three pairs, narrow (up to 64 channels), wgmma and mma.sync, and the
-   prologue the mma.sync K2 launches where its operands stream), the nvJPEG
-   decoder and the PNG reader's host unfilter,
+   prologue the mma.sync K2 launches where its operands stream), the Kabsch
+   solve (kabsch: the Procrustes head's and the matching solvers' alignment
+   where no gradient is recorded), the nvJPEG decoder and the PNG reader's
+   host unfilter,
    compiled at once from this checkout's sources with nvcc, with ptxas's
    registers and spills per kernel instantiation;
 3. kernel: K1 (the fused correlation softmax-warp), K2 and K3 (its backward
@@ -30,7 +32,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    of K2 and K3 that takes a case's widths is set beside the mma.sync pair
    on it (bits, hand-offs both ways), and the narrow pair is held by name at
    every class it takes, at B = 10 and 90 on the 3d3d grid, on a tie, NaN
-   rows and the max-score cotangent alone. Then each is timed beside the plain version, one PyTorch
+   rows and the max-score cotangent alone; the Kabsch kernel against the
+   tensor version (geom/procrustes.py::procrustes_plain) at the shapes the
+   main paths give it (the heads' n = 64 and 576, PnP's 262,144 problems,
+   the ICP's weighted refine at 64 x 2,048), per problem within
+   ops/kabsch.py::vs_plain_tolerances. Then each is timed beside the plain version, one PyTorch
    library call (scaled_dot_product_attention and its backward, timed here
    only) and its bound: K1 at the inference shape (B=64, HW=6,256, C=32,
    bf16) in both designs, and K1, K2, K3 at the training shape (B=10), which
@@ -439,8 +445,10 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     from mapfree_tpu_torch.data import png
 
-    names = list(corr.LIBRARIES) + [jpeg.LIBRARY, png.LIBRARY]
-    _build.load_libraries(list(corr.LIBRARIES) + [jpeg.library_spec(),
+    from mapfree_tpu_torch.ops import kabsch
+
+    names = list(corr.LIBRARIES) + [kabsch.LIBRARY, jpeg.LIBRARY, png.LIBRARY]
+    _build.load_libraries(list(corr.LIBRARIES) + [kabsch.LIBRARY, jpeg.library_spec(),
                                                   (png.LIBRARY, png.SOURCE_DIR)])
     log(f"[build] {len(names)} libraries in {time.perf_counter() - t0:.2f} s")
     for name in names:
@@ -855,11 +863,12 @@ def _case_line(res: dict) -> str:
 
 
 def phase_kernel_cases() -> dict:
-    """K1, K2 and K3 against their plain versions, per case. Returns the
-    cases per kernel."""
+    """K1, K2, K3 and the Kabsch kernel against their plain versions, per
+    case. Returns the cases per kernel."""
     import torch
 
     from mapfree_tpu_torch.ops import correlation as corr
+    from mapfree_tpu_torch.ops import kabsch
 
     cases = {corr.KERNEL: [], corr.KERNEL_BWD_ROWS: [], corr.KERNEL_BWD_COLS: []}
 
@@ -1207,6 +1216,8 @@ def phase_kernel_cases() -> dict:
         raise AssertionError(f"K2 and K3's wgmma pair let batch element 1's NaN rows reach "
                              f"element 0: {res}")
     narrow_cases(record, record_backward)
+    cases[kabsch.LIBRARY] = []
+    kabsch_cases(cases[kabsch.LIBRARY])
     return cases
 
 
@@ -1385,6 +1396,135 @@ def nan_next_batch_case(q, k, v, grid, dout, kernel="wgmma") -> dict:
             "finite": all(bool(torch.isfinite(x).all()) for x in got),
             "same_bits": all(torch.equal(a[:1], b[:1]) for a, b in zip(runs[0], runs[1])),
             "nan_1": not bool(torch.isfinite(runs[0][0][1]).all())}
+
+
+# the shapes the main paths give the Kabsch kernel (name, n, N, weighted):
+# the heads' N = 3 (6 anchors plus the basis) at 3d3d's sweep batch and
+# fusion's 64 x 9, PnP's batch x hypotheses x 4 roots (ops/pnp.py), and the
+# ICP's weighted refine (ops/procrustes_ransac.py)
+KABSCH_SHAPES = (("head_n64", 64, 3, False), ("head_n576", 576, 3, False),
+                 ("pnp_n262144", 64 * 1024 * 4, 3, False), ("refine_n64_N2048", 64, 2048, True))
+
+
+def kabsch_inputs(name, n, N, weighted, seed) -> tuple:
+    """Contiguous float32 CUDA inputs of one of ``KABSCH_SHAPES``: the heads'
+    anchors plus the basis as models/heads.py::_procrustes_from_anchors
+    forms them, else clouds and their rotated, moved, noisy copies, with a
+    third of the weights 0."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    if name.startswith("head"):
+        xyz = rng.normal(size=(n, 6, 3))
+        A, B, w = xyz[:, :3] + np.eye(3), xyz[:, 3:] + np.eye(3), None
+    else:
+        A = rng.normal(size=(n, N, 3))
+        Q = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+        B = A @ Q.T + np.array([0.5, -0.5, 5.0]) + rng.normal(size=A.shape) * 0.05
+        w = rng.uniform(size=(n, N)) * (rng.uniform(size=(n, N)) > 1 / 3) if weighted else None
+    return tuple(None if x is None else torch.from_numpy(np.ascontiguousarray(x, np.float32))
+                 .cuda() for x in (A, B, w))
+
+
+def kabsch_case(A, B, w=None, exact_h=False) -> dict:
+    """The Kabsch kernel (through geom/procrustes.py::procrustes under
+    inference_mode: one launch) against the tensor version on the same inputs
+    on the card, per problem within ops/kabsch.py::vs_plain_tolerances: the
+    largest error over its limit for R and t, det R's distance from 1."""
+    import torch
+
+    from mapfree_tpu_torch.geom.procrustes import procrustes, procrustes_plain
+    from mapfree_tpu_torch.ops import kabsch
+
+    before = kabsch.launches
+    with torch.inference_mode():
+        R, t = procrustes(A, B, w)
+        R0, t0 = procrustes_plain(A, B, w)
+    torch.cuda.synchronize()
+    tol_R, tol_t = kabsch.vs_plain_tolerances(A, B, w, exact_h)
+    err_R = (R - R0).abs().amax((1, 2)).double().cpu()
+    err_t = (t - t0).abs().amax((1, 2)).double().cpu()
+    return {"launches": kabsch.launches - before, "max_abs_err_R": float(err_R.max()),
+            "max_abs_err_t": float(err_t.max()),
+            "err_over_tol_R": float((err_R / tol_R).max()),
+            "err_over_tol_t": float((err_t / tol_t).max()),
+            "det_err": float((torch.linalg.det(R.double()) - 1.0).abs().max()),
+            "tol_R_min": float(tol_R.min())}
+
+
+def kabsch_cases(cases: list) -> None:
+    """The Kabsch kernel's cases: ``KABSCH_SHAPES`` and the CPU tests' svd3
+    inputs (H = zeros, identity, rank 2, a repeated singular value, rank 1,
+    and 64 random matrices, each exact in float32: A = [I; -I], B = [M^T;
+    -M^T] / 2 give H = M)."""
+    import torch
+
+    rng = np.random.default_rng(400)
+    M = np.concatenate([rng.normal(size=(64, 3, 3)), np.stack([
+        np.zeros((3, 3)), np.eye(3), np.diag([1.0, 1.0, 0.0]), np.diag([5.0, 5.0, 5.0]),
+        np.outer([1.0, 2.0, 3.0], [4.0, 5.0, 6.0])])]).astype(np.float32)
+    eye = np.broadcast_to(np.eye(3, dtype=np.float32), M.shape)
+    degenerate = (np.concatenate([eye, -eye], axis=1), np.concatenate([M, -M], axis=1) / 2)
+    inputs = [(name, kabsch_inputs(name, n, N, weighted, seed=401 + i), False)
+              for i, (name, n, N, weighted) in enumerate(KABSCH_SHAPES)]
+    inputs.append(("degenerate_h", tuple(torch.from_numpy(x).cuda() for x in degenerate)
+                   + (None,), True))
+    for name, (A, B, w), exact_h in inputs:
+        res = kabsch_case(A, B, w, exact_h)
+        ok = (res["launches"] == 1 and res["err_over_tol_R"] <= 1.0
+              and res["err_over_tol_t"] <= 1.0 and res["det_err"] < 1e-5)
+        log(f"[kernel] kabsch {name} (n={A.shape[0]}, N={A.shape[1]}"
+            f"{', weighted' if w is not None else ''}): R {res['max_abs_err_R']:.3g} "
+            f"(largest {res['err_over_tol_R']:.3g} of its limit, the least limit "
+            f"{res['tol_R_min']:.3g}), t {res['max_abs_err_t']:.3g} ({res['err_over_tol_t']:.3g} "
+            f"of its limit), |det R - 1| {res['det_err']:.3g}; {res['launches']} launch")
+        cases.append({"case": name, "n": int(A.shape[0]), "N": int(A.shape[1]),
+                      "weighted": w is not None, "ok": ok, **res})
+        if not ok:
+            raise AssertionError(f"the Kabsch kernel disagrees with the tensor version in "
+                                 f"case {name}: {res}")
+
+
+def time_kabsch() -> dict:
+    """The Kabsch kernel at ``KABSCH_SHAPES`` beside the tensor version:
+    CUDA events around a run of calls, the device alone from a CUDA graph of
+    them, the host's time to issue one, and the bound of its bytes (inputs
+    read and R, t written once). The 3d3d head's shape at the top level,
+    the others under their names."""
+    import torch
+
+    from mapfree_tpu_torch.geom.procrustes import procrustes_plain
+    from mapfree_tpu_torch.ops import kabsch
+
+    out = {}
+    for i, (name, n, N, weighted) in enumerate(KABSCH_SHAPES):
+        A, B, w = kabsch_inputs(name, n, N, weighted, seed=410 + i)
+        nbytes = _nbytes(A, B, *([w] if weighted else [])) + n * 12 * 4
+        bound_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+        t = {"shape": f"n={n} N={N}{' weighted' if weighted else ''}", "bytes": nbytes,
+             "bound_ms": bound_ms, "bound_by": "bytes"}
+        for version, fn, iters in (("", kabsch.procrustes_cuda, 200),
+                                   ("plain_", procrustes_plain, 20)):
+            def call(fn=fn):
+                fn(A, B, w)
+
+            with torch.no_grad():
+                t[version + "ms"] = cuda_time_ms(call, iters=iters, warmup=3)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    call()
+                t[version + "host_ms"] = 1e3 * (time.perf_counter() - t0) / iters
+                torch.cuda.synchronize()
+                t[version + "device_ms"] = graph_ms(call, iters=iters)
+        log(f"[kernel] kabsch {name} ({t['shape']}): kernel_ms={t['ms']:.4f} by events, "
+            f"device alone {t['device_ms']:.4f}, host {t['host_ms']:.4f} a call; "
+            f"bound_ms={bound_ms:.6f} ({nbytes} bytes), {100 * bound_ms / t['device_ms']:.2f}% "
+            f"of its bound on the device alone; tensor version {t['plain_ms']:.3f} ms by events, "
+            f"device alone {t['plain_device_ms']:.3f}, host {t['plain_host_ms']:.3f}")
+        out[name] = t
+    first = out.pop(KABSCH_SHAPES[0][0])
+    return {**first, **{name + "_shape": t for name, t in out.items()}}
 
 
 def _nbytes(*tensors) -> int:
@@ -1882,8 +2022,10 @@ def phase_kernel_timing() -> dict:
     shape of 3d3d.yaml (batch 10); then K1 at the fusion sweep's batch of
     64 x 9 = 576 pairs and K2, K3 at the fusion train step's 10 x 9 = 90;
     then the wide shapes (the 256-channel ResUNet's among them) and float32
-    (the FMA designs)."""
+    (the FMA designs); then the Kabsch kernel at the shapes its callers give
+    it."""
     from mapfree_tpu_torch.ops import correlation as corr
+    from mapfree_tpu_torch.ops import kabsch
 
     k1 = time_k1(64, 92, 68, 32, "bfloat16", seed=100, fma_too=True)
     k1["train_shape"] = time_k1(10, 92, 68, 32, "bfloat16", seed=101)
@@ -1958,7 +2100,8 @@ def phase_kernel_timing() -> dict:
               k1["resnet_f32_shape"], k2["resnet_f32_shape"]):
         if t["design"] != corr.DESIGN_FMA:
             raise AssertionError(f"{t['shape']} is served by the {t['design']} design")
-    return {corr.KERNEL: k1, corr.KERNEL_BWD_ROWS: k2, corr.KERNEL_BWD_COLS: k3}
+    return {corr.KERNEL: k1, corr.KERNEL_BWD_ROWS: k2, corr.KERNEL_BWD_COLS: k3,
+            kabsch.LIBRARY: time_kabsch()}
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -2012,12 +2155,14 @@ def synthetic_batches(n_pairs: int, batch: int, H: int, W: int, seed: int) -> li
     return batches
 
 
-def phase_main_path() -> int:
-    """The inference sweep. Returns K1's launches in the measured sweep."""
+def phase_main_path() -> dict:
+    """The inference sweep. Returns the launches per kernel in the measured
+    sweep (:func:`launch_counts`)."""
     import torch
 
     from mapfree_tpu_torch.models.builder import build_model
     from mapfree_tpu_torch.ops import correlation as corr
+    from mapfree_tpu_torch.ops import kabsch
     from mapfree_tpu_torch.utils import submission
     from mapfree_tpu_torch.utils.submission import predict, save_submission
     from mapfree_tpu_torch.utils.timing import StageTimes
@@ -2040,19 +2185,24 @@ def phase_main_path() -> int:
     torch.cuda.synchronize()
 
     times = StageTimes()
-    corr.reset_launches()
+    reset_launches()
     with designs_served() as seen:
         t0 = time.perf_counter()
         results = predict(batches, model, times)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
-    launches = corr.launches[corr.KERNEL]
+    counts = launch_counts()
+    launches = counts[corr.KERNEL]
+    if counts[kabsch.LIBRARY] != len(batches):
+        raise AssertionError(f"the Kabsch kernel launched {counts[kabsch.LIBRARY]} times for "
+                             f"{len(batches)} batches")
     _expect_designs(seen, {"forward": [corr.DESIGN_MMA]}, "the inference sweep", [corr.KERNEL_FWD_WGMMA])
     if corr.launches[corr.KERNEL_BWD_ROWS] or corr.launches[corr.KERNEL_BWD_COLS]:
         raise AssertionError("the inference sweep launched a backward kernel")
     log(f"[main] {n_pairs} pairs in {len(batches)} batches: {elapsed:.3f} s, "
         f"{n_pairs / elapsed:.1f} pairs/s, {1e3 * elapsed / len(batches):.1f} ms/batch; "
-        f"K1 launches {launches}, {corr.DESIGN_MMA} design; stages {times.summary()}")
+        f"K1 launches {launches}, {corr.DESIGN_MMA} design; Kabsch launches {counts[kabsch.LIBRARY]}; "
+        f"stages {times.summary()}")
     if launches != len(batches):
         raise AssertionError(f"K1 launched {launches} times for {len(batches)} batches")
 
@@ -2085,7 +2235,7 @@ def phase_main_path() -> int:
         f"{np.abs(det - 1.0).max():.2e}")
     profile_window(lambda: model.dispatch_device(transferred)(), "forward")
     time_upsample(model, transferred)
-    return launches
+    return counts
 
 
 def time_upsample(model, transferred) -> None:
@@ -2266,14 +2416,24 @@ def train_batches(n: int, batch: int, H: int, W: int, seed: int, last: int = 0) 
     return out
 
 
-def launch_counts() -> dict:
-    """The package's launches per kernel (K1, K2, K3) since the last reset,
-    and under "by_function" those per C function that served them (a
-    function's name begins with its kernel's: which design and which
-    tensor-core kernel)."""
+def reset_launches() -> None:
+    """Zero the package's launch counts: K1-K3's and the Kabsch kernel's."""
     from mapfree_tpu_torch.ops import correlation as corr
+    from mapfree_tpu_torch.ops import kabsch
 
-    return {**corr.launches,
+    corr.reset_launches()
+    kabsch.reset_launches()
+
+
+def launch_counts() -> dict:
+    """The package's launches per kernel (K1, K2, K3 and the Kabsch kernel)
+    since the last reset, and under "by_function" K1-K3's per C function
+    that served them (a function's name begins with its kernel's: which
+    design and which tensor-core kernel)."""
+    from mapfree_tpu_torch.ops import correlation as corr
+    from mapfree_tpu_torch.ops import kabsch
+
+    return {**corr.launches, kabsch.LIBRARY: kabsch.launches,
             "by_function": {fn: n for fn, n in corr.kernel_launches.items() if n}}
 
 
@@ -2285,11 +2445,13 @@ def _expect_launches(corr, expected: dict, what: str) -> None:
 
 def phase_train_path() -> dict:
     """The training path at full width. Returns each kernel's launches in the
-    fit loop's run."""
+    timed train steps (``train_steps``) and in the fit loop's run
+    (``train_loop``)."""
     import torch
 
     from mapfree_tpu_torch.models.regression import build_regression_net
     from mapfree_tpu_torch.ops import correlation as corr
+    from mapfree_tpu_torch.ops import kabsch
     from mapfree_tpu_torch.train import (CheckpointManager, init_state, make_train_step,
                                          make_val_step, run_validation)
     from mapfree_tpu_torch.train.fit import _device_batch, fit_loaders
@@ -2318,7 +2480,7 @@ def phase_train_path() -> dict:
     for b in dbatches[:n_warm]:
         state, _ = train_step(state, b)
     torch.cuda.synchronize()
-    corr.reset_launches()
+    reset_launches()
     logs = []
     with designs_served() as seen:
         t0 = time.perf_counter()
@@ -2329,6 +2491,11 @@ def phase_train_path() -> dict:
         step_ms = 1e3 * (time.perf_counter() - t0) / n_steps
     _expect_launches(corr, {corr.KERNEL: n_steps, corr.KERNEL_BWD_ROWS: n_steps,
                             corr.KERNEL_BWD_COLS: n_steps}, f"{n_steps} train steps")
+    step_launches = launch_counts()
+    # the head's solve records autograd in a train step: the tensor version
+    if step_launches[kabsch.LIBRARY]:
+        raise AssertionError(f"{n_steps} train steps launched the Kabsch kernel "
+                             f"{step_launches[kabsch.LIBRARY]} times")
     all_mma = {"forward": [corr.DESIGN_MMA], "backward": [corr.DESIGN_MMA]}
     _expect_designs(seen, all_mma, f"{n_steps} train steps", [corr.KERNEL_FWD_WGMMA], BWD_MMA_SYNC)
     losses = [float(lg["train/loss"]) for lg in logs]
@@ -2361,7 +2528,7 @@ def phase_train_path() -> dict:
     train_loader = train_batches(8, bs, H, W, seed=SEED + 11, last=7)
     val_loader = train_batches(3, bs, H, W, seed=SEED + 12)
     with tempfile.TemporaryDirectory() as tmp:
-        corr.reset_launches()
+        reset_launches()
         captured = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(captured), designs_served() as seen:
@@ -2376,6 +2543,11 @@ def phase_train_path() -> dict:
         # 8 train steps; validation at steps 4 and 8 over 2 of the 3 batches
         _expect_launches(corr, {corr.KERNEL: 8 + 2 * 2, corr.KERNEL_BWD_ROWS: 8,
                                 corr.KERNEL_BWD_COLS: 8}, "the fit loop")
+        # the Kabsch kernel in validation's 2 x 2 batches (no_grad), none in
+        # the 8 steps
+        if launches[kabsch.LIBRARY] != 2 * 2:
+            raise AssertionError(f"the fit loop launched the Kabsch kernel "
+                                 f"{launches[kabsch.LIBRARY]} times, not once a validation batch")
         records = [json.loads(ln) for ln in
                    (Path(tmp) / "smoke" / "scalars.jsonl").read_text().splitlines()]
         train_losses = [r["train/loss"] for r in records if "train/loss" in r]
@@ -2406,7 +2578,7 @@ def phase_train_path() -> dict:
         raise AssertionError("the restored checkpoint does not reproduce the validation loss")
     if abs(untrained - ref) < 1e-3 * abs(ref):
         raise AssertionError("the validation loss does not depend on the weights")
-    return launches
+    return {"train_steps": step_launches, "train_loop": launches}
 
 
 # -- phase 6 -----------------------------------------------------------------
@@ -2576,7 +2748,7 @@ def phase_train_parity() -> None:
         loss[name] = float(logs["train/loss"])
         grads[name] = {k: p.grad.detach().cpu() for k, p in net.named_parameters()}
 
-    corr.reset_launches()
+    reset_launches()
     one_step("kernels", "cuda")
     _expect_launches(corr, {corr.KERNEL: 1, corr.KERNEL_BWD_ROWS: 1, corr.KERNEL_BWD_COLS: 1},
                      "one train step on the card")
@@ -2651,7 +2823,7 @@ def bf16_step_kernels_vs_plain(cfg, batch: dict, what: str,
         loss[name] = float(logs["train/loss"])
         grads[name] = {k: p.grad.detach().float().cpu() for k, p in net.named_parameters()}
 
-    corr.reset_launches()
+    reset_launches()
     with designs_served() as seen:
         one_step("kernels")
     one_step("again")
@@ -2904,7 +3076,7 @@ def run_submission_cli(argv: list, expected: dict, what: str, tag: str = "cli") 
     from mapfree_tpu_torch.utils.timing import StageTimes
 
     times = StageTimes()
-    corr.reset_launches()
+    reset_launches()
     jpeg.reset_stats()
     with designs_served() as seen:
         t0 = time.perf_counter()
@@ -2954,7 +3126,7 @@ def phase_clis() -> dict:
             "submission CLI, random weights")
 
         # (c) the train CLI: one epoch of 8 steps, one validation, checkpoints
-        corr.reset_launches()
+        reset_launches()
         captured = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.chdir(root), contextlib.redirect_stdout(captured), \
@@ -3036,7 +3208,7 @@ def drive_sweep(cfg, batches: list, warm: list, what: str, design: str = "mma",
     torch.cuda.synchronize()
     n_pairs = sum(len(b["pair_names"]) for b in batches)
     times = StageTimes()
-    corr.reset_launches()
+    reset_launches()
     with designs_served() as seen:
         t0 = time.perf_counter()
         results = predict(batches, model, times)
@@ -3093,7 +3265,7 @@ def drive_train_steps(cfg, batches: list, n_warm: int, what: str,
         state, _ = train_step(state, b)
     torch.cuda.synchronize()
     n_steps = len(dbatches) - n_warm
-    corr.reset_launches()
+    reset_launches()
     logs = []
     with designs_served() as seen:
         t0 = time.perf_counter()
@@ -3178,7 +3350,7 @@ def f32_step_kernels_vs_plain(cfg, batch: dict, what: str, full_width: bool = Fa
                         lambda m, i, o, n=mod_name: signs[name].__setitem__(n, o.detach() > 0)))
         state = init_state(net, cfg, torch.Generator().manual_seed(SEED), device=DEVICE)
         dbatch = _device_batch(batch, torch.device(DEVICE), bs, _train_keys(net))
-        corr.reset_launches()
+        reset_launches()
         _, logs = make_train_step(net, cfg)(state, dbatch)
         loss[name] = float(logs["train/loss"])
         launches[name] = launch_counts()
@@ -3527,7 +3699,7 @@ def phase_configs() -> dict:
     cases = [(str(p.relative_to(REPO)), {}) for p in
              sorted((REPO / "configs/regression").rglob("*.yaml"))]
     cases.append(("configs/regression/mapfree/3d3d.yaml", {"ENCODER.BLOCK_TYPE": 2}))
-    corr.reset_launches()
+    reset_launches()
     worst = 0.0
     for i, (model_yaml, extra) in enumerate(cases):
         cfg = load_cfg({**small, **extra}, model_yaml)
@@ -3715,7 +3887,7 @@ def phase_fusion_clis() -> dict:
             [model_cfg, *common, "-o", str(root / "random")], windows,
             "fusion submission CLI, random weights", tag="fusion-cli")
 
-        corr.reset_launches()
+        reset_launches()
         captured = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.chdir(root), contextlib.redirect_stdout(captured), \
@@ -4391,7 +4563,7 @@ def eval_scannet_rpr(root: Path, dataset: Path) -> dict:
     yaml = REPO / "configs/regression/scannet/3d3d.yaml"
     n_batches = -(-SCANNET_PAIRS // int(load_cfg(model_yaml=str(yaml.relative_to(REPO)))
                                         .TPU.INFER_BATCH))
-    corr.reset_launches()
+    reset_launches()
     with designs_served() as seen, contextlib.chdir(root):
         t0 = time.perf_counter()
         agg = cli.main([str(yaml), "--dataset_config", str(dataset), "--device", DEVICE],
@@ -4500,7 +4672,7 @@ def eval_sift(root: Path, dataset: Path) -> dict:
         raise AssertionError("sift_emat_gt.yaml has no line FEATURE_MATCHING: SIFT to set")
     yaml.write_text(text.replace("FEATURE_MATCHING: SIFT\n", "FEATURE_MATCHING: SIFT_TPU\n"))
     times = StageTimes()
-    corr.reset_launches()
+    reset_launches()
     with contextlib.chdir(root):
         t0 = time.perf_counter()
         agg = cli.main([str(yaml), "--dataset_config", str(dataset), "--device", DEVICE],
@@ -4579,7 +4751,7 @@ def eval_sevenscenes(root: Path) -> dict:
     numbers = {}
     for triang in (False, True):
         out = root / ("triang" if triang else "median")
-        corr.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         cli.main([str(REPO / "configs/matching/sevenscenes/sift_emat_planercnn.yaml"),
                   str(dataset), "-odir", str(out), "--device", DEVICE]
@@ -4933,7 +5105,7 @@ def converter_and_sharded_sweep(root: Path) -> dict:
 
     # (c) the sharded sweep, host 0 last (it merges); then single-host
     n_pairs = sum(len(v) for v in queries.values())
-    corr.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     for host in (2, 1, 0):
         out = submission.main(common + ["--checkpoint", str(pt), "--num_hosts", "3",
@@ -5150,7 +5322,7 @@ def _mesh_rank(rank, world, port, out_dir, cfg, batch, n_timed):
         whole = _device_batch(batch, torch.device("cpu"), int(cfg.TRAINING.BATCH_SIZE),
                               _train_keys(net))
         dbatch = data_to_device(whole, mesh=mesh)[0]
-        corr.reset_launches()
+        reset_launches()
         state, logs = step(state, dbatch)
         result = {"loss": float(logs["train/loss"]), "rows": int(dbatch["image0"].shape[0]),
                   "mesh": repr(mesh), "step_launches": dict(corr.launches),
@@ -5224,7 +5396,7 @@ def mesh_predictor() -> dict:
     model = build_model(cfg, devices=two)
     predict(batches[:1], model)
     torch.cuda.synchronize()
-    corr.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     results = predict(batches, model)
     torch.cuda.synchronize()
@@ -5271,7 +5443,7 @@ def mesh_train_cli() -> dict:
                 if tag == "nccl_rank" else {}
             saved = {k: os.environ.get(k) for k in env}
             os.environ.update(env)
-            corr.reset_launches()
+            reset_launches()
             captured = io.StringIO()
             try:
                 with contextlib.chdir(root), contextlib.redirect_stdout(captured):
@@ -5526,9 +5698,11 @@ def main() -> None:
     timing[corr.KERNEL]["scannet_shape"] = later["evaluation"].pop("k1_scannet_shape")
 
     # launches by kernel and run, and by the C function that served them
-    by_path = {name: {} for name in corr.launches}
+    from mapfree_tpu_torch.ops import kabsch
+
+    by_path = {name: {} for name in list(corr.launches) + [kabsch.LIBRARY]}
     by_fn: dict = {}
-    runs = {"train_loop": train_launches, "inference_sweep": {corr.KERNEL: sweep_launches}}
+    runs = {**train_launches, "inference_sweep": sweep_launches}
     runs.update({run: cli_launches[run]
                  for run in ("submission_cli", "train_cli", "submission_cli_checkpoint")})
     for phase in later.values():
@@ -5554,6 +5728,11 @@ def main() -> None:
                 if not want or got != want:
                     raise AssertionError(f"{run}: {name} launched {want} times, {got} of them "
                                          f"by {name + suffix}")
+    # the Kabsch kernel on every run that counted it, zeros too: one a batch
+    # on the sweeps and validation, none in a train step (autograd records)
+    kabsch_by_path = {run: counts[kabsch.LIBRARY] for run, counts in runs.items()
+                      if kabsch.LIBRARY in counts}
+    log(f"[kabsch] launches by path {json.dumps(kabsch_by_path)}")
     paths = {name: phase.get("numbers", {}) for name, phase in later.items()}
     log("[paths] " + json.dumps({"card": smi, **paths}, default=str))
     kernels = []
@@ -5587,6 +5766,20 @@ def main() -> None:
             **t,
             "cases": cases[name],
         })
+    kernels.append({
+        "name": kabsch.LIBRARY,
+        "route": "cuda where autograd records nothing (geom/procrustes.py::procrustes_route)",
+        "source": "mapfree_tpu_torch/ops/csrc/kabsch.cu",
+        "sources": ["mapfree_tpu_torch/ops/csrc/kabsch.cu"],
+        # no TPU kernel: the JAX package's solve is plain JAX
+        "replaces": None,
+        "plain_version": "mapfree_tpu_torch/geom/procrustes.py::procrustes_plain",
+        "launches": sum(kabsch_by_path.values()),
+        "launches_by_path": kabsch_by_path,
+        "card": smi,
+        **timing[kabsch.LIBRARY],
+        "cases": cases[kabsch.LIBRARY],
+    })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -796,3 +796,120 @@ def _hopper_edge_plain_twin(name, B, H, W, cq, cv, kind):
             else pt_corr.KERNEL_BWD_PAIR_NARROW if width in pt_corr.NARROW_WIDTH_CLASSES
             else pt_corr.KERNEL_FWD_WGMMA)
     assert pt_corr.backward_kernel(torch.bfloat16, H * W, cq, cv) == want
+
+
+# -- the Kabsch kernel (ops/csrc/kabsch.cu) -----------------------------------
+
+def _kabsch_vs_plain(A, B, w=None, exact_h=False):
+    """The kernel (one launch, through procrustes under no_grad) against the
+    tensor version on the card, per problem within
+    ``ops/kabsch.py::vs_plain_tolerances`` (its docstring derives them); det
+    R is +1 to 1e-5 (an orthonormal product of float32 columns)."""
+    from mapfree_tpu_torch.geom.procrustes import procrustes, procrustes_plain
+    from mapfree_tpu_torch.ops import kabsch
+
+    kabsch.reset_launches()
+    with torch.no_grad():
+        R, t = procrustes(A, B, w)
+    torch.cuda.synchronize()
+    assert kabsch.launches == 1
+    R0, t0 = procrustes_plain(A, B, w)
+    n = A.shape[0]
+    assert R.shape == (n, 3, 3) and t.shape == (n, 1, 3)
+    tol_R, tol_t = kabsch.vs_plain_tolerances(A, B, w, exact_h)
+    err_R = (R - R0).abs().amax((1, 2)).double().cpu()
+    err_t = (t - t0).abs().amax((1, 2)).double().cpu()
+    assert bool((err_R <= tol_R).all()), f"R off by {float((err_R / tol_R).max()):.3g} x tol"
+    assert bool((err_t <= tol_t).all()), f"t off by {float((err_t / tol_t).max()):.3g} x tol"
+    det = torch.linalg.det(R.double())
+    assert float((det - 1.0).abs().max()) < 1e-5
+    return R, t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 576, 37])
+def test_kabsch_kernel_at_the_heads_shapes(cuda_device, n):
+    """The Procrustes head's solve (6 anchors, add_basis: N = 3) at 3d3d's
+    batch, fusion's 576 and a ragged sweep's last batch, through the head's
+    own function under inference_mode, against the tensor version."""
+    from mapfree_tpu_torch.models.heads import _procrustes_from_anchors
+    from mapfree_tpu_torch.ops import kabsch
+
+    rng = np.random.default_rng(n)
+    xyz = torch.from_numpy(rng.normal(size=(n, 6, 3)).astype(np.float32)).to(cuda_device)
+    eye = torch.eye(3, device=cuda_device).expand(n, 3, 3)
+    cor0, cor1 = xyz[:, :3] + eye, xyz[:, 3:] + eye
+    R, t = _kabsch_vs_plain(cor0, cor1)
+    kabsch.reset_launches()
+    with torch.inference_mode():
+        R_head, t_head = _procrustes_from_anchors(xyz, 6, True)
+    assert kabsch.launches == 1
+    assert torch.equal(R_head, R) and torch.equal(t_head, t)
+
+
+@pytest.mark.cuda
+def test_kabsch_kernel_on_degenerate_matrices(cuda_device):
+    """H = zeros, identity, rank 2, a repeated singular value, rank 1 (the
+    CPU tests' svd3 inputs), and 64 random matrices: A = [I; -I] and B =
+    [M^T; -M^T] / 2 make H = M exactly in float32 on both routes."""
+    rng = np.random.default_rng(4)
+    degenerate = np.stack([
+        np.zeros((3, 3)), np.eye(3), np.diag([1.0, 1.0, 0.0]),
+        np.diag([5.0, 5.0, 5.0]), np.outer([1.0, 2.0, 3.0], [4.0, 5.0, 6.0]),
+    ])
+    M = np.concatenate([rng.normal(size=(64, 3, 3)), degenerate]).astype(np.float32)
+    eye = np.broadcast_to(np.eye(3, dtype=np.float32), M.shape)
+    A = np.concatenate([eye, -eye], axis=1)
+    B = np.concatenate([M, -M], axis=1) / 2
+    A, B = _to(cuda_device, torch.float32, A, B)
+    R, t = _kabsch_vs_plain(A, B, exact_h=True)
+    assert torch.equal(R[64], torch.eye(3, device=cuda_device))  # H = 0: the completion's I
+
+
+@pytest.mark.cuda
+def test_kabsch_kernel_weighted_refine(cuda_device):
+    """procrustes_ransac's weighted refine: 64 clouds of 2,048 points, a
+    third of the weights 0 and the rest in (0, 1]."""
+    rng = np.random.default_rng(7)
+    n, N = 64, 2048
+    A = rng.normal(size=(n, N, 3))
+    Q = np.linalg.qr(rng.normal(size=(n, 3, 3)))[0]
+    Q = Q * np.sign(np.linalg.det(Q))[:, None, None]
+    B = A @ Q.transpose(0, 2, 1) + 0.5 + rng.normal(size=(n, N, 3)) * 0.05
+    w = rng.uniform(size=(n, N)) * (rng.uniform(size=(n, N)) > 1 / 3)
+    A, B, w = _to(cuda_device, torch.float32, A, B, w)
+    R, _ = _kabsch_vs_plain(A, B, w)
+    Q = torch.from_numpy(Q).to(cuda_device, torch.float32)
+    assert float((R - Q).abs().max()) < 0.01  # the rotation the clouds were made with
+
+
+@pytest.mark.cuda
+def test_kabsch_kernel_at_pnps_shape(cuda_device):
+    """P3P's alignment: N = 3 and n = batch x hypotheses x 4 roots (64 x
+    1,024 x 4 = 262,144 problems), as ops/pnp.py hands them on, float32."""
+    rng = np.random.default_rng(8)
+    n = 64 * 1024 * 4
+    X = rng.normal(size=(n, 3, 3))
+    Q = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+    Z = X @ Q.T + np.array([0.0, 0.0, 5.0])
+    X, Z = _to(cuda_device, torch.float32, X, Z)
+    _kabsch_vs_plain(X, Z)
+
+
+@pytest.mark.cuda
+def test_kabsch_kernel_is_not_taken_under_grad(cuda_device):
+    """A training step's call records autograd: the tensor version runs,
+    the kernel is not launched, and the gradient flows."""
+    from mapfree_tpu_torch.geom.procrustes import procrustes
+    from mapfree_tpu_torch.ops import kabsch
+
+    rng = np.random.default_rng(9)
+    A, B = _to(cuda_device, torch.float32, rng.normal(size=(8, 3, 3)), rng.normal(size=(8, 3, 3)))
+    A.requires_grad_(True)
+    kabsch.reset_launches()
+    R, t = procrustes(A, B)
+    assert R.requires_grad and kabsch.launches == 0
+    (R.sum() + t.sum()).backward()
+    torch.cuda.synchronize()
+    assert A.grad is not None and bool(torch.isfinite(A.grad).all())
+    assert kabsch.launches == 0
